@@ -1,0 +1,42 @@
+"""xgan_torch and chip_smoke.py import nothing of JAX or of the JAX
+package: the port must run on a host that has only torch."""
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "xgan"}
+FILES = sorted((ROOT / "xgan_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "chip_smoke.py" in names
+    assert "xgan_torch/kernels/convt.py" in names
+    assert len(names) > 10
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in FILES])
+def test_no_jax_or_xgan_imports(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scanner_sees_forbidden_imports(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import os\nfrom xgan.utils import StepTimer\n"
+                 "def f():\n    import jax.numpy as jnp\n"
+                 "from xgan_torch import config\n")
+    assert set(_imported_roots(p)) & FORBIDDEN == {"xgan", "jax"}

@@ -1,0 +1,71 @@
+"""Generate synthetic images from a trained DCGAN generator on the GPU
+(flags and defaults as src/generate_synthetic.py).
+
+    python -m xgan_torch.cli.generate_synthetic --model-path G.pth \
+        [--output-dir ./data/synthetic] [--num-images 5000] [--cpu] ...
+
+Reads reference-layout ``.pth``/``.pt`` generator checkpoints. Runs on
+the CUDA device unless ``--cpu`` is given; without a CUDA device it exits
+1 with a structured ``Error:`` line instead of continuing on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from xgan_torch import config
+
+UNSUPPORTED = (".msgpack", ".stablehlo")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description="Generate synthetic images using a trained DCGAN "
+                    "generator (PyTorch/CUDA).")
+    p.add_argument("--model-path", type=str, required=True,
+                   help="Trained generator checkpoint in the reference "
+                        "torch layout (.pth/.pt)")
+    p.add_argument("--output-dir", type=str, default="./data/synthetic")
+    p.add_argument("--num-images", type=int, default=5000)
+    p.add_argument("--latent-dim", type=int, default=100)
+    p.add_argument("--feature-maps-g", type=int, default=64)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--seed", type=int, default=0)
+    config.add_device_arg(p)
+    config.add_compute_dtype_arg(p)
+    return p
+
+
+def main(argv=None) -> dict:
+    """Run the sampler; returns its stats (``written``, ``imgs_per_sec``,
+    ``device_plus_transfer_imgs_per_sec``)."""
+    args = build_parser().parse_args(argv)
+    try:
+        device = config.resolve_device(args.cpu)
+    except RuntimeError as e:
+        print(f"Error: {e}")
+        sys.exit(1)
+    if args.model_path.endswith(UNSUPPORTED):
+        print(f"Error: {args.model_path}: .msgpack and .stablehlo "
+              "generators are not supported by xgan_torch yet; pass a "
+              "reference-layout .pth")
+        sys.exit(1)
+    dtype = config.resolve_dtype(args.compute_dtype, device)
+    from xgan_torch.models.dcgan import Generator
+    from xgan_torch.train.sample import generate_images, load_generator
+
+    model = Generator(latent_dim=args.latent_dim,
+                      feature_maps=args.feature_maps_g,
+                      image_size=args.image_size, dtype=dtype, device=device)
+    load_generator(model, args.model_path)
+    stats = {}
+    stats["written"] = generate_images(
+        model, output_dir=args.output_dir, num_images=args.num_images,
+        latent_dim=args.latent_dim, batch_size=args.batch_size,
+        seed=args.seed, device=device, dtype=dtype, stats=stats)
+    return stats
+
+
+if __name__ == "__main__":
+    main()

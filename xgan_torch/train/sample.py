@@ -1,0 +1,112 @@
+"""Synthetic-image generation (role of xgan/train/sample.py).
+
+Samples the eval-mode generator batch by batch on the device, converts
+to uint8 there (the reference's ``x*0.5+0.5`` export transform) and
+writes ``synthetic_00001.png`` ... on the host. The device work of batch
+k+1 is enqueued before the PNG encode of batch k, so the two overlap.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+import time
+
+import numpy as np
+import torch
+
+from xgan_torch.data.pipeline import tanh_to_u8
+from xgan_torch.models.convert import load_generator_pth
+from xgan_torch.native.png import encode_png_batch
+from xgan_torch.utils import StepTimer, check_create_dir
+
+
+def load_generator(model, path: str):
+    """Load a reference-layout ``.pth`` into ``model`` (strictly).
+
+    Structured-error exit 1 when the file is missing or does not match
+    the model flags, like the JAX sampler."""
+    if not os.path.exists(path):
+        print(f"Error: Generator model not found at {path}")
+        sys.exit(1)
+    try:
+        model.load_state_dict(load_generator_pth(path), strict=True)
+    except (RuntimeError, ValueError, KeyError, OSError,
+            pickle.UnpicklingError) as e:
+        print(f"Error loading generator checkpoint: {e}")
+        print("Ensure the model flags (--latent-dim/--feature-maps-g/"
+              "--image-size) match training.")
+        sys.exit(1)
+    return model
+
+
+def generate_images(model, *, output_dir: str, num_images: int,
+                    latent_dim: int, batch_size: int, seed: int = 0,
+                    device: torch.device | str = "cuda",
+                    dtype: torch.dtype = torch.bfloat16, noise=None,
+                    stats: dict | None = None) -> int:
+    """Sample ``num_images`` and write PNGs; returns the count written.
+
+    ``z`` is drawn from ``torch.Generator(device).manual_seed(seed)``
+    unless ``noise`` (an iterable of (B, latent) arrays) is given; never
+    more than ``num_images`` files are written. ``stats`` receives
+    ``imgs_per_sec`` (all images over the whole loop, writes included) and
+    ``device_plus_transfer_imgs_per_sec`` (the JAX sampler's rate: the loop
+    up to the last batch's arrival on the host, with the overlapped
+    encode of the batch before it)."""
+    device = torch.device(device)
+    check_create_dir(output_dir)
+    model.to(device)
+    model.set_compute_dtype(dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draws = iter(noise) if noise is not None else None
+
+    def next_z():
+        if draws is None:
+            return torch.randn((batch_size, latent_dim), generator=gen,
+                               device=device)
+        z = next(draws, None)
+        if z is None:
+            raise ValueError(f"noise ran out before {num_images} images")
+        return torch.as_tensor(np.asarray(z, np.float32), device=device)
+
+    print(f"Generating {num_images} synthetic images (batch {batch_size}, "
+          f"{device}, {dtype})...")
+    t0 = time.perf_counter()
+    timer = StepTimer(device)
+    written = sampled = 0
+    pending = None  # host copy of the previous batch, encoded meanwhile
+    while written < num_images:
+        imgs_dev = None
+        if sampled < num_images:
+            imgs_dev = tanh_to_u8(model(next_z()))
+            sampled += imgs_dev.shape[0]
+        if pending is not None:
+            written = _write_pngs(pending, output_dir, written, num_images)
+        if imgs_dev is not None:
+            pending = imgs_dev.cpu().numpy()
+            timer.tick(pending.shape[0])
+        else:
+            pending = None
+    rate = written / (time.perf_counter() - t0)
+    print(f"Finished generating {written} images in {output_dir} "
+          f"({rate:.1f} imgs/s written, {timer.rate:.1f} imgs/s "
+          "device+transfer)")
+    if stats is not None:
+        stats["imgs_per_sec"] = rate
+        stats["device_plus_transfer_imgs_per_sec"] = timer.rate
+    return written
+
+
+def _write_pngs(images: np.ndarray, output_dir: str, written: int,
+                num_images: int) -> int:
+    take = min(images.shape[0], num_images - written)
+    paths = [os.path.join(output_dir, f"synthetic_{written + i + 1:05d}.png")
+             for i in range(take)]
+    failures = encode_png_batch(images[:take], paths)
+    if failures:
+        print(f"Warning: {failures} PNG writes failed")
+    written += take
+    if written % 1000 < take:
+        print(f"Generated {written}/{num_images} images...")
+    return written
