@@ -13,6 +13,9 @@ from xgan_torch.kernels.convt import (convt4x4s2_fused,
                                       convt4x4s2_fused_cuda,
                                       convt4x4s2_fused_ref,
                                       pack_convt_weight)
+from xgan_torch.kernels.gather import (mixed_gather, mixed_gather_cuda,
+                                      mixed_gather_ref, new_error_flag,
+                                      raise_if_flagged)
 from xgan_torch.models.dcgan import Generator
 
 pytestmark = pytest.mark.cuda
@@ -104,3 +107,109 @@ def test_generator_on_card_matches_cpu(dev):
     want = g_cpu(z)
     assert want.std() > 0.1
     assert (got.cpu() - want).abs().max().item() <= 2e-4
+
+
+def _gather_inputs(dev, nr, ns, b, s, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    real = torch.randint(0, 256, (nr, s, s, 3), generator=g, device=dev,
+                         dtype=torch.uint8)
+    synth = torch.randint(0, 256, (ns, s, s, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    ridx = torch.randint(0, nr, (b,), generator=g, device=dev)
+    sidx = torch.randint(0, ns, (b,), generator=g, device=dev)
+    mask = torch.rand(b, generator=g, device=dev) < 0.5
+    return real, synth, ridx, sidx, mask
+
+
+@pytest.mark.parametrize("nr,ns,b,s", [(10, 4, 8, 32), (7, 3, 5, 33),
+                                       (3, 2, 1, 1), (64, 16, 32, 224),
+                                       (5, 5, 9, 75)])
+def test_gather_kernel_matches_plain(dev, nr, ns, b, s):
+    """Bitwise, at aligned (S % 4 == 0) and unaligned row sizes, with the
+    mask mixed, all real and all synthetic."""
+    real, synth, ridx, sidx, mask = _gather_inputs(dev, nr, ns, b, s)
+    for m in (mask, torch.zeros_like(mask), torch.ones_like(mask)):
+        kernels.reset_launch_counts()
+        got = mixed_gather(real, synth, ridx, sidx, m)
+        assert kernels.LAUNCHES["mixed_gather"] == 1
+        want = mixed_gather_ref(real, synth, ridx, sidx, m)
+        assert got.shape == (b, s, s, 3) and got.dtype == torch.uint8
+        assert torch.equal(got, want)
+
+
+def test_gather_kernel_from_unaligned_views(dev):
+    """A store that starts 1 byte into its storage takes the byte path."""
+    real, synth, ridx, sidx, mask = _gather_inputs(dev, 6, 4, 8, 32)
+    base = torch.zeros(real.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = base[1:].view(real.shape)
+    shifted.copy_(real)
+    got = mixed_gather(shifted, synth, ridx, sidx, mask)
+    assert torch.equal(got, mixed_gather_ref(real, synth, ridx, sidx, mask))
+
+
+def test_gather_kernel_bad_index_raises(dev):
+    real, synth, ridx, sidx, mask = _gather_inputs(dev, 6, 4, 8, 32)
+    for r, s in ((ridx.clone().fill_(6), sidx), (ridx, sidx - 5)):
+        with pytest.raises(IndexError):
+            mixed_gather(real, synth, r, s, mask)
+    # a shared flag: the launch returns, the read raises
+    err = new_error_flag(dev)
+    mixed_gather(real, synth, ridx, sidx, mask, err=err)
+    raise_if_flagged(err)
+    mixed_gather(real, synth, ridx + 100, sidx, mask, err=err)
+    with pytest.raises(IndexError):
+        raise_if_flagged(err)
+
+
+def test_gather_op_checks_its_arguments(dev):
+    real, synth, ridx, sidx, mask = _gather_inputs(dev, 6, 4, 8, 32)
+    bad = [
+        (real.float(), synth, ridx, sidx, mask),  # store dtype
+        (real, synth[:, :16].contiguous(), ridx, sidx, mask),  # S
+        (real, synth, ridx.int(), sidx, mask),  # index dtype
+        (real, synth, ridx, sidx, mask.int()),  # mask dtype
+        (real, synth, ridx[:4], sidx, mask),  # lengths
+        (real.transpose(1, 2), synth, ridx, sidx, mask),  # contiguity
+    ]
+    for args in bad:
+        with pytest.raises(RuntimeError):
+            mixed_gather_cuda(*args)
+
+
+@pytest.mark.parametrize("mode,freeze", [("mix", True), ("concat", False)])
+def test_classifier_step_on_card_matches_cpu(dev, mode, freeze):
+    """One f32 train step (TF32 off) at stages (1,1,1,1), 32 px, with the
+    same weights and draws: the card's kernel path against the CPU's plain
+    path; the gather launches once."""
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.data.store import ImageStore
+    from xgan_torch.models.resnet import ResNet50
+    from xgan_torch.train.classifier import classifier_optimizer, train_step
+    rng = np.random.default_rng(1)
+    real = ImageStore(rng.integers(0, 255, (12, 32, 32, 3), np.uint8),
+                      np.arange(12) % 2, 32)
+    synth = ImageStore(rng.integers(0, 255, (5, 32, 32, 3), np.uint8),
+                       np.ones(5), 32)
+    hi = 12 if mode == "mix" else 17
+    idx = torch.from_numpy(rng.integers(0, hi, 8))
+    draws = {"flip": torch.from_numpy(rng.random(8) < 0.5),
+             "use_synth": torch.from_numpy(rng.random(8) < 0.5),
+             "synth_pick": torch.from_numpy(rng.integers(0, 5, 8))}
+    init = ResNet50(2, stage_sizes=(1, 1, 1, 1)).state_dict()
+    out = {}
+    for d in ("cpu", dev):
+        model = ResNet50(2, stage_sizes=(1, 1, 1, 1), device=d)
+        model.load_state_dict(init)
+        opt = classifier_optimizer(model, 1e-3, freeze_base=freeze)
+        kernels.reset_launch_counts()
+        losses, _, labels = train_step(
+            model, opt, DeviceStore(real, d), DeviceStore(synth, d),
+            idx.to(d), mode=mode, ratio=0.5,
+            **{k: v.to(d) for k, v in draws.items()})
+        assert kernels.LAUNCHES["mixed_gather"] == (d != "cpu")
+        out[str(d)] = (losses.cpu(), labels.cpu(),
+                       model.fc.weight.detach().cpu())
+    (l_cpu, y_cpu, w_cpu), (l_dev, y_dev, w_dev) = out.values()
+    assert torch.equal(y_cpu, y_dev)
+    assert (l_cpu - l_dev).abs().max() <= 1e-4 * (1 + l_cpu.abs().max())
+    assert (w_cpu - w_dev).abs().max() <= 1e-4

@@ -1,5 +1,7 @@
 """xgan_torch and chip_smoke.py import nothing of JAX or of the JAX
-package: the port must run on a host that has only torch."""
+package, nor the host libraries the GPU host lacks (pandas, sklearn, PIL,
+matplotlib): the port must run on a host that has only torch, numpy and
+scipy. Tests may import all of them."""
 import ast
 import pathlib
 
@@ -7,6 +9,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "xgan"}
+HOST_ONLY = {"pandas", "sklearn", "PIL", "matplotlib"}
 FILES = sorted((ROOT / "xgan_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -24,6 +27,8 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     assert "xgan_torch/kernels/convt.py" in names
+    assert "xgan_torch/kernels/gather.py" in names
+    assert "xgan_torch/cli/train_classifier.py" in names
     assert len(names) > 10
 
 
@@ -34,9 +39,18 @@ def test_no_jax_or_xgan_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", FILES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in FILES])
+def test_no_host_libraries_the_gpu_host_lacks(path):
+    bad = sorted(set(_imported_roots(path)) & HOST_ONLY)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_scanner_sees_forbidden_imports(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom xgan.utils import StepTimer\n"
                  "def f():\n    import jax.numpy as jnp\n"
-                 "from xgan_torch import config\n")
+                 "from xgan_torch import config\n"
+                 "def g():\n    from sklearn.metrics import roc_auc_score\n")
     assert set(_imported_roots(p)) & FORBIDDEN == {"xgan", "jax"}
+    assert set(_imported_roots(p)) & HOST_ONLY == {"sklearn"}

@@ -1,0 +1,137 @@
+"""Train the ResNet-50 pneumonia classifier on the GPU
+(flags and defaults as src/train_classifier.py).
+
+    python -m xgan_torch.cli.train_classifier --data-dir DIR \
+        [--use-synthetic [--use-curriculum]] [--k-folds 5] [--cpu] ...
+
+Strategies baseline, augmented (--use-synthetic) and curriculum (with
+--use-curriculum), each with k-fold CV or one run on the test split.
+Runs on the CUDA device unless ``--cpu`` is given; without a CUDA device
+it exits 1 with a structured ``Error:`` line. Flags of the JAX CLI that
+this port does not support yet exit 1 when set away from their default.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from xgan_torch import config
+
+# flag -> its default: other values are not supported by the port yet
+UNSUPPORTED = {"parallel_folds": False, "remat": False,
+               "remat_scope": "block", "grad_accum": 1,
+               "shard_store": False, "shard_opt_state": False,
+               "model_parallel": 1, "trace_dir": "", "resume_from": ""}
+
+
+def _stages(value: str) -> tuple:
+    return tuple(int(v) for v in value.split(",") if v.strip())
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description="Train ResNet50 Classifier for Pneumonia Detection "
+                    "(PyTorch/CUDA)")
+    config.add_path_args(p)
+    p.add_argument("--synthetic-dir", type=str, default="./data/synthetic",
+                   help="Directory containing synthetic images")
+    p.add_argument("--epochs", type=int, default=15)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--unfreeze", action="store_true",
+                   help="Unfreeze base ResNet layers for fine-tuning")
+    p.add_argument("--k-folds", type=int, default=5,
+                   help="Folds for cross-validation; 1 = single split")
+    p.add_argument("--workers", type=int, default=4,
+                   help="Host threads that decode the images for the "
+                        "one-time store build")
+    p.add_argument("--use-synthetic", action="store_true",
+                   help="Use synthetic data augmentation")
+    p.add_argument("--use-curriculum", action="store_true",
+                   help="Phased curriculum (requires --use-synthetic)")
+    p.add_argument("--curriculum-schedule", type=str,
+                   default="0:0.0, 5:0.25, 10:0.5",
+                   help='Schedule "epoch1:ratio1,epoch2:ratio2,..."')
+    p.add_argument("--pretrained-path", type=str, default="",
+                   help="Optional torchvision resnet50 .pth for ImageNet "
+                        "init (no network access is assumed)")
+    p.add_argument("--image-size", type=int, default=224,
+                   help="Image size (224 = reference)")
+    p.add_argument("--seed", type=int, default=0)
+    config.add_compute_dtype_arg(p)
+    p.add_argument("--cache-dir", type=str, default="./data/cache")
+    p.add_argument("--limit-batches", type=int, default=0,
+                   help="Debug: cap batches per epoch (0 = all)")
+    config.add_device_arg(p)
+    p.add_argument("--resnet-stages", type=_stages, default=(3, 4, 6, 3),
+                   help=argparse.SUPPRESS)
+    # flags of the JAX CLI that the port does not support yet
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="(JAX GAN trainers only; ignored here)")
+    p.add_argument("--parallel-folds", action="store_true",
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--remat", action="store_true",
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--remat-scope", default="block",
+                   choices=["block", "stage", "nested"],
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--shard-store", action="store_true",
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--shard-opt-state", action="store_true",
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--trace-dir", type=str, default="",
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--resume-from", type=str, default="",
+                   help="(not supported by xgan_torch yet)")
+    return p
+
+
+def main(argv=None):
+    """Run the classifier; returns the CV summary or the single run's
+    metrics (None after a printed error)."""
+    args = build_parser().parse_args(argv)
+    if args.k_folds < 1:
+        print("Error: k-folds must be at least 1.")
+        sys.exit(1)
+    for name, default in UNSUPPORTED.items():
+        if getattr(args, name) != default:
+            flag = "--" + name.replace("_", "-")
+            print(f"Error: {flag} {getattr(args, name)!r} is not supported "
+                  "by xgan_torch yet; leave it at its default "
+                  f"({default!r})")
+            sys.exit(1)
+    try:
+        device = config.resolve_device(args.cpu)
+    except RuntimeError as e:
+        print(f"Error: {e}")
+        sys.exit(1)
+    if args.use_curriculum and not args.use_synthetic:
+        print("Warning: --use-curriculum requires --use-synthetic. "
+              "Ignoring curriculum schedule.")
+        args.use_curriculum = False
+    if args.steps_per_call > 1:
+        print("Note: --steps-per-call applies to the GAN trainers; "
+              "ignored for classifier training.")
+    print("Note: training figures are not written by xgan_torch yet; the "
+          "metrics JSON files are.")
+    dtype = config.resolve_dtype(args.compute_dtype, device)
+    if device.type == "cuda" and dtype == torch.float32:
+        # f32 means f32: cuDNN would otherwise run the convolutions in TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print("--- Training Arguments ---")
+    for k, v in sorted(vars(args).items()):
+        print(f"  {k}: {v}")
+    print("-------------------------")
+    from xgan_torch.train.classifier_loop import train_classifier
+    return train_classifier(args, device, dtype)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,6 +18,20 @@ def add_compute_dtype_arg(p: argparse.ArgumentParser):
                    help="auto: bf16 on CUDA, f32 on CPU")
 
 
+def add_path_args(p: argparse.ArgumentParser):
+    """The reference's path flags, with its defaults."""
+    p.add_argument("--data-dir", type=str, default="./data/processed",
+                   help="Path to the processed dataset directory")
+    p.add_argument("--model-dir", type=str, default="./models",
+                   help="Base directory to save model checkpoints")
+    p.add_argument("--output-dir", type=str, default="./results",
+                   help="Base directory for outputs")
+    p.add_argument("--results-dir", type=str, default="./results/metrics",
+                   help="Directory to save training history JSON")
+    p.add_argument("--figures-dir", type=str, default="./results/figures",
+                   help="Directory to save generated plot images")
+
+
 def add_device_arg(p: argparse.ArgumentParser):
     p.add_argument("--cpu", action="store_true",
                    help="Run on the CPU (default: the CUDA device)")

@@ -32,8 +32,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-CUDA_SOURCES = ("convt4x4s2.cu",)
-HOST_SOURCES = ("convt_op.cpp",)
+CUDA_SOURCES = ("convt4x4s2.cu", "mixed_gather.cu")
+HOST_SOURCES = ("convt_op.cpp", "gather_op.cpp")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _ABI = int(torch._C._GLIBCXX_USE_CXX11_ABI)
@@ -46,6 +46,7 @@ LIBS = ("-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch")
 
 _load_lock = threading.Lock()
 _loaded: list[Path] = []
+_failed: list[Exception] = []  # a failed build is not retried per call
 
 
 def _nvcc() -> str:
@@ -129,8 +130,15 @@ def load_ops(verbose: bool = False):
     """Build (at first use) and load the library; returns the
     ``torch.ops.xgan_torch`` namespace."""
     with _load_lock:
+        if _failed:
+            raise RuntimeError("the xgan_torch kernels failed to build "
+                               "earlier in this process") from _failed[0]
         if not _loaded:
-            so = build(verbose=verbose)
+            try:
+                so = build(verbose=verbose)
+            except RuntimeError as e:
+                _failed.append(e)
+                raise
             torch.ops.load_library(str(so))
             _loaded.append(so)
     return torch.ops.xgan_torch

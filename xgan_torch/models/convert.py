@@ -1,10 +1,15 @@
-"""Generator checkpoint interop (role of xgan/models/pretrained.py's GAN
-generator codecs).
+"""Checkpoint interop (role of xgan/models/pretrained.py).
 
-The JAX package keeps ConvT kernels as HWIO arrays that are the spatial
-flip of torch's ``(I, O, kh, kw)`` ConvTranspose2d weights; the DCGAN
-generator's state dict uses the reference ``nn.Sequential`` indices
-(``xgan_torch.models.dcgan.SEQ_CONVT`` / ``SEQ_BN``).
+Generator: the JAX package keeps ConvT kernels as HWIO arrays that are
+the spatial flip of torch's ``(I, O, kh, kw)`` ConvTranspose2d weights;
+the DCGAN generator's state dict uses the reference ``nn.Sequential``
+indices (``xgan_torch.models.dcgan.SEQ_CONVT`` / ``SEQ_BN``).
+
+ResNet-50: the JAX package's parameter tree (``stem``,
+``layer{s}_{b}/conv{i}``, ``downsample``, each with its ``bn``; ``fc``)
+maps onto torchvision's keys with HWIO -> OIHW convolutions and the
+``fc`` kernel (in, out) -> (out, in). Torchvision ``.pth`` files load
+under the JAX importer's rules (``load_resnet_pth``).
 """
 from __future__ import annotations
 
@@ -51,3 +56,82 @@ def load_generator_pth(path: str) -> dict:
         raise ValueError(f"{path} holds a {type(sd).__name__}, not a "
                          "state dict")
     return sd
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32).copy())
+
+
+def resnet_state_dict_from_flax(params, batch_stats,
+                                stage_sizes=(3, 4, 6, 3)) -> dict:
+    """JAX ResNet50 ``(params, batch_stats)`` (numpy leaves) -> the
+    torchvision-layout state dict that ``ResNet50`` loads strictly."""
+    sd = {}
+
+    def put(conv_key, bn_prefix, p, s):
+        sd[conv_key] = _t(np.transpose(np.asarray(p["kernel"]),
+                                       (3, 2, 0, 1)))
+        sd[f"{bn_prefix}.weight"] = _t(p["bn"]["scale"])
+        sd[f"{bn_prefix}.bias"] = _t(p["bn"]["bias"])
+        sd[f"{bn_prefix}.running_mean"] = _t(s["bn"]["mean"])
+        sd[f"{bn_prefix}.running_var"] = _t(s["bn"]["var"])
+        sd[f"{bn_prefix}.num_batches_tracked"] = torch.zeros(
+            (), dtype=torch.long)
+
+    put("conv1.weight", "bn1", params["stem"], batch_stats["stem"])
+    for stage, blocks in enumerate(stage_sizes, start=1):
+        for b in range(blocks):
+            src, dst = f"layer{stage}_{b}", f"layer{stage}.{b}"
+            for i in (1, 2, 3):
+                put(f"{dst}.conv{i}.weight", f"{dst}.bn{i}",
+                    params[src][f"conv{i}"], batch_stats[src][f"conv{i}"])
+            if "downsample" in params[src]:
+                put(f"{dst}.downsample.0.weight", f"{dst}.downsample.1",
+                    params[src]["downsample"],
+                    batch_stats[src]["downsample"])
+    sd["fc.weight"] = _t(np.transpose(np.asarray(params["fc"]["kernel"])))
+    sd["fc.bias"] = _t(params["fc"]["bias"])
+    return sd
+
+
+def load_resnet_pth(model, path: str) -> None:
+    """Load a torchvision ``resnet50`` state dict into ``model`` (a
+    ``xgan_torch.models.resnet.ResNet50``), as the JAX importer does:
+
+    - a deeper net (``layer{s}.{blocks}.conv1.weight`` present for the
+      model's ``stage_sizes``) is rejected rather than loaded in part;
+    - the file's ``fc`` is used only when it has the model's number of
+      outputs (one of the port's own exports); an ImageNet 1000-way head
+      leaves the model's fresh ``fc`` in place;
+    - every other tensor of the model must be in the file.
+
+    Raises ``ValueError`` on a mismatch."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path} holds a {type(sd).__name__}, not a "
+                         "state dict")
+    for stage, blocks in enumerate(model.stage_sizes, start=1):
+        extra = f"layer{stage}.{blocks}.conv1.weight"
+        if extra in sd:
+            raise ValueError(
+                f"state dict has unexpected block {extra!r}: not a "
+                f"torchvision resnet with stages {model.stage_sizes} "
+                "(deeper variant, e.g. resnet101/152?)")
+    own = model.state_dict()
+    take = {}
+    for k, v in own.items():
+        if k.startswith("fc."):
+            if k in sd and sd["fc.weight"].shape == own["fc.weight"].shape:
+                take[k] = sd[k]
+        elif k in sd:
+            take[k] = sd[k]
+        elif not k.endswith("num_batches_tracked"):
+            raise ValueError(f"{path}: missing {k!r} for a resnet with "
+                             f"stages {model.stage_sizes}")
+    for k, v in take.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, the "
+                             f"model {tuple(own[k].shape)}")
+    model.load_state_dict(take, strict=False)

@@ -1,0 +1,144 @@
+"""ResNet-50, torchvision v1.5 graph, in plain ``torch.nn``
+(role of xgan/models/resnet.py).
+
+Bottleneck blocks with expansion 4 and the stride on the 3x3 conv;
+``stage_sizes`` (3, 4, 6, 3) is ResNet-50 and smaller tuples cut the
+depth. Parameters and buffers carry torchvision's ``resnet50`` state-dict
+keys (``conv1``, ``bn1``, ``layer{s}.{b}.conv{i}``/``bn{i}``,
+``layer{s}.0.downsample.{0,1}``, ``fc``), so torchvision checkpoints and
+the JAX package's ``.pth`` exports load strictly.
+
+Dtype policy of the JAX package: parameters are f32; each convolution
+runs in the compute dtype; BatchNorm computes in f32 and returns the
+compute dtype; the mean-pool and ``fc`` run in f32.
+
+``forward`` takes NHWC images like the JAX model and makes them one
+channels_last NCHW view, which cuDNN's convolutions take as they are. In
+train mode BN uses batch statistics and updates its running statistics
+in place (momentum 0.1, the unbiased variance); a (B,) validity ``mask``
+restricts the statistics to the valid rows of a padded tail batch
+(``xgan_torch.ops.norm.batch_norm_train``). Without a mask, train BN is
+``F.batch_norm``, which has the same semantics.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from xgan_torch.ops.norm import batch_norm_train
+
+WIDTHS = (64, 128, 256, 512)
+
+
+def _conv(cin, cout, k, stride=1, padding=0, device=None):
+    return nn.Conv2d(cin, cout, k, stride, padding, bias=False, device=device)
+
+
+def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor, *,
+            train: bool, mask=None) -> torch.Tensor:
+    """conv in ``x.dtype`` (f32 weights cast to it), then BN in f32 with
+    its result in ``x.dtype``."""
+    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                 conv.padding)
+    if train and mask is not None:
+        y32, new_mean, new_var = batch_norm_train(
+            y, bn.weight, bn.bias, bn.running_mean, bn.running_var, dim=1,
+            momentum=bn.momentum, eps=bn.eps, mask=mask)
+        with torch.no_grad():
+            bn.running_mean.copy_(new_mean)
+            bn.running_var.copy_(new_var)
+        return y32
+    return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, training=train, momentum=bn.momentum,
+                        eps=bn.eps)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, width: int, stride: int, downsample: bool,
+                 device=None):
+        super().__init__()
+        self.conv1 = _conv(cin, width, 1, device=device)
+        self.bn1 = nn.BatchNorm2d(width, device=device)
+        self.conv2 = _conv(width, width, 3, stride, 1, device=device)
+        self.bn2 = nn.BatchNorm2d(width, device=device)
+        self.conv3 = _conv(width, width * 4, 1, device=device)
+        self.bn3 = nn.BatchNorm2d(width * 4, device=device)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(
+                _conv(cin, width * 4, 1, stride, device=device),
+                nn.BatchNorm2d(width * 4, device=device))
+
+    def forward(self, x, *, train: bool, mask=None):
+        out = torch.relu(conv_bn(self.conv1, self.bn1, x, train=train,
+                                 mask=mask))
+        out = torch.relu(conv_bn(self.conv2, self.bn2, out, train=train,
+                                 mask=mask))
+        out = conv_bn(self.conv3, self.bn3, out, train=train, mask=mask)
+        identity = x
+        if self.downsample is not None:
+            identity = conv_bn(self.downsample[0], self.downsample[1], x,
+                               train=train, mask=mask)
+        return torch.relu(out + identity)
+
+
+class ResNet50(nn.Module):
+    def __init__(self, num_classes: int = 2, *,
+                 stage_sizes=(3, 4, 6, 3),
+                 dtype: torch.dtype = torch.float32,
+                 device: torch.device | str | None = None,
+                 generator: torch.Generator | None = None):
+        """``dtype``: compute dtype of the convolutions. ``generator``
+        draws the init (it must live on ``device``): kaiming-normal
+        fan-out convolutions, BN scale 1 and bias 0, and torch's
+        U(+-1/sqrt(fan_in)) for ``fc``."""
+        super().__init__()
+        self.dtype = dtype
+        self.stage_sizes = tuple(stage_sizes)
+        self.conv1 = _conv(3, 64, 7, 2, 3, device=device)
+        self.bn1 = nn.BatchNorm2d(64, device=device)
+        cin = 64
+        for stage, (blocks, width) in enumerate(zip(self.stage_sizes,
+                                                    WIDTHS)):
+            layer = []
+            for b in range(blocks):
+                stride = 2 if (stage > 0 and b == 0) else 1
+                layer.append(Bottleneck(cin, width, stride, b == 0,
+                                        device=device))
+                cin = width * 4
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+        self.fc = nn.Linear(cin, num_classes, device=device)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out",
+                                        nonlinearity="relu",
+                                        generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+                m.reset_running_stats()
+        bound = self.fc.in_features ** -0.5
+        nn.init.uniform_(self.fc.weight, -bound, bound, generator=generator)
+        nn.init.uniform_(self.fc.bias, -bound, bound, generator=generator)
+
+    def blocks(self):
+        for stage in range(len(self.stage_sizes)):
+            yield from getattr(self, f"layer{stage + 1}")
+
+    def forward(self, x: torch.Tensor, *, train: bool,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, H, W, 3) NHWC -> f32 logits (B, num_classes). ``mask``:
+        (B,) validity weights for train-mode BN statistics."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
+        x = torch.relu(conv_bn(self.conv1, self.bn1, x, train=train,
+                               mask=mask))
+        x = F.max_pool2d(x, 3, 2, 1)
+        for block in self.blocks():
+            x = block(x, train=train, mask=mask)
+        return F.linear(x.float().mean(dim=(2, 3)), self.fc.weight,
+                        self.fc.bias)

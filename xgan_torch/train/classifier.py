@@ -1,0 +1,159 @@
+"""Classifier train and eval steps (role of xgan/train/classifier.py).
+
+One train step assembles the batch on the device from one of three
+sources (the real store; the real+synthetic concat; the curriculum mix),
+flips and normalizes it, runs the ResNet forward with train-mode BN, takes
+the validity-weighted mean of the per-sample cross-entropy, and applies
+one Adam update. The concat and mix sources build their images with the
+``mixed_gather`` kernel. Per-sample losses, predictions and labels stay
+on the device; the loop fetches them once per epoch.
+
+Freezing the base (the reference default; ``--unfreeze`` lifts it) makes
+Adam see ``fc`` only, and the base's parameters ``requires_grad_(False)``,
+while BN stays in train mode: its running statistics advance as in a
+frozen torch backbone under ``model.train()``. This equals the JAX
+package's optax ``set_to_zero`` on the base (Adam on zero gradients never
+moves a parameter), and skips a backward that would update nothing.
+
+The metrics replace sklearn's with numpy and scipy:
+:func:`weighted_prf` (support-weighted precision, recall and F1 with
+``zero_division=0``), :func:`accuracy` and :func:`auroc` (the rank
+statistic with average ranks for ties; 0.5 for a single-class set).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from scipy.stats import rankdata
+
+from xgan_torch.data.mixer import mix_batch
+from xgan_torch.data.pipeline import normalize_images, random_flip, \
+    take_rows
+from xgan_torch.kernels.gather import mixed_gather
+from xgan_torch.ops.reduce import weighted_mean
+
+MODES = ("real", "concat", "mix")
+
+
+def classifier_optimizer(model, lr: float, freeze_base: bool):
+    """Adam(lr, eps 1e-8) over all parameters, or over ``fc`` only with
+    the rest of the model set ``requires_grad_(False)``."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(not freeze_base or name.startswith("fc."))
+    return torch.optim.Adam([p for p in model.parameters()
+                             if p.requires_grad], lr=lr, eps=1e-8)
+
+
+def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample cross-entropy in f32 (torch's reduction='none')."""
+    return F.cross_entropy(logits.float(), labels, reduction="none")
+
+
+def gather_concat(real_images, real_labels, synth_images, synth_labels,
+                  idx, *, n_real: int, err=None):
+    """Virtual concat of the real and synthetic stores: an index below
+    ``n_real`` is a real row, the others synthetic row ``idx - n_real``
+    (ConcatDataset order, without building the combined array)."""
+    is_real = idx < n_real
+    r_idx = torch.where(is_real, idx, 0)
+    s_idx = torch.where(is_real, 0, idx - n_real)
+    images = mixed_gather(real_images, synth_images, r_idx, s_idx,
+                          ~is_real, err)
+    labels = torch.where(is_real, real_labels[r_idx], synth_labels[s_idx])
+    return images, labels
+
+
+def assemble(mode: str, real, synth, idx, *, ratio: float = 0.0,
+             n_real: int | None = None, synth_pool=None, generator=None,
+             use_synth=None, synth_pick=None, err=None):
+    """The u8 batch and its labels from the mode's source. ``real`` and
+    ``synth`` are DeviceStores; ``idx`` is the (B,) int64 batch on their
+    device."""
+    if mode == "real":
+        return take_rows(real.images, idx), real.labels[idx]
+    if mode == "concat":
+        return gather_concat(real.images, real.labels, synth.images,
+                             synth.labels, idx,
+                             n_real=len(real) if n_real is None else n_real,
+                             err=err)
+    if mode == "mix":
+        return mix_batch(real.images, real.labels, idx, synth.images,
+                         synth.labels, ratio, synth_pool=synth_pool,
+                         generator=generator, use_synth=use_synth,
+                         synth_pick=synth_pick, err=err)
+    raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
+def train_step(model, opt, real, synth, idx, *, mode: str,
+               dtype: torch.dtype = torch.float32, ratio: float = 0.0,
+               n_real: int | None = None, synth_pool=None, mask=None,
+               generator: torch.Generator | None = None, flip=None,
+               use_synth=None, synth_pick=None, err=None):
+    """One optimizer step; returns per-sample (losses, preds, labels) as
+    device tensors (no host sync).
+
+    ``mask``: (B,) 0/1 float validity of a padded tail batch; padded rows
+    leave the loss mean and the BN statistics (their per-sample outputs
+    are still returned; the loop drops them). Random draws come from
+    ``generator`` on the device unless injected: the mixer's ``use_synth``
+    and ``synth_pick`` first, then the ``flip`` mask."""
+    images, labels = assemble(mode, real, synth, idx, ratio=ratio,
+                              n_real=n_real, synth_pool=synth_pool,
+                              generator=generator, use_synth=use_synth,
+                              synth_pick=synth_pick, err=err)
+    images = random_flip(images, flip, generator=generator)
+    x = normalize_images(images, dtype=dtype)
+    logits = model(x, train=True, mask=mask)
+    losses = softmax_ce(logits, labels)
+    opt.zero_grad(set_to_none=True)
+    weighted_mean(losses, mask).backward()
+    opt.step()
+    return losses.detach(), logits.detach().argmax(-1), labels
+
+
+@torch.no_grad()
+def eval_step(model, store, idx, *, dtype: torch.dtype = torch.float32):
+    """Running-statistics BN, no flip. Returns per-sample (losses, preds,
+    labels, prob1), where prob1 is the positive-class probability."""
+    labels = store.labels[idx]
+    x = normalize_images(take_rows(store.images, idx), dtype=dtype)
+    logits = model(x, train=False)
+    prob1 = torch.softmax(logits, dim=-1)[:, 1]
+    return softmax_ce(logits, labels), logits.argmax(-1), labels, prob1
+
+
+def accuracy(labels, preds) -> float:
+    return float(np.mean(np.asarray(labels) == np.asarray(preds)))
+
+
+def weighted_prf(labels, preds) -> tuple[float, float, float]:
+    """Support-weighted precision, recall and F1 over the classes present
+    in ``labels`` or ``preds``, 0 where a ratio's denominator is 0
+    (sklearn ``precision_recall_fscore_support(average="weighted",
+    zero_division=0)``)."""
+    labels, preds = np.asarray(labels), np.asarray(preds)
+    classes = np.union1d(labels, preds)
+    tp = np.array([np.sum((labels == c) & (preds == c)) for c in classes],
+                  np.float64)
+    true = np.array([np.sum(labels == c) for c in classes], np.float64)
+    pred = np.array([np.sum(preds == c) for c in classes], np.float64)
+
+    def div(a, b):
+        return np.divide(a, b, out=np.zeros_like(a), where=b != 0)
+
+    scores = (div(tp, pred), div(tp, true), div(2 * tp, true + pred))
+    return tuple(float(np.average(s, weights=true)) for s in scores)
+
+
+def auroc(labels, scores) -> float:
+    """Area under the ROC curve as the rank statistic, with average ranks
+    for tied scores; 0.5 when ``labels`` hold a single class."""
+    labels = np.asarray(labels)
+    pos = labels == 1
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    ranks = rankdata(np.asarray(scores, np.float64))
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))

@@ -1,0 +1,376 @@
+"""ResNet-50 fine-tuning: strategies x k-fold CV
+(role of xgan/train/classifier_loop.py).
+
+Strategies, named as in the reference:
+
+- baseline    real data only;
+- augmented   real + all synthetic, concatenated;
+- curriculum  real-length epochs in which each item is replaced by a
+              synthetic one with the epoch's scheduled probability.
+
+K-fold splits are sklearn's ``KFold(shuffle=True, random_state=42)``,
+rebuilt in numpy (:func:`kfold_splits`), so fold membership matches the
+reference. The best-validation-accuracy model of each run is saved as
+``{fold_N_}{strategy}_resnet50.pth`` in torchvision's layout; the history,
+CV-summary and final-metrics JSON files keep the reference names and
+keys.
+
+Per-step outputs stay on the device and are fetched once per epoch; the
+epoch's index matrix goes to the device once. The ``mixed_gather`` error
+flag is read once per epoch, after that fetch.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from xgan_torch.data import rsna
+from xgan_torch.data.pipeline import DeviceStore, epoch_batches
+from xgan_torch.data.store import ImageStore, decode_folder_store
+from xgan_torch.io_.metrics import cv_summary, write_json
+from xgan_torch.kernels.gather import new_error_flag, raise_if_flagged
+from xgan_torch.models.convert import load_resnet_pth
+from xgan_torch.models.resnet import ResNet50
+from xgan_torch.train.classifier import (accuracy, auroc,
+                                         classifier_optimizer, eval_step,
+                                         train_step, weighted_prf)
+from xgan_torch.train.curriculum import (get_current_synthetic_ratio,
+                                         parse_curriculum_schedule)
+from xgan_torch.train.loop_common import EpochProgress, batch_tail_mask
+from xgan_torch.utils import check_create_dir
+
+KFOLD_SEED = 42  # split parity with the reference's KFold
+STRATEGY_MODES = {"baseline": "real", "augmented": "concat",
+                  "curriculum": "mix"}
+
+
+def kfold_splits(n: int, k: int, seed: int = KFOLD_SEED):
+    """(train, test) index arrays of sklearn ``KFold(n_splits=k,
+    shuffle=True, random_state=seed)``: the shuffled ``arange(n)`` cut
+    into folds of ``n // k`` (one more in each of the first ``n % k``),
+    each index set in ascending order."""
+    order = np.arange(n)
+    np.random.RandomState(seed).shuffle(order)
+    sizes = np.full(k, n // k)
+    sizes[:n % k] += 1
+    splits, start = [], 0
+    for size in sizes:
+        test = np.zeros(n, bool)
+        test[order[start:start + size]] = True
+        splits.append((np.flatnonzero(~test), np.flatnonzero(test)))
+        start += size
+    return splits
+
+
+def resnet_stages(args) -> tuple:
+    """Hidden --resnet-stages override (tests shrink the net); the full
+    ResNet-50 is (3, 4, 6, 3)."""
+    return tuple(getattr(args, "resnet_stages", ()) or (3, 4, 6, 3))
+
+
+def init_resnet(args, dtype, device, seed: int):
+    model = ResNet50(2, stage_sizes=resnet_stages(args), dtype=dtype,
+                     device=device,
+                     generator=torch.Generator(device).manual_seed(seed))
+    if args.pretrained_path:
+        load_resnet_pth(model, args.pretrained_path)
+        print(f"Loaded ImageNet weights from {args.pretrained_path}")
+    else:
+        print("WARNING: no --pretrained-path given and torchvision weights "
+              "cannot be downloaded here; training ResNet-50 from random "
+              "init (throughput is unaffected; accuracy parity with the "
+              "reference requires the ImageNet checkpoint).")
+    return model
+
+
+def _fetch(outputs, n: int):
+    """Concatenate per-step device outputs, fetch them, drop padding."""
+    return [torch.cat(list(col)).cpu().numpy()[:n] for col in zip(*outputs)]
+
+
+def epoch_pass(model, opt, stores, batches, n_samples, *, mode, dtype,
+               ratio, generator, err, synth_pool=None, label="Train"):
+    """One train epoch over the (num_batches, B) index matrix; returns
+    (loss, acc) over the first ``n_samples`` rows (the wrap-around padding
+    dropped) and raises ``IndexError`` if the gather met a bad index."""
+    real, synth = stores
+    device = real.images.device
+    num_batches, batch_size = batches.shape
+    t_mask = batch_tail_mask(n_samples, num_batches, batch_size)
+    if t_mask is not None:
+        t_mask = torch.from_numpy(t_mask).to(device)
+    idx_all = torch.from_numpy(batches.astype(np.int64)).to(device)
+    outputs = []
+    with EpochProgress(label, num_batches) as progress:
+        for i in range(num_batches):
+            is_tail = t_mask is not None and i == num_batches - 1
+            outputs.append(train_step(
+                model, opt, real, synth, idx_all[i], mode=mode, dtype=dtype,
+                ratio=ratio, n_real=len(real), synth_pool=synth_pool,
+                mask=t_mask if is_tail else None, generator=generator,
+                err=err))
+            progress.update(i + 1)
+    losses, preds, labels = _fetch(outputs, n_samples)
+    raise_if_flagged(err)
+    return float(losses.mean()), accuracy(labels, preds)
+
+
+def eval_pass(model, store, batches, n_samples, *, dtype,
+              label="Evaluating"):
+    device = store.images.device
+    idx_all = torch.from_numpy(batches.astype(np.int64)).to(device)
+    outputs = []
+    with EpochProgress(label, batches.shape[0]) as progress:
+        for i in range(batches.shape[0]):
+            outputs.append(eval_step(model, store, idx_all[i], dtype=dtype))
+            progress.update(i + 1)
+    return _fetch(outputs, n_samples)
+
+
+def evaluate_model(model, store: DeviceStore, batch_size: int, *, dtype):
+    """Test-set metrics: the reference's keys plus ``auroc``."""
+    n = len(store)
+    batches = epoch_batches(n, batch_size, np.random.default_rng(0),
+                            shuffle=False)
+    losses, preds, labels, probs = eval_pass(model, store, batches, n,
+                                             dtype=dtype)
+    p, r, f = weighted_prf(labels, preds)
+    metrics = {
+        "loss": float(losses.mean()),
+        "accuracy": accuracy(labels, preds),
+        "weighted_precision": p,
+        "weighted_recall": r,
+        "weighted_f1_score": f,
+        "auroc": auroc(labels, probs),
+    }
+    print(f"Evaluation Results - Loss: {metrics['loss']:.4f}, "
+          f"Accuracy: {metrics['accuracy']:.4f}, "
+          f"Weighted F1: {metrics['weighted_f1_score']:.4f}, "
+          f"AUROC: {metrics['auroc']:.4f}")
+    return metrics
+
+
+def fallback_pool(real: DeviceStore, train_indices) -> torch.Tensor:
+    """The reference's empty-synthetic fallback: a synthetic draw takes a
+    random real POSITIVE of the run's train split (any of its rows if it
+    has none), with its own label. Returns the (P,) int64 row pool into
+    the real store, which the mixer draws through."""
+    tr = np.asarray(train_indices, np.int64)
+    pos = tr[real.labels_host[tr] == 1]
+    pool = pos if pos.size else tr
+    print("Curriculum fallback: substituting random real "
+          f"{'positives' if pos.size else 'samples'} for the empty "
+          "synthetic store.")
+    return torch.from_numpy(pool).to(real.images.device)
+
+
+def _host_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
+                  fold, strategy, schedule, seed_offset=0,
+                  synth_fallback=False):
+    """Train one model (a fold or the single run). ``val_spec``:
+    (DeviceStore, indices or None). Returns (best state dict on the host,
+    history)."""
+    real, synth, _ = stores
+    mode = STRATEGY_MODES[strategy]
+    synth_pool = None
+    if mode == "mix" and synth_fallback:
+        synth_pool = fallback_pool(real, train_indices)
+        synth = real  # the pool's values index the real store
+    seed = args.seed + seed_offset
+    model = init_resnet(args, dtype, device, seed)
+    opt = classifier_optimizer(model, args.lr, freeze_base=not args.unfreeze)
+    generator = torch.Generator(device).manual_seed(seed + 1)
+    err = new_error_flag(device)
+
+    n_real = len(real)
+    if strategy == "augmented" and not synth_fallback:
+        epoch_space = np.concatenate([
+            np.asarray(train_indices, np.int64),
+            n_real + np.arange(len(synth), dtype=np.int64)])
+    else:  # an empty synthetic store concatenates nothing
+        epoch_space = np.asarray(train_indices, np.int64)
+    val_store, val_indices = val_spec
+    n_val = len(val_indices) if val_indices is not None else len(val_store)
+
+    run_prefix = (f"fold_{fold}_" if fold is not None else "") \
+        + f"{strategy}_"
+    history = {"epoch": [], "train_loss": [], "train_acc": [],
+               "val_loss": [], "val_acc": [], "synthetic_ratio": []}
+    best_acc, best_state = 0.0, _host_state(model)
+    data_rng = np.random.default_rng(seed)
+
+    for epoch in range(args.epochs):
+        t0 = time.time()
+        ratio = 0.0
+        if strategy == "curriculum" and schedule:
+            ratio = get_current_synthetic_ratio(epoch, schedule)
+        elif strategy == "augmented":
+            ratio = 1.0  # flag value, as in the reference
+        history["epoch"].append(epoch + 1)
+        history["synthetic_ratio"].append(ratio)
+
+        batches = epoch_batches(len(epoch_space), args.batch_size, data_rng,
+                                indices=epoch_space)
+        if args.limit_batches:
+            batches = batches[:args.limit_batches]
+        n_seen = min(len(epoch_space), batches.size)
+        tr_loss, tr_acc = epoch_pass(
+            model, opt, (real, synth), batches, n_seen, mode=mode,
+            dtype=dtype, ratio=ratio, generator=generator, err=err,
+            synth_pool=synth_pool, label=f"Train Epoch {epoch + 1}")
+        history["train_loss"].append(tr_loss)
+        history["train_acc"].append(tr_acc)
+
+        val_batches = epoch_batches(n_val, args.batch_size, data_rng,
+                                    shuffle=False, indices=val_indices)
+        n_val_seen = n_val
+        if args.limit_batches:
+            val_batches = val_batches[:args.limit_batches]
+            n_val_seen = min(n_val, val_batches.size)
+        v_losses, v_preds, v_labels, _ = eval_pass(
+            model, val_store, val_batches, n_val_seen, dtype=dtype,
+            label=f"Val Epoch {epoch + 1}")
+        val_loss, val_acc = float(v_losses.mean()), accuracy(v_labels,
+                                                             v_preds)
+        history["val_loss"].append(val_loss)
+        history["val_acc"].append(val_acc)
+        print(f"Epoch {epoch + 1}/{args.epochs} [{run_prefix[:-1]}] "
+              f"ratio={ratio:.2f} train {tr_loss:.4f}/{tr_acc:.4f} "
+              f"val {val_loss:.4f}/{val_acc:.4f} "
+              f"({time.time() - t0:.1f}s)")
+
+        if val_acc > best_acc:
+            best_acc, best_state = val_acc, _host_state(model)
+            ckpt = os.path.join(args.model_dir, f"{run_prefix}resnet50.pth")
+            torch.save(best_state, ckpt)
+            print(f"Saved best model checkpoint to {ckpt}")
+
+    write_json(os.path.join(args.results_dir,
+                            f"{run_prefix}training_history.json"), history)
+    print(f"Best val Acc: {best_acc:.4f}")
+    return best_state, history
+
+
+def load_stores(args, device):
+    """(real, synth, test) DeviceStores and the synthetic-fallback flag,
+    or None after a printed error."""
+    if not rsna.check_dataset_availability(args.data_dir):
+        print(f"Error loading data: Dataset not available in "
+              f"{args.data_dir}. Run `python src/download_dataset.py` "
+              "first.")
+        return None
+    size, cache, workers = args.image_size, args.cache_dir, args.workers
+    ids, labels = rsna.load_train_metadata(
+        os.path.join(args.data_dir, "stage2_train_metadata.csv"))
+    print(f"Decoding/loading {len(ids)} training images at {size}px "
+          "(cached)...")
+    t0 = time.perf_counter()
+    train_store = ImageStore.build(rsna.train_paths(args.data_dir, ids),
+                                   labels, size, cache_dir=cache,
+                                   name=f"train{size}", workers=workers)
+    test_ids, test_labels = rsna.load_test_metadata(
+        os.path.join(args.data_dir, "stage2_test_metadata.csv"))
+    test_store = ImageStore.build(rsna.test_paths(args.data_dir, test_ids),
+                                  test_labels, size, cache_dir=cache,
+                                  name=f"test{size}", workers=workers)
+
+    synth_fallback = False
+    if args.use_synthetic:
+        if not os.path.isdir(args.synthetic_dir):
+            print(f"Error loading data: synthetic dir {args.synthetic_dir} "
+                  "is missing. Generate images first.")
+            return None
+        if not any(f.endswith(".png")
+                   for f in os.listdir(args.synthetic_dir)):
+            # the reference warns and goes on: curriculum substitutes
+            # random real positives, augmentation concatenates nothing
+            print("Warning: Synthetic dataset is empty or None.")
+            synth_fallback = True
+    if args.use_synthetic and not synth_fallback:
+        synth_store = decode_folder_store(
+            args.synthetic_dir, size, label=1, cache_dir=cache,
+            name=f"synth{size}", workers=workers)
+    else:  # a 1-image dummy keeps every mode's arguments the same
+        synth_store = ImageStore(np.zeros((1, size, size, 3), np.uint8),
+                                 np.ones((1,), np.int32), size)
+    print(f"Stores ready in {time.perf_counter() - t0:.1f} s "
+          f"(decode + resize, or the cache)")
+    stores = tuple(DeviceStore(s, device)
+                   for s in (train_store, synth_store, test_store))
+    return stores, synth_fallback
+
+
+def train_classifier(args, device: torch.device, dtype: torch.dtype):
+    """Top-level flow (reference train_classifier.py:515-694). Returns the
+    CV summary or the single run's metrics, or None after a printed
+    error."""
+    check_create_dir(args.model_dir)
+    check_create_dir(args.results_dir)
+
+    schedule = None
+    if args.use_curriculum:
+        schedule = parse_curriculum_schedule(args.curriculum_schedule)
+        print(f"Parsed curriculum schedule: {schedule}")
+        if not schedule:
+            print("Warning: empty schedule; using simple augmentation.")
+            args.use_curriculum = False
+    strategy = ("curriculum" if args.use_synthetic and args.use_curriculum
+                and schedule else
+                ("augmented" if args.use_synthetic else "baseline"))
+    run_prefix = f"{strategy}_"
+
+    if args.pretrained_path and not os.path.exists(args.pretrained_path):
+        print(f"Error: pretrained checkpoint {args.pretrained_path} not "
+              "found.")
+        return None
+    loaded = load_stores(args, device)
+    if loaded is None:
+        return None
+    stores, synth_fallback = loaded
+    real, _, test = stores
+    print(f"Device: {device}; compute dtype {dtype}; strategy {strategy}; "
+          f"k_folds {args.k_folds}")
+    eval_model = ResNet50(2, stage_sizes=resnet_stages(args), dtype=dtype,
+                          device=device)
+
+    def evaluate(state):
+        eval_model.load_state_dict(state)
+        return evaluate_model(eval_model, test, args.batch_size, dtype=dtype)
+
+    if args.k_folds > 1:
+        fold_metrics = []
+        for fold, (tr_idx, val_idx) in enumerate(
+                kfold_splits(len(real), args.k_folds)):
+            print(f"\n===== Fold {fold + 1} / {args.k_folds} =====")
+            best_state, _ = train_one_run(
+                args, device, dtype, stores, tr_idx, (real, val_idx),
+                fold=fold + 1, strategy=strategy, schedule=schedule,
+                seed_offset=fold, synth_fallback=synth_fallback)
+            print(f"--- Evaluating Fold {fold + 1} Model on Test Set ---")
+            fold_metrics.append(evaluate(best_state))
+        summary = cv_summary(fold_metrics)
+        print("\n===== Cross-Validation Summary =====")
+        for k, v in summary["average"].items():
+            print(f"Average {k}: {v:.4f} +/- {summary['std_dev'][k]:.4f}")
+        write_json(os.path.join(args.results_dir,
+                                f"{run_prefix}cv_summary.json"), summary)
+        return summary
+
+    # single run: the test set doubles as validation (reference behavior)
+    print("Warning: using test set as validation for non-CV run.")
+    best_state, _ = train_one_run(
+        args, device, dtype, stores, np.arange(len(real)), (test, None),
+        fold=None, strategy=strategy, schedule=schedule,
+        synth_fallback=synth_fallback)
+    metrics = evaluate(best_state)
+    write_json(os.path.join(args.results_dir,
+                            f"{run_prefix}final_metrics.json"),
+               {"config": vars(args), "metrics": metrics})
+    return metrics
