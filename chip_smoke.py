@@ -6,16 +6,23 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit; compute capability 9.0;
-2. builds the CUDA kernels from ``xgan_torch/kernels/csrc``;
-3. holds each kernel against its plain PyTorch version on the card at the
-   shapes the sampler gives it (DCGAN G-224, fg 64, batch 64), in f32 with
-   TF32 off and in bf16, and times kernel, plain version and a PyTorch
-   library yardstick with CUDA events;
+2. builds the CUDA kernels from ``xgan_torch/kernels/csrc``; prints what
+   ``ptxas -v`` says of each instantiation of the tensor-core ConvT kernel
+   (``convt4x4s2_mma``) and checks that none spills, and that its SASS
+   (``cuobjdump -sass``) holds ``HMMA`` tensor-core instructions;
+3. holds each ConvT route against its plain PyTorch version on the card at
+   the shapes the sampler gives it (DCGAN G-224, fg 64, batch 64): f32
+   with TF32 off on the CUDA-core kernel, bf16 on the tensor-core kernel,
+   plus bf16 cases the ladder lacks (ragged M, H != W, Cout = 40, leaky
+   ReLU); times per bf16 layer the kernel, the CUDA-core kernel on the
+   same bf16 inputs, the plain version and a PyTorch library yardstick
+   with CUDA events;
 4. runs the sampler through its CLI (``xgan_torch.cli.generate_synthetic``)
    at full width (latent 100, fg 64, 224 px, batch 64, bf16) from a seeded
    random-weight reference-layout ``.pth``: 512 PNGs, each decoded back;
-   counts the kernel launches of that run; then holds one f32 batch of the
-   kernel path against the plain-version path within 1 u8 level;
+   counts the kernel launches of that run (40, all on the tensor-core
+   route); then holds one f32 batch of the kernel path against the
+   plain-version path within 1 u8 level, and the bf16 batch against it;
 5. profiles one sampler batch: 5 ``convt4x4s2`` kernels, no cuDNN conv;
 6. holds the ``mixed_gather`` kernel bitwise against its plain version on
    the card (a 4,096-image real and a 1,024-image synthetic u8 store at
@@ -48,6 +55,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -121,84 +129,159 @@ def phase_card():
     return smi
 
 
+MMA_KERNEL = "convt4x4s2_mma_kernel"
+
+
+def ptxas_report(log: str) -> dict:
+    """Per entry function of a ``ptxas -v`` log: registers, stack frame
+    and spill bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", line)):
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma_counts(so) -> dict:
+    """HMMA instructions per function of the library's SASS."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(so)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        counts[name] = len(re.findall(r"\bHMMA\b", part))
+    return counts
+
+
 def phase_build():
     from xgan_torch.kernels import build
+    from xgan_torch.kernels.convt import MMA_BLOCK_NS
     t0 = time.perf_counter()
     so = build.build(verbose=True)
     build.load_ops()
     print(f"build: {so.name} ready in {time.perf_counter() - t0:.1f} s")
+    report = {k: v for k, v in ptxas_report(build.build_log()).items()
+              if MMA_KERNEL in k}
+    for name, r in sorted(report.items()):
+        print(f"ptxas {name}: {r}")
+    check(len(report) == len(MMA_BLOCK_NS),
+          f"expected {len(MMA_BLOCK_NS)} {MMA_KERNEL} instantiations in the "
+          f"ptxas log, got {sorted(report)}")
+    check(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+              for r in report.values()), f"{MMA_KERNEL} spills: {report}")
+    hmma = {k: v for k, v in sass_hmma_counts(so).items() if MMA_KERNEL in k}
+    print(f"SASS HMMA instructions per {MMA_KERNEL} instantiation: {hmma}")
+    check(len(hmma) == len(MMA_BLOCK_NS) and all(hmma.values()),
+          f"{MMA_KERNEL} SASS without HMMA: {hmma}")
 
 
 def phase_kernels():
-    """Kernel vs plain version per layer; returns the kernel table entry
+    """Each ConvT route vs the plain version; returns the kernel table entry
     (without ``launches``) for the bf16 main-path shapes."""
     import torch.nn.functional as F
-    from xgan_torch.kernels.convt import (convt4x4s2_fused_cuda,
+    from xgan_torch import kernels
+    from xgan_torch.kernels.build import load_ops
+    from xgan_torch.kernels.convt import (ACTS, convt4x4s2_fused_cuda,
                                           convt4x4s2_fused_ref,
-                                          pack_convt_weight)
+                                          pack_convt_weight, uses_mma)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    cases = [(h, cin, cout, act, dt) for (h, cin, cout, act) in layer_shapes()
+    # (B, H, W, Cin, Cout, act, dtype, on the main path)
+    cases = [(B, h, h, cin, cout, act, dt, dt == torch.bfloat16)
+             for (h, cin, cout, act) in layer_shapes()
              for dt in (torch.float32, torch.bfloat16)]
-    cases.append((28, 128, 64, "leaky_relu", torch.float32))
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
-             "bytes_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
-    for h, cin, cout, act, dt in cases:
-        x = torch.randn(B, h, h, cin, generator=g, device=dev).to(dt)
-        w = torch.randn(cin, cout, 4, 4, generator=g, device=dev) \
+    cases += [(B, 28, 28, 128, 64, "leaky_relu", torch.float32, False),
+              (B, 28, 28, 128, 64, "leaky_relu", torch.bfloat16, False),
+              (3, 5, 5, 32, 32, "relu", torch.bfloat16, False),  # ragged M
+              (B, 6, 10, 64, 64, "relu", torch.bfloat16, False),  # H != W
+              (B, 9, 9, 64, 40, "relu", torch.bfloat16, False)]  # Cout 40
+    total = {"ms": 0.0, "core_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "ops_ms": 0.0, "bytes_ms": 0.0, "bound_ms": 0.0,
+             "max_abs_err": 0.0}
+    for b, h, w, cin, cout, act, dt, main_path in cases:
+        x = torch.randn(b, h, w, cin, generator=g, device=dev).to(dt)
+        wt = torch.randn(cin, cout, 4, 4, generator=g, device=dev) \
             / math.sqrt(4 * cin)
         scale = torch.rand(cout, generator=g, device=dev) + 0.5
         shift = 0.1 * torch.randn(cout, generator=g, device=dev)
-        wp = pack_convt_weight(w, dt)
+        wp = pack_convt_weight(wt, dt)
+        mma = uses_mma(dt, cin)
+        check(mma == (dt == torch.bfloat16), (cin, dt))
+        before = kernels.LAUNCHES["convt4x4s2_mma"]
         got = convt4x4s2_fused_cuda(x, wp, scale, shift, act)
+        check(kernels.LAUNCHES["convt4x4s2_mma"] - before == int(mma),
+              "the route is not the one uses_mma names")
         ref = convt4x4s2_fused_ref(x, wp, scale, shift, act)
         torch.cuda.synchronize()
-        check(got.shape == (B, 2 * h, 2 * h, cout) and got.dtype == dt,
+        check(got.shape == (b, 2 * h, 2 * w, cout) and got.dtype == dt,
               (got.shape, got.dtype))
         err = (got.float() - ref.float()).abs().max().item()
         tol = TOL[dt] * (1 + ref.float().abs().max().item())
-        name = f"{h}x{h}x{cin}->{2 * h}x{2 * h}x{cout} {act} {dt}"
+        route = "tensor-core" if mma else "CUDA-core"
+        name = (f"{b}x{h}x{w}x{cin}->{2 * h}x{2 * w}x{cout} {act} {dt} "
+                f"({route})")
         check(err <= tol, f"{name}: max |kernel - plain| {err} > {tol}")
-        main_path = dt == torch.bfloat16 and act != "leaky_relu"
         if not main_path:
             print(f"check {name}: max_abs_err {err:.3g} (tol {tol:.3g})")
             continue
-        wt = w.to(dt)
+        wl = wt.to(dt)
         sc4, sh4 = scale.view(1, -1, 1, 1), shift.view(1, -1, 1, 1)
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
 
         def library():
-            y = F.conv_transpose2d(x_nchw, wt, stride=2, padding=1)
+            y = F.conv_transpose2d(x_nchw, wl, stride=2, padding=1)
             y = y.float() * sc4 + sh4
             return (torch.relu(y) if act == "relu" else y).to(dt)
 
+        ops = load_ops()
         ms = time_ms(lambda: convt4x4s2_fused_cuda(x, wp, scale, shift, act))
+        # the CUDA-core kernel on the same bf16 inputs: the earlier design
+        core_ms = time_ms(lambda: ops.convt4x4s2_fused(x, wp, scale, shift,
+                                                       ACTS[act]))
         plain_ms = time_ms(
             lambda: convt4x4s2_fused_ref(x, wp, scale, shift, act), reps=5)
         library_ms = time_ms(library)
-        flops = 2 * B * (2 * h) ** 2 * cout * 4 * cin
+        flops = 2 * b * (2 * h) * (2 * w) * cout * 4 * cin
         nbytes = (x.numel() + wp.numel() + got.numel()) * x.element_size() \
             + 2 * 4 * cout
         ops_ms = flops / BF16_PEAK_FLOPS * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         print(f"layer {name}: max_abs_err {err:.3g} (tol {tol:.3g}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"conv_transpose2d+affine+act {library_ms:.4f} ms; "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB, "
-              f"bound {bound_ms:.4f} ms "
-              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("library_ms", library_ms), ("ops_ms", ops_ms),
-                     ("bytes_ms", bytes_ms), ("bound_ms", bound_ms)):
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"CUDA-core kernel {core_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"conv_transpose2d+affine+act {library_ms:.4f} ms, kernel / "
+              f"yardstick {ms / library_ms:.3f}; {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB, bound {bound_ms:.4f} ms "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        for k, v in (("ms", ms), ("core_ms", core_ms),
+                     ("plain_ms", plain_ms), ("library_ms", library_ms),
+                     ("ops_ms", ops_ms), ("bytes_ms", bytes_ms),
+                     ("bound_ms", bound_ms)):
             total[k] += v
         total["max_abs_err"] = max(total["max_abs_err"], err)
+    print(f"5 bf16 layers: kernel {total['ms']:.4f} ms, CUDA-core kernel "
+          f"{total['core_ms']:.4f} ms, conv_transpose2d+affine+act "
+          f"{total['library_ms']:.4f} ms, kernel / yardstick "
+          f"{total['ms'] / total['library_ms']:.3f}, bound "
+          f"{total['bound_ms']:.4f} ms")
     return {
         "name": "convt4x4s2_fused", "route": "cuda",
-        "source": "xgan_torch/kernels/csrc/convt4x4s2.cu",
+        "source": "xgan_torch/kernels/csrc/convt4x4s2_mma.cu,"
+                  "xgan_torch/kernels/csrc/convt4x4s2.cu",
         "replaces": "xgan/ops/pallas/convt.py:101",
         "launches": 0, "max_abs_err": total["max_abs_err"],
         "ms": total["ms"], "plain_ms": total["plain_ms"],
@@ -266,6 +349,8 @@ def phase_sampler(tmp: str):
     print(f"sampler launches: {launches}")
     want = 5 * math.ceil(NUM_IMAGES / B)
     check(launches.get("convt4x4s2_fused", 0) == want, (launches, want))
+    check(launches.get("convt4x4s2_mma", 0) == want,
+          f"{launches}: expected all {want} launches on the tensor-core route")
     rates = [run(os.path.join(tmp, "synthetic_warm"))["imgs_per_sec"]
              for _ in range(3)]
     print(f"sampler warm runs: {', '.join(f'{r:.1f}' for r in rates)} "

@@ -11,7 +11,7 @@ import torch
 from xgan_torch import kernels
 from xgan_torch.kernels.convt import (convt4x4s2_fused,
                                       convt4x4s2_fused_cuda,
-                                      convt4x4s2_fused_ref,
+                                      convt4x4s2_fused_ref, mma_tiles,
                                       pack_convt_weight)
 from xgan_torch.kernels.gather import (mixed_gather, mixed_gather_cuda,
                                       mixed_gather_ref, new_error_flag,
@@ -35,9 +35,12 @@ def dev():
 
 
 def _inputs(shape, dtype, dev, seed=0):
-    b, h, cin, cout = shape
+    """``shape``: (B, H, Cin, Cout) for a square input or (B, H, W, Cin,
+    Cout)."""
+    b, *hw, cin, cout = shape
+    h, w = hw * 2 if len(hw) == 1 else hw
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(b, h, h, cin, generator=g, device=dev).to(dtype)
+    x = torch.randn(b, h, w, cin, generator=g, device=dev).to(dtype)
     w = torch.randn(cin, cout, 4, 4, generator=g, device=dev) \
         / (4 * cin) ** 0.5
     scale = torch.rand(cout, generator=g, device=dev) + 0.5
@@ -59,6 +62,72 @@ def test_kernel_matches_plain(dev, shape, dtype, act):
     assert got.dtype == dtype and got.shape == want.shape
     tol = TOL[dtype] * (1 + want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# (B, H, W, Cin, Cout): the five G-224 layers at B = 2, then a ragged M
+# (75 rows), H != W with Cout = 40 (not a multiple of its block_n, 64), and
+# Cout = 3 with two m-tiles
+MMA_SHAPES = [(2, 7, 7, 512, 256), (2, 14, 14, 256, 128),
+              (2, 28, 28, 128, 64), (2, 56, 56, 64, 32),
+              (2, 112, 112, 32, 3), (3, 5, 5, 32, 32), (2, 4, 6, 32, 40),
+              (1, 9, 17, 64, 3)]
+
+
+@pytest.mark.parametrize("act", ["relu", "leaky_relu"])
+@pytest.mark.parametrize("shape", MMA_SHAPES)
+def test_convt_mma_route_matches_plain(dev, shape, act):
+    """bf16 with Cin % 32 == 0 launches the tensor-core kernel."""
+    args = _inputs(shape, torch.bfloat16, dev)
+    kernels.reset_launch_counts()
+    got = convt4x4s2_fused(*args, act=act)
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == 1
+    assert kernels.LAUNCHES["convt4x4s2_fused"] == 1
+    want = convt4x4s2_fused_ref(*args, act=act)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    tol = TOL[torch.bfloat16] * (1 + want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_convt_mma_route_rejects_misaligned_x(dev):
+    """A bf16 x one element into its storage still takes the tensor-core
+    route, whose op raises: no fallback to the CUDA-core kernel."""
+    x, wp, scale, shift = _inputs((2, 4, 32, 8), torch.bfloat16, dev)
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = base[1:].view(x.shape)
+    shifted.copy_(x)
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="16-byte"):
+        convt4x4s2_fused(shifted, wp, scale, shift, act="relu")
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == 0
+    assert kernels.LAUNCHES["convt4x4s2_fused"] == 0
+
+
+def test_convt_mma_op_checks_its_arguments(dev):
+    from xgan_torch.kernels.build import load_ops
+    ops = load_ops()
+    x, wp, scale, shift = _inputs((2, 4, 64, 8), torch.bfloat16, dev)
+    x48, wp48, _, _ = _inputs((2, 4, 48, 8), torch.bfloat16, dev)
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = base[1:].view(x.shape)
+    shifted.copy_(x)
+    bn = mma_tiles(64, 8).block_n
+    bad = [
+        ((x.float(), wp.float(), scale, shift, 1, bn), "bfloat16"),
+        ((x48, wp48, scale, shift, 1, bn), "multiple of 32"),
+        ((shifted, wp, scale, shift, 1, bn), "16-byte"),
+        ((x, wp, scale, shift, 1, 16), "block_n"),
+        ((x, wp, scale, shift, 3, bn), "act"),
+    ]
+    kernels.reset_launch_counts()
+    for args, what in bad:
+        with pytest.raises(RuntimeError, match=what):
+            ops.convt4x4s2_mma(*args)
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == 0  # the op counts nothing
+    got = ops.convt4x4s2_mma(x, wp, scale, shift, 1, bn).float()
+    want = convt4x4s2_fused_ref(x, wp, scale, shift, "relu").float()
+    tol = TOL[torch.bfloat16] * (1 + want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
 
 
 def test_op_checks_its_arguments(dev):

@@ -16,8 +16,10 @@ loaded.
 
 The library lands in ``xgan_torch/kernels/_build/`` under a name hashed
 from the sources, flags and torch version, so a changed source rebuilds
-and an unchanged one is reused. Nothing here runs at import time:
-importing the package needs no ``nvcc``.
+and an unchanged one is reused. Beside it, a ``.log`` keeps what the
+compiles printed (``ptxas -v``: registers, shared memory and spills of
+each kernel), read back by :func:`build_log`. Nothing here runs at
+import time: importing the package needs no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-CUDA_SOURCES = ("convt4x4s2.cu", "mixed_gather.cu")
+CUDA_SOURCES = ("convt4x4s2.cu", "convt4x4s2_mma.cu", "mixed_gather.cu")
 HOST_SOURCES = ("convt_op.cpp", "gather_op.cpp")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -116,14 +118,21 @@ def build(verbose: bool = False) -> Path:
     _run_all([[nvcc, *LINK_FLAGS, *objs, "-o", str(tmp),
                *[f"-L{p}" for p in libdirs],
                *[f"-Xlinker=-rpath={p}" for p in libdirs], *LIBS]])
+    log = "".join(f"$ {' '.join(cmd)}\n{out}"
+                  for cmd, out in zip(compiles, outs))
+    so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     for obj in objs:
         os.remove(obj)
     if verbose:
-        for cmd, out in zip(compiles, outs):
-            print(f"$ {' '.join(cmd)}\n{out}", end="")
+        print(log, end="")
         print(f"built {so.name} in {time.perf_counter() - t0:.1f} s")
     return so
+
+
+def build_log() -> str:
+    """What the compiles of the current library printed."""
+    return library_path().with_suffix(".log").read_text()
 
 
 def load_ops(verbose: bool = False):

@@ -19,11 +19,13 @@
 // innermost across threads, so the weight reads of a warp coalesce and
 // each x value is a broadcast within a pixel's threads. Every output is
 // written exactly once, so the phase interleave costs no extra pass.
-// What bounds it on this card: the G-224 layers 1-4 are operation-bound
-// (2*Cin*4 FLOP per output, 13.2 GFLOP per layer at batch 64) and layer 5
-// (Cout = 3) is byte-bound. This version runs on the CUDA cores with two
-// loads per FMA, far from the tensor-core roofline; tiles in shared
-// memory and wgmma are later work (ROADMAP B1).
+// What bounds it on this card: the G-224 layers 1-3 are operation-bound
+// (2*Cin*4 FLOP per output, 13.2 GFLOP per layer at batch 64) and layers
+// 4 and 5 byte-bound. This version runs on the CUDA cores with two
+// loads per FMA, far from the tensor-core roofline. It serves f32 and
+// shapes with Cin % 32 != 0; bf16 with Cin % 32 == 0, the bf16 sampler's
+// every layer, runs on the tensor-core kernel of convt4x4s2_mma.cu
+// (route chosen in xgan_torch/kernels/convt.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
