@@ -41,10 +41,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    once per train step and never in validation or test, and that one f32
    train step through the kernel and through the plain gather gives the
    same u8 batch and the same loss;
-8. times and profiles warm train steps of both runs' configurations: ms
-   per step, imgs/s, the top device ops, one ``mixed_gather`` kernel per
-   step, the device idle share;
-9. prints the kernel table line, the card line and, last, the result line.
+8. trains the DCGAN through its CLI (``xgan_torch.cli.train_gan``) at
+   full width (224 px, fg = fd = 64, latent 100, B = 128, bf16) on the
+   same tree, 2 epochs of 4 steps: checks the history JSON, the sample
+   sheets and the final ``.pth`` files, and that every k4s2 layer of the
+   train steps and the sheets ran on the tensor-core ConvT kernel (5
+   launches each); then samples from its ``generator_final.pth`` through
+   the sampler CLI;
+9. times and profiles warm train steps of both classifier runs'
+   configurations: ms per step, imgs/s, the top device ops, one
+   ``mixed_gather`` kernel per step, the device idle share;
+10. holds one f32 GAN train step at full width (B = 16) through the
+    kernel against the same step through the plain version (metrics, G's
+    gradient norms), and the ConvT's training form (kernel forward, cuDNN
+    backward) against ``F.conv_transpose2d`` under autograd at the five
+    bf16 layers at B = 128;
+11. times 20 warm bf16 GAN train steps at B = 128 and profiles one (top
+    device ops, the ConvT kernels' share, the idle share); times the five
+    ConvT forwards at the training shapes against their bound, the plain
+    version and cuDNN;
+12. prints the kernel table line, the card line and, last, the result
+    line.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
 prints no result.
@@ -761,6 +778,292 @@ def phase_classifier_profile(train, synth):
     return out
 
 
+GAN_B, GAN_EPOCHS = 128, 2  # the reference's batch; 512 images: 4 steps
+GAN_HISTORY_KEYS = {"G_losses_iter", "D_losses_iter", "D_x_iter",
+                    "D_G_z1_iter", "D_G_z2_iter", "G_losses_epoch",
+                    "D_losses_epoch"}
+
+
+def phase_gan(tmp: str, root: str):
+    """DCGAN training through its CLI at full width (224 px, fg = fd =
+    64, latent 100, B = 128, bf16) on the RSNA tree, then the sampler CLI
+    on its ``generator_final.pth``. Returns the ConvT launches of both
+    runs."""
+    from xgan_torch import kernels
+    from xgan_torch.cli.generate_synthetic import main as sample_main
+    from xgan_torch.cli.train_gan import main as gan_main
+    from xgan_torch.models.dcgan import Discriminator, Generator
+    from xgan_torch.native.png import decode_png
+    out = os.path.join(tmp, "gan")
+    argv = ["--data-dir", root, "--model-dir", os.path.join(out, "models"),
+            "--output-dir", os.path.join(out, "results"),
+            "--results-dir", os.path.join(out, "metrics"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--feature-maps-g", str(FG),
+            "--feature-maps-d", str(FG), "--latent-dim", str(LATENT),
+            "--batch-size", str(GAN_B), "--epochs", str(GAN_EPOCHS),
+            "--compute-dtype", "bf16", "--save-interval", "4",
+            "--checkpoint-interval", "1"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = gan_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = GAN_EPOCHS * math.ceil(N_TRAIN / GAN_B)
+    sheet_dir = os.path.join(out, "results", "gan_images")
+    sheets = sorted(os.listdir(sheet_dir))
+    want = 5 * (steps + len(sheets))
+    print(f"GAN run: {wall:.1f} s wall, {steps} train steps, "
+          f"{len(sheets)} sample sheets, launches {launches}; last "
+          f"metrics G {history['G_losses_iter'][-1]:.4f} D "
+          f"{history['D_losses_iter'][-1]:.4f} D(x) "
+          f"{history['D_x_iter'][-1]:.4f}")
+    check(launches.get("convt4x4s2_fused", 0) == want, (launches, want))
+    check(launches.get("convt4x4s2_mma", 0) == want,
+          f"{launches}: expected all {want} launches on the tensor-core route")
+    with open(os.path.join(out, "metrics", "gan_training_history.json")) \
+            as f:
+        saved = json.load(f)
+    check(set(saved) == GAN_HISTORY_KEYS, sorted(saved))
+    for key, series in saved.items():
+        check(len(series) == (steps if key.endswith("_iter")
+                              else GAN_EPOCHS), (key, len(series)))
+        check(all(math.isfinite(v) for v in series), (key, series))
+    check(sheets == ["fake_samples_epoch_001_iter_000000.png",
+                     "fake_samples_epoch_002_iter_000004.png",
+                     "fake_samples_epoch_002_iter_000007.png"], sheets)
+    side = 8 * (SIZE + 2) + 2  # 64 images, 8 per row, 2 px padding
+    for name in sheets:
+        img = decode_png(os.path.join(sheet_dir, name))
+        check(img.shape == (side, side, 3), (name, img.shape))
+    gan_dir = os.path.join(out, "models", "gan")
+    for name, model in (("generator_final.pth", Generator(LATENT, 3, FG,
+                                                           SIZE)),
+                        ("discriminator_final.pth",
+                         Discriminator(3, FG, SIZE))):
+        model.load_state_dict(torch.load(os.path.join(gan_dir, name),
+                                         weights_only=True), strict=True)
+    print(f"GAN run: history keys and {steps} finite entries per series; "
+          f"{len(sheets)} sheets of {side}x{side} decode; "
+          f"{sorted(os.listdir(gan_dir))} load strictly")
+
+    # the chain of the main path: the trained generator into the sampler
+    kernels.reset_launch_counts()
+    stats = sample_main([
+        "--model-path", os.path.join(gan_dir, "generator_final.pth"),
+        "--output-dir", os.path.join(out, "synthetic"),
+        "--num-images", str(B), "--latent-dim", str(LATENT),
+        "--feature-maps-g", str(FG), "--image-size", str(SIZE),
+        "--batch-size", str(B), "--compute-dtype", "bf16"])
+    torch.cuda.synchronize()
+    chain = dict(kernels.LAUNCHES)
+    check(stats["written"] == B and chain.get("convt4x4s2_mma", 0) == 5,
+          (stats, chain))
+    img = decode_png(os.path.join(out, "synthetic", f"synthetic_{B:05d}.png"))
+    check(img.shape == (SIZE, SIZE, 3), img.shape)
+    print(f"GAN -> sampler: {stats['written']} images from the trained "
+          f"generator_final.pth, launches {chain}")
+    return want + chain.get("convt4x4s2_fused", 0)
+
+
+def gan_models(dtype, seed: int = 0):
+    """Seeded full-width G and D (fg = fd = 64, 224 px) on the card and
+    their Adam optimizers."""
+    from xgan_torch.models.dcgan import Discriminator, Generator
+    from xgan_torch.train.common import adam
+    dev = torch.device("cuda")
+    g = Generator(LATENT, 3, FG, SIZE, dtype=dtype, device=dev,
+                  generator=torch.Generator(dev).manual_seed(seed))
+    d = Discriminator(3, FG, SIZE, dtype=dtype, device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed + 1))
+    return g, d, adam(g.parameters(), 2e-4, 0.5), adam(d.parameters(),
+                                                         2e-4, 0.5)
+
+
+def gan_layer_inputs(b: int, dtype, seed: int):
+    """(x, w, grad of y) of each of the five k4s2 layers at batch ``b``:
+    x (B, H, H, Cin) in ``dtype``, the f32 torch weight, the upstream
+    gradient in ``dtype``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for h, cin, cout, _ in layer_shapes():
+        x = torch.randn(b, h, h, cin, generator=g, device=dev).to(dtype)
+        w = torch.randn(cin, cout, 4, 4, generator=g, device=dev) \
+            / math.sqrt(4 * cin)
+        up = torch.randn(b, 2 * h, 2 * h, cout, generator=g, device=dev) \
+            .to(dtype)
+        out.append((x, w, up))
+    return out
+
+
+def phase_gan_step_check(train_store):
+    """One f32 train step at full width (B = 16, TF32 off, deterministic
+    cuDNN) with G's k4s2 forwards on the kernel and on the plain version,
+    from the same weights and draws: metrics within 1e-4, G's per-tensor
+    gradient norms within 1e-3 relative; a second kernel run gives the
+    run-to-run floor. Then ``convt4x4s2_train`` forward and backward
+    against ``F.conv_transpose2d`` under autograd at the five bf16 layers
+    at B = 128."""
+    import torch.nn.functional as F
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.convt import (convt4x4s2_fused_ref,
+                                          convt4x4s2_train)
+    from xgan_torch.train.gan import dcgan_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's default f32 backward algorithms sum with atomics, in another
+    # order on every run
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    idx = torch.randint(0, len(store), (16,), generator=g, device=dev)
+    flip = torch.rand(16, generator=g, device=dev) < 0.5
+    noise = torch.randn(16, LATENT, generator=g, device=dev)
+    runs = []
+    for convt in (None, convt4x4s2_fused_ref, None):
+        g_net, d_net, opt_g, opt_d = gan_models(torch.float32)
+        kw = {} if convt is None else {"convt": convt}
+        m = dcgan_step(g_net, d_net, opt_g, opt_d, store.images, idx,
+                       latent_dim=LATENT, flip=flip, noise=noise, **kw)
+        runs.append((m, torch.stack([p.grad.norm()
+                                     for p in g_net.parameters()])))
+    torch.backends.cudnn.deterministic = False
+    (m_k, n_k), (m_p, n_p), (m_k2, n_k2) = runs
+    m_err = (m_k - m_p).abs().max().item()
+    rel = ((n_k - n_p).abs() / n_p).tolist()
+    rel_floor = ((n_k - n_k2).abs() / n_k2).max().item()
+    names = [n for n, _ in g_net.named_parameters()]
+    worst = sorted(zip(rel, names), reverse=True)[:3]
+    print(f"f32 GAN step (B=16), kernel vs plain G forward: metrics "
+          f"{[round(v, 6) for v in m_k.tolist()]}, max |diff| {m_err:.3g} "
+          f"(tol 1e-4; kernel vs kernel "
+          f"{(m_k - m_k2).abs().max().item():.3g}); G gradient norms max "
+          f"relative diff {max(rel):.3g} (tol 1e-3; kernel vs kernel "
+          f"{rel_floor:.3g}); worst "
+          + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    check(m_err <= 1e-4, "f32 GAN step: kernel vs plain metrics differ")
+    check(max(rel) <= 1e-3, "f32 GAN step: G gradient norms differ")
+
+    tol = TOL[torch.bfloat16]
+    for i, (x, w, up) in enumerate(gan_layer_inputs(GAN_B, torch.bfloat16,
+                                                    seed=9)):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = convt4x4s2_train(xa, wa)
+        dx, dw = torch.autograd.grad(y, (xa, wa), up)
+        xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y_ref = F.conv_transpose2d(xb.permute(0, 3, 1, 2), wb.to(x.dtype),
+                                   stride=2, padding=1).permute(0, 2, 3, 1)
+        dx_ref, dw_ref = torch.autograd.grad(y_ref, (xb, wb), up)
+        errs = []
+        for got, want in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
+            want = want.float()
+            bound = tol * (1 + want.abs().max().item())
+            errs.append((got.float() - want).abs().max().item())
+            check(errs[-1] <= bound, (i, errs, bound))
+        print(f"convt4x4s2_train layer {i + 1} bf16 B={GAN_B}: max |diff| "
+              f"vs F.conv_transpose2d autograd: y {errs[0]:.3g}, dx "
+              f"{errs[1]:.3g}, dW {errs[2]:.3g}")
+
+
+def phase_gan_profile(train_store):
+    """20 warm bf16 train steps at B = 128: ms per step, imgs/s; one
+    profiled step: top device ops, the ConvT kernel's share, the idle
+    share. Then the five k4s2 forwards at the training shapes (act none,
+    identity affine): the kernel, its plain version and cuDNN's
+    ``F.conv_transpose2d`` by CUDA events, against the bound."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.convt import (convt4x4s2_fused,
+                                          convt4x4s2_fused_ref,
+                                          pack_convt_weight)
+    from xgan_torch.train.gan import dcgan_step
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    g_net, d_net, opt_g, opt_d = gan_models(torch.bfloat16, seed=10)
+    gen = torch.Generator(dev).manual_seed(11)
+    idx = torch.randint(0, len(store), (24, GAN_B), generator=gen,
+                        device=dev)
+
+    def step(i):
+        return dcgan_step(g_net, d_net, opt_g, opt_d, store.images, idx[i],
+                          latent_dim=LATENT, dtype=torch.bfloat16,
+                          generator=gen)
+
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3, 23):
+        m = step(i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    check(bool(torch.isfinite(m).all()), m)
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(23)
+        torch.cuda.synchronize()
+    check(kernels.LAUNCHES["convt4x4s2_mma"] == 5, dict(kernels.LAUNCHES))
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in events if "convt4x4s2" in e.name]
+    busy_ms = sum(e.device_time for e in events) / 1e3
+    ours_ms = sum(e.device_time for e in ours) / 1e3
+    print(f"GAN train step (bf16, B={GAN_B}, 224 px, fg = fd = 64): "
+          f"{step_ms:.3f} ms per step (mean of 20 warm), "
+          f"{GAN_B / step_ms * 1e3:.1f} imgs/s; profiled step: "
+          f"{len(events)} kernels, {busy_ms:.3f} ms device time, "
+          f"{len(ours)} convt4x4s2 kernels {ours_ms:.3f} ms (share "
+          f"{ours_ms / busy_ms:.3f}); device idle share "
+          f"~{1 - busy_ms / step_ms:.3f}")
+    check(len(ours) == 5, [e.name for e in ours])
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    for e in top[:12]:
+        if e.self_device_time_total > 0:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"x{e.count:<3d} {e.key[:90]}")
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for i, (x, w, _) in enumerate(gan_layer_inputs(GAN_B, torch.bfloat16,
+                                                   seed=12)):
+        cout = w.shape[1]
+        wp = pack_convt_weight(w, x.dtype)
+        ones = torch.ones(cout, device=dev)
+        zeros = torch.zeros(cout, device=dev)
+        wl, x_nchw = w.to(x.dtype), x.permute(0, 3, 1, 2)
+        ms = time_ms(lambda: convt4x4s2_fused(x, wp, ones, zeros, "none"))
+        plain_ms = time_ms(lambda: convt4x4s2_fused_ref(x, wp, ones, zeros,
+                                                        "none"), reps=3)
+        library_ms = time_ms(lambda: F.conv_transpose2d(
+            x_nchw, wl, stride=2, padding=1))
+        b, h, _, cin = x.shape
+        flops = 2 * b * (2 * h) ** 2 * cout * 4 * cin
+        nbytes = (x.numel() + wp.numel() + b * (2 * h) ** 2 * cout) * 2
+        ops_ms = flops / BF16_PEAK_FLOPS * 1e3
+        bytes_ms = _bytes_ms(nbytes)
+        bound_ms = max(ops_ms, bytes_ms)
+        print(f"train layer {i + 1} {b}x{h}x{h}x{cin}->{2 * h}x{2 * h}x"
+              f"{cout} none bf16: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"F.conv_transpose2d {library_ms:.4f} ms, kernel / cuDNN "
+              f"{ms / library_ms:.3f}; bound {bound_ms:.4f} ms "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("library_ms", library_ms), ("bound_ms", bound_ms)):
+            total[k] += v
+    print(f"5 train layers (B={GAN_B}): kernel {total['ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f} ms, F.conv_transpose2d "
+          f"{total['library_ms']:.4f} ms, kernel / cuDNN "
+          f"{total['ms'] / total['library_ms']:.3f}, bound "
+          f"{total['bound_ms']:.4f} ms; kernel share of the step "
+          f"{total['ms'] / step_ms:.3f}")
+
+
 def main():
     smi = phase_card()
     phase_build()
@@ -773,14 +1076,17 @@ def main():
         write_rsna_tree(root)
         train, synth = phase_stores(root, synth_dir)
         gather_entry["launches"] = phase_classifier(tmp, root, synth_dir)
+        gan_launches = phase_gan(tmp, root)
     phase_f32_step(train, synth)
     phase_classifier_profile(train, synth)
+    phase_gan_step_check(train)
+    phase_gan_profile(train)
     busy_ms = phase_profile()
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "
           f"(warm median) vs {busy_ms:.3f} ms profiled device time per "
           f"batch: device idle share ~{1 - busy_ms / loop_ms_per_batch:.3f}")
-    entry["launches"] = launches["convt4x4s2_fused"]
+    entry["launches"] = launches["convt4x4s2_fused"] + gan_launches
     print(json.dumps({"kernels": [entry, gather_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -282,3 +282,108 @@ def test_classifier_step_on_card_matches_cpu(dev, mode, freeze):
     assert torch.equal(y_cpu, y_dev)
     assert (l_cpu - l_dev).abs().max() <= 1e-4 * (1 + l_cpu.abs().max())
     assert (w_cpu - w_dev).abs().max() <= 1e-4
+
+
+# (B, H, Cin, Cout, dtype): f32 on the CUDA-core kernel; bf16 with
+# Cin % 32 == 0 on the tensor-core kernel (the G-224 ladder at B = 2)
+GAN_CONVT_CASES = [(2, 7, 64, 32, torch.float32), (3, 5, 6, 4, torch.float32),
+                   (2, 7, 512, 256, torch.bfloat16),
+                   (2, 28, 128, 64, torch.bfloat16),
+                   (2, 112, 32, 3, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", GAN_CONVT_CASES)
+def test_gan_convt_train_matches_conv_transpose2d(dev, case):
+    """Forward and both gradients of ``convt4x4s2_train`` on the card
+    against ``F.conv_transpose2d`` under autograd, on the same operands
+    (bf16: the weight rounded to bf16 for both)."""
+    import torch.nn.functional as F
+    from xgan_torch.kernels.convt import convt4x4s2_train
+    b, h, cin, cout, dtype = case
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(b, h, h, cin, generator=g, device=dev).to(dtype)
+    w = torch.randn(cin, cout, 4, 4, generator=g, device=dev) \
+        / (4 * cin) ** 0.5
+    up = torch.randn(b, 2 * h, 2 * h, cout, generator=g, device=dev) \
+        .to(dtype)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    y = convt4x4s2_train(xa, wa)
+    assert kernels.LAUNCHES["convt4x4s2_fused"] == 1
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == (dtype == torch.bfloat16)
+    dx, dw = torch.autograd.grad(y, (xa, wa), up)
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y_ref = F.conv_transpose2d(xb.permute(0, 3, 1, 2), wb.to(dtype),
+                               stride=2, padding=1).permute(0, 2, 3, 1)
+    dx_ref, dw_ref = torch.autograd.grad(y_ref, (xb, wb), up)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    for got, want in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
+        want = want.float()
+        tol = TOL[dtype] * (1 + want.abs().max().item())
+        assert (got.float() - want).abs().max().item() <= tol
+
+
+def _gan_models(dev, fg, size, dtype):
+    from xgan_torch.models.dcgan import Discriminator
+    from xgan_torch.train.common import adam
+    g_net = Generator(16, 3, fg, size, dtype=dtype, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))
+    d_net = Discriminator(3, 8, size, dtype=dtype, device=dev,
+                          generator=torch.Generator(dev).manual_seed(1))
+    return (g_net, d_net, adam(g_net.parameters(), 2e-4, 0.5),
+            adam(d_net.parameters(), 2e-4, 0.5))
+
+
+def test_gan_step_kernel_matches_plain(dev):
+    """One f32 step (TF32 off, deterministic cuDNN) from the same weights
+    and draws, with G's k4s2 forwards on the kernel and on the plain
+    version: the metrics within 1e-4, the norm of each of G's gradients
+    within 1e-3 relative (Adam's first step is ~lr * sign(grad), so the
+    weights themselves may differ by lr where a gradient is near 0)."""
+    from xgan_torch.kernels.convt import convt4x4s2_fused_ref
+    from xgan_torch.train.gan import dcgan_step
+    g = torch.Generator(device=dev).manual_seed(2)
+    store = torch.randint(0, 256, (12, 64, 64, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    idx = torch.arange(8, device=dev)
+    flip = torch.rand(8, generator=g, device=dev) < 0.5
+    noise = torch.randn(8, 16, generator=g, device=dev)
+    out = []
+    torch.backends.cudnn.deterministic = True  # no atomics in the sums
+    try:
+        for convt in (None, convt4x4s2_fused_ref):
+            g_net, d_net, opt_g, opt_d = _gan_models(dev, 16, 64,
+                                                     torch.float32)
+            kw = {} if convt is None else {"convt": convt}
+            kernels.reset_launch_counts()
+            m = dcgan_step(g_net, d_net, opt_g, opt_d, store, idx,
+                           latent_dim=16, flip=flip, noise=noise, **kw)
+            assert kernels.LAUNCHES["convt4x4s2_fused"] == (
+                5 if convt is None else 0)
+            out.append((m, [p.grad.norm().item()
+                            for p in g_net.parameters()]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (m_k, n_k), (m_p, n_p) = out
+    assert (m_k - m_p).abs().max().item() <= 1e-4
+    for a, b in zip(n_k, n_p):
+        assert abs(a - b) <= 1e-3 * b
+
+
+def test_gan_bf16_step_launches_five_tensor_core_convts(dev):
+    """Every k4s2 layer of the bf16 train-mode G (fg 64: each Cin a
+    multiple of 32) runs on the tensor-core kernel, once per step."""
+    from xgan_torch.train.gan import dcgan_step
+    g_net, d_net, opt_g, opt_d = _gan_models(dev, 64, 64, torch.bfloat16)
+    store = torch.randint(0, 256, (8, 64, 64, 3), device=dev,
+                          dtype=torch.uint8)
+    gen = torch.Generator(dev).manual_seed(4)
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        m = dcgan_step(g_net, d_net, opt_g, opt_d, store,
+                       torch.arange(8, device=dev), latent_dim=16,
+                       dtype=torch.bfloat16, generator=gen)
+    assert torch.isfinite(m).all()
+    assert kernels.LAUNCHES["convt4x4s2_fused"] == 10
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == 10

@@ -29,6 +29,7 @@ def test_port_files_exist():
     assert "xgan_torch/kernels/convt.py" in names
     assert "xgan_torch/kernels/gather.py" in names
     assert "xgan_torch/cli/train_classifier.py" in names
+    assert "xgan_torch/cli/train_gan.py" in names
     assert len(names) > 10
 
 

@@ -37,3 +37,55 @@ def jax_generator(latent, fg, size, seed=0):
                 "mean": (0.1 * rng.normal(size=c)).astype(np.float32),
                 "var": (0.5 + rng.random(c)).astype(np.float32)}
     return model, params, stats
+
+
+def jax_discriminator(fd, size, seed=0):
+    """(flax Discriminator, params, batch_stats) with numpy leaves: conv
+    weights N(0, 2/fan) (unit gain through the ladder), random BN
+    scale/bias and running statistics."""
+    model = dcgan.Discriminator(feature_maps=fd, image_size=size)
+    like = model.init(jax.random.key(0), jnp.zeros((2, size, size, 3)),
+                      train=False)
+    rng = np.random.default_rng(seed)
+    params, stats = {}, {}
+    for name, leaf in like["params"].items():
+        if name.startswith("Conv"):
+            k = leaf["kernel"]
+            fan = k.shape[0] * k.shape[1] * k.shape[2]
+            params[name] = {"kernel": (rng.normal(size=k.shape)
+                                       * np.sqrt(2.0 / fan))
+                            .astype(np.float32)}
+        else:
+            c = leaf["scale"].shape[0]
+            params[name] = {
+                "scale": (1 + 0.1 * rng.normal(size=c)).astype(np.float32),
+                "bias": (0.1 * rng.normal(size=c)).astype(np.float32)}
+            stats[name] = {
+                "mean": (0.1 * rng.normal(size=c)).astype(np.float32),
+                "var": (0.5 + rng.random(c)).astype(np.float32)}
+    return model, params, stats
+
+
+def bn_stats_from_torch(module, seq_bn):
+    """{TorchBatchNorm_i: {mean, var}} of a port model's BNs at the
+    reference indices ``seq_bn``: numpy copies (BN updates the buffers in
+    place)."""
+    return {f"TorchBatchNorm_{i}": {
+        "mean": module.main[seq].running_mean.detach().cpu().numpy().copy(),
+        "var": module.main[seq].running_var.detach().cpu().numpy().copy()}
+        for i, seq in enumerate(seq_bn)}
+
+
+def discriminator_vars_from_torch(d):
+    """A port Discriminator's (params, batch_stats) in the flax layout."""
+    from xgan_torch.models.dcgan import SEQ_D_BN, SEQ_D_CONV
+    params = {}
+    for i, seq in enumerate(SEQ_D_CONV):
+        w = d.main[seq].weight.detach().cpu().numpy()
+        params[f"Conv_{i}"] = {"kernel": np.transpose(w, (2, 3, 1, 0))}
+    for i, seq in enumerate(SEQ_D_BN):
+        bn = d.main[seq]
+        params[f"TorchBatchNorm_{i}"] = {
+            "scale": bn.weight.detach().cpu().numpy(),
+            "bias": bn.bias.detach().cpu().numpy()}
+    return params, bn_stats_from_torch(d, SEQ_D_BN)

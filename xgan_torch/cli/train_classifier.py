@@ -99,13 +99,7 @@ def main(argv=None):
     if args.k_folds < 1:
         print("Error: k-folds must be at least 1.")
         sys.exit(1)
-    for name, default in UNSUPPORTED.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            print(f"Error: {flag} {getattr(args, name)!r} is not supported "
-                  "by xgan_torch yet; leave it at its default "
-                  f"({default!r})")
-            sys.exit(1)
+    config.refuse_unsupported(args, UNSUPPORTED)
     try:
         device = config.resolve_device(args.cpu)
     except RuntimeError as e:

@@ -1,0 +1,87 @@
+"""Train the DCGAN on the RSNA images on the GPU
+(flags and defaults as src/train_gan.py).
+
+    python -m xgan_torch.cli.train_gan --data-dir DIR [--epochs 50] \
+        [--batch-size 128] [--image-size 224] [--cpu] ...
+
+Writes ``{output_dir}/gan_images/fake_samples_epoch_EEE_iter_TTTTTT.png``
+sheets, ``{model_dir}/gan/{generator,discriminator}_epoch_EEE.pth`` and
+``..._final.pth`` reference-layout state dicts, and
+``{results_dir}/gan_training_history.json``. Runs on the CUDA device
+unless ``--cpu`` is given; without a CUDA device it exits 1 with a
+structured ``Error:`` line. Flags of the JAX CLI that this port does not
+support yet exit 1 when set away from their default.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from xgan_torch import config
+
+# flag -> its default: other values are not supported by the port yet
+UNSUPPORTED = {"resume_from": "", "ema_decay": 0.0, "grad_accum": 1,
+               "steps_per_call": 1, "trace_dir": "", "shard_store": False,
+               "shard_opt_state": False, "model_parallel": 1}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description="Train DCGAN on RSNA Pneumonia Dataset (PyTorch/CUDA)")
+    config.add_path_args(p)
+    config.add_gan_model_args(p, fm_default=64)
+    config.add_gan_train_args(p, epochs=50, batch_size=128,
+                              vis_batch_size=64, save_interval=500,
+                              checkpoint_interval=10)
+    p.add_argument("--image-size", type=int, default=224,
+                   help="Image size (multiple of 32; 224 = reference)")
+    p.add_argument("--seed", type=int, default=0)
+    config.add_compute_dtype_arg(p)
+    p.add_argument("--cache-dir", type=str, default="./data/cache")
+    p.add_argument("--limit-batches", type=int, default=0,
+                   help="Debug: cap batches per epoch (0 = all)")
+    config.add_device_arg(p)
+    # flags of the JAX CLI that the port does not support yet
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--trace-dir", type=str, default="",
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--shard-store", action="store_true",
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--shard-opt-state", action="store_true",
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--resume-from", type=str, default="",
+                   help="(not supported by xgan_torch yet)")
+    return p
+
+
+def main(argv=None):
+    """Train; returns the history (None after a printed error)."""
+    args = build_parser().parse_args(argv)
+    config.refuse_unsupported(args, UNSUPPORTED)
+    try:
+        device = config.resolve_device(args.cpu)
+    except RuntimeError as e:
+        print(f"Error: {e}")
+        sys.exit(1)
+    print("Note: the loss-curve figure gan_loss_curve.png is not written by "
+          "xgan_torch yet; gan_training_history.json is.")
+    dtype = config.resolve_dtype(args.compute_dtype, device)
+    if device.type == "cuda" and dtype == torch.float32:
+        # f32 means f32: cuDNN would otherwise run the convolutions in TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print("--- Training Arguments ---")
+    for k, v in sorted(vars(args).items()):
+        print(f"  {k}: {v}")
+    print("-------------------------")
+    from xgan_torch.train.gan_loop import train_dcgan
+    return train_dcgan(args, device, dtype)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,6 +8,7 @@ continuing on the CPU.
 from __future__ import annotations
 
 import argparse
+import sys
 
 import torch
 
@@ -30,6 +31,51 @@ def add_path_args(p: argparse.ArgumentParser):
                    help="Directory to save training history JSON")
     p.add_argument("--figures-dir", type=str, default="./results/figures",
                    help="Directory to save generated plot images")
+
+
+def add_gan_model_args(p: argparse.ArgumentParser, fm_default: int = 64):
+    """The GAN model flags, with the reference's defaults."""
+    p.add_argument("--num-channels", type=int, default=3)
+    p.add_argument("--latent-dim", type=int, default=100)
+    p.add_argument("--feature-maps-g", type=int, default=fm_default)
+    p.add_argument("--feature-maps-d", type=int, default=fm_default)
+
+
+def add_gan_train_args(p: argparse.ArgumentParser, *, epochs: int,
+                       batch_size: int, vis_batch_size: int = 64,
+                       save_interval: int = 500,
+                       checkpoint_interval: int = 10):
+    """The GAN training flags, with the JAX package's defaults."""
+    p.add_argument("--epochs", type=int, default=epochs)
+    p.add_argument("--batch-size", type=int, default=batch_size)
+    p.add_argument("--lr", type=float, default=0.0002)
+    p.add_argument("--beta1", type=float, default=0.5)
+    p.add_argument("--workers", type=int, default=4,
+                   help="Host threads that decode the images for the "
+                        "one-time store build")
+    p.add_argument("--vis-batch-size", type=int, default=vis_batch_size)
+    p.add_argument("--save-interval", type=int, default=save_interval,
+                   help="Iterations between sample sheets")
+    p.add_argument("--checkpoint-interval", type=int,
+                   default=checkpoint_interval,
+                   help="Epochs between checkpoints")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="(not supported by xgan_torch yet)")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="(not supported by xgan_torch yet)")
+
+
+def refuse_unsupported(args, defaults: dict) -> None:
+    """Exit 1 with an ``Error:`` line when a flag the port does not
+    support yet is set away from its default (``defaults``: dest ->
+    default)."""
+    for name, default in defaults.items():
+        if getattr(args, name) != default:
+            flag = "--" + name.replace("_", "-")
+            print(f"Error: {flag} {getattr(args, name)!r} is not supported "
+                  "by xgan_torch yet; leave it at its default "
+                  f"({default!r})")
+            sys.exit(1)
 
 
 def add_device_arg(p: argparse.ArgumentParser):

@@ -58,6 +58,28 @@ def take_rows(images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return images.index_select(0, idx)
 
 
+def gather_preprocess(images_u8: torch.Tensor, idx: torch.Tensor, *,
+                      flip: torch.Tensor | None = None,
+                      generator: torch.Generator | None = None,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The GAN's real batch: rows ``idx`` of the device store, flipped per
+    sample (``flip``, else drawn from ``generator``), ImageNet-normalized,
+    in ``dtype``. The reference trains its GAN on ImageNet-normalized
+    reals though G's tanh spans [-1, 1]; the port keeps that quirk."""
+    batch = random_flip(take_rows(images_u8, idx), flip, generator=generator)
+    return normalize_images(batch, dtype=dtype)
+
+
+def minmax_to_u8(x: torch.Tensor) -> torch.Tensor:
+    """Global min-max rescale of a whole sheet to uint8, rounded half to
+    even: the reference's sample-sheet transform
+    (``save_image(normalize=True)``); exports use :func:`tanh_to_u8`."""
+    x = x.float()
+    lo, hi = x.min(), x.max()
+    y = (x - lo) / torch.clamp(hi - lo, min=1e-12)
+    return torch.round(y * 255.0).to(torch.uint8)
+
+
 def tanh_to_u8(x: torch.Tensor) -> torch.Tensor:
     """Generator output in [-1, 1] -> uint8 via ``x*0.5+0.5``, clipped,
     times 255, rounded half to even: the reference's synthetic-image export

@@ -24,6 +24,9 @@ tiles from :func:`mma_tiles`), everything else to the CUDA-core kernel
 back to another. :func:`convt4x4s2_mma_emulate` walks the tensor-core
 kernel's grid on the CPU, so its index arithmetic is tested without a
 card.
+
+:func:`convt4x4s2_train` is the differentiable form that the train-mode
+generator calls: its forward is one :func:`convt4x4s2_fused` call.
 """
 from __future__ import annotations
 
@@ -62,25 +65,27 @@ def pack_convt_weight(w: torch.Tensor,
 
 def convt4x4s2_fused_ref(x, wp, scale, shift, act: str = "none"):
     """Plain torch version: four phase sums as einsums over slices of the
-    1-px-padded input, the epilogue in f32, then the interleave."""
+    1-px-padded input, the epilogue in f32 (f64 for f64 inputs, so that
+    gradients can be checked numerically), then the interleave."""
     code = _act_code(act)
     b, h, w, _ = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    w32 = wp.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc), (0, 0, 1, 1, 1, 1))
+    w32 = wp.to(acc)
     rows = []
     for py in (0, 1):
         cols = []
         for px in (0, 1):
-            acc = sum(torch.einsum(
+            y = sum(torch.einsum(
                 "bhwc,cd->bhwd",
                 xp[:, py + j0:py + j0 + h, px + j1:px + j1 + w, :],
                 w32[py, px, j0, j1]) for j0 in (0, 1) for j1 in (0, 1))
-            acc = acc * scale.float() + shift.float()
+            y = y * scale.to(acc) + shift.to(acc)
             if code == 1:
-                acc = torch.relu(acc)
+                y = torch.relu(y)
             elif code == 2:
-                acc = torch.where(acc >= 0, acc, 0.2 * acc)
-            cols.append(acc)
+                y = torch.where(y >= 0, y, 0.2 * y)
+            cols.append(y)
         rows.append(torch.stack(cols, dim=-2))  # (B, H, W, px, C)
     y = torch.stack(rows, dim=2)  # (B, H, py, W, px, C)
     return y.reshape(b, 2 * h, 2 * w, -1).to(x.dtype)
@@ -211,3 +216,46 @@ def convt4x4s2_fused(x, wp, scale, shift, act: str = "none"):
     if x.device.type == "cpu":
         return convt4x4s2_fused_ref(x, wp, scale, shift, act)
     return convt4x4s2_fused_cuda(x, wp, scale, shift, act)
+
+
+class ConvT4x4s2Train(torch.autograd.Function):
+    """ConvTranspose2d(k4, s2, p1) of NHWC ``x`` with the torch weight
+    ``w (Cin, Cout, 4, 4)``, differentiable in both.
+
+    Forward: ``w`` is packed in ``x.dtype`` and ``convt`` (the fused kernel
+    by default) runs with an identity affine and ``act="none"``; train-mode
+    BN follows outside. Backward: cuDNN's ``convolution_backward`` on NCHW
+    views of the NHWC tensors. The Pallas kernel has no backward either:
+    the JAX package takes these gradients from XLA's convolutions
+    (``jax.vjp`` of lax ``conv_transpose``), outside any Pallas kernel. The
+    weight is cast to ``x.dtype`` for both passes and ``dW`` back to the
+    parameter's dtype, as the gradient of flax's cast of its f32 kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w, convt):
+        cout = w.shape[1]
+        ones = torch.ones(cout, device=x.device)
+        zeros = torch.zeros(cout, device=x.device)
+        x = x.contiguous()  # the kernels take dense NHWC
+        y = convt(x, pack_convt_weight(w, x.dtype), ones, zeros, act="none")
+        ctx.save_for_backward(x, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+            w.to(x.dtype), None, [2, 2], [1, 1], [1, 1], True, [0, 0], 1,
+            [need_x, need_w, False])
+        return (dx.permute(0, 2, 3, 1) if need_x else None,
+                dw.to(w.dtype) if need_w else None, None)
+
+
+def convt4x4s2_train(x, w, convt=convt4x4s2_fused):
+    """Differentiable ConvT(k4, s2, p1): NHWC ``x``, torch weight ``w``
+    ``(Cin, Cout, 4, 4)`` (the f32 parameter) -> ``(B, 2H, 2W, Cout)`` in
+    ``x.dtype``. ``convt`` is the forward; a check of the kernel passes
+    :func:`convt4x4s2_fused_ref` to run the plain version on the card."""
+    return ConvT4x4s2Train.apply(x, w, convt)

@@ -5,6 +5,10 @@ the spatial flip of torch's ``(I, O, kh, kw)`` ConvTranspose2d weights;
 the DCGAN generator's state dict uses the reference ``nn.Sequential``
 indices (``xgan_torch.models.dcgan.SEQ_CONVT`` / ``SEQ_BN``).
 
+Discriminator: flax ``Conv_i`` HWIO kernels become torch OIHW weights and
+``TorchBatchNorm_i`` the BNs, at the reference indices ``SEQ_D_CONV`` /
+``SEQ_D_BN``.
+
 ResNet-50: the JAX package's parameter tree (``stem``,
 ``layer{s}_{b}/conv{i}``, ``downsample``, each with its ``bn``; ``fc``)
 maps onto torchvision's keys with HWIO -> OIHW convolutions and the
@@ -16,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xgan_torch.models.dcgan import SEQ_BN, SEQ_CONVT
+from xgan_torch.models.dcgan import SEQ_BN, SEQ_CONVT, SEQ_D_BN, SEQ_D_CONV
 
 
 def convt_hwio_to_torch(w) -> np.ndarray:
@@ -26,25 +30,44 @@ def convt_hwio_to_torch(w) -> np.ndarray:
                         (2, 3, 0, 1)).copy()
 
 
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32).copy())
+
+
+def _put_bn(sd: dict, seq: int, params, stats) -> None:
+    """A flax ``TorchBatchNorm``'s parameters and statistics as the
+    reference BN at ``main.{seq}``."""
+    sd[f"main.{seq}.weight"] = _t(params["scale"])
+    sd[f"main.{seq}.bias"] = _t(params["bias"])
+    sd[f"main.{seq}.running_mean"] = _t(stats["mean"])
+    sd[f"main.{seq}.running_var"] = _t(stats["var"])
+    sd[f"main.{seq}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
 def generator_state_dict_from_jax(params, batch_stats) -> dict:
     """JAX DCGAN generator ``(params, batch_stats)`` (numpy leaves) -> the
     reference-layout torch state dict that ``Generator`` loads strictly."""
-    def t(x):
-        return torch.from_numpy(np.asarray(x, np.float32).copy())
-
     sd = {}
     for i, seq in enumerate(SEQ_CONVT):
         sd[f"main.{seq}.weight"] = torch.from_numpy(convt_hwio_to_torch(
             params[f"ConvTranspose_{i}"]["kernel"]))
     for i, seq in enumerate(SEQ_BN):
-        sd[f"main.{seq}.weight"] = t(params[f"TorchBatchNorm_{i}"]["scale"])
-        sd[f"main.{seq}.bias"] = t(params[f"TorchBatchNorm_{i}"]["bias"])
-        sd[f"main.{seq}.running_mean"] = t(
-            batch_stats[f"TorchBatchNorm_{i}"]["mean"])
-        sd[f"main.{seq}.running_var"] = t(
-            batch_stats[f"TorchBatchNorm_{i}"]["var"])
-        sd[f"main.{seq}.num_batches_tracked"] = torch.zeros(
-            (), dtype=torch.long)
+        _put_bn(sd, seq, params[f"TorchBatchNorm_{i}"],
+                batch_stats[f"TorchBatchNorm_{i}"])
+    return sd
+
+
+def discriminator_state_dict_from_jax(params, batch_stats) -> dict:
+    """JAX DCGAN discriminator ``(params, batch_stats)`` (numpy leaves) ->
+    the reference-layout torch state dict that ``Discriminator`` loads
+    strictly."""
+    sd = {}
+    for i, seq in enumerate(SEQ_D_CONV):
+        sd[f"main.{seq}.weight"] = _t(np.transpose(
+            np.asarray(params[f"Conv_{i}"]["kernel"]), (3, 2, 0, 1)))
+    for i, seq in enumerate(SEQ_D_BN):
+        _put_bn(sd, seq, params[f"TorchBatchNorm_{i}"],
+                batch_stats[f"TorchBatchNorm_{i}"])
     return sd
 
 
@@ -56,10 +79,6 @@ def load_generator_pth(path: str) -> dict:
         raise ValueError(f"{path} holds a {type(sd).__name__}, not a "
                          "state dict")
     return sd
-
-
-def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(x, np.float32).copy())
 
 
 def resnet_state_dict_from_flax(params, batch_stats,

@@ -1,35 +1,57 @@
-"""DCGAN generator, eval mode (role of xgan/models/dcgan.py:Generator).
+"""DCGAN generator and discriminator (role of xgan/models/dcgan.py).
 
-z (B, latent) -> ConvT(k=S/32, s1, p0) -> 5 x ConvT(k4, s2, p1) -> tanh,
-channels fg*8 -> fg*4 -> fg*2 -> fg -> fg//2 -> C with eval BN + ReLU
+Generator: z (B, latent) -> ConvT(k=S/32, s1, p0) -> 5 x ConvT(k4, s2, p1)
+-> tanh, channels fg*8 -> fg*4 -> fg*2 -> fg -> fg//2 -> C with BN + ReLU
 between; output NHWC (B, S, S, C) in [-1, 1] like the JAX package.
 
+Discriminator: NHWC (B, S, S, C) -> Conv(k4, s2, p1) x 5, widths fd//2 ->
+fd -> fd*2 -> fd*4 -> fd*8, BN on all but the first, LeakyReLU 0.2 ->
+Conv(k=S/32, valid) -> f32 logits (B,) (no sigmoid: the losses take
+logits).
+
 Parameters live in ``main``, an ``nn.Sequential`` in the reference
-layout (ConvT at main.{0,3,6,9,12,15}, BN at main.{1,4,7,10,13}), so a
-reference-layout ``.pth`` loads with ``strict=True``. Those modules only
-hold parameters; their own ``forward`` is never called. Instead, at load
-time (:meth:`Generator.repack`), the ConvT weights are packed for the
-kernel in the compute dtype and each eval BN is folded into a per-channel
-scale/shift, and :meth:`Generator.forward` runs:
+layout, so a reference-layout ``.pth`` loads with ``strict=True``:
+Generator ConvT at main.{0,3,6,9,12,15}, BN at main.{1,4,7,10,13};
+Discriminator conv at main.{0,2,5,8,11,14}, BN at main.{3,6,9,12}. Those
+modules only hold parameters; their own ``forward`` is never called.
+Parameters are f32 and activations run in the compute ``dtype``.
 
-- the first ConvT on the 1x1 input as one matrix product, then eval BN and
-  ReLU (XLA computes this outside any Pallas kernel in the JAX package too);
-- each middle ConvT+BN+ReLU as one call of the fused kernel
-  (``xgan_torch.kernels.convt``);
-- the last ConvT as one kernel call with ``act="none"``, then tanh in f32.
+The generator has two forwards:
 
-Train mode (batch statistics) is not ported yet.
+- :meth:`Generator.forward`, eval mode under ``no_grad``, on tensors that
+  :meth:`Generator.repack` derives from the parameters at load time: the
+  first ConvT as one matrix product, then eval BN and ReLU; each middle
+  ConvT+BN+ReLU as one call of the fused kernel (eval BN folded into its
+  epilogue); the last ConvT as one kernel call with ``act="none"``, then
+  tanh in f32. After the parameters change (a train step), call
+  ``repack()`` before it.
+- :meth:`Generator.forward_train`, differentiable, from the live
+  parameters: the first ConvT as a matrix product, each k4s2 ConvT as
+  ``convt4x4s2_train`` (the kernel forward, cuDNN backward), each BN in
+  train mode with batch statistics (running statistics advance once per
+  call), tanh in f32.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from xgan_torch.kernels.convt import convt4x4s2_fused, pack_convt_weight
+from xgan_torch.kernels.convt import (convt4x4s2_fused, convt4x4s2_train,
+                                      pack_convt_weight)
+from xgan_torch.models.layers import batch_norm, gan_init_, leaky_relu
 from xgan_torch.ops.norm import batch_norm_infer, fold_bn
 
 SEQ_CONVT = (0, 3, 6, 9, 12, 15)
 SEQ_BN = (1, 4, 7, 10, 13)
+SEQ_D_CONV = (0, 2, 5, 8, 11, 14)
+SEQ_D_BN = (3, 6, 9, 12)
+
+
+def _check_size(image_size: int) -> None:
+    if image_size % 32:
+        raise ValueError(f"image_size must be a multiple of 32, got "
+                         f"{image_size}")
 
 
 class Generator(nn.Module):
@@ -42,9 +64,7 @@ class Generator(nn.Module):
         ``generator``: draws the reference init, N(0, 0.02) conv weights and
         N(1, 0.02) BN scales; it must live on ``device``."""
         super().__init__()
-        if image_size % 32:
-            raise ValueError(f"image_size must be a multiple of 32, got "
-                             f"{image_size}")
+        _check_size(image_size)
         self.latent_dim = latent_dim
         self.s0 = image_size // 32
         self.dtype = dtype
@@ -60,27 +80,20 @@ class Generator(nn.Module):
         layers += [nn.ConvTranspose2d(widths[-1], num_channels, 4, 2, 1,
                                       bias=False, device=device), nn.Tanh()]
         self.main = nn.Sequential(*layers)
-        with torch.no_grad():
-            for i in SEQ_CONVT:
-                nn.init.normal_(self.main[i].weight, 0.0, 0.02,
-                                generator=generator)
-            for i in SEQ_BN:
-                nn.init.normal_(self.main[i].weight, 1.0, 0.02,
-                                generator=generator)
-                nn.init.zeros_(self.main[i].bias)
+        gan_init_(self.main, generator)
         self.repack()
 
     @torch.no_grad()
     def repack(self) -> None:
-        """Derive the forward's tensors from the parameters: the first
+        """Derive the eval forward's tensors from the parameters: the first
         ConvT as a (latent, S0*S0*C0) matrix whose product is already NHWC,
         the k4s2 weights packed for the kernel (in ``self.dtype``), and
         each eval BN folded into an f32 scale/shift. Runs after init and
-        every :meth:`load_state_dict`."""
-        w0 = self.main[0].weight
-        self.register_buffer(
-            "w0_mat", w0.permute(0, 2, 3, 1).reshape(w0.shape[0], -1)
-            .to(self.dtype).contiguous(), persistent=False)
+        every :meth:`load_state_dict`; a trainer calls it before each eval
+        render."""
+        # a copy: at S0 = 1 the reshape is a view of the parameter
+        self.register_buffer("w0_mat", self._w0_mat().clone(),
+                             persistent=False)
         for i, seq in enumerate(SEQ_CONVT[1:]):
             w = self.main[seq].weight
             if i < 4:
@@ -96,6 +109,13 @@ class Generator(nn.Module):
                                  persistent=False)
             self.register_buffer(f"shift{i}", shift.contiguous(),
                                  persistent=False)
+
+    def _w0_mat(self) -> torch.Tensor:
+        """The first ConvT on the 1x1 input as a (latent, S0*S0*C0) matrix
+        in ``self.dtype``, differentiable in the parameter."""
+        w0 = self.main[0].weight
+        return w0.permute(0, 2, 3, 1).reshape(w0.shape[0], -1) \
+            .to(self.dtype).contiguous()
 
     def set_compute_dtype(self, dtype: torch.dtype) -> None:
         """Switch the activation dtype, repacking the weights for it."""
@@ -121,8 +141,8 @@ class Generator(nn.Module):
         the same device."""
         if train:
             raise NotImplementedError(
-                "train-mode Generator forward (batch-statistics BN) is not "
-                "ported yet: ROADMAP A2/A4")
+                "Generator.forward is the eval path (no autograd); train "
+                "mode is Generator.forward_train (ROADMAP A2)")
         b = z.shape[0]
         x = (z.to(self.dtype) @ self.w0_mat).reshape(b, self.s0, self.s0, -1)
         bn = self.main[SEQ_BN[0]]
@@ -134,3 +154,62 @@ class Generator(nn.Module):
                       getattr(self, f"shift{i}"),
                       act="relu" if i < 4 else "none")
         return torch.tanh(x.float())
+
+    def forward_train(self, z: torch.Tensor, mask=None, *,
+                      convt=convt4x4s2_fused) -> torch.Tensor:
+        """Train-mode forward, differentiable in the parameters: z (B,
+        latent) -> (B, S, S, C) f32 in [-1, 1]. ``mask``: (B,) validity
+        weights of a padded tail batch for the BN statistics (outputs at
+        masked rows are garbage by contract). ``convt`` as in
+        :meth:`forward`."""
+        b = z.shape[0]
+        x = (z.to(self.dtype) @ self._w0_mat()).reshape(b, self.s0, self.s0,
+                                                        -1)
+        x = torch.relu(batch_norm(self.main[SEQ_BN[0]], x, train=True,
+                                  mask=mask, dim=-1))
+        for i, seq in enumerate(SEQ_CONVT[1:]):
+            x = convt4x4s2_train(x, self.main[seq].weight, convt)
+            if i < 4:
+                x = torch.relu(batch_norm(self.main[SEQ_BN[i + 1]], x,
+                                          train=True, mask=mask, dim=-1))
+        return torch.tanh(x.float())
+
+
+class Discriminator(nn.Module):
+    def __init__(self, num_channels: int = 3, feature_maps: int = 64,
+                 image_size: int = 224, *,
+                 dtype: torch.dtype = torch.float32,
+                 device: torch.device | str | None = None,
+                 generator: torch.Generator | None = None):
+        """``dtype`` and ``generator`` as for :class:`Generator`."""
+        super().__init__()
+        _check_size(image_size)
+        self.dtype = dtype
+        fd = feature_maps
+        widths = [fd // 2, fd, fd * 2, fd * 4, fd * 8]
+        layers = [nn.Conv2d(num_channels, widths[0], 4, 2, 1, bias=False,
+                            device=device), nn.LeakyReLU(0.2, True)]
+        for cin, cout in zip(widths, widths[1:]):
+            layers += [nn.Conv2d(cin, cout, 4, 2, 1, bias=False,
+                                 device=device),
+                       nn.BatchNorm2d(cout, device=device),
+                       nn.LeakyReLU(0.2, True)]
+        layers += [nn.Conv2d(widths[-1], 1, image_size // 32, 1, 0,
+                             bias=False, device=device)]
+        self.main = nn.Sequential(*layers)
+        gan_init_(self.main, generator)
+
+    def forward(self, x: torch.Tensor, *, train: bool,
+                mask=None) -> torch.Tensor:
+        """x (B, S, S, C) NHWC -> f32 logits (B,). The convolutions are
+        cuDNN's, on a channels_last NCHW view in ``self.dtype`` (the JAX
+        package leaves them to XLA too). ``mask``: (B,) validity weights
+        for train-mode BN statistics."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        for seq in SEQ_D_CONV[:-1]:
+            x = F.conv2d(x, self.main[seq].weight.to(x.dtype), None, 2, 1)
+            if seq + 1 in SEQ_D_BN:
+                x = batch_norm(self.main[seq + 1], x, train=train, mask=mask)
+            x = leaky_relu(x)
+        x = F.conv2d(x, self.main[SEQ_D_CONV[-1]].weight.to(x.dtype))
+        return x.float().reshape(x.shape[0])

@@ -1,0 +1,59 @@
+"""Shared pieces of the port's models (role of xgan/models/layers.py).
+
+The GAN init is the reference's ``weights_init`` contract: N(0, 0.02)
+conv weights, N(1, 0.02) BatchNorm scales and zero BatchNorm biases,
+drawn from a caller's ``torch.Generator`` (``xgan/models/layers.py:39-50``).
+
+:func:`batch_norm` applies an ``nn.BatchNorm2d``'s parameters and running
+statistics in the JAX package's dtype policy: statistics and the affine in
+f32, the result in the input's dtype. In train mode it uses batch
+statistics and writes the new running statistics back into the module's
+buffers (momentum 0.1, unbiased variance); a (B,) validity ``mask``
+restricts the statistics to the valid rows of a padded tail batch
+(``xgan_torch.ops.norm.batch_norm_train``). Without a mask, train BN is
+``F.batch_norm``, which has the same semantics.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from xgan_torch.ops.norm import batch_norm_train
+
+
+@torch.no_grad()
+def gan_init_(modules, generator: torch.Generator | None = None) -> None:
+    """The reference GAN init of every conv and transposed conv, then of
+    every BN, in ``modules``, from ``generator`` (on their device)."""
+    modules = list(modules)
+    for m in modules:
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            nn.init.normal_(m.weight, 0.0, 0.02, generator=generator)
+    for m in modules:
+        if isinstance(m, nn.BatchNorm2d):
+            nn.init.normal_(m.weight, 1.0, 0.02, generator=generator)
+            nn.init.zeros_(m.bias)
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, *, train: bool,
+               mask=None, dim: int = 1) -> torch.Tensor:
+    """BN over channel axis ``dim`` (1 for NCHW, -1 for NHWC) with the
+    parameters and running statistics of ``bn``; see the module
+    docstring."""
+    if train and mask is not None:
+        y, new_mean, new_var = batch_norm_train(
+            x, bn.weight, bn.bias, bn.running_mean, bn.running_var, dim=dim,
+            momentum=bn.momentum, eps=bn.eps, mask=mask)
+        with torch.no_grad():
+            bn.running_mean.copy_(new_mean)
+            bn.running_var.copy_(new_var)
+        return y
+    y = F.batch_norm(x.movedim(dim, 1), bn.running_mean, bn.running_var,
+                     bn.weight, bn.bias, training=train,
+                     momentum=bn.momentum, eps=bn.eps)
+    return y.movedim(1, dim)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, slope)

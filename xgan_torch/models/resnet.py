@@ -17,8 +17,7 @@ channels_last NCHW view, which cuDNN's convolutions take as they are. In
 train mode BN uses batch statistics and updates its running statistics
 in place (momentum 0.1, the unbiased variance); a (B,) validity ``mask``
 restricts the statistics to the valid rows of a padded tail batch
-(``xgan_torch.ops.norm.batch_norm_train``). Without a mask, train BN is
-``F.batch_norm``, which has the same semantics.
+(``xgan_torch.models.layers.batch_norm``).
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xgan_torch.ops.norm import batch_norm_train
+from xgan_torch.models.layers import batch_norm
 
 WIDTHS = (64, 128, 256, 512)
 
@@ -41,17 +40,7 @@ def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor, *,
     its result in ``x.dtype``."""
     y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
                  conv.padding)
-    if train and mask is not None:
-        y32, new_mean, new_var = batch_norm_train(
-            y, bn.weight, bn.bias, bn.running_mean, bn.running_var, dim=1,
-            momentum=bn.momentum, eps=bn.eps, mask=mask)
-        with torch.no_grad():
-            bn.running_mean.copy_(new_mean)
-            bn.running_var.copy_(new_var)
-        return y32
-    return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, training=train, momentum=bn.momentum,
-                        eps=bn.eps)
+    return batch_norm(bn, y, train=train, mask=mask)
 
 
 class Bottleneck(nn.Module):

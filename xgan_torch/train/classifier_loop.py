@@ -39,7 +39,8 @@ from xgan_torch.train.classifier import (accuracy, auroc,
                                          train_step, weighted_prf)
 from xgan_torch.train.curriculum import (get_current_synthetic_ratio,
                                          parse_curriculum_schedule)
-from xgan_torch.train.loop_common import EpochProgress, batch_tail_mask
+from xgan_torch.train.loop_common import EpochProgress, batch_tail_mask, \
+    host_state
 from xgan_torch.utils import check_create_dir
 
 KFOLD_SEED = 42  # split parity with the reference's KFold
@@ -167,10 +168,6 @@ def fallback_pool(real: DeviceStore, train_indices) -> torch.Tensor:
     return torch.from_numpy(pool).to(real.images.device)
 
 
-def _host_state(model) -> dict:
-    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-
-
 def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
                   fold, strategy, schedule, seed_offset=0,
                   synth_fallback=False):
@@ -203,7 +200,7 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
         + f"{strategy}_"
     history = {"epoch": [], "train_loss": [], "train_acc": [],
                "val_loss": [], "val_acc": [], "synthetic_ratio": []}
-    best_acc, best_state = 0.0, _host_state(model)
+    best_acc, best_state = 0.0, host_state(model)
     data_rng = np.random.default_rng(seed)
 
     for epoch in range(args.epochs):
@@ -247,7 +244,7 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
               f"({time.time() - t0:.1f}s)")
 
         if val_acc > best_acc:
-            best_acc, best_state = val_acc, _host_state(model)
+            best_acc, best_state = val_acc, host_state(model)
             ckpt = os.path.join(args.model_dir, f"{run_prefix}resnet50.pth")
             torch.save(best_state, ckpt)
             print(f"Saved best model checkpoint to {ckpt}")

@@ -1,0 +1,25 @@
+"""Losses and the optimizer shared by the GAN trainers
+(role of xgan/train/common.py)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from xgan_torch.ops.reduce import weighted_mean
+
+
+def bce_with_logits(logits: torch.Tensor, target: float,
+                    mask=None) -> torch.Tensor:
+    """Mean binary cross-entropy on logits in f32, a (B,) ``mask`` making
+    it the mean over the valid rows: the stable form of the reference's
+    Sigmoid + BCELoss."""
+    logits = logits.float()
+    per_sample = F.binary_cross_entropy_with_logits(
+        logits, torch.full_like(logits, target), reduction="none")
+    return weighted_mean(per_sample, mask)
+
+
+def adam(params, lr: float, beta1: float,
+         beta2: float = 0.999) -> torch.optim.Adam:
+    """torch.optim.Adam with the JAX package's settings (eps 1e-8)."""
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8)

@@ -5,6 +5,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 
 def batch_tail_mask(n_valid: int, num_batches: int, batch_size: int):
@@ -20,29 +21,83 @@ def batch_tail_mask(n_valid: int, num_batches: int, batch_size: int):
                            np.zeros(pad, np.float32)])
 
 
+def host_state(model) -> dict:
+    """A copy of ``model``'s state dict on the host (a checkpoint that
+    later steps do not change)."""
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def grid_iters(iters: int, save_interval: int, last_epoch: bool, i: int,
+               num_batches: int) -> list[int]:
+    """The iterations whose sample sheet is due after iteration ``iters``
+    (the ``i``-th batch of its epoch): ``[iters]`` every
+    ``save_interval`` iterations, as the reference (train_gan.py:166-169),
+    and after the final iteration of the final epoch; else ``[]``."""
+    due = iters % save_interval == 0 or (last_epoch and i == num_batches - 1)
+    return [iters] if due else []
+
+
+def checkpoint_boundary(epoch: int, epochs: int, interval: int) -> bool:
+    """Whether checkpoints are due after ``epoch`` (0-based): every
+    ``interval`` epochs and after the final one."""
+    return (epoch + 1) % interval == 0 or epoch + 1 == epochs
+
+
+def gan_live_postfix(m) -> str:
+    """DCGAN step metrics [G, D, D_x, D_G_z1, D_G_z2] for the progress
+    line."""
+    return f"Loss_D: {m[1]:.4f}, Loss_G: {m[0]:.4f}, D(x): {m[2]:.4f}"
+
+
 class EpochProgress:
     """In-epoch progress line that never waits for the device: it counts
     batches dispatched and their rate. Writes only to a terminal and
-    redraws at most ~10 times a second."""
+    redraws at most ~10 times a second.
 
-    def __init__(self, label: str, num_batches: int):
+    With ``postfix_fn``, the line also shows a recent step's metrics: at
+    a redraw the step's metrics are copied to the host without blocking,
+    and shown at a later redraw once that copy has landed."""
+
+    def __init__(self, label: str, num_batches: int, postfix_fn=None):
         self.enabled = sys.stdout.isatty()
         self.label = label
         self.total = num_batches
         self.t0 = time.time()
         self._last = 0.0
+        self.postfix_fn = postfix_fn
+        self.postfix = ""
+        self._pending = None  # (host copy, CUDA event or None)
 
-    def update(self, i: int) -> None:
+    def update(self, i: int, metrics: torch.Tensor | None = None) -> None:
         if not self.enabled:
             return
         now = time.time()
         if now - self._last < 0.1 and i < self.total:
             return
+        if self.postfix_fn is not None and metrics is not None:
+            self._poll(metrics)
         rate = i / max(now - self.t0, 1e-9)
         sys.stdout.write(f"\r{self.label}: {i}/{self.total} batches "
-                         f"dispatched ({rate:.1f}/s)")
+                         f"dispatched ({rate:.1f}/s){self.postfix}")
         sys.stdout.flush()
         self._last = now
+
+    def _poll(self, metrics: torch.Tensor) -> None:
+        if self._pending is not None:
+            host, done = self._pending
+            if done is None or done.query():
+                self.postfix = ", " + self.postfix_fn(host.numpy())
+                self._pending = None
+        if self._pending is None:
+            on_cuda = metrics.is_cuda
+            host = torch.empty(metrics.shape, dtype=metrics.dtype,
+                               pin_memory=on_cuda)
+            host.copy_(metrics, non_blocking=on_cuda)
+            done = None
+            if on_cuda:
+                done = torch.cuda.Event()
+                done.record()
+            self._pending = (host, done)
 
     def __enter__(self):
         return self
