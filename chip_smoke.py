@@ -37,30 +37,41 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (3,4,6,3), 224 px, B = 32, bf16) on it, with the sampler's 512 PNGs
    as the synthetic set: run A curriculum, 2 folds x 2 epochs, frozen
    base; run B augmented, one run of 1 epoch, ``--unfreeze``. It checks
-   the JSON files and the checkpoints, that ``mixed_gather`` launched
-   once per train step and never in validation or test, and that one f32
-   train step through the kernel and through the plain gather gives the
-   same u8 batch and the same loss;
+   the JSON files, the checkpoints and the figures (run A's three curves
+   and two CV bar charts, run B's three curves; each decodes), that
+   ``mixed_gather`` launched once per train step and never in validation
+   or test, and that one f32 train step through the kernel and through
+   the plain gather gives the same u8 batch and the same loss;
 8. trains the DCGAN through its CLI (``xgan_torch.cli.train_gan``) at
    full width (224 px, fg = fd = 64, latent 100, B = 128, bf16) on the
    same tree, 2 epochs of 4 steps: checks the history JSON, the sample
-   sheets and the final ``.pth`` files, and that every k4s2 layer of the
-   train steps and the sheets ran on the tensor-core ConvT kernel (5
-   launches each); then samples from its ``generator_final.pth`` through
-   the sampler CLI;
-9. times and profiles warm train steps of both classifier runs'
-   configurations: ms per step, imgs/s, the top device ops, one
-   ``mixed_gather`` kernel per step, the device idle share;
-10. holds one f32 GAN train step at full width (B = 16) through the
+   sheets, ``gan_loss_curve.png`` and the final ``.pth`` files, and that
+   every k4s2 layer of the train steps and the sheets ran on the
+   tensor-core ConvT kernel (5 launches each); then samples from its
+   ``generator_final.pth`` through the sampler CLI;
+9. gathers runs A and B into one metrics and one model directory and runs
+   the analyzer through its CLI (``xgan_torch.cli.analyze_results``) on
+   the card at full width: the report, the comparison plots, SSIM of 500
+   of the sampler's PNGs against 100 of the tree's positives at 224 px,
+   Grad-CAM of both ResNet-50 checkpoints for 3 positive, 3 negative and
+   3 synthetic samples. Every output must decode and the report must
+   equal the one ``--cpu`` writes from the same metrics; SSIM on the card
+   must be within 1e-5 of the CPU for 20 x 10 of those images, and one
+   conv3 CAM within 5e-3 of the CPU's. Prints the all-pairs SSIM time by
+   CUDA events, the time per CAM and the CLI's wall time;
+10. times and profiles warm train steps of both classifier runs'
+    configurations: ms per step, imgs/s, the top device ops, one
+    ``mixed_gather`` kernel per step, the device idle share;
+11. holds one f32 GAN train step at full width (B = 16) through the
     kernel against the same step through the plain version (metrics, G's
     gradient norms), and the ConvT's training form (kernel forward, cuDNN
     backward) against ``F.conv_transpose2d`` under autograd at the five
     bf16 layers at B = 128;
-11. times 20 warm bf16 GAN train steps at B = 128 and profiles one (top
+12. times 20 warm bf16 GAN train steps at B = 128 and profiles one (top
     device ops, the ConvT kernels' share, the idle share); times the five
     ConvT forwards at the training shapes against their bound, the plain
     version and cuDNN;
-12. prints the kernel table line, the card line and, last, the result
+13. prints the kernel table line, the card line and, last, the result
     line.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
@@ -596,6 +607,18 @@ METRIC_KEYS = {"loss", "accuracy", "weighted_precision", "weighted_recall",
                "weighted_f1_score", "auroc"}
 
 
+def check_figures(figures_dir: str, names: list) -> None:
+    """The directory holds exactly ``names``, each a PNG that decodes to a
+    figure that is not blank."""
+    from xgan_torch.native.png import decode_png
+    check(sorted(os.listdir(figures_dir)) == sorted(names),
+          (sorted(os.listdir(figures_dir)), names))
+    for name in names:
+        img = decode_png(os.path.join(figures_dir, name))
+        check(img.ndim == 3 and img.shape[2] == 3 and img.std() > 0,
+              (name, img.shape))
+
+
 def phase_classifier(tmp: str, root: str, synth_dir: str):
     """Runs A and B through the CLI; returns the mixed_gather launches of
     both runs."""
@@ -608,6 +631,7 @@ def phase_classifier(tmp: str, root: str, synth_dir: str):
         argv = ["--data-dir", root, "--synthetic-dir", synth_dir,
                 "--model-dir", os.path.join(out, "models"),
                 "--results-dir", os.path.join(out, "metrics"),
+                "--figures-dir", os.path.join(out, "figures"),
                 "--cache-dir", os.path.join(tmp, "cache"),
                 "--image-size", str(SIZE), "--batch-size", str(CLS_B),
                 "--compute-dtype", "bf16", "--workers", "8", *extra]
@@ -661,8 +685,13 @@ def phase_classifier(tmp: str, root: str, synth_dir: str):
             model.load_state_dict(torch.load(
                 os.path.join(out, "models", name), weights_only=True),
                 strict=True)
+        kinds = ["loss_curve", "accuracy_curve", "synthetic_ratio_curve"]
+        if run == "A":
+            kinds += ["cv_test_metrics_per_fold", "cv_test_loss_per_fold"]
+        figures = sorted(f"{strategy}_{k}.png" for k in kinds)
+        check_figures(os.path.join(out, "figures"), figures)
         print(f"run {run}: {sorted(os.listdir(mdir))} have the reference "
-              f"keys; {sorted(ckpts)} load strictly")
+              f"keys; {sorted(ckpts)} load strictly; {figures} decode")
     return total
 
 
@@ -721,9 +750,10 @@ def phase_f32_step(train, synth):
 def phase_classifier_profile(train, synth):
     """Warm train steps in run A's (mix, frozen) and run B's (concat,
     unfrozen) configurations: ms per step, imgs/s, the top device ops,
-    one mixed_gather per step, the device idle share."""
+    one mixed_gather launch per step, the device idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from xgan_torch import kernels as launches
     from xgan_torch.data.pipeline import DeviceStore
     from xgan_torch.models.resnet import ResNet50
     from xgan_torch.train.classifier import classifier_optimizer, train_step
@@ -751,10 +781,14 @@ def phase_classifier_profile(train, synth):
             step(i)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / 30 * 1e3
+        launches.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             step(35)
             torch.cuda.synchronize()
+        # the wrapper's count, not the trace: a trace can miss a kernel
+        check(launches.LAUNCHES["mixed_gather"] == 1,
+              f"mixed_gather launches in one step: {dict(launches.LAUNCHES)}")
         kernels = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
         ours = [e for e in kernels if "mixed_gather" in e.name]
@@ -773,7 +807,6 @@ def phase_classifier_profile(train, synth):
             if e.self_device_time_total > 0:
                 print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
                       f"x{e.count:<3d} {e.key[:90]}")
-        check(len(ours) == 1, [e.name for e in ours])
         out[run] = step_ms
     return out
 
@@ -798,6 +831,7 @@ def phase_gan(tmp: str, root: str):
     argv = ["--data-dir", root, "--model-dir", os.path.join(out, "models"),
             "--output-dir", os.path.join(out, "results"),
             "--results-dir", os.path.join(out, "metrics"),
+            "--figures-dir", os.path.join(out, "figures"),
             "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
             "--image-size", str(SIZE), "--feature-maps-g", str(FG),
             "--feature-maps-d", str(FG), "--latent-dim", str(LATENT),
@@ -837,6 +871,7 @@ def phase_gan(tmp: str, root: str):
     for name in sheets:
         img = decode_png(os.path.join(sheet_dir, name))
         check(img.shape == (side, side, 3), (name, img.shape))
+    check_figures(os.path.join(out, "figures"), ["gan_loss_curve.png"])
     gan_dir = os.path.join(out, "models", "gan")
     for name, model in (("generator_final.pth", Generator(LATENT, 3, FG,
                                                            SIZE)),
@@ -845,7 +880,8 @@ def phase_gan(tmp: str, root: str):
         model.load_state_dict(torch.load(os.path.join(gan_dir, name),
                                          weights_only=True), strict=True)
     print(f"GAN run: history keys and {steps} finite entries per series; "
-          f"{len(sheets)} sheets of {side}x{side} decode; "
+          f"{len(sheets)} sheets of {side}x{side} and gan_loss_curve.png "
+          "decode; "
           f"{sorted(os.listdir(gan_dir))} load strictly")
 
     # the chain of the main path: the trained generator into the sampler
@@ -865,6 +901,108 @@ def phase_gan(tmp: str, root: str):
     print(f"GAN -> sampler: {stats['written']} images from the trained "
           f"generator_final.pth, launches {chain}")
     return want + chain.get("convt4x4s2_fused", 0)
+
+
+def phase_analyzer(tmp: str, root: str, synth_dir: str, smi: str):
+    """Runs A and B gathered into one metrics and one model directory
+    (the CV run's fold-1 checkpoint as ``curriculum_resnet50.pth``), the
+    analyzer CLI on the card at full width, its outputs decoded and its
+    report held against ``--cpu``'s; SSIM and one conv3 CAM on the card
+    held against the CPU; the SSIM, CAM and CLI times."""
+    import shutil
+    from xgan_torch.analysis import (_load_grayscale, gradcam_samples,
+                                     grad_cam_resnet, load_cam_models,
+                                     ssim_picks)
+    from xgan_torch.cli.analyze_results import main as analyze_main
+    from xgan_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+    from xgan_torch.data.store import resize_u8
+    from xgan_torch.native.png import decode_png
+    from xgan_torch.ops.ssim import mean_ssim_per_synthetic
+    metrics = os.path.join(tmp, "analyzer_in", "metrics")
+    models = os.path.join(tmp, "analyzer_in", "models")
+    os.makedirs(models)
+    shutil.copytree(os.path.join(tmp, "runA", "metrics"), metrics)
+    for name in os.listdir(os.path.join(tmp, "runB", "metrics")):
+        shutil.copy(os.path.join(tmp, "runB", "metrics", name), metrics)
+    shutil.copy(os.path.join(tmp, "runA", "models",
+                             "fold_1_curriculum_resnet50.pth"),
+                os.path.join(models, "curriculum_resnet50.pth"))
+    shutil.copy(os.path.join(tmp, "runB", "models",
+                             "augmented_resnet50.pth"), models)
+    argv = ["--metrics-dir", metrics, "--model-dir", models,
+            "--data-dir", root, "--synthetic-dir", synth_dir,
+            "--image-size", str(SIZE)]
+    out = os.path.join(tmp, "analysis")
+    t0 = time.perf_counter()
+    analyze_main(argv + ["--analysis-dir", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    samples = gradcam_samples(root, synth_dir, 3)
+    panels = [f"gradcam_{s['type']}_{s['patientId']}.png" for s in samples]
+    check([s["type"] for s in samples] == ["real_positive"] * 3
+          + ["real_negative"] * 3 + ["synthetic"] * 3, samples)
+    want = sorted(["comparison_acc.png", "comparison_loss.png",
+                   "comparison_synthetic_ratio.png", "cv_comparison.png",
+                   "comparison_report.txt", "ssim_distribution.png"]
+                  + panels)
+    check(sorted(os.listdir(out)) == want, sorted(os.listdir(out)))
+    for name in want:
+        if name.endswith(".png"):
+            img = decode_png(os.path.join(out, name))
+            check(img.ndim == 3 and img.std() > 0, (name, img.shape))
+    cpu_out = os.path.join(tmp, "analysis_cpu")
+    analyze_main(argv + ["--analysis-dir", cpu_out, "--cpu", "--skip-plots",
+                         "--skip-ssim", "--skip-gradcam"])
+    with open(os.path.join(out, "comparison_report.txt"), "rb") as f:
+        report = f.read()
+    with open(os.path.join(cpu_out, "comparison_report.txt"), "rb") as f:
+        check(report == f.read(), "the card's report differs from --cpu's")
+    check(b"* Curriculum:" in report and b"* Augmented:" in report, report)
+
+    # SSIM: all pairs on the card by CUDA events, 20 x 10 against the CPU
+    real_paths, synth_paths = ssim_picks(root, synth_dir, 100, 500)
+    t0 = time.perf_counter()
+    real = torch.from_numpy(_load_grayscale(real_paths, SIZE))
+    synth = torch.from_numpy(_load_grayscale(synth_paths, SIZE))
+    load_s = time.perf_counter() - t0
+    n_real = min(100, -(-N_TRAIN // 3))  # every third train image positive
+    check(real.shape == (n_real, SIZE, SIZE)
+          and synth.shape == (500, SIZE, SIZE), (real.shape, synth.shape))
+    real_d, synth_d = real.cuda(), synth.cuda()
+    scores = mean_ssim_per_synthetic(synth_d, real_d)
+    ssim_ms = time_ms(lambda: mean_ssim_per_synthetic(synth_d, real_d),
+                      reps=1)
+    check(bool(torch.isfinite(scores).all()) and scores.shape == (500,),
+          scores.shape)
+    sub = mean_ssim_per_synthetic(synth_d[:20], real_d[:10]).cpu()
+    sub_cpu = mean_ssim_per_synthetic(synth[:20], real[:10])
+    ssim_err = (sub - sub_cpu).abs().max().item()
+    check(ssim_err <= 1e-5, f"SSIM card vs CPU {ssim_err} > 1e-5")
+
+    # one conv3 CAM on the card against the CPU; the time per CAM
+    card = load_cam_models(models, device=torch.device("cuda"))["augmented"]
+    cpu = load_cam_models(models, device=torch.device("cpu"))["augmented"]
+    rgb = resize_u8(decode_png(samples[0]["path"]), SIZE) \
+        .astype(np.float32) / 255.0
+    normed = torch.from_numpy((rgb - IMAGENET_MEAN) / IMAGENET_STD)
+    pred, cam = grad_cam_resnet(card, normed.cuda())
+    pred_cpu, cam_cpu = grad_cam_resnet(cpu, normed)
+    cam_err = float(np.abs(cam - cam_cpu).max())
+    check(pred == pred_cpu and cam_err <= 5e-3,
+          f"CAM card vs CPU: pred {pred} / {pred_cpu}, max |diff| {cam_err}")
+    t0 = time.perf_counter()
+    for _ in range(10):
+        grad_cam_resnet(card, normed.cuda())
+    cam_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"analyzer: CLI {wall:.3f} s wall for the report, 4 plots, SSIM "
+          f"of 500 x {n_real} at {SIZE} px and {len(panels)} Grad-CAM panels of "
+          f"2 models; grey load of {len(real) + len(synth)} PNGs "
+          f"{load_s:.3f} s (host); "
+          f"all-pairs SSIM {ssim_ms:.3f} ms (CUDA events), mean "
+          f"{scores.mean().item():.4f}; conv3 CAM {cam_ms:.3f} ms per image "
+          f"(host clock, f32); SSIM card vs CPU (20 x 10) max |diff| "
+          f"{ssim_err:.3g} (tol 1e-5), conv3 CAM {cam_err:.3g} (tol 5e-3), "
+          f"pred {pred}; report equal to --cpu's; {smi}")
 
 
 def gan_models(dtype, seed: int = 0):
@@ -1077,6 +1215,7 @@ def main():
         train, synth = phase_stores(root, synth_dir)
         gather_entry["launches"] = phase_classifier(tmp, root, synth_dir)
         gan_launches = phase_gan(tmp, root)
+        phase_analyzer(tmp, root, synth_dir, smi)
     phase_f32_step(train, synth)
     phase_classifier_profile(train, synth)
     phase_gan_step_check(train)

@@ -38,6 +38,7 @@ from xgan_torch.data.mixer import mix_batch
 from xgan_torch.data.pipeline import DeviceStore
 from xgan_torch.data.store import ImageStore
 from xgan_torch.models.resnet import ResNet50
+from xgan_torch.native.png import decode_png
 from xgan_torch.train.classifier import (accuracy, auroc,
                                          classifier_optimizer,
                                          gather_concat, train_step,
@@ -221,6 +222,7 @@ def _run_cli(tmp_path, fake_dataset, *extra):
     argv = ["--cpu", "--data-dir", fake_dataset["data_dir"],
             "--model-dir", str(out / "models"),
             "--results-dir", str(out / "metrics"),
+            "--figures-dir", str(out / "figures"),
             "--cache-dir", str(out / "cache"), "--image-size", str(SIZE),
             "--batch-size", "8", "--epochs", "2",
             "--resnet-stages", "1,1,1,1", *extra]
@@ -236,6 +238,19 @@ def _check_checkpoints(models_dir, names):
         model = ResNet50(2, stage_sizes=STAGES)
         model.load_state_dict(torch.load(os.path.join(models_dir, name),
                                          weights_only=True), strict=True)
+
+
+def _check_figures(figures_dir, strategy, *, cv):
+    """The JAX trainer's figures (xgan/io_/figures_classifier.py): the
+    curves of every run (a ratio series is in every history), the CV bar
+    charts of a CV run; each decodes."""
+    kinds = ["loss_curve", "accuracy_curve", "synthetic_ratio_curve"]
+    if cv:
+        kinds += ["cv_test_metrics_per_fold", "cv_test_loss_per_fold"]
+    names = sorted(f"{strategy}_{k}.png" for k in kinds)
+    assert sorted(os.listdir(figures_dir)) == names
+    for name in names:
+        assert decode_png(str(figures_dir / name)).std() > 0
 
 
 @pytest.mark.parametrize("strategy,extra", [
@@ -266,6 +281,7 @@ def test_cli_cv_strategies(tmp_path, fake_dataset, strategy, extra):
     assert ckpts and all(n.endswith(f"{strategy}_resnet50.pth")
                          for n in ckpts)
     _check_checkpoints(out / "models", ckpts)
+    _check_figures(out / "figures", strategy, cv=True)
 
 
 @pytest.mark.parametrize("curriculum", [False, True])
@@ -288,6 +304,7 @@ def test_cli_empty_synthetic_dir(tmp_path, fake_dataset, capsys,
     assert METRIC_KEYS <= set(final["metrics"])
     assert final["metrics"] == metrics
     _check_checkpoints(out / "models", [f"{strategy}_resnet50.pth"])
+    _check_figures(out / "figures", strategy, cv=False)
 
 
 def test_cli_errors(tmp_path, fake_dataset, capsys):
@@ -304,5 +321,6 @@ def test_cli_errors(tmp_path, fake_dataset, capsys):
         assert last.startswith("Error:"), last
     assert cli.main(["--cpu", "--data-dir", str(tmp_path / "none"),
                      "--model-dir", str(tmp_path / "m"),
-                     "--results-dir", str(tmp_path / "r")]) is None
+                     "--results-dir", str(tmp_path / "r"),
+                     "--figures-dir", str(tmp_path / "f")]) is None
     assert "Dataset not found" in capsys.readouterr().out

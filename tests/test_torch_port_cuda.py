@@ -387,3 +387,46 @@ def test_gan_bf16_step_launches_five_tensor_core_convts(dev):
     assert torch.isfinite(m).all()
     assert kernels.LAUNCHES["convt4x4s2_fused"] == 10
     assert kernels.LAUNCHES["convt4x4s2_mma"] == 10
+
+
+# ---- the analyzer (f32, TF32 off by the ``dev`` fixture) -----------------
+
+def test_ssim_on_card_matches_cpu(dev):
+    """All-pairs SSIM on the card against the CPU within 1e-5: 20 x 10
+    images at 224 px (four chunks of products), and the per-synthetic
+    mean."""
+    from xgan_torch.ops.ssim import mean_ssim_per_synthetic, ssim_pair_matrix
+    g = torch.Generator().manual_seed(5)
+    real = torch.rand(10, 224, 224, generator=g)
+    synth = (0.5 * real[torch.arange(20) % 10]
+             + 0.5 * torch.rand(20, 224, 224, generator=g))
+    want = ssim_pair_matrix(synth, real)
+    got = ssim_pair_matrix(synth.to(dev), real.to(dev)).cpu()
+    assert got.shape == (20, 10)
+    assert (got - want).abs().max().item() <= 1e-5
+    got = mean_ssim_per_synthetic(synth.to(dev), real.to(dev)).cpu()
+    assert (got - want.mean(dim=1)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("target", ["conv3", "stage_output"])
+def test_grad_cam_on_card_matches_cpu(dev, target):
+    """One Grad-CAM map of a full-depth f32 ResNet-50 at 224 px, with
+    random BN statistics, on the card against the CPU within 5e-3, with
+    the same predicted label."""
+    from xgan_torch.analysis import grad_cam_resnet
+    from xgan_torch.models.resnet import ResNet50
+    g = torch.Generator().manual_seed(6)
+    cpu = ResNet50(2, generator=g)
+    with torch.no_grad():
+        for name, buf in cpu.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0, 0.1, generator=g)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 1.5, generator=g)
+    card = ResNet50(2, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(224, 224, 3, generator=g)
+    pred, cam = grad_cam_resnet(cpu.eval(), x, target=target)
+    pred_d, cam_d = grad_cam_resnet(card.eval(), x.to(dev), target=target)
+    assert pred_d == pred and cam_d.shape == cam.shape == (7, 7)
+    assert np.abs(cam_d - cam).max() <= 5e-3

@@ -50,6 +50,7 @@ def run(tmp_path_factory, fake_dataset):
             "--model-dir", str(out / "models"),
             "--output-dir", str(out / "results"),
             "--results-dir", str(out / "metrics"),
+            "--figures-dir", str(out / "figures"),
             "--cache-dir", str(out / "cache"), *MODEL_FLAGS,
             "--feature-maps-d", str(FM), "--epochs", str(EPOCHS),
             "--batch-size", str(B), "--vis-batch-size", str(VIS),
@@ -149,9 +150,32 @@ def test_missing_dataset_returns_none(tmp_path, capsys):
     assert cli.main(["--cpu", "--data-dir", str(tmp_path / "none"),
                      "--model-dir", str(tmp_path / "m"),
                      "--output-dir", str(tmp_path / "o"),
-                     "--results-dir", str(tmp_path / "r")]) is None
+                     "--results-dir", str(tmp_path / "r"),
+                     "--figures-dir", str(tmp_path / "f")]) is None
     text = capsys.readouterr().out
     assert "Dataset not found" in text and "Error:" in text
+
+
+def test_loss_curve_figure(run):
+    """gan_loss_curve.png, as the JAX trainer writes it after the
+    history."""
+    _, out, _ = run
+    assert os.listdir(out / "figures") == ["gan_loss_curve.png"]
+    img = decode_png(str(out / "figures" / "gan_loss_curve.png"))
+    assert img.shape == (600, 1200, 3) and img.std() > 0
+
+
+def test_default_directories_land_in_the_working_directory(
+        tmp_path, monkeypatch, capsys):
+    """Without the path flags the trainer makes the reference's
+    ./models, ./results/{gan_images,metrics,figures} where it runs."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["--cpu", "--data-dir", "none"]) is None
+    assert "Dataset not found" in capsys.readouterr().out
+    assert sorted(p.relative_to(tmp_path).as_posix()
+                  for p in tmp_path.rglob("*")) == [
+        "models", "models/gan", "results", "results/figures",
+        "results/gan_images", "results/metrics"]
 
 
 def test_minmax_to_u8_and_gather_preprocess_match_jax():

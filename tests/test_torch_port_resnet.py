@@ -27,8 +27,9 @@ def jax_resnet(seed=0, stages=STAGES):
     """(flax model, params, batch_stats) with numpy leaves; BN affine and
     running statistics drawn at random."""
     model = FlaxResNet50(num_classes=2, stage_sizes=stages)
-    v = model.init(jax.random.key(seed), jnp.zeros((2, SIZE, SIZE, 3)),
-                   train=False)
+    # one compiled init: the eager one dispatches (and compiles) op by op
+    v = jax.jit(lambda key: model.init(key, jnp.zeros((2, SIZE, SIZE, 3)),
+                                       train=False))(jax.random.key(seed))
     rng = np.random.default_rng(seed)
 
     def bn_params(path, leaf):

@@ -26,10 +26,6 @@ UNSUPPORTED = {"parallel_folds": False, "remat": False,
                "model_parallel": 1, "trace_dir": "", "resume_from": ""}
 
 
-def _stages(value: str) -> tuple:
-    return tuple(int(v) for v in value.split(",") if v.strip())
-
-
 def build_parser():
     p = argparse.ArgumentParser(
         description="Train ResNet50 Classifier for Pneumonia Detection "
@@ -65,8 +61,7 @@ def build_parser():
     p.add_argument("--limit-batches", type=int, default=0,
                    help="Debug: cap batches per epoch (0 = all)")
     config.add_device_arg(p)
-    p.add_argument("--resnet-stages", type=_stages, default=(3, 4, 6, 3),
-                   help=argparse.SUPPRESS)
+    config.add_resnet_stages_arg(p)
     # flags of the JAX CLI that the port does not support yet
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="(JAX GAN trainers only; ignored here)")
@@ -112,8 +107,6 @@ def main(argv=None):
     if args.steps_per_call > 1:
         print("Note: --steps-per-call applies to the GAN trainers; "
               "ignored for classifier training.")
-    print("Note: training figures are not written by xgan_torch yet; the "
-          "metrics JSON files are.")
     dtype = config.resolve_dtype(args.compute_dtype, device)
     if device.type == "cuda" and dtype == torch.float32:
         # f32 means f32: cuDNN would otherwise run the convolutions in TF32

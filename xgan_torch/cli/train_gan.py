@@ -6,8 +6,9 @@
 
 Writes ``{output_dir}/gan_images/fake_samples_epoch_EEE_iter_TTTTTT.png``
 sheets, ``{model_dir}/gan/{generator,discriminator}_epoch_EEE.pth`` and
-``..._final.pth`` reference-layout state dicts, and
-``{results_dir}/gan_training_history.json``. Runs on the CUDA device
+``..._final.pth`` reference-layout state dicts,
+``{results_dir}/gan_training_history.json`` and
+``{figures_dir}/gan_loss_curve.png``. Runs on the CUDA device
 unless ``--cpu`` is given; without a CUDA device it exits 1 with a
 structured ``Error:`` line. Flags of the JAX CLI that this port does not
 support yet exit 1 when set away from their default.
@@ -68,8 +69,6 @@ def main(argv=None):
     except RuntimeError as e:
         print(f"Error: {e}")
         sys.exit(1)
-    print("Note: the loss-curve figure gan_loss_curve.png is not written by "
-          "xgan_torch yet; gan_training_history.json is.")
     dtype = config.resolve_dtype(args.compute_dtype, device)
     if device.type == "cuda" and dtype == torch.float32:
         # f32 means f32: cuDNN would otherwise run the convolutions in TF32

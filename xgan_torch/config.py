@@ -78,6 +78,15 @@ def refuse_unsupported(args, defaults: dict) -> None:
             sys.exit(1)
 
 
+def add_resnet_stages_arg(p: argparse.ArgumentParser):
+    """The hidden ``--resnet-stages`` (e.g. ``1,1,1,1``) with which tests
+    shrink ResNet-50's (3, 4, 6, 3)."""
+    p.add_argument("--resnet-stages", default=(3, 4, 6, 3),
+                   type=lambda v: tuple(int(s) for s in v.split(",")
+                                        if s.strip()),
+                   help=argparse.SUPPRESS)
+
+
 def add_device_arg(p: argparse.ArgumentParser):
     p.add_argument("--cpu", action="store_true",
                    help="Run on the CPU (default: the CUDA device)")

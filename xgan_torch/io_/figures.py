@@ -1,12 +1,37 @@
-"""Image sheets (role of xgan/io_/figures.py's ``save_image_grid``),
-written with the port's own PNG encoder: the GPU host has no PIL."""
+"""GAN figures (role of xgan/io_/figures.py): the per-iteration loss
+curves and the image sheets, drawn by ``xgan_torch.io_.plots`` and
+written with the port's own PNG encoder: the GPU host has neither
+matplotlib nor PIL."""
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 import numpy as np
 
+from xgan_torch.io_ import plots
 from xgan_torch.native.png import encode_png
+
+
+def plot_gan_losses(history: Dict, output_path: str) -> None:
+    """Per-iteration G/D loss curves (DCGAN schema), or a printed warning
+    when either series is missing."""
+    g = history.get("G_losses_iter", [])
+    d = history.get("D_losses_iter", [])
+    if not g or not d:
+        print("Warning: loss data missing; skipping plot.")
+        return
+    canvas, _ = plots.chart(
+        [plots.Line(range(len(g)), g, plots.CYCLE[0], alpha=0.8,
+                    label="Generator Loss"),
+         plots.Line(range(len(d)), d, plots.CYCLE[1], alpha=0.8,
+                    label="Discriminator Loss")],
+        title="Generator and Discriminator Loss During Training "
+              "(Per Iteration)",
+        xlabel="Iterations", ylabel="Loss (BCE)", size=(1200, 600),
+        grid_style="--")
+    plots.save_png(canvas, output_path)
+    print(f"Saved GAN loss plot to {output_path}")
 
 
 def save_image_grid(images_u8: np.ndarray, path: str, nrow: int = 8,

@@ -13,7 +13,11 @@ runs in the compute dtype; BatchNorm computes in f32 and returns the
 compute dtype; the mean-pool and ``fc`` run in f32.
 
 ``forward`` takes NHWC images like the JAX model and makes them one
-channels_last NCHW view, which cuDNN's convolutions take as they are. In
+channels_last NCHW view, which cuDNN's convolutions take as they are.
+With ``cam=True`` it also returns Grad-CAM's two targets: the pre-BN
+output of ``layer4[-1].conv3`` (the module the reference's analyzer
+hooks), in the autograd graph, and the layer4 output that feeds the
+mean-pool (the JAX package's ``cam_tap`` and ``return_features``). In
 train mode BN uses batch statistics and updates its running statistics
 in place (momentum 0.1, the unbiased variance); a (B,) validity ``mask``
 restricts the statistics to the valid rows of a padded tail batch
@@ -34,13 +38,16 @@ def _conv(cin, cout, k, stride=1, padding=0, device=None):
     return nn.Conv2d(cin, cout, k, stride, padding, bias=False, device=device)
 
 
-def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor, *,
+def conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """conv in ``x.dtype`` (f32 weights cast to it)."""
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                    conv.padding)
+
+
+def conv_bn(conv_: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor, *,
             train: bool, mask=None) -> torch.Tensor:
-    """conv in ``x.dtype`` (f32 weights cast to it), then BN in f32 with
-    its result in ``x.dtype``."""
-    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
-                 conv.padding)
-    return batch_norm(bn, y, train=train, mask=mask)
+    """:func:`conv`, then BN in f32 with its result in ``x.dtype``."""
+    return batch_norm(bn, conv(conv_, x), train=train, mask=mask)
 
 
 class Bottleneck(nn.Module):
@@ -59,17 +66,21 @@ class Bottleneck(nn.Module):
                 _conv(cin, width * 4, 1, stride, device=device),
                 nn.BatchNorm2d(width * 4, device=device))
 
-    def forward(self, x, *, train: bool, mask=None):
+    def forward(self, x, *, train: bool, mask=None, tap: bool = False):
+        """The block's output, and with ``tap`` also conv3's pre-BN
+        output."""
         out = torch.relu(conv_bn(self.conv1, self.bn1, x, train=train,
                                  mask=mask))
         out = torch.relu(conv_bn(self.conv2, self.bn2, out, train=train,
                                  mask=mask))
-        out = conv_bn(self.conv3, self.bn3, out, train=train, mask=mask)
+        pre_bn = conv(self.conv3, out)
+        out = batch_norm(self.bn3, pre_bn, train=train, mask=mask)
         identity = x
         if self.downsample is not None:
             identity = conv_bn(self.downsample[0], self.downsample[1], x,
                                train=train, mask=mask)
-        return torch.relu(out + identity)
+        out = torch.relu(out + identity)
+        return (out, pre_bn) if tap else out
 
 
 class ResNet50(nn.Module):
@@ -120,14 +131,19 @@ class ResNet50(nn.Module):
             yield from getattr(self, f"layer{stage + 1}")
 
     def forward(self, x: torch.Tensor, *, train: bool,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+                mask: torch.Tensor | None = None, cam: bool = False):
         """x (B, H, W, 3) NHWC -> f32 logits (B, num_classes). ``mask``:
-        (B,) validity weights for train-mode BN statistics."""
+        (B,) validity weights for train-mode BN statistics. ``cam``:
+        return (logits, the pre-BN output of ``layer4[-1].conv3``, the
+        layer4 output), both NCHW views in the compute dtype."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
         x = torch.relu(conv_bn(self.conv1, self.bn1, x, train=train,
                                mask=mask))
         x = F.max_pool2d(x, 3, 2, 1)
-        for block in self.blocks():
+        blocks = list(self.blocks())
+        for block in blocks[:-1]:
             x = block(x, train=train, mask=mask)
-        return F.linear(x.float().mean(dim=(2, 3)), self.fc.weight,
-                        self.fc.bias)
+        x, conv3 = blocks[-1](x, train=train, mask=mask, tap=True)
+        logits = F.linear(x.float().mean(dim=(2, 3)), self.fc.weight,
+                          self.fc.bias)
+        return (logits, conv3, x) if cam else logits

@@ -13,7 +13,8 @@ rebuilt in numpy (:func:`kfold_splits`), so fold membership matches the
 reference. The best-validation-accuracy model of each run is saved as
 ``{fold_N_}{strategy}_resnet50.pth`` in torchvision's layout; the history,
 CV-summary and final-metrics JSON files keep the reference names and
-keys.
+keys, and the run's figures (``xgan_torch.io_.figures_classifier``) its
+file names.
 
 Per-step outputs stay on the device and are fetched once per epoch; the
 epoch's index matrix goes to the device once. The ``mixed_gather`` error
@@ -30,6 +31,7 @@ import torch
 from xgan_torch.data import rsna
 from xgan_torch.data.pipeline import DeviceStore, epoch_batches
 from xgan_torch.data.store import ImageStore, decode_folder_store
+from xgan_torch.io_.figures_classifier import generate_plots
 from xgan_torch.io_.metrics import cv_summary, write_json
 from xgan_torch.kernels.gather import new_error_flag, raise_if_flagged
 from xgan_torch.models.convert import load_resnet_pth
@@ -310,6 +312,7 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
     error."""
     check_create_dir(args.model_dir)
     check_create_dir(args.results_dir)
+    check_create_dir(args.figures_dir)
 
     schedule = None
     if args.use_curriculum:
@@ -342,14 +345,15 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
         return evaluate_model(eval_model, test, args.batch_size, dtype=dtype)
 
     if args.k_folds > 1:
-        fold_metrics = []
+        fold_metrics, fold_histories = [], []
         for fold, (tr_idx, val_idx) in enumerate(
                 kfold_splits(len(real), args.k_folds)):
             print(f"\n===== Fold {fold + 1} / {args.k_folds} =====")
-            best_state, _ = train_one_run(
+            best_state, history = train_one_run(
                 args, device, dtype, stores, tr_idx, (real, val_idx),
                 fold=fold + 1, strategy=strategy, schedule=schedule,
                 seed_offset=fold, synth_fallback=synth_fallback)
+            fold_histories.append(history)
             print(f"--- Evaluating Fold {fold + 1} Model on Test Set ---")
             fold_metrics.append(evaluate(best_state))
         summary = cv_summary(fold_metrics)
@@ -358,11 +362,13 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
             print(f"Average {k}: {v:.4f} +/- {summary['std_dev'][k]:.4f}")
         write_json(os.path.join(args.results_dir,
                                 f"{run_prefix}cv_summary.json"), summary)
+        generate_plots(fold_histories, args.figures_dir, run_prefix,
+                       cv_results=summary)
         return summary
 
     # single run: the test set doubles as validation (reference behavior)
     print("Warning: using test set as validation for non-CV run.")
-    best_state, _ = train_one_run(
+    best_state, history = train_one_run(
         args, device, dtype, stores, np.arange(len(real)), (test, None),
         fold=None, strategy=strategy, schedule=schedule,
         synth_fallback=synth_fallback)
@@ -370,4 +376,5 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
     write_json(os.path.join(args.results_dir,
                             f"{run_prefix}final_metrics.json"),
                {"config": vars(args), "metrics": metrics})
+    generate_plots([history], args.figures_dir, run_prefix)
     return metrics

@@ -2,8 +2,8 @@
 
 Flow: dataset check -> decode-once uint8 train store -> the store on the
 device -> G and D from the seed -> epochs of :func:`dcgan_step` over the
-JAX package's batch order -> sample sheets, checkpoints and the history
-JSON in the reference's names and keys.
+JAX package's batch order -> sample sheets, checkpoints, the history
+JSON and ``gan_loss_curve.png`` in the reference's names and keys.
 
 Per-step metrics stay on the device and come to the host once per epoch.
 Every sample sheet renders the eval forward of G's current weights, so it
@@ -25,7 +25,7 @@ from xgan_torch.data import rsna
 from xgan_torch.data.pipeline import DeviceStore, epoch_batches, \
     minmax_to_u8
 from xgan_torch.data.store import ImageStore
-from xgan_torch.io_.figures import save_image_grid
+from xgan_torch.io_.figures import plot_gan_losses, save_image_grid
 from xgan_torch.io_.metrics import write_json
 from xgan_torch.models.dcgan import Discriminator, Generator
 from xgan_torch.train.common import adam
@@ -61,6 +61,7 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     gan_output_dir = check_create_dir(
         os.path.join(args.output_dir, "gan_images"))
     metrics_dir = check_create_dir(args.results_dir)
+    figures_dir = check_create_dir(args.figures_dir)
 
     store = load_train_store(args)
     if store is None:
@@ -153,4 +154,5 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     print(f"Saved final models to {gan_model_dir}")
     write_json(os.path.join(metrics_dir, "gan_training_history.json"),
                history)
+    plot_gan_losses(history, os.path.join(figures_dir, "gan_loss_curve.png"))
     return history
