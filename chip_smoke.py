@@ -71,7 +71,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
     device ops, the ConvT kernels' share, the idle share); times the five
     ConvT forwards at the training shapes against their bound, the plain
     version and cuDNN;
-13. prints the kernel table line, the card line and, last, the result
+13. WGAN-GP: right after phase 3, the five k4s2 layers of its generator
+    (the DCGAN ladder one width up: 1024 -> 512 at 7x7 ... 64 -> 3 at
+    112x112) at B = 64 on the tensor-core kernel against the plain
+    version, with the sampler's epilogue and the train forward's, each
+    timed against its bound, the plain version and cuDNN; after the
+    analyzer, its sampler CLI (``xgan_torch.cli.generate_synthetic_wgan``:
+    512 PNGs at full width, 5 launches a batch, an f32 batch of the kernel
+    path within 1 u8 level of the plain path) and its trainer CLI
+    (``xgan_torch.cli.train_wggan``: 224 px, fg = fd = 64, B = 64, 5
+    critic updates, bf16, 4 steps: the history, sheets, loss figure and
+    ``.pth`` files, 30 launches a step and 5 a sheet), then the sampler on
+    its ``generator_final.pth``; after phase 12, one f32 WGAN-GP step (B =
+    16, 2 critic updates) through the kernel against the plain version
+    (losses, G's and the critic's gradient norms), and 20 warm bf16 steps
+    at B = 64 with one profiled (ms per step, imgs/s, top device ops, the
+    ConvT kernels' share, the idle share, the model FLOPs and their
+    bound);
+14. prints the kernel table line, the card line and, last, the result
     line.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
@@ -112,9 +129,14 @@ def check(ok: bool, what) -> None:
         raise AssertionError(what)
 
 
-def layer_shapes():
-    """(H, Cin, Cout, act) of the five k4s2 layers of the G-224 ladder."""
-    widths = [FG * 8, FG * 4, FG * 2, FG, FG // 2, 3]
+# the WGAN-GP generator's ladder: the DCGAN one (fg*8 ... fg//2) one width up
+WGAN_WIDTHS = [FG * 16, FG * 8, FG * 4, FG * 2, FG]
+
+
+def layer_shapes(widths=None):
+    """(H, Cin, Cout, act) of the five k4s2 layers of a G-224 ladder: the
+    DCGAN one unless ``widths`` names the first five output widths."""
+    widths = list(widths or [FG * 8, FG * 4, FG * 2, FG, FG // 2]) + [3]
     h = SIZE // 32
     out = []
     for i in range(5):
@@ -194,7 +216,7 @@ def sass_hmma_counts(so) -> dict:
 
 def phase_build():
     from xgan_torch.kernels import build
-    from xgan_torch.kernels.convt import MMA_BLOCK_NS
+    from xgan_torch.kernels.convt import MMA_BLOCK_NS, mma_tiles
     t0 = time.perf_counter()
     so = build.build(verbose=True)
     build.load_ops()
@@ -208,6 +230,15 @@ def phase_build():
           f"ptxas log, got {sorted(report)}")
     check(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
               for r in report.values()), f"{MMA_KERNEL} spills: {report}")
+    # the block_n of every layer of both ladders is one of those checked
+    block_ns = sorted({mma_tiles(cin, cout).block_n
+                       for widths in (None, WGAN_WIDTHS)
+                       for _, cin, cout, _ in layer_shapes(widths)})
+    for n in block_ns:
+        check(any(f"ILi{n}E" in name for name in report),
+              f"no {MMA_KERNEL}<{n}> in the ptxas log: {sorted(report)}")
+    print(f"block_n of the DCGAN and WGAN-GP ladders {block_ns}: each "
+          "instantiation built without spills")
     hmma = {k: v for k, v in sass_hmma_counts(so).items() if MMA_KERNEL in k}
     print(f"SASS HMMA instructions per {MMA_KERNEL} instantiation: {hmma}")
     check(len(hmma) == len(MMA_BLOCK_NS) and all(hmma.values()),
@@ -320,13 +351,14 @@ def phase_kernels():
     }
 
 
-def random_generator_pth(path: str):
-    """Seeded random weights in the reference layout, scaled so every layer
-    keeps unit gain (the images then span the u8 range), with random BN
-    running statistics."""
+def random_generator_pth(path: str, generator_cls=None):
+    """Seeded random weights of a ``generator_cls`` generator (default the
+    DCGAN one) in the reference layout, scaled so every layer keeps unit
+    gain (the images then span the u8 range), with random BN running
+    statistics."""
     from xgan_torch.models.dcgan import SEQ_BN, SEQ_CONVT, Generator
     g = torch.Generator().manual_seed(0)
-    model = Generator(LATENT, 3, FG, SIZE, generator=g)
+    model = (generator_cls or Generator)(LATENT, 3, FG, SIZE, generator=g)
     sd = model.state_dict()
     for seq in SEQ_CONVT:
         w = sd[f"main.{seq}.weight"]
@@ -1019,14 +1051,15 @@ def gan_models(dtype, seed: int = 0):
                                                          2e-4, 0.5)
 
 
-def gan_layer_inputs(b: int, dtype, seed: int):
-    """(x, w, grad of y) of each of the five k4s2 layers at batch ``b``:
-    x (B, H, H, Cin) in ``dtype``, the f32 torch weight, the upstream
-    gradient in ``dtype``."""
+def gan_layer_inputs(b: int, dtype, seed: int, widths=None):
+    """(x, w, grad of y) of each of the five k4s2 layers (of the ladder
+    ``widths`` names, as in :func:`layer_shapes`) at batch ``b``: x (B, H,
+    H, Cin) in ``dtype``, the f32 torch weight, the upstream gradient in
+    ``dtype``."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     out = []
-    for h, cin, cout, _ in layer_shapes():
+    for h, cin, cout, _ in layer_shapes(widths):
         x = torch.randn(b, h, h, cin, generator=g, device=dev).to(dtype)
         w = torch.randn(cin, cout, 4, 4, generator=g, device=dev) \
             / math.sqrt(4 * cin)
@@ -1112,14 +1145,10 @@ def phase_gan_profile(train_store):
     share. Then the five k4s2 forwards at the training shapes (act none,
     identity affine): the kernel, its plain version and cuDNN's
     ``F.conv_transpose2d`` by CUDA events, against the bound."""
-    import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from xgan_torch import kernels
     from xgan_torch.data.pipeline import DeviceStore
-    from xgan_torch.kernels.convt import (convt4x4s2_fused,
-                                          convt4x4s2_fused_ref,
-                                          pack_convt_weight)
     from xgan_torch.train.gan import dcgan_step
     dev = torch.device("cuda")
     store = DeviceStore(train_store, dev)
@@ -1169,31 +1198,19 @@ def phase_gan_profile(train_store):
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for i, (x, w, _) in enumerate(gan_layer_inputs(GAN_B, torch.bfloat16,
                                                    seed=12)):
-        cout = w.shape[1]
-        wp = pack_convt_weight(w, x.dtype)
-        ones = torch.ones(cout, device=dev)
-        zeros = torch.zeros(cout, device=dev)
-        wl, x_nchw = w.to(x.dtype), x.permute(0, 3, 1, 2)
-        ms = time_ms(lambda: convt4x4s2_fused(x, wp, ones, zeros, "none"))
-        plain_ms = time_ms(lambda: convt4x4s2_fused_ref(x, wp, ones, zeros,
-                                                        "none"), reps=3)
-        library_ms = time_ms(lambda: F.conv_transpose2d(
-            x_nchw, wl, stride=2, padding=1))
         b, h, _, cin = x.shape
-        flops = 2 * b * (2 * h) ** 2 * cout * 4 * cin
-        nbytes = (x.numel() + wp.numel() + b * (2 * h) ** 2 * cout) * 2
-        ops_ms = flops / BF16_PEAK_FLOPS * 1e3
-        bytes_ms = _bytes_ms(nbytes)
-        bound_ms = max(ops_ms, bytes_ms)
+        cout = w.shape[1]
+        t = convt_layer_times(x, w, torch.ones(cout, device=dev),
+                              torch.zeros(cout, device=dev), "none")
         print(f"train layer {i + 1} {b}x{h}x{h}x{cin}->{2 * h}x{2 * h}x"
-              f"{cout} none bf16: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-              f"F.conv_transpose2d {library_ms:.4f} ms, kernel / cuDNN "
-              f"{ms / library_ms:.3f}; bound {bound_ms:.4f} ms "
-              f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("library_ms", library_ms), ("bound_ms", bound_ms)):
-            total[k] += v
+              f"{cout} none bf16: kernel {t['ms']:.4f} ms "
+              f"({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{t['plain_ms']:.4f} ms, F.conv_transpose2d "
+              f"{t['library_ms']:.4f} ms, kernel / cuDNN "
+              f"{t['ms'] / t['library_ms']:.3f}; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); max_abs_err {t['err']:.3g}")
+        for k in total:
+            total[k] += t[k]
     print(f"5 train layers (B={GAN_B}): kernel {total['ms']:.4f} ms, plain "
           f"{total['plain_ms']:.4f} ms, F.conv_transpose2d "
           f"{total['library_ms']:.4f} ms, kernel / cuDNN "
@@ -1202,10 +1219,494 @@ def phase_gan_profile(train_store):
           f"{total['ms'] / step_ms:.3f}")
 
 
+WGAN_B, WGAN_CRITIC, WGAN_STEPS = 64, 5, 4  # src/train_wggan.py defaults
+WGAN_HISTORY_KEYS = {"D_losses", "G_losses", "D_losses_epoch",
+                     "G_losses_epoch"}
+
+
+def convt_layer_times(x, w, scale, shift, act: str) -> dict:
+    """One k4s2 layer on the kernel (bf16: the tensor-core route), held
+    against its plain version within ``TOL``, then timed by CUDA events:
+    the kernel, the plain version and the library call (cuDNN's
+    ``F.conv_transpose2d``, plus the affine and the ReLU where the
+    epilogue has them); the bound from the bytes (x, the packed weight,
+    the output, scale and shift) and the FLOPs."""
+    import torch.nn.functional as F
+    from xgan_torch import kernels
+    from xgan_torch.kernels.convt import (convt4x4s2_fused,
+                                          convt4x4s2_fused_ref,
+                                          pack_convt_weight, uses_mma)
+    b, h, _, cin = x.shape
+    cout = w.shape[1]
+    wp = pack_convt_weight(w, x.dtype)
+    before = kernels.LAUNCHES["convt4x4s2_mma"]
+    got = convt4x4s2_fused(x, wp, scale, shift, act)
+    check(kernels.LAUNCHES["convt4x4s2_mma"] - before
+          == int(uses_mma(x.dtype, cin)), "the route is not uses_mma's")
+    ref = convt4x4s2_fused_ref(x, wp, scale, shift, act)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = TOL[x.dtype] * (1 + ref.float().abs().max().item())
+    check(got.shape == (b, 2 * h, 2 * h, cout) and err <= tol,
+          (tuple(got.shape), cin, cout, act, err, tol))
+    wl, x_nchw = w.to(x.dtype), x.permute(0, 3, 1, 2)
+    sc4, sh4 = scale.view(1, -1, 1, 1), shift.view(1, -1, 1, 1)
+    identity = bool((scale == 1).all() and (shift == 0).all())
+
+    def library():
+        y = F.conv_transpose2d(x_nchw, wl, stride=2, padding=1)
+        if act == "none" and identity:
+            return y
+        y = y.float() * sc4 + sh4
+        return (torch.relu(y) if act == "relu" else y).to(x.dtype)
+
+    out = {"err": err, "tol": tol,
+           "ms": time_ms(lambda: convt4x4s2_fused(x, wp, scale, shift, act)),
+           "plain_ms": time_ms(lambda: convt4x4s2_fused_ref(
+               x, wp, scale, shift, act), reps=3),
+           "library_ms": time_ms(library)}
+    flops = 2 * b * (2 * h) ** 2 * cout * 4 * cin
+    nbytes = (x.numel() + wp.numel() + b * (2 * h) ** 2 * cout) \
+        * x.element_size() + 2 * 4 * cout
+    ops_ms, bytes_ms = flops / BF16_PEAK_FLOPS * 1e3, _bytes_ms(nbytes)
+    out.update(flops=flops, bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    return out
+
+
+def phase_wgan_kernels(smi: str):
+    """The five k4s2 layers of the WGAN-GP G-224 ladder (1024 -> 512 at
+    7x7 ... 64 -> 3 at 112x112) at B = 64: bf16 on the tensor-core kernel
+    with the sampler's epilogue (BN folded into scale/shift and ReLU; the
+    last layer act none) and with the train forward's (identity affine,
+    act none), each against the plain version within TOL and timed
+    against its bound, the plain version and cuDNN; f32 on the CUDA-core
+    kernel against the plain version."""
+    from xgan_torch.kernels.convt import (convt4x4s2_fused,
+                                          convt4x4s2_fused_ref,
+                                          mma_tiles, pack_convt_weight)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for form in ("sampler", "train"):
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                 "bound_ms": 0.0}
+        for i, (x, w, _) in enumerate(gan_layer_inputs(
+                WGAN_B, torch.bfloat16, seed=16, widths=WGAN_WIDTHS)):
+            b, h, _, cin = x.shape
+            cout = w.shape[1]
+            if form == "sampler":
+                act = "relu" if i < 4 else "none"
+                scale = torch.rand(cout, generator=g, device=dev) + 0.5
+                shift = 0.1 * torch.randn(cout, generator=g, device=dev)
+                if i == 4:
+                    scale, shift = torch.ones_like(scale), \
+                        torch.zeros_like(shift)
+            else:
+                act = "none"
+                scale = torch.ones(cout, device=dev)
+                shift = torch.zeros(cout, device=dev)
+            t = convt_layer_times(x, w, scale, shift, act)
+            library = "cuDNN" if form == "train" else "cuDNN+affine+act"
+            print(f"wgan {form} layer {i + 1} {b}x{h}x{h}x{cin}->{2 * h}x"
+                  f"{2 * h}x{cout} {act} bf16 (block_n "
+                  f"{mma_tiles(cin, cout).block_n}): max_abs_err "
+                  f"{t['err']:.3g} (tol {t['tol']:.3g}); kernel "
+                  f"{t['ms']:.4f} ms ({t['flops'] / t['ms'] / 1e9:.1f} "
+                  f"TFLOP/s), plain {t['plain_ms']:.4f} ms, {library} "
+                  f"{t['library_ms']:.4f} ms, kernel / cuDNN "
+                  f"{t['ms'] / t['library_ms']:.3f}; bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), kernel / "
+                  f"bound {t['ms'] / t['bound_ms']:.2f}")
+            for k in total:
+                total[k] += t[k]
+        print(f"wgan {form} form, 5 layers (B={WGAN_B}): kernel "
+              f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+              f"cuDNN {total['library_ms']:.4f} ms, kernel / cuDNN "
+              f"{total['ms'] / total['library_ms']:.3f}, bound "
+              f"{total['bound_ms']:.4f} ms; {smi}")
+    # f32 on the CUDA-core kernel (the f32 step check's route)
+    for i, (x, w, _) in enumerate(gan_layer_inputs(
+            16, torch.float32, seed=17, widths=WGAN_WIDTHS)):
+        wp = pack_convt_weight(w)
+        ones = torch.ones(w.shape[1], device=dev)
+        zeros = torch.zeros(w.shape[1], device=dev)
+        got = convt4x4s2_fused(x, wp, ones, zeros, "relu")
+        ref = convt4x4s2_fused_ref(x, wp, ones, zeros, "relu")
+        err = (got - ref).abs().max().item()
+        tol = TOL[torch.float32] * (1 + ref.abs().max().item())
+        check(err <= tol, ("f32 wgan layer", i, err, tol))
+    print("wgan f32 layers (B=16, CUDA-core kernel): within tol of plain")
+
+
+def phase_wgan_sampler(tmp: str):
+    """The WGAN-GP sampler through its CLI at full width (latent 100, fg
+    64, 224 px, batch 64, bf16) from a seeded random-weight
+    reference-layout ``.pth``: 512 PNGs, each decoded back, 5 tensor-core
+    ConvT launches a batch; then one f32 batch of the kernel path against
+    the plain-version path within 1 u8 level. Returns the launches."""
+    from xgan_torch import kernels
+    from xgan_torch.cli.generate_synthetic_wgan import main as sample_main
+    from xgan_torch.data.pipeline import tanh_to_u8
+    from xgan_torch.kernels.convt import convt4x4s2_fused_ref
+    from xgan_torch.models.convert import load_generator_pth
+    from xgan_torch.models.wgan import Generator
+    from xgan_torch.native.png import decode_png
+    pth = os.path.join(tmp, "wgan_generator.pth")
+    random_generator_pth(pth, Generator)
+    out_dir = os.path.join(tmp, "wgan_synthetic")
+    kernels.reset_launch_counts()
+    stats = sample_main([
+        "--model-path", pth, "--output-dir", out_dir,
+        "--num-images", str(NUM_IMAGES), "--latent-dim", str(LATENT),
+        "--feature-maps-g", str(FG), "--image-size", str(SIZE),
+        "--batch-size", str(B), "--compute-dtype", "bf16", "--seed", "0"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = 5 * math.ceil(NUM_IMAGES / B)
+    print(f"wgan sampler: {stats['written']} images, "
+          f"{stats['imgs_per_sec']:.1f} imgs/s written, "
+          f"{stats['device_plus_transfer_imgs_per_sec']:.1f} imgs/s "
+          f"device+transfer; launches {launches}")
+    check(launches.get("convt4x4s2_fused", 0) == want
+          and launches.get("convt4x4s2_mma", 0) == want,
+          f"{launches}: expected all {want} launches on the tensor-core route")
+    files = sorted(os.listdir(out_dir))
+    check(files == [f"synthetic_{i:05d}.png"
+                    for i in range(1, NUM_IMAGES + 1)], files[:3])
+    first = []
+    for i, name in enumerate(files):
+        img = decode_png(os.path.join(out_dir, name))
+        check(img.shape == (SIZE, SIZE, 3), (name, img.shape))
+        if i < B:
+            first.append(img)
+    first = torch.from_numpy(np.stack(first))
+
+    g32 = Generator(LATENT, 3, FG, SIZE, dtype=torch.float32, device="cuda")
+    g32.load_state_dict(load_generator_pth(pth))
+    z = torch.randn((B, LATENT), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    u8_kernel = tanh_to_u8(g32(z))
+    u8_plain = tanh_to_u8(g32(z, convt=convt4x4s2_fused_ref))
+    d = (u8_kernel.int() - u8_plain.int()).abs()
+    d16 = (first.int() - u8_kernel.cpu().int()).abs().float()
+    print(f"wgan f32 batch kernel vs plain: max {d.max().item()} u8 levels, "
+          f"{(d > 0).float().mean().item():.3g} of pixels differ; bf16 CLI "
+          f"batch vs f32: mean {d16.mean().item():.3f}, max "
+          f"{d16.max().item():.0f} levels; image std "
+          f"{first.float().std().item():.1f} levels")
+    check(d.max().item() <= 1, "wgan f32 kernel path vs plain path > 1 level")
+    check(d16.mean().item() <= 2.0, "wgan bf16 images far from the f32 ones")
+    return launches["convt4x4s2_fused"]
+
+
+def phase_wgan_train(tmp: str, root: str):
+    """WGAN-GP training through its CLI at full width (224 px, fg = fd =
+    64, latent 100, B = 64, 5 critic updates a step, bf16) on the RSNA
+    tree, 1 epoch cut to 4 steps, then the WGAN-GP sampler CLI on its
+    ``generator_final.pth``. Returns the ConvT launches of both runs."""
+    from xgan_torch import kernels
+    from xgan_torch.cli.generate_synthetic_wgan import main as sample_main
+    from xgan_torch.cli.train_wggan import main as wgan_main
+    from xgan_torch.models.wgan import Critic, Generator
+    from xgan_torch.native.png import decode_png
+    out = os.path.join(tmp, "wgan")
+    argv = ["--data-dir", root, "--model-dir", os.path.join(out, "models"),
+            "--output-dir", os.path.join(out, "results"),
+            "--results-dir", os.path.join(out, "metrics"),
+            "--figures-dir", os.path.join(out, "figures"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--feature-maps-g", str(FG),
+            "--feature-maps-d", str(FG), "--latent-dim", str(LATENT),
+            "--batch-size", str(WGAN_B), "--epochs", "1",
+            "--limit-batches", str(WGAN_STEPS),
+            "--critic-iters", str(WGAN_CRITIC), "--compute-dtype", "bf16"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = wgan_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    sheet_dir = os.path.join(out, "results", "wgan_images")
+    sheets = sorted(os.listdir(sheet_dir))
+    want = 5 * ((WGAN_CRITIC + 1) * WGAN_STEPS + len(sheets))
+    print(f"WGAN-GP run: {wall:.1f} s wall, {WGAN_STEPS} train steps of "
+          f"{WGAN_CRITIC} critic updates, {len(sheets)} sample sheets, "
+          f"launches {launches}; last losses D "
+          f"{history['D_losses'][-1]:.4f} G {history['G_losses'][-1]:.4f}")
+    check(launches.get("convt4x4s2_fused", 0) == want
+          and launches.get("convt4x4s2_mma", 0) == want,
+          f"{launches}: expected all {want} launches on the tensor-core route")
+    with open(os.path.join(out, "metrics", "wgan_training_history.json")) \
+            as f:
+        saved = json.load(f)
+    check(set(saved) == WGAN_HISTORY_KEYS, sorted(saved))
+    lengths = {"D_losses": WGAN_STEPS * WGAN_CRITIC, "G_losses": WGAN_STEPS,
+               "D_losses_epoch": 1, "G_losses_epoch": 1}
+    for key, series in saved.items():
+        check(len(series) == lengths[key], (key, len(series)))
+        check(all(math.isfinite(v) for v in series), (key, series))
+    check(sheets == ["fake_samples_epoch_001_iter_000000.png",
+                     f"fake_samples_epoch_001_iter_{WGAN_STEPS - 1:06d}.png"],
+          sheets)
+    side = 8 * (SIZE + 2) + 2  # 64 images, 8 per row, 2 px padding
+    for name in sheets:
+        img = decode_png(os.path.join(sheet_dir, name))
+        check(img.shape == (side, side, 3) and img.std() > 0,
+              (name, img.shape))
+    check_figures(os.path.join(out, "figures"), ["wgan_loss_curve.png"])
+    wgan_dir = os.path.join(out, "models", "wgan")
+    names = sorted(os.listdir(wgan_dir))
+    check(names == sorted(f"{m}_{t}.pth" for m in ("generator",
+                                                     "discriminator")
+                          for t in ("epoch_001", "final")), names)
+    for name in names:
+        model = (Generator(LATENT, 3, FG, SIZE) if name.startswith("gen")
+                 else Critic(3, FG, SIZE))
+        model.load_state_dict(torch.load(os.path.join(wgan_dir, name),
+                                         weights_only=True), strict=True)
+    print(f"WGAN-GP run: history keys with {lengths}; {len(sheets)} sheets "
+          f"of {side}x{side} and wgan_loss_curve.png decode; {names} load "
+          "strictly")
+
+    kernels.reset_launch_counts()
+    stats = sample_main([
+        "--model-path", os.path.join(wgan_dir, "generator_final.pth"),
+        "--output-dir", os.path.join(out, "synthetic"),
+        "--num-images", str(B), "--latent-dim", str(LATENT),
+        "--feature-maps-g", str(FG), "--image-size", str(SIZE),
+        "--batch-size", str(B), "--compute-dtype", "bf16"])
+    torch.cuda.synchronize()
+    chain = dict(kernels.LAUNCHES)
+    check(stats["written"] == B and chain.get("convt4x4s2_mma", 0) == 5,
+          (stats, chain))
+    img = decode_png(os.path.join(out, "synthetic", f"synthetic_{B:05d}.png"))
+    check(img.shape == (SIZE, SIZE, 3), img.shape)
+    print(f"WGAN-GP -> sampler: {stats['written']} images from the trained "
+          f"generator_final.pth, launches {chain}")
+    return want + chain.get("convt4x4s2_fused", 0)
+
+
+def wgan_models(dtype, seed: int = 0):
+    """Seeded full-width WGAN-GP G and critic (fg = fd = 64, 224 px) on the
+    card and their Adam optimizers (betas (0.5, 0.9))."""
+    from xgan_torch.models.wgan import Critic, Generator
+    from xgan_torch.train.common import adam
+    dev = torch.device("cuda")
+    g = Generator(LATENT, 3, FG, SIZE, dtype=dtype, device=dev,
+                  generator=torch.Generator(dev).manual_seed(seed))
+    c = Critic(3, FG, SIZE, dtype=dtype, device=dev,
+               generator=torch.Generator(dev).manual_seed(seed + 1))
+    return g, c, adam(g.parameters(), 2e-4, 0.5, 0.9), adam(c.parameters(),
+                                                              2e-4, 0.5, 0.9)
+
+
+def phase_wgan_step_check(train_store):
+    """One f32 WGAN-GP step at full width (B = 16, 2 critic updates, TF32
+    off, deterministic cuDNN) with G's k4s2 forwards on the kernel and on
+    the plain version, from the same weights, optimizer state and
+    injected draws: the losses within 1e-4 * (1 + |ref|), the per-tensor
+    gradient norms of G and the critic within 1e-3 relative; a second
+    kernel run gives the run-to-run floor, and the plain version with its
+    outputs perturbed by 1e-7 relative (f32 rounding) the floor that the
+    step's own conditioning sets.
+
+    The held step follows 3 warm-up steps (plain version, shared by all
+    runs through a snapshot). At the first step Adam moves each weight by
+    lr * g / (|g| + eps), about lr * sign(g), so a coordinate whose
+    gradient is within rounding of zero moves by ±lr on either path, and
+    through the two critic updates G's per-tensor gradient norms move by
+    about the limit on rounding alone. The comparisons from the fresh
+    weights are printed, not held."""
+    import copy
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.convt import convt4x4s2_fused_ref
+    from xgan_torch.train.wgan import wgan_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    b, n = 16, 2
+    g = torch.Generator(device=dev).manual_seed(13)
+    idx = torch.randint(0, len(store), (b,), generator=g, device=dev)
+    draws = {"flip": torch.rand(b, generator=g, device=dev) < 0.5,
+             "noises": [torch.randn(b, LATENT, generator=g, device=dev)
+                        for _ in range(n)],
+             "alphas": [torch.rand(b, 1, 1, 1, generator=g, device=dev)
+                        for _ in range(n)],
+             "g_noise": torch.randn(b, LATENT, generator=g, device=dev)}
+    nets = wgan_models(torch.float32)
+    fresh = copy.deepcopy([m.state_dict() for m in nets])
+    for _ in range(3):
+        wgan_step(*nets, store.images,
+                  torch.randint(0, len(store), (b,), generator=g, device=dev),
+                  latent_dim=LATENT, critic_iters=n, lambda_gp=10.0,
+                  convt=convt4x4s2_fused_ref, generator=g)
+    warm = copy.deepcopy([m.state_dict() for m in nets])
+
+    noise = torch.Generator(device=dev)
+
+    def perturbed(*args, **kw):
+        y = convt4x4s2_fused_ref(*args, **kw)
+        return y * (1 + 1e-7 * torch.randn(y.shape, generator=noise,
+                                           device=dev))
+
+    def run(state, convt):
+        for m, sd in zip(nets, copy.deepcopy(state)):
+            m.load_state_dict(sd)
+        kw = {} if convt is None else {"convt": convt}
+        kernels.reset_launch_counts()
+        losses = wgan_step(*nets, store.images, idx, latent_dim=LATENT,
+                           critic_iters=n, lambda_gp=10.0, **draws, **kw)
+        noise.manual_seed(0)
+        check(kernels.LAUNCHES["convt4x4s2_fused"]
+              == (5 * (n + 1) if convt is None else 0), dict(kernels.LAUNCHES))
+        return losses, torch.stack([p.grad.norm() for p in
+                                    [*nets[0].parameters(),
+                                     *nets[1].parameters()]])
+
+    def diffs(a, ref):
+        (l_a, n_a), (l_r, n_r) = a, ref
+        return (((l_a - l_r).abs() / (1 + l_r.abs())).max().item(),
+                ((n_a - n_r).abs() / n_r).tolist())
+
+    names = [f"G.{k}" for k, _ in nets[0].named_parameters()] \
+        + [f"C.{k}" for k, _ in nets[1].named_parameters()]
+    cold_plain = run(fresh, convt4x4s2_fused_ref)
+    cold_l, cold_rel = diffs(run(fresh, None), cold_plain)
+    cold_noise_l, cold_noise = diffs(run(fresh, perturbed), cold_plain)
+    kern, plain, kern2 = (run(warm, None), run(warm, convt4x4s2_fused_ref),
+                          run(warm, None))
+    noise_l, noise_rel = diffs(run(warm, perturbed), plain)
+    torch.backends.cudnn.deterministic = False
+    l_err, rel = diffs(kern, plain)
+    l_floor, rel_floor = diffs(kern2, kern)
+    worst = sorted(zip(rel, names), reverse=True)[:3]
+    cold_worst = max(zip(cold_rel, names))
+    cold_noise_worst = max(zip(cold_noise, names))
+    print(f"f32 WGAN-GP step (B={b}, {n} critic updates, after 3 warm-up "
+          f"steps), kernel vs plain G forward: losses "
+          f"{[round(v, 6) for v in kern[0].tolist()]}, max |diff| / (1 + "
+          f"|ref|) {l_err:.3g} (tol 1e-4; kernel vs kernel {l_floor:.3g}); "
+          f"G and critic gradient norms max relative diff {max(rel):.3g} "
+          f"(tol 1e-3; kernel vs kernel {max(rel_floor):.3g}); worst "
+          + ", ".join(f"{k} {r:.3g}" for r, k in worst)
+          + f"; plain vs plain perturbed by 1e-7: losses {noise_l:.3g}, "
+          f"gradient norms {max(noise_rel):.3g}. From the fresh weights "
+          f"(not held): kernel vs plain losses {cold_l:.3g}, gradient norms "
+          f"{cold_worst[0]:.3g} ({cold_worst[1]}); plain vs perturbed "
+          f"losses {cold_noise_l:.3g}, gradient norms "
+          f"{cold_noise_worst[0]:.3g} ({cold_noise_worst[1]})")
+    check(l_err <= 1e-4, "f32 WGAN-GP step: kernel vs plain losses differ")
+    check(max(rel) <= 1e-3, "f32 WGAN-GP step: gradient norms differ")
+
+
+def wgan_step_flops(b: int, critic_iters: int) -> dict:
+    """Model FLOPs of one WGAN-GP step at full width, from the layer
+    shapes: F_G and F_C, one forward of G and of the critic (2 per
+    multiply-add); the step as (n + 3) F_G (n + 1 forwards, one backward
+    of ~2 F_G) plus (12 n + 2) F_C (per critic update: 3 forwards, the
+    penalty's input gradient ~1, the backward of the real and fake passes
+    ~2 each, of the penalty's forward and input-gradient graph ~2 + ~2;
+    then G's pass through the critic, forward and input gradient)."""
+    s0 = SIZE // 32
+    f_g = 2 * b * LATENT * s0 * s0 * WGAN_WIDTHS[0] + sum(
+        2 * b * (2 * h) ** 2 * cout * 4 * cin
+        for h, cin, cout, _ in layer_shapes(WGAN_WIDTHS))
+    widths = [3, FG, FG * 2, FG * 4, FG * 8]
+    f_c = sum(2 * b * (SIZE // 2 ** (i + 1)) ** 2 * widths[i + 1] * 16
+              * widths[i] for i in range(4))
+    f_c += 2 * b * (SIZE // 16 - s0 + 1) ** 2 * s0 * s0 * widths[-1]
+    n = critic_iters
+    return {"G": f_g, "C": f_c,
+            "step": (n + 3) * f_g + (12 * n + 2) * f_c,
+            "convt_fwd": (n + 1) * sum(
+                2 * b * (2 * h) ** 2 * cout * 4 * cin
+                for h, cin, cout, _ in layer_shapes(WGAN_WIDTHS))}
+
+
+def phase_wgan_profile(train_store, smi: str):
+    """20 warm bf16 WGAN-GP steps at B = 64 with 5 critic updates: ms per
+    step, imgs/s; one profiled step: 30 ConvT kernel launches, the top
+    device ops, the ConvT kernels' share, the idle share; the model FLOPs
+    and the bound they give."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.train.wgan import wgan_step
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    g_net, c_net, opt_g, opt_c = wgan_models(torch.bfloat16, seed=14)
+    gen = torch.Generator(dev).manual_seed(15)
+    idx = torch.randint(0, len(store), (24, WGAN_B), generator=gen,
+                        device=dev)
+
+    def step(i):
+        return wgan_step(g_net, c_net, opt_g, opt_c, store.images, idx[i],
+                         latent_dim=LATENT, critic_iters=WGAN_CRITIC,
+                         lambda_gp=10.0, dtype=torch.bfloat16, generator=gen)
+
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3, 23):
+        losses = step(i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    check(bool(torch.isfinite(losses).all()), losses)
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(23)
+        torch.cuda.synchronize()
+    # the wrapper's count, not the trace's: a trace can miss a kernel
+    want = 5 * (WGAN_CRITIC + 1)
+    check(kernels.LAUNCHES["convt4x4s2_mma"] == want, dict(kernels.LAUNCHES))
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in events if "convt4x4s2" in e.name]
+    busy_ms = sum(e.device_time for e in events) / 1e3
+    ours_ms = sum(e.device_time for e in ours) / 1e3
+    flops = wgan_step_flops(WGAN_B, WGAN_CRITIC)
+    bound_ms = flops["step"] / BF16_PEAK_FLOPS * 1e3
+    print(f"WGAN-GP train step (bf16, B={WGAN_B}, {WGAN_CRITIC} critic "
+          f"updates, 224 px, fg = fd = 64): {step_ms:.3f} ms per step (mean "
+          f"of 20 warm), {WGAN_B / step_ms * 1e3:.1f} imgs/s; profiled step: "
+          f"{len(events)} kernels, {busy_ms:.3f} ms device time, {len(ours)} "
+          f"convt4x4s2 kernels {ours_ms:.3f} ms (share "
+          f"{ours_ms / busy_ms:.3f}); device idle share "
+          f"~{1 - busy_ms / step_ms:.3f}; model FLOPs: G forward "
+          f"{flops['G'] / 1e9:.1f} GFLOP, critic forward "
+          f"{flops['C'] / 1e9:.1f} GFLOP, step {flops['step'] / 1e12:.3f} "
+          f"TFLOP (ConvT kernel forwards {flops['convt_fwd'] / 1e12:.3f}), "
+          f"bound {bound_ms:.3f} ms at {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"{flops['step'] / step_ms / 1e9:.1f} TFLOP/s achieved; {smi}")
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    for e in top[:14]:
+        if e.self_device_time_total > 0:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"x{e.count:<4d} {e.key[:90]}")
+    # the convolutions by input shapes: which of the critic's passes
+    # (forward, backward, the penalty's double backward) holds the time
+    convs = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                    if e.key in ("aten::cudnn_convolution",
+                                 "aten::convolution_backward",
+                                 "aten::_convolution_double_backward")),
+                   key=lambda e: -e.device_time_total)
+    print("WGAN-GP step, convolutions by input shapes (device ms, calls):")
+    for e in convs[:10]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+              f"{e.key} {[s for s in e.input_shapes if s][:3]}")
+
+
 def main():
     smi = phase_card()
     phase_build()
     entry = phase_kernels()
+    phase_wgan_kernels(smi)
     gather_entry = phase_gather()
     with tempfile.TemporaryDirectory(prefix="xgan_chip_smoke_") as tmp:
         launches, warm_rate = phase_sampler(tmp)
@@ -1216,16 +1717,20 @@ def main():
         gather_entry["launches"] = phase_classifier(tmp, root, synth_dir)
         gan_launches = phase_gan(tmp, root)
         phase_analyzer(tmp, root, synth_dir, smi)
+        wgan_launches = phase_wgan_sampler(tmp) + phase_wgan_train(tmp, root)
     phase_f32_step(train, synth)
     phase_classifier_profile(train, synth)
     phase_gan_step_check(train)
     phase_gan_profile(train)
+    phase_wgan_step_check(train)
+    phase_wgan_profile(train, smi)
     busy_ms = phase_profile()
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "
           f"(warm median) vs {busy_ms:.3f} ms profiled device time per "
           f"batch: device idle share ~{1 - busy_ms / loop_ms_per_batch:.3f}")
-    entry["launches"] = launches["convt4x4s2_fused"] + gan_launches
+    entry["launches"] = (launches["convt4x4s2_fused"] + gan_launches
+                         + wgan_launches)
     print(json.dumps({"kernels": [entry, gather_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,9 @@ torch.set_num_threads(1)
 # (H, Cin, Cout) of the five k4s2 layers of the G-224 ladder (fg 64)
 G224 = [(7, 512, 256), (14, 256, 128), (28, 128, 64), (56, 64, 32),
         (112, 32, 3)]
+# the same for the WGAN-GP generator, the DCGAN ladder one width up
+WGAN224 = [(7, 1024, 512), (14, 512, 256), (28, 256, 128), (56, 128, 64),
+           (112, 64, 3)]
 
 # (B, H, W, Cin, Cout): every block_n (8: Cout 3 and 8; 32; 64: Cout 40 and
 # 64; 128: Cout 128 and 256 in two n-tiles), a ragged M inside one m-tile
@@ -83,6 +86,25 @@ def test_emulation_bf16_matches_plain(shape, act):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("act", ["relu", "none"])
+@pytest.mark.parametrize("layer", [WGAN224[0], WGAN224[-1]],
+                         ids=["1024to512at7", "64to3at112"])
+def test_emulation_at_the_wgan_end_layers(layer, act):
+    """The WGAN-GP ladder's first k4s2 layer (Cin = 1024: 128 K-chunks a
+    tile, four n-tiles of 128) and its last (64 -> 3 at 112 x 112:
+    block_n 8, Cout padded from 3, 98 m-tiles), at batch 1, bf16 with the
+    sampler's BN+ReLU epilogue and the train forward's act none, against
+    the plain version."""
+    h, cin, cout = layer
+    args = _torch_args(*_inputs((1, h, h, cin, cout), seed=h + cin),
+                       dtype=torch.bfloat16)
+    got = convt4x4s2_mma_emulate(*args, act=act)
+    want = convt4x4s2_fused_ref(*args, act)
+    assert got.shape == (1, 2 * h, 2 * h, cout)
+    tol = 2 ** -7 * (1 + want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize("tiles", [MmaTiles(16, 8, 32), MmaTiles(32, 16, 32),
                                    MmaTiles(8, 64, 64)])
 def test_emulation_with_small_tiles(tiles):
@@ -109,12 +131,19 @@ def test_tile_table():
     assert mma_tiles(64, 40) == MmaTiles(128, 64, 32)
     assert [mma_tiles(32, c).block_n for c in (1, 8, 9, 33, 65, 129, 300)] \
         == [8, 8, 32, 64, 128, 128, 128]
+    # the WGAN-GP ladder: the same block_n set (8, 64, 128), so the same
+    # kernel instantiations
+    wgan = [mma_tiles(cin, cout) for _, cin, cout in WGAN224]
+    assert [(t.block_n, math.ceil(cout / t.block_n))
+            for t, (_, _, cout) in zip(wgan, WGAN224)] \
+        == [(128, 4), (128, 2), (128, 1), (64, 1), (8, 1)]
 
 
 def test_route():
-    """The five G-224 bf16 layers go to the tensor-core kernel; f32 and a
-    Cin that is not a multiple of 32 go to the CUDA-core kernel."""
-    assert all(uses_mma(torch.bfloat16, cin) for _, cin, _ in G224)
+    """The five bf16 layers of both G-224 ladders go to the tensor-core
+    kernel; f32 and a Cin that is not a multiple of 32 go to the CUDA-core
+    kernel."""
+    assert all(uses_mma(torch.bfloat16, cin) for _, cin, _ in G224 + WGAN224)
     assert not any(uses_mma(torch.float32, cin) for _, cin, _ in G224)
     assert not uses_mma(torch.bfloat16, 100)
     assert not uses_mma(torch.bfloat16, 1)

@@ -430,3 +430,127 @@ def test_grad_cam_on_card_matches_cpu(dev, target):
     pred_d, cam_d = grad_cam_resnet(card.eval(), x.to(dev), target=target)
     assert pred_d == pred and cam_d.shape == cam.shape == (7, 7)
     assert np.abs(cam_d - cam).max() <= 5e-3
+
+
+# ---- WGAN-GP (f32 checks with TF32 off by the ``dev`` fixture) -----------
+
+# (H, Cin, Cout) of the first and last k4s2 layers of the WGAN-GP G-224
+# ladder: Cin = 1024 (128 K-chunks a tile) and 64 -> 3 (block_n 8)
+WGAN_END_LAYERS = [(7, 1024, 512), (112, 64, 3)]
+
+
+@pytest.mark.parametrize("act", ["relu", "none"])
+@pytest.mark.parametrize("layer", WGAN_END_LAYERS,
+                         ids=["1024to512at7", "64to3at112"])
+def test_wgan_convt_layers_on_the_mma_route(dev, layer, act):
+    """Both end layers of the WGAN-GP ladder at B = 64, bf16, on the
+    tensor-core kernel against the plain version."""
+    h, cin, cout = layer
+    args = _inputs((64, h, cin, cout), torch.bfloat16, dev, seed=h)
+    kernels.reset_launch_counts()
+    got = convt4x4s2_fused(*args, act=act)
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == 1
+    want = convt4x4s2_fused_ref(*args, act=act)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (64, 2 * h, 2 * h, cout)
+    tol = TOL[torch.bfloat16] * (1 + want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _wgan_models(dev, fg, size, dtype, seed=0):
+    from xgan_torch.models.wgan import Critic
+    from xgan_torch.models.wgan import Generator as WGenerator
+    from xgan_torch.train.common import adam
+    g_net = WGenerator(16, 3, fg, size, dtype=dtype, device=dev,
+                       generator=torch.Generator(dev).manual_seed(seed))
+    c_net = Critic(3, 8, size, dtype=dtype, device=dev,
+                   generator=torch.Generator(dev).manual_seed(seed + 1))
+    return (g_net, c_net, adam(g_net.parameters(), 2e-4, 0.5, 0.9),
+            adam(c_net.parameters(), 2e-4, 0.5, 0.9))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_wgan_gradient_penalty_on_card_matches_cpu(dev, masked):
+    """The penalty and its double backward into the critic's parameters
+    (cuDNN's convolutions, BN, LeakyReLU on the card) against the CPU, f32,
+    within 1e-4 * (1 + max|cpu|)."""
+    from xgan_torch.models.wgan import Critic
+    from xgan_torch.train.wgan import gradient_penalty
+    g = torch.Generator().manual_seed(7)
+    real = torch.randn(4, 64, 64, 3, generator=g)
+    fake = torch.tanh(torch.randn(4, 64, 64, 3, generator=g))
+    alpha = torch.rand(4, 1, 1, 1, generator=g)
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0]) if masked else None
+    cpu = Critic(3, 8, 64, generator=torch.Generator().manual_seed(8))
+    card = Critic(3, 8, 64, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    out = []
+    for c, d in ((cpu, "cpu"), (card, dev)):
+        gp = gradient_penalty(c, real.to(d), fake.to(d), alpha.to(d), 10.0,
+                              None if mask is None else mask.to(d))
+        gp.backward()
+        out.append([gp.detach().cpu()] + [p.grad.cpu()
+                                          for p in c.parameters()])
+    for want, got in zip(*out):
+        tol = 1e-4 * (1 + want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+
+
+def test_wgan_step_kernel_matches_plain(dev):
+    """One f32 step (TF32 off, deterministic cuDNN, critic_iters 2) from the
+    same weights and draws, with G's k4s2 forwards on the kernel and on
+    the plain version: the losses within 1e-4 * (1 + |ref|), the norm of
+    each of G's and the critic's gradients within 1e-3 relative."""
+    from xgan_torch.kernels.convt import convt4x4s2_fused_ref
+    from xgan_torch.train.wgan import wgan_step
+    g = torch.Generator(device=dev).manual_seed(2)
+    store = torch.randint(0, 256, (12, 64, 64, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    idx = torch.arange(8, device=dev)
+    draws = {"flip": torch.rand(8, generator=g, device=dev) < 0.5,
+             "noises": [torch.randn(8, 16, generator=g, device=dev)
+                        for _ in range(2)],
+             "alphas": [torch.rand(8, 1, 1, 1, generator=g, device=dev)
+                        for _ in range(2)],
+             "g_noise": torch.randn(8, 16, generator=g, device=dev)}
+    out = []
+    torch.backends.cudnn.deterministic = True  # no atomics in the sums
+    try:
+        for convt in (None, convt4x4s2_fused_ref):
+            g_net, c_net, opt_g, opt_c = _wgan_models(dev, 16, 64,
+                                                      torch.float32)
+            kw = {} if convt is None else {"convt": convt}
+            kernels.reset_launch_counts()
+            losses = wgan_step(g_net, c_net, opt_g, opt_c, store, idx,
+                               latent_dim=16, critic_iters=2, lambda_gp=10.0,
+                               **draws, **kw)
+            assert kernels.LAUNCHES["convt4x4s2_fused"] == (
+                15 if convt is None else 0)
+            out.append((losses, [p.grad.norm().item() for p in
+                                 [*g_net.parameters(), *c_net.parameters()]]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l_k, n_k), (l_p, n_p) = out
+    assert ((l_k - l_p).abs() <= 1e-4 * (1 + l_p.abs())).all()
+    for a, b in zip(n_k, n_p):
+        assert abs(a - b) <= 1e-3 * b
+
+
+def test_wgan_bf16_step_launches_the_tensor_core_convt(dev):
+    """Every k4s2 layer of the bf16 train-mode WGAN-GP G (fg 64: each Cin a
+    multiple of 32) runs on the tensor-core kernel, critic_iters + 1 times
+    a step."""
+    from xgan_torch.train.wgan import wgan_step
+    g_net, c_net, opt_g, opt_c = _wgan_models(dev, 64, 64, torch.bfloat16)
+    store = torch.randint(0, 256, (8, 64, 64, 3), device=dev,
+                          dtype=torch.uint8)
+    gen = torch.Generator(dev).manual_seed(4)
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        losses = wgan_step(g_net, c_net, opt_g, opt_c, store,
+                           torch.arange(8, device=dev), latent_dim=16,
+                           critic_iters=3, lambda_gp=10.0,
+                           dtype=torch.bfloat16, generator=gen)
+    assert losses.shape == (4,) and torch.isfinite(losses).all()
+    assert kernels.LAUNCHES["convt4x4s2_fused"] == 40
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == 40

@@ -30,6 +30,11 @@ def test_port_files_exist():
     assert "xgan_torch/kernels/gather.py" in names
     assert "xgan_torch/cli/train_classifier.py" in names
     assert "xgan_torch/cli/train_gan.py" in names
+    assert "xgan_torch/models/wgan.py" in names
+    assert "xgan_torch/train/wgan.py" in names
+    assert "xgan_torch/train/wgan_loop.py" in names
+    assert "xgan_torch/cli/train_wggan.py" in names
+    assert "xgan_torch/cli/generate_synthetic_wgan.py" in names
     assert len(names) > 10
 
 

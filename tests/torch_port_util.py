@@ -1,6 +1,8 @@
-"""Shared inputs for the xgan_torch parity tests: random DCGAN generator
-variables for the JAX package, made with numpy so both packages get the
-same numbers."""
+"""Shared inputs for the xgan_torch parity tests: random DCGAN and WGAN-GP
+generator and discriminator variables for the JAX package, made with numpy
+so both packages get the same numbers."""
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,16 +10,17 @@ import numpy as np
 from xgan.models import dcgan
 
 
-def jax_generator(latent, fg, size, seed=0):
-    """(flax Generator, params, batch_stats) with numpy leaves.
+def jax_generator(latent, fg, size, seed=0, family=dcgan):
+    """(flax Generator of ``family``, the module ``xgan.models.dcgan`` or
+    ``xgan.models.wgan``, params, batch_stats) with numpy leaves.
 
     Conv weights are N(0, 2/fan) so every layer keeps unit gain and the
     images span [-1, 1]; BN scale/bias and running statistics are random
     (a fresh init's mean 0 / var 1 would hide a wrong BN fold)."""
-    model = dcgan.Generator(latent_dim=latent, feature_maps=fg,
-                            image_size=size)
-    like = model.init(jax.random.key(0), jnp.zeros((2, latent)),
-                      train=False)
+    model = family.Generator(latent_dim=latent, feature_maps=fg,
+                             image_size=size)
+    like = jax.eval_shape(partial(model.init, train=False),
+                          jax.random.key(0), jnp.zeros((2, latent)))
     rng = np.random.default_rng(seed)
     params, stats = {}, {}
     for name, leaf in like["params"].items():
@@ -39,13 +42,14 @@ def jax_generator(latent, fg, size, seed=0):
     return model, params, stats
 
 
-def jax_discriminator(fd, size, seed=0):
-    """(flax Discriminator, params, batch_stats) with numpy leaves: conv
+def jax_discriminator(fd, size, seed=0, family=dcgan):
+    """(flax Discriminator of ``family`` (the WGAN-GP critic for
+    ``xgan.models.wgan``), params, batch_stats) with numpy leaves: conv
     weights N(0, 2/fan) (unit gain through the ladder), random BN
     scale/bias and running statistics."""
-    model = dcgan.Discriminator(feature_maps=fd, image_size=size)
-    like = model.init(jax.random.key(0), jnp.zeros((2, size, size, 3)),
-                      train=False)
+    model = family.Discriminator(feature_maps=fd, image_size=size)
+    like = jax.eval_shape(partial(model.init, train=False),
+                          jax.random.key(0), jnp.zeros((2, size, size, 3)))
     rng = np.random.default_rng(seed)
     params, stats = {}, {}
     for name, leaf in like["params"].items():
@@ -76,16 +80,20 @@ def bn_stats_from_torch(module, seq_bn):
         for i, seq in enumerate(seq_bn)}
 
 
-def discriminator_vars_from_torch(d):
-    """A port Discriminator's (params, batch_stats) in the flax layout."""
+def discriminator_vars_from_torch(d, seq_conv=None, seq_bn=None):
+    """A port Discriminator's (params, batch_stats) in the flax layout;
+    ``seq_conv``/``seq_bn``: the critic's indices in place of the DCGAN
+    discriminator's."""
     from xgan_torch.models.dcgan import SEQ_D_BN, SEQ_D_CONV
+    seq_conv = SEQ_D_CONV if seq_conv is None else seq_conv
+    seq_bn = SEQ_D_BN if seq_bn is None else seq_bn
     params = {}
-    for i, seq in enumerate(SEQ_D_CONV):
+    for i, seq in enumerate(seq_conv):
         w = d.main[seq].weight.detach().cpu().numpy()
         params[f"Conv_{i}"] = {"kernel": np.transpose(w, (2, 3, 1, 0))}
-    for i, seq in enumerate(SEQ_D_BN):
+    for i, seq in enumerate(seq_bn):
         bn = d.main[seq]
         params[f"TorchBatchNorm_{i}"] = {
             "scale": bn.weight.detach().cpu().numpy(),
             "bias": bn.bias.detach().cpu().numpy()}
-    return params, bn_stats_from_torch(d, SEQ_D_BN)
+    return params, bn_stats_from_torch(d, seq_bn)

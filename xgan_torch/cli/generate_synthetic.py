@@ -18,10 +18,10 @@ from xgan_torch import config
 UNSUPPORTED = (".msgpack", ".stablehlo")
 
 
-def build_parser():
-    p = argparse.ArgumentParser(
-        description="Generate synthetic images using a trained DCGAN "
-                    "generator (PyTorch/CUDA).")
+def build_parser(description: str = "Generate synthetic images using a "
+                                    "trained DCGAN generator "
+                                    "(PyTorch/CUDA)."):
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("--model-path", type=str, required=True,
                    help="Trained generator checkpoint in the reference "
                         "torch layout (.pth/.pt)")
@@ -40,7 +40,13 @@ def build_parser():
 def main(argv=None) -> dict:
     """Run the sampler; returns its stats (``written``, ``imgs_per_sec``,
     ``device_plus_transfer_imgs_per_sec``)."""
-    args = build_parser().parse_args(argv)
+    from xgan_torch.models.dcgan import Generator
+    return sample(build_parser().parse_args(argv), Generator)
+
+
+def sample(args, generator_cls) -> dict:
+    """The sampler on a ``generator_cls`` generator (the DCGAN or the
+    WGAN-GP one) with the parsed flags; returns its stats as :func:`main`."""
     try:
         device = config.resolve_device(args.cpu)
     except RuntimeError as e:
@@ -52,12 +58,12 @@ def main(argv=None) -> dict:
               "reference-layout .pth")
         sys.exit(1)
     dtype = config.resolve_dtype(args.compute_dtype, device)
-    from xgan_torch.models.dcgan import Generator
     from xgan_torch.train.sample import generate_images, load_generator
 
-    model = Generator(latent_dim=args.latent_dim,
-                      feature_maps=args.feature_maps_g,
-                      image_size=args.image_size, dtype=dtype, device=device)
+    model = generator_cls(latent_dim=args.latent_dim,
+                          feature_maps=args.feature_maps_g,
+                          image_size=args.image_size, dtype=dtype,
+                          device=device)
     load_generator(model, args.model_path)
     stats = {}
     stats["written"] = generate_images(

@@ -36,6 +36,13 @@ def build_parser():
     config.add_gan_train_args(p, epochs=50, batch_size=128,
                               vis_batch_size=64, save_interval=500,
                               checkpoint_interval=10)
+    add_run_args(p)
+    return p
+
+
+def add_run_args(p: argparse.ArgumentParser) -> None:
+    """The run flags of the JAX GAN CLIs: size, seed, dtype, cache, batch
+    cap and device, and the flags the port does not support yet."""
     p.add_argument("--image-size", type=int, default=224,
                    help="Image size (multiple of 32; 224 = reference)")
     p.add_argument("--seed", type=int, default=0)
@@ -57,12 +64,12 @@ def build_parser():
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--resume-from", type=str, default="",
                    help="(not supported by xgan_torch yet)")
-    return p
 
 
-def main(argv=None):
-    """Train; returns the history (None after a printed error)."""
-    args = build_parser().parse_args(argv)
+def start(args) -> tuple[torch.device, torch.dtype]:
+    """Refuse the unsupported flags, resolve the device (exit 1 with an
+    ``Error:`` line without CUDA and ``--cpu``) and the compute dtype,
+    and print the arguments."""
     config.refuse_unsupported(args, UNSUPPORTED)
     try:
         device = config.resolve_device(args.cpu)
@@ -78,6 +85,13 @@ def main(argv=None):
     for k, v in sorted(vars(args).items()):
         print(f"  {k}: {v}")
     print("-------------------------")
+    return device, dtype
+
+
+def main(argv=None):
+    """Train; returns the history (None after a printed error)."""
+    args = build_parser().parse_args(argv)
+    device, dtype = start(args)
     from xgan_torch.train.gan_loop import train_dcgan
     return train_dcgan(args, device, dtype)
 

@@ -1,7 +1,7 @@
 """GAN figures (role of xgan/io_/figures.py): the per-iteration loss
-curves and the image sheets, drawn by ``xgan_torch.io_.plots`` and
-written with the port's own PNG encoder: the GPU host has neither
-matplotlib nor PIL."""
+curves of the DCGAN and WGAN-GP trainers and the image sheets, drawn by
+``xgan_torch.io_.plots`` and written with the port's own PNG encoder: the
+GPU host has neither matplotlib nor PIL."""
 from __future__ import annotations
 
 import os
@@ -30,6 +30,22 @@ def plot_gan_losses(history: Dict, output_path: str) -> None:
               "(Per Iteration)",
         xlabel="Iterations", ylabel="Loss (BCE)", size=(1200, 600),
         grid_style="--")
+    plots.save_png(canvas, output_path)
+    print(f"Saved GAN loss plot to {output_path}")
+
+
+def plot_wgan_losses(history: Dict, output_path: str) -> None:
+    """Per-iteration critic and G loss curves (WGAN-GP schema): every
+    critic update's loss and every G update's loss, each against its own
+    count, as the JAX writer draws them."""
+    d = history.get("D_losses", [])
+    g = history.get("G_losses", [])
+    canvas, _ = plots.chart(
+        [plots.Line(range(len(d)), d, plots.CYCLE[0],
+                    label="Critic (D) Loss"),
+         plots.Line(range(len(g)), g, plots.CYCLE[1],
+                    label="Generator Loss")],
+        xlabel="Iterations", ylabel="Loss", size=(1200, 600))
     plots.save_png(canvas, output_path)
     print(f"Saved GAN loss plot to {output_path}")
 

@@ -5,9 +5,12 @@ the spatial flip of torch's ``(I, O, kh, kw)`` ConvTranspose2d weights;
 the DCGAN generator's state dict uses the reference ``nn.Sequential``
 indices (``xgan_torch.models.dcgan.SEQ_CONVT`` / ``SEQ_BN``).
 
-Discriminator: flax ``Conv_i`` HWIO kernels become torch OIHW weights and
-``TorchBatchNorm_i`` the BNs, at the reference indices ``SEQ_D_CONV`` /
-``SEQ_D_BN``.
+The WGAN-GP generator has the same layout (only the widths differ), so
+``generator_state_dict_from_jax`` carries it across too.
+
+Discriminator and WGAN-GP critic: flax ``Conv_i`` HWIO kernels become torch
+OIHW weights and ``TorchBatchNorm_i`` the BNs, at the reference indices
+``SEQ_D_CONV`` / ``SEQ_D_BN`` (critic: ``SEQ_C_CONV`` / ``SEQ_C_BN``).
 
 ResNet-50: the JAX package's parameter tree (``stem``,
 ``layer{s}_{b}/conv{i}``, ``downsample``, each with its ``bn``; ``fc``)
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from xgan_torch.models.dcgan import SEQ_BN, SEQ_CONVT, SEQ_D_BN, SEQ_D_CONV
+from xgan_torch.models.wgan import SEQ_C_BN, SEQ_C_CONV
 
 
 def convt_hwio_to_torch(w) -> np.ndarray:
@@ -45,8 +49,9 @@ def _put_bn(sd: dict, seq: int, params, stats) -> None:
 
 
 def generator_state_dict_from_jax(params, batch_stats) -> dict:
-    """JAX DCGAN generator ``(params, batch_stats)`` (numpy leaves) -> the
-    reference-layout torch state dict that ``Generator`` loads strictly."""
+    """JAX DCGAN or WGAN-GP generator ``(params, batch_stats)`` (numpy
+    leaves) -> the reference-layout torch state dict that ``Generator``
+    loads strictly."""
     sd = {}
     for i, seq in enumerate(SEQ_CONVT):
         sd[f"main.{seq}.weight"] = torch.from_numpy(convt_hwio_to_torch(
@@ -57,18 +62,31 @@ def generator_state_dict_from_jax(params, batch_stats) -> dict:
     return sd
 
 
+def _conv_stack_state_dict(params, batch_stats, seq_conv, seq_bn) -> dict:
+    """Flax ``Conv_i`` (HWIO) and ``TorchBatchNorm_i`` -> torch OIHW convs
+    at ``main.{seq_conv[i]}`` and BNs at ``main.{seq_bn[i]}``."""
+    sd = {}
+    for i, seq in enumerate(seq_conv):
+        sd[f"main.{seq}.weight"] = _t(np.transpose(
+            np.asarray(params[f"Conv_{i}"]["kernel"]), (3, 2, 0, 1)))
+    for i, seq in enumerate(seq_bn):
+        _put_bn(sd, seq, params[f"TorchBatchNorm_{i}"],
+                batch_stats[f"TorchBatchNorm_{i}"])
+    return sd
+
+
 def discriminator_state_dict_from_jax(params, batch_stats) -> dict:
     """JAX DCGAN discriminator ``(params, batch_stats)`` (numpy leaves) ->
     the reference-layout torch state dict that ``Discriminator`` loads
     strictly."""
-    sd = {}
-    for i, seq in enumerate(SEQ_D_CONV):
-        sd[f"main.{seq}.weight"] = _t(np.transpose(
-            np.asarray(params[f"Conv_{i}"]["kernel"]), (3, 2, 0, 1)))
-    for i, seq in enumerate(SEQ_D_BN):
-        _put_bn(sd, seq, params[f"TorchBatchNorm_{i}"],
-                batch_stats[f"TorchBatchNorm_{i}"])
-    return sd
+    return _conv_stack_state_dict(params, batch_stats, SEQ_D_CONV, SEQ_D_BN)
+
+
+def critic_state_dict_from_jax(params, batch_stats) -> dict:
+    """JAX WGAN-GP critic ``(params, batch_stats)`` (numpy leaves) -> the
+    reference-layout torch state dict that ``xgan_torch.models.wgan.Critic``
+    loads strictly."""
+    return _conv_stack_state_dict(params, batch_stats, SEQ_C_CONV, SEQ_C_BN)
 
 
 def load_generator_pth(path: str) -> dict:

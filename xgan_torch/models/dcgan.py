@@ -2,7 +2,8 @@
 
 Generator: z (B, latent) -> ConvT(k=S/32, s1, p0) -> 5 x ConvT(k4, s2, p1)
 -> tanh, channels fg*8 -> fg*4 -> fg*2 -> fg -> fg//2 -> C with BN + ReLU
-between; output NHWC (B, S, S, C) in [-1, 1] like the JAX package.
+between (``widths``: another ladder, as the WGAN-GP generator's one width
+up); output NHWC (B, S, S, C) in [-1, 1] like the JAX package.
 
 Discriminator: NHWC (B, S, S, C) -> Conv(k4, s2, p1) x 5, widths fd//2 ->
 fd -> fd*2 -> fd*4 -> fd*8, BN on all but the first, LeakyReLU 0.2 ->
@@ -33,6 +34,8 @@ The generator has two forwards:
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -57,19 +60,25 @@ def _check_size(image_size: int) -> None:
 class Generator(nn.Module):
     def __init__(self, latent_dim: int = 100, num_channels: int = 3,
                  feature_maps: int = 64, image_size: int = 224, *,
+                 widths: Sequence[int] | None = None,
                  dtype: torch.dtype = torch.float32,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
-        """``dtype``: compute dtype of activations (parameters stay f32).
-        ``generator``: draws the reference init, N(0, 0.02) conv weights and
-        N(1, 0.02) BN scales; it must live on ``device``."""
+        """``widths``: the output channels of the first five ConvTs
+        (default the DCGAN ladder fg*8 ... fg//2). ``dtype``: compute
+        dtype of activations (parameters stay f32). ``generator``: draws
+        the reference init, N(0, 0.02) conv weights and N(1, 0.02) BN
+        scales; it must live on ``device``."""
         super().__init__()
         _check_size(image_size)
         self.latent_dim = latent_dim
         self.s0 = image_size // 32
         self.dtype = dtype
         fg = feature_maps
-        widths = [fg * 8, fg * 4, fg * 2, fg, fg // 2]
+        if widths is None:
+            widths = [fg * 8, fg * 4, fg * 2, fg, fg // 2]
+        if len(widths) != 5:
+            raise ValueError(f"widths must name 5 layers, got {widths}")
         layers = [nn.ConvTranspose2d(latent_dim, widths[0], self.s0, 1, 0,
                                      bias=False, device=device),
                   nn.BatchNorm2d(widths[0], device=device), nn.ReLU(True)]
@@ -201,15 +210,26 @@ class Discriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool,
                 mask=None) -> torch.Tensor:
-        """x (B, S, S, C) NHWC -> f32 logits (B,). The convolutions are
-        cuDNN's, on a channels_last NCHW view in ``self.dtype`` (the JAX
-        package leaves them to XLA too). ``mask``: (B,) validity weights
-        for train-mode BN statistics."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        for seq in SEQ_D_CONV[:-1]:
-            x = F.conv2d(x, self.main[seq].weight.to(x.dtype), None, 2, 1)
-            if seq + 1 in SEQ_D_BN:
-                x = batch_norm(self.main[seq + 1], x, train=train, mask=mask)
-            x = leaky_relu(x)
-        x = F.conv2d(x, self.main[SEQ_D_CONV[-1]].weight.to(x.dtype))
+        """x (B, S, S, C) NHWC -> f32 logits (B,). ``mask``: (B,) validity
+        weights for train-mode BN statistics."""
+        x = conv_ladder(self.main, SEQ_D_CONV, SEQ_D_BN, x, self.dtype,
+                        train=train, mask=mask)
         return x.float().reshape(x.shape[0])
+
+
+def conv_ladder(main: nn.Sequential, seq_conv, seq_bn, x: torch.Tensor,
+                dtype: torch.dtype, *, train: bool, mask=None) -> torch.Tensor:
+    """The convolutions of a reference-layout discriminator ``main`` (conv
+    at ``seq_conv``, BN right after the convs that have one at ``seq_bn``):
+    NHWC ``x`` -> the last conv's NCHW output in ``dtype``. Each conv but
+    the last is k4 s2 p1, then BN where there is one, then LeakyReLU 0.2;
+    the last is valid with stride 1. The convolutions are cuDNN's, on a
+    channels_last NCHW view in ``dtype`` (the JAX package leaves them to
+    XLA too)."""
+    x = x.to(dtype).permute(0, 3, 1, 2)
+    for seq in seq_conv[:-1]:
+        x = F.conv2d(x, main[seq].weight.to(x.dtype), None, 2, 1)
+        if seq + 1 in seq_bn:
+            x = batch_norm(main[seq + 1], x, train=train, mask=mask)
+        x = leaky_relu(x)
+    return F.conv2d(x, main[seq_conv[-1]].weight.to(x.dtype))

@@ -22,16 +22,16 @@ import numpy as np
 import torch
 
 from xgan_torch.data import rsna
-from xgan_torch.data.pipeline import DeviceStore, epoch_batches, \
-    minmax_to_u8
+from xgan_torch.data.pipeline import DeviceStore, minmax_to_u8
 from xgan_torch.data.store import ImageStore
 from xgan_torch.io_.figures import plot_gan_losses, save_image_grid
 from xgan_torch.io_.metrics import write_json
 from xgan_torch.models.dcgan import Discriminator, Generator
 from xgan_torch.train.common import adam
 from xgan_torch.train.gan import dcgan_step
-from xgan_torch.train.loop_common import EpochProgress, batch_tail_mask, \
-    checkpoint_boundary, gan_live_postfix, grid_iters, host_state
+from xgan_torch.train.loop_common import EpochProgress, \
+    checkpoint_boundary, epoch_plan, gan_live_postfix, grid_iters, \
+    save_gan_checkpoints
 from xgan_torch.utils import StepTimer, check_create_dir
 
 HISTORY_KEYS = ("G_losses_iter", "D_losses_iter", "D_x_iter", "D_G_z1_iter",
@@ -99,14 +99,9 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     print("Starting Training Loop...")
     for epoch in range(args.epochs):
         epoch_start = time.time()
-        batches = epoch_batches(len(store), batch_size, data_rng)
-        if args.limit_batches:
-            batches = batches[:args.limit_batches]
-        num_batches = batches.shape[0]
-        t_mask = batch_tail_mask(len(store), num_batches, batch_size)
-        if t_mask is not None:
-            t_mask = torch.from_numpy(t_mask).to(device)
-        idx_all = torch.from_numpy(batches.astype(np.int64)).to(device)
+        idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
+                                     args.limit_batches, device)
+        num_batches = idx_all.shape[0]
         epoch_metrics = []
         with EpochProgress(f"Epoch {epoch + 1}/{args.epochs}", num_batches,
                            postfix_fn=gan_live_postfix) as progress:
@@ -139,18 +134,13 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
               f"{timer.rate * batch_size:.1f} imgs/s")
 
         if checkpoint_boundary(epoch, args.epochs, args.checkpoint_interval):
-            torch.save(host_state(g), os.path.join(
-                gan_model_dir, f"generator_epoch_{epoch + 1:03d}.pth"))
-            torch.save(host_state(d), os.path.join(
-                gan_model_dir, f"discriminator_epoch_{epoch + 1:03d}.pth"))
+            save_gan_checkpoints(gan_model_dir, f"epoch_{epoch + 1:03d}", g,
+                                 d)
             print(f"Saved checkpoints for epoch {epoch + 1} to "
                   f"{gan_model_dir}")
 
     print(f"Training finished in {time.time() - start_time:.2f} seconds.")
-    torch.save(host_state(g), os.path.join(gan_model_dir,
-                                            "generator_final.pth"))
-    torch.save(host_state(d), os.path.join(gan_model_dir,
-                                            "discriminator_final.pth"))
+    save_gan_checkpoints(gan_model_dir, "final", g, d)
     print(f"Saved final models to {gan_model_dir}")
     write_json(os.path.join(metrics_dir, "gan_training_history.json"),
                history)

@@ -1,11 +1,14 @@
 """Epoch-loop helpers (role of xgan/train/loop_common.py)."""
 from __future__ import annotations
 
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+
+from xgan_torch.data.pipeline import epoch_batches
 
 
 def batch_tail_mask(n_valid: int, num_batches: int, batch_size: int):
@@ -19,6 +22,30 @@ def batch_tail_mask(n_valid: int, num_batches: int, batch_size: int):
         return None
     return np.concatenate([np.ones(batch_size - pad, np.float32),
                            np.zeros(pad, np.float32)])
+
+
+def epoch_plan(n_valid: int, batch_size: int, data_rng,
+               limit_batches: int, device: torch.device):
+    """One epoch's batches on ``device``: the ``(num_batches, B)`` int64
+    row indices in the JAX package's order (``epoch_batches``, cut to
+    ``limit_batches`` when set) and the final batch's validity mask
+    (:func:`batch_tail_mask`), or None when that batch is full."""
+    batches = epoch_batches(n_valid, batch_size, data_rng)
+    if limit_batches:
+        batches = batches[:limit_batches]
+    t_mask = batch_tail_mask(n_valid, batches.shape[0], batch_size)
+    if t_mask is not None:
+        t_mask = torch.from_numpy(t_mask).to(device)
+    return torch.from_numpy(batches.astype(np.int64)).to(device), t_mask
+
+
+def save_gan_checkpoints(model_dir: str, tag: str, g, d) -> None:
+    """``generator_{tag}.pth`` and ``discriminator_{tag}.pth``: host copies
+    of the reference-layout state dicts."""
+    torch.save(host_state(g), os.path.join(model_dir,
+                                            f"generator_{tag}.pth"))
+    torch.save(host_state(d), os.path.join(model_dir,
+                                            f"discriminator_{tag}.pth"))
 
 
 def host_state(model) -> dict:
@@ -47,6 +74,12 @@ def gan_live_postfix(m) -> str:
     """DCGAN step metrics [G, D, D_x, D_G_z1, D_G_z2] for the progress
     line."""
     return f"Loss_D: {m[1]:.4f}, Loss_G: {m[0]:.4f}, D(x): {m[2]:.4f}"
+
+
+def wgan_live_postfix(m) -> str:
+    """WGAN-GP step losses [d_1, ..., d_n, g] for the progress line: the
+    last critic loss, as the JAX package shows it."""
+    return f"Loss_D: {m[-2]:.4f}"
 
 
 class EpochProgress:
