@@ -88,7 +88,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
     at B = 64 with one profiled (ms per step, imgs/s, top device ops, the
     ConvT kernels' share, the idle share, the model FLOPs and their
     bound);
-14. prints the kernel table line, the card line and, last, the result
+14. CGAN, which runs no hand-written kernel (every launch count must stay
+    0): after the WGAN-GP CLIs, its trainer CLI (``xgan_torch.cli
+    .train_cgan``: 224 px, fg = fd = 32, latent 100, B = 32, bf16, random
+    VGG16 features, 4 steps: the history's nine keys, the sheets, the loss
+    figure and the ``.pth`` files) and its sampler CLI on that
+    ``generator_final.pth`` (64 PNGs); after the WGAN-GP profile, one f32
+    CGAN step (B = 16, after 3 warm-up steps) on the card against the CPU
+    (metrics, G's and D's gradient norms; the same step with TF32 on must
+    fail those limits), and 20 warm bf16 steps at B = 32 with one profiled
+    (ms per step, imgs/s, top device ops, the idle share, the model FLOPs
+    and their bound) at epoch 0 and, with the gate read on the host, at
+    epoch 5 with the gate held open and held closed;
+15. prints the kernel table line, the card line and, last, the result
     line.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
@@ -96,6 +108,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -1702,6 +1715,433 @@ def phase_wgan_profile(train_store, smi: str):
               f"{e.key} {[s for s in e.input_shapes if s][:3]}")
 
 
+CGAN_B, CGAN_FM, CGAN_STEPS = 32, 32, 4  # src/train_cgan.py defaults
+CGAN_HISTORY_KEYS = GAN_HISTORY_KEYS | {"perceptual_losses",
+                                        "feature_matching_losses"}
+
+
+def phase_cgan_train(tmp: str, root: str):
+    """CGAN training through its CLI at full width (224 px, fg = fd = 32,
+    latent 100, B = 32, bf16, random VGG features) on the RSNA tree, 1
+    epoch cut to 4 steps, then the CGAN sampler CLI on its
+    ``generator_final.pth``. The path runs no hand-written kernel: both
+    runs must leave every launch count at 0."""
+    from xgan_torch import kernels
+    from xgan_torch.cli.generate_synthetic_cgan import main as sample_main
+    from xgan_torch.cli.train_cgan import main as cgan_main
+    from xgan_torch.models.cgan import Discriminator, Generator
+    from xgan_torch.native.png import decode_png
+    out = os.path.join(tmp, "cgan")
+    argv = ["--data-dir", root, "--model-dir", os.path.join(out, "models"),
+            "--output-dir", os.path.join(out, "results"),
+            "--results-dir", os.path.join(out, "metrics"),
+            "--figures-dir", os.path.join(out, "figures"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--feature-maps-g", str(CGAN_FM),
+            "--feature-maps-d", str(CGAN_FM), "--latent-dim", str(LATENT),
+            "--batch-size", str(CGAN_B), "--epochs", "1",
+            "--limit-batches", str(CGAN_STEPS), "--compute-dtype", "bf16"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = cgan_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sheet_dir = os.path.join(out, "results", "cgan_images")
+    sheets = sorted(os.listdir(sheet_dir))
+    print(f"CGAN run: {wall:.1f} s wall, {CGAN_STEPS} train steps, "
+          f"{len(sheets)} sample sheets, launches {dict(kernels.LAUNCHES)}; "
+          f"last metrics G {history['G_losses_iter'][-1]:.4f} D "
+          f"{history['D_losses_iter'][-1]:.4f} perceptual "
+          f"{history['perceptual_losses'][-1]:.4f} fm "
+          f"{history['feature_matching_losses'][-1]:.4f}")
+    check(sum(kernels.LAUNCHES.values()) == 0, dict(kernels.LAUNCHES))
+    with open(os.path.join(out, "metrics", "cgan_training_history.json")) \
+            as f:
+        saved = json.load(f)
+    check(set(saved) == CGAN_HISTORY_KEYS, sorted(saved))
+    for key, series in saved.items():
+        check(len(series) == (CGAN_STEPS if key.endswith("_iter") else 1),
+              (key, len(series)))
+        check(all(math.isfinite(v) for v in series), (key, series))
+    check(sheets == ["fake_samples_epoch_001_iter_000000.png",
+                     f"fake_samples_epoch_001_iter_{CGAN_STEPS - 1:06d}.png"],
+          sheets)
+    shape = (4 * (SIZE + 2) + 2, 8 * (SIZE + 2) + 2, 3)  # 32 images, 8 a row
+    for name in sheets:
+        img = decode_png(os.path.join(sheet_dir, name))
+        check(img.shape == shape and img.std() > 0, (name, img.shape))
+    check_figures(os.path.join(out, "figures"), ["cgan_loss_curve.png"])
+    cgan_dir = os.path.join(out, "models", "cgan")
+    names = sorted(os.listdir(cgan_dir))
+    check(names == sorted(f"{m}_{t}.pth" for m in ("generator",
+                                                     "discriminator")
+                          for t in ("epoch_001", "final")), names)
+    for name in names:
+        model = (Generator(LATENT, 2, 3, CGAN_FM, SIZE)
+                 if name.startswith("gen")
+                 else Discriminator(2, 3, CGAN_FM, SIZE))
+        model.load_state_dict(torch.load(os.path.join(cgan_dir, name),
+                                         weights_only=True), strict=True)
+    print(f"CGAN run: history keys with {CGAN_STEPS} / 1 finite entries; "
+          f"{len(sheets)} sheets of {shape[1]}x{shape[0]} and "
+          f"cgan_loss_curve.png decode; {names} load strictly")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = sample_main([
+        "--model-path", os.path.join(cgan_dir, "generator_final.pth"),
+        "--output-dir", os.path.join(out, "synthetic"),
+        "--num-images", str(B), "--latent-dim", str(LATENT),
+        "--feature-maps-g", str(CGAN_FM), "--image-size", str(SIZE),
+        "--batch-size", str(B), "--compute-dtype", "bf16"])
+    torch.cuda.synchronize()
+    check(stats["written"] == B and sum(kernels.LAUNCHES.values()) == 0,
+          (stats, dict(kernels.LAUNCHES)))
+    pngs = sorted(os.listdir(os.path.join(out, "synthetic")))
+    check(len(pngs) == B, len(pngs))
+    for name in pngs:
+        img = decode_png(os.path.join(out, "synthetic", name))
+        check(img.shape == (SIZE, SIZE, 3), (name, img.shape))
+    print(f"CGAN -> sampler: {stats['written']} PNGs from the trained "
+          f"generator_final.pth decode, {time.perf_counter() - t0:.2f} s "
+          f"wall (one cold run)")
+
+
+def cgan_models(dev, dtype, seed: int = 0):
+    """Seeded full-width CGAN G and D (fg = fd = 32, 224 px), random VGG16
+    features, on ``dev``, and the Adam optimizers of G and D."""
+    from xgan_torch.models.cgan import Discriminator, Generator
+    from xgan_torch.models.vgg import VGG16Features
+    from xgan_torch.train.common import adam
+    gen = torch.Generator().manual_seed(seed)
+    g = Generator(LATENT, 2, 3, CGAN_FM, SIZE, dtype=dtype, generator=gen)
+    d = Discriminator(2, 3, CGAN_FM, SIZE, dtype=dtype, generator=gen)
+    vgg = VGG16Features(dtype=dtype, generator=gen)
+    g, d, vgg = g.to(dev), d.to(dev), vgg.to(dev)
+    return g, d, vgg, adam(g.parameters(), 2e-4, 0.5), adam(d.parameters(),
+                                                             2e-4, 0.5)
+
+
+def pre_bn_biases():
+    """The CGAN parameters right before a train-mode BN, as ``G.<name>``
+    and ``D.<name>``: their gradient is 0 in exact arithmetic, so its norm
+    is rounding noise."""
+    from xgan_torch.models.cgan import D_PRE_BN_BIASES, G_PRE_BN_BIASES
+    return ({f"G.{k}" for k in G_PRE_BN_BIASES}
+            | {f"D.{k}" for k in D_PRE_BN_BIASES})
+
+
+@contextlib.contextmanager
+def noisy_convs(rel_rms: float, seed: int):
+    """Every ``F.conv2d`` output (G's, D's and VGG16's convolutions) plus
+    Gaussian noise of ``rel_rms`` times the output's rms: a stand-in for
+    another f32 implementation's rounding, which is absolute in the
+    size of the summands, so it also reaches the near-zero outputs whose
+    ReLU and max-pool decisions it can flip."""
+    import torch.nn.functional as F
+    conv, gen = F.conv2d, torch.Generator().manual_seed(seed)
+
+    def noisy(*args, **kwargs):
+        y = conv(*args, **kwargs)
+        scale = rel_rms * y.detach().square().mean().sqrt()
+        return y + scale * torch.randn(y.shape, generator=gen).to(y)
+
+    F.conv2d = noisy
+    try:
+        yield
+    finally:
+        F.conv2d = conv
+
+
+CGAN_FLOOR_RMS = 1e-6
+
+
+def phase_cgan_step_check(train_store):
+    """One f32 CGAN step at full width (B = 16, TF32 off, deterministic
+    cuDNN) on the card against the same step on the CPU, from the same
+    weights, Adam states and injected draws, after 3 warm-up steps on the
+    card shared by both sides through a snapshot: the 7 metrics within
+    1e-4 * (1 + |ref|); each tensor's gradient norm within 1e-3 relative
+    plus twice its floor, the largest move of that norm when the CPU step
+    runs against itself with :func:`noisy_convs` (two draws). The biases
+    right before a BN (:func:`pre_bn_biases`) are printed, not held: their
+    gradient is 0 in exact arithmetic.
+
+    Why a floor: the step's gradient is discontinuous in its forward
+    values (ReLU, max-pool and LeakyReLU decisions), and at 224 px some
+    outputs lie within rounding of each kink, so two correct f32 runs can
+    part by more than 1e-3 on some of G's tensors; the floor says on which
+    and by how much, and a device bug moves a norm by far more. The noise
+    level is that of the card's VGG16 features against the CPU's, printed
+    beside it. The comparison from the fresh weights is printed unheld
+    with its floor (Adam's first step moves each weight by about lr *
+    sign(g), so rounding in a near-zero gradient flips a ±lr move).
+
+    The control: the same step on the card with TF32 on must fall outside
+    these limits, on the metrics or on some held norm, or the check could
+    not tell a lower precision from f32."""
+    import copy
+    from xgan_torch.train.cgan import cgan_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    images = torch.from_numpy(np.array(train_store.images))
+    labels = torch.from_numpy(np.asarray(train_store.labels, np.int64))
+    b = 16
+    gen = torch.Generator().manual_seed(21)
+    idx = torch.randint(0, len(labels), (b,), generator=gen)
+    draws = {"flip": torch.rand(b, generator=gen) < 0.5,
+             "noise": torch.randn(b, LATENT, generator=gen),
+             "fake_labels": torch.randint(0, 2, (b,), generator=gen),
+             "real_targets": 0.9 - 0.1 * torch.rand(b, generator=gen),
+             "fake_targets": 0.1 + 0.1 * torch.rand(b, generator=gen)}
+    on_card = (images.to(dev), labels.to(dev))
+    nets = cgan_models(dev, torch.float32, seed=22)
+    fresh = copy.deepcopy([m.state_dict() for m in nets[:2] + nets[3:]])
+    warm_gen = torch.Generator(dev).manual_seed(23)
+    for i in range(3):
+        cgan_step(*nets, *on_card,
+                  torch.randint(0, len(labels), (b,), generator=warm_gen,
+                                device=dev), 0, latent_dim=LATENT,
+                  generator=warm_gen)
+    warm = copy.deepcopy([m.state_dict() for m in nets[:2] + nets[3:]])
+
+    def run(state, device, floor_seed=None):
+        g, d, vgg, opt_g, opt_d = cgan_models(device, torch.float32,
+                                              seed=22)
+        for m, sd in zip((g, d, opt_g, opt_d), copy.deepcopy(state)):
+            m.load_state_dict(sd)
+        store = on_card if device.type == "cuda" else (images, labels)
+        with (noisy_convs(CGAN_FLOOR_RMS, floor_seed)
+              if floor_seed is not None else contextlib.nullcontext()):
+            m = cgan_step(g, d, vgg, opt_g, opt_d, *store, idx.to(device),
+                          0, latent_dim=LATENT,
+                          **{k: v.to(device) for k, v in draws.items()})
+        params = [(f"G.{k}", p) for k, p in g.named_parameters()] \
+            + [(f"D.{k}", p) for k, p in d.named_parameters()]
+        return m.cpu(), {k: p.grad.norm().item() for k, p in params}
+
+    noisy = pre_bn_biases()
+
+    def diffs(a, ref):
+        (m_a, n_a), (m_r, n_r) = a, ref
+        return (((m_a - m_r).abs() / (1 + m_r.abs())).max().item(),
+                {k: abs(n_a[k] - n_r[k]) / n_r[k] for k in n_r
+                 if k not in noisy})
+
+    def worst(rel):
+        k = max(rel, key=rel.get)
+        return f"{rel[k]:.3g} ({k})"
+
+    x = images[idx].float() / 127.5 - 1
+    with torch.no_grad():
+        vgg_err = [((a.cpu() - r).abs().max() / r.square().mean().sqrt())
+                   .item() for a, r in zip(nets[2](x.to(dev)), cgan_models(
+                       cpu, torch.float32, seed=22)[2](x))]
+    t0 = time.perf_counter()
+    cold_cpu = run(fresh, cpu)
+    cold_l, cold_rel = diffs(run(fresh, dev), cold_cpu)
+    cold_fl, cold_floor = diffs(run(fresh, cpu, floor_seed=0), cold_cpu)
+    ref = run(warm, cpu)
+    card, card2 = run(warm, dev), run(warm, dev)
+    floors = [diffs(run(warm, cpu, floor_seed=s), ref) for s in (1, 2)]
+    cpu_s = time.perf_counter() - t0
+    # the control: the card step at a lower precision (TF32 convolutions
+    # and matmuls, 10 mantissa bits) must fail the same limits
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card_tf32 = run(warm, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    l_err, rel = diffs(card, ref)
+    l_k, rel_k = diffs(card2, card)
+    floor = {k: max(f[1][k] for f in floors) for k in rel}
+    limit = {k: 1e-3 + 2 * floor[k] for k in rel}
+    ratio = {k: rel[k] / limit[k] for k in rel}
+    over = sorted(k for k in rel if floor[k] > 1e-3)
+    print(f"f32 CGAN step (B={b}, 224 px, fg = fd = 32, after 3 warm-up "
+          f"steps), card vs CPU: metrics "
+          f"{[round(v, 6) for v in card[0].tolist()]}, max |diff| / (1 + "
+          f"|ref|) {l_err:.3g} (tol 1e-4; card vs card {l_k:.3g}; floor "
+          f"{max(f[0] for f in floors):.3g}); gradient norms, largest "
+          f"relative diff {worst(rel)}, largest share of its limit "
+          f"{worst(ratio)} (limit 1e-3 + 2 x floor; card vs card "
+          f"{max(rel_k.values()):.3g}); floor (CPU vs CPU, conv outputs + "
+          f"{CGAN_FLOOR_RMS:g} rms noise, 2 draws; card vs CPU VGG16 "
+          f"features max |diff| / rms {[f'{e:.2g}' for e in vgg_err]}): "
+          f"largest {worst(floor)}, "
+          f"above 1e-3 on {len(over)} of {len(rel)} tensors {over}; the "
+          f"pre-BN biases, not held: norms {max(ref[1][k] for k in noisy):.3g}"
+          f" at most, against {min(ref[1][k] for k in rel):.3g} for the "
+          f"smallest held tensor. From the fresh weights (not held): "
+          f"metrics {cold_l:.3g}, norms {worst(cold_rel)}; floor "
+          f"{cold_fl:.3g} and {worst(cold_floor)}; {cpu_s:.1f} s for the "
+          f"9 steps")
+    tf_l, tf_rel = diffs(card_tf32, ref)
+    tf_ratio = {k: tf_rel[k] / limit[k] for k in rel}
+    tf_over = sorted(k for k in rel if tf_ratio[k] > 1)
+    print(f"control, the same step on the card with TF32 on, against the "
+          f"same limits: metrics {tf_l:.3g} (tol 1e-4), gradient norms "
+          f"largest relative diff {worst(tf_rel)}, largest share of its "
+          f"limit {worst(tf_ratio)}, over the limit on {len(tf_over)} of "
+          f"{len(rel)} tensors {tf_over}")
+    check(l_err <= 1e-4, "f32 CGAN step: card vs CPU metrics differ")
+    check(all(rel[k] <= limit[k] for k in rel),
+          ("f32 CGAN step: gradient norms differ",
+           {k: (rel[k], limit[k]) for k in rel if rel[k] > limit[k]}))
+    check(tf_l > 1e-4 or tf_over,
+          "f32 CGAN step check: a TF32 step on the card passes it too")
+
+
+def cgan_step_flops(b: int) -> dict:
+    """Model FLOPs of one CGAN step at full width (224 px, fg = fd = 32),
+    from the layer shapes (2 per multiply-add): F_G, F_D and F_V, one
+    forward of G, D and the three VGG16 blocks. The step with the gate
+    open: G one forward and its backward (~2 F_G); D on real and fake,
+    their backward (weights and inner inputs, ~2 F_D each), D on the fake
+    with its input gradient (~2 F_D) and on the real (1 F_D): 9 F_D; VGG
+    on the fake and the real and the fake's input gradient: 3 F_V. A
+    closed gate skips D's backward on real and fake: 5 F_D."""
+    s0, nf = SIZE // 32, CGAN_FM
+    widths = [nf * 8, nf * 4, nf * 2, nf, nf // 2, 3]
+    f_g = 2 * b * LATENT * widths[0] * s0 * s0 + sum(
+        2 * b * (s0 * 2 ** (i + 1)) ** 2 * widths[i + 1] * widths[i] * 9
+        for i in range(5))
+    d_widths = [3, nf // 2, nf, nf * 2, nf * 4, nf * 8]
+    f_d = sum(2 * b * (SIZE // 2 ** (i + 1)) ** 2 * d_widths[i + 1] * 16
+              * d_widths[i] for i in range(5)) + 2 * b * s0 * s0 * d_widths[-1]
+    f_v, side, cin = 0, SIZE, 3
+    for cout in (64, 64, "M", 128, 128, "M", 256, 256, 256):
+        if cout == "M":
+            side //= 2
+            continue
+        f_v += 2 * b * side * side * cout * cin * 9
+        cin = cout
+    return {"G": f_g, "D": f_d, "VGG": f_v,
+            "step": 3 * f_g + 9 * f_d + 3 * f_v,
+            "step_closed": 3 * f_g + 5 * f_d + 3 * f_v}
+
+
+def phase_cgan_profile(train_store, smi: str):
+    """Warm bf16 CGAN steps at B = 32 (fg = fd = 32, random VGG16
+    features) in the three forms of the adaptive gate: epoch 0 (open
+    without a look, no host sync), and from epoch 5 on, where the gate is
+    read on the host each step, open and closed (no D backward, no D Adam
+    step). For each form: ms per step over 20 warm steps, imgs/s and D's
+    Adam steps taken (20 open, 0 closed); one profiled step: kernels,
+    device ms, the device idle share and the longest host read of a
+    device value (the gate's, where it is read). For epoch 0 also the top device ops and the model FLOPs with the
+    bound they give.
+
+    The epoch-5 forms fix the gate through D's projection: D's last BN
+    with scale 0 and shift 1 makes the last LeakyReLU map all ones,
+    whatever G draws; every real label 0, every fake label 1, and
+    ``label_emb`` rows of -c and +c (open: D(x) ~ 0, D(G(z)) ~ 1) or +c
+    and -c (closed), with c = 500 / the map's size, put the logits near
+    -+500. D's Adam (lr 2e-4, sign-like first steps) moves them by about
+    2e-4 * 12,544 ~ 2.5 a step through ``label_emb``, as much through the
+    last conv: ~120 in 24 steps, so the gate stays as set."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.models.cgan import SEQ_D_BN
+    from xgan_torch.train.cgan import GATE_EPOCHS, cgan_step
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    gen = torch.Generator(dev).manual_seed(25)
+    idx = torch.randint(0, len(store), (24, CGAN_B), generator=gen,
+                        device=dev)
+
+    def run(epoch, closed=None):
+        nets = cgan_models(dev, torch.bfloat16, seed=24)
+        d, opt_d = nets[1], nets[4]
+        labels, draws = store.labels, {}
+        if closed is not None:
+            emb, bn = d.label_emb.weight, d.main[SEQ_D_BN[-1]]
+            c = 500.0 / emb.shape[1] * (1 if closed else -1)
+            with torch.no_grad():
+                emb[0], emb[1] = c, -c
+                bn.weight.zero_()
+                bn.bias.fill_(1.0)
+            labels = torch.zeros_like(store.labels)
+            draws["fake_labels"] = torch.ones(CGAN_B, dtype=torch.int64,
+                                              device=dev)
+
+        def step(i):
+            return cgan_step(*nets, store.images, labels, idx[i], epoch,
+                             latent_dim=LATENT, dtype=torch.bfloat16,
+                             generator=gen, **draws)
+
+        def d_updates():
+            state = opt_d.state.get(d.label_emb.weight)
+            return int(state["step"]) if state else 0
+
+        for i in range(3):
+            step(i)
+        torch.cuda.synchronize()
+        before = d_updates()
+        t0 = time.perf_counter()
+        for i in range(3, 23):
+            m = step(i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 20 * 1e3
+        updates = d_updates() - before
+        check(bool(torch.isfinite(m).all()), m)
+        check(updates == (0 if closed else 20), (epoch, closed, updates))
+        if closed is not None:  # D(x), D(G(z)) of the last timed step
+            d_x, d_g_z1 = m[2].item(), m[3].item()
+            check((d_x >= 0.8 and d_g_z1 <= 0.2) == closed,
+                  (closed, d_x, d_g_z1))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(23)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.device_time for e in events) / 1e3
+        wait_ms = max((e.cpu_time_total for e in prof.events()
+                       if e.name == "aten::_local_scalar_dense"),
+                      default=0) / 1e3
+        print(f"CGAN train step (bf16, B={CGAN_B}, 224 px, fg = fd = "
+              f"{CGAN_FM}, random VGG16), epoch {epoch}, gate "
+              f"{'open' if not closed else 'closed'}"
+              f"{' (not read)' if closed is None else ' (read on the host)'}"
+              f": {step_ms:.3f} ms per step (mean of 20 warm), "
+              f"{CGAN_B / step_ms * 1e3:.1f} imgs/s, {updates} D updates; "
+              f"profiled step: {len(events)} kernels, {busy_ms:.3f} ms "
+              f"device time, device idle share ~{1 - busy_ms / step_ms:.3f}"
+              f", longest host read of a device value (the gate's, from "
+              f"epoch {GATE_EPOCHS}) {wait_ms:.3f} ms; {smi}")
+        return step_ms, prof
+
+    step_ms, prof = run(0)
+    flops = cgan_step_flops(CGAN_B)
+    bound_ms = flops["step"] / BF16_PEAK_FLOPS * 1e3
+    print(f"CGAN step model FLOPs per image forward: G "
+          f"{flops['G'] / CGAN_B / 1e9:.3f} GFLOP, D "
+          f"{flops['D'] / CGAN_B / 1e9:.3f}, VGG16 blocks 1-3 "
+          f"{flops['VGG'] / CGAN_B / 1e9:.3f}; step (gate open) "
+          f"{flops['step'] / 1e12:.3f} TFLOP (VGG {3 * flops['VGG'] / 1e12:.3f}"
+          f"), bound {bound_ms:.3f} ms at {BF16_PEAK_FLOPS / 1e12:.0f} "
+          f"TFLOP/s, {flops['step'] / step_ms / 1e9:.1f} TFLOP/s achieved "
+          f"at epoch 0; gate closed {flops['step_closed'] / 1e12:.3f} TFLOP,"
+          f" bound {flops['step_closed'] / BF16_PEAK_FLOPS * 1e3:.3f} ms")
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    for e in top[:14]:
+        if e.self_device_time_total > 0:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"x{e.count:<4d} {e.key[:90]}")
+    # the three forms, then the first two again: the host's pace drifts
+    for closed in (False, True):
+        run(GATE_EPOCHS, closed)
+    run(0)
+    run(GATE_EPOCHS, False)
+
+
 def main():
     smi = phase_card()
     phase_build()
@@ -1718,12 +2158,15 @@ def main():
         gan_launches = phase_gan(tmp, root)
         phase_analyzer(tmp, root, synth_dir, smi)
         wgan_launches = phase_wgan_sampler(tmp) + phase_wgan_train(tmp, root)
+        phase_cgan_train(tmp, root)
     phase_f32_step(train, synth)
     phase_classifier_profile(train, synth)
     phase_gan_step_check(train)
     phase_gan_profile(train)
     phase_wgan_step_check(train)
     phase_wgan_profile(train, smi)
+    phase_cgan_step_check(train)
+    phase_cgan_profile(train, smi)
     busy_ms = phase_profile()
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "

@@ -4,9 +4,12 @@ they skip on a host without a CUDA device. Run on the card with
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from xgan_torch import kernels
 from xgan_torch.kernels.convt import (convt4x4s2_fused,
@@ -554,3 +557,101 @@ def test_wgan_bf16_step_launches_the_tensor_core_convt(dev):
     assert losses.shape == (4,) and torch.isfinite(losses).all()
     assert kernels.LAUNCHES["convt4x4s2_fused"] == 40
     assert kernels.LAUNCHES["convt4x4s2_mma"] == 40
+
+
+# ---- CGAN (f32 with TF32 off by the ``dev`` fixture; no kernel on it) ----
+
+def _cgan_nets(device, seed=0):
+    from xgan_torch.models.cgan import Discriminator, Generator
+    from xgan_torch.models.vgg import VGG16Features
+    from xgan_torch.train.common import adam
+    gen = torch.Generator().manual_seed(seed)
+    g = Generator(16, 2, 3, 8, 64, generator=gen).to(device)
+    d = Discriminator(2, 3, 8, 64, generator=gen).to(device)
+    vgg = VGG16Features(generator=gen).to(device)
+    return [g, d, vgg, adam(g.parameters(), 2e-4, 0.5),
+            adam(d.parameters(), 2e-4, 0.5)]
+
+
+def test_cgan_vgg_and_models_on_card_match_cpu(dev):
+    """VGG16's three blocks, the perceptual loss and its input gradient,
+    G's train forward and D's logits and 14 features on the card against
+    the CPU, f32, within 1e-4 * (1 + max|cpu|)."""
+    from xgan_torch.models.vgg import perceptual_loss
+    gen = torch.Generator().manual_seed(3)
+    x = torch.tanh(torch.randn(4, 64, 64, 3, generator=gen))
+    y = torch.randn(4, 64, 64, 3, generator=gen)
+    z = torch.randn(4, 16, generator=gen)
+    labels = torch.tensor([0, 1, 1, 0])
+    out = []
+    for device in ("cpu", dev):
+        g, d, vgg = _cgan_nets(device)[:3]
+        xa = x.detach().to(device).requires_grad_()
+        loss = perceptual_loss(vgg, xa, y.to(device))
+        loss.backward()
+        logits, feats = d(x.to(device), labels.to(device), train=True,
+                          features=True)
+        out.append([t.detach().float().cpu() for t in
+                    [*vgg(x.to(device)), loss, xa.grad,
+                     g.forward_train(z.to(device), labels.to(device)),
+                     logits, *feats]])
+    for i, (want, got) in enumerate(zip(*out)):
+        tol = 1e-4 * (1 + want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol, i
+
+
+def test_cgan_step_on_card_matches_cpu(dev):
+    """One f32 CGAN step (deterministic cuDNN, 64 px, widths 8, B = 8)
+    after 3 warm-up steps on the CPU, from the same weights, Adam states
+    and draws: the 7 metrics within 1e-4 * (1 + |cpu|); the gradient norm
+    of every tensor but the biases right before a BN (a zero gradient in
+    exact arithmetic) within 1e-3 relative plus twice its floor, the
+    largest move of that norm when the CPU step runs against itself with
+    its conv outputs given 1e-6 rms noise (two draws): the gradient is
+    discontinuous at the ReLU and max-pool decisions that rounding can
+    flip (chip_smoke.py's CGAN step check)."""
+    import copy
+    from chip_smoke import noisy_convs, pre_bn_biases
+    from xgan_torch.train.cgan import cgan_step
+    gen = torch.Generator().manual_seed(5)
+    store = torch.randint(0, 256, (16, 64, 64, 3), generator=gen,
+                          dtype=torch.uint8)
+    labels_all = torch.arange(16) % 2
+    nets = _cgan_nets("cpu", seed=6)
+    for t in range(3):
+        cgan_step(*nets, store, labels_all, torch.arange(8) + t, 0,
+                  latent_dim=16, generator=gen)
+    warm = copy.deepcopy([m.state_dict() for m in nets[:2] + nets[3:]])
+    draws = {"flip": torch.rand(8, generator=gen) < 0.5,
+             "noise": torch.randn(8, 16, generator=gen),
+             "fake_labels": torch.randint(0, 2, (8,), generator=gen),
+             "real_targets": 0.9 - 0.1 * torch.rand(8, generator=gen),
+             "fake_targets": 0.1 + 0.1 * torch.rand(8, generator=gen)}
+    noisy = pre_bn_biases()
+
+    def run(device, floor_seed=None):
+        g, d, vgg, opt_g, opt_d = _cgan_nets(device, seed=6)
+        for m, sd in zip((g, d, opt_g, opt_d), copy.deepcopy(warm)):
+            m.load_state_dict(sd)
+        with (noisy_convs(1e-6, floor_seed) if floor_seed is not None
+              else contextlib.nullcontext()):
+            m = cgan_step(g, d, vgg, opt_g, opt_d, store.to(device),
+                          labels_all.to(device),
+                          torch.arange(4, 12, device=device), 0,
+                          latent_dim=16,
+                          **{k: v.to(device) for k, v in draws.items()})
+        return m.cpu(), {f"{p}.{k}": t.grad.norm().item()
+                         for p, net in (("G", g), ("D", d))
+                         for k, t in net.named_parameters()
+                         if f"{p}.{k}" not in noisy}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        (m_cpu, n_cpu), (m_card, n_card) = run("cpu"), run(dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    floors = [run("cpu", floor_seed=s)[1] for s in (1, 2)]
+    assert ((m_card - m_cpu).abs() <= 1e-4 * (1 + m_cpu.abs())).all()
+    for k, v in n_cpu.items():
+        floor = max(abs(f[k] - v) / v for f in floors)
+        assert abs(n_card[k] - v) <= (1e-3 + 2 * floor) * v, (k, floor)

@@ -35,6 +35,12 @@ def test_port_files_exist():
     assert "xgan_torch/train/wgan_loop.py" in names
     assert "xgan_torch/cli/train_wggan.py" in names
     assert "xgan_torch/cli/generate_synthetic_wgan.py" in names
+    assert "xgan_torch/models/vgg.py" in names
+    assert "xgan_torch/models/cgan.py" in names
+    assert "xgan_torch/train/cgan.py" in names
+    assert "xgan_torch/train/cgan_loop.py" in names
+    assert "xgan_torch/cli/train_cgan.py" in names
+    assert "xgan_torch/cli/generate_synthetic_cgan.py" in names
     assert len(names) > 10
 
 

@@ -5,8 +5,8 @@ baseline, augmented and curriculum strategies (2-fold CV) on those images
 -> ``analyze_results`` on the three runs. Checks that each stage reads
 what the one before wrote and that the analyzer writes every output of
 the JAX CLI: the report with all three runs, the comparison plots, the
-SSIM distribution and a Grad-CAM panel per sample. A long chain, so it
-is marked slow."""
+SSIM distribution and a Grad-CAM panel per sample. Beside it, the CGAN
+trainer and its sampler. A long chain, so it is marked slow."""
 import os
 
 import numpy as np
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from xgan_torch.cli import analyze_results, generate_synthetic
+from xgan_torch.cli import generate_synthetic_cgan, train_cgan
 from xgan_torch.cli import train_classifier, train_gan
 from xgan_torch.native.png import decode_png
 
@@ -81,3 +82,26 @@ def test_main_path_through_the_port_clis(fake_dataset, tmp_path, capsys):
         if name.endswith(".png"):
             assert decode_png(str(out / name)).std() > 0
     assert "gan_loss_curve.png" in os.listdir(figures)
+
+
+def test_cgan_stage_through_the_port_clis(fake_dataset, tmp_path):
+    """The CGAN trainer then its sampler on the trained generator: the
+    conditional path beside the main one."""
+    models, synth = tmp_path / "models", tmp_path / "cgan_synthetic"
+    history = train_cgan.main([
+        "--cpu", "--data-dir", fake_dataset["data_dir"],
+        "--model-dir", str(models), "--output-dir", str(tmp_path / "results"),
+        "--results-dir", str(tmp_path / "metrics"),
+        "--figures-dir", str(tmp_path / "figures"),
+        "--cache-dir", str(tmp_path / "cache"), *GAN_FLAGS,
+        "--feature-maps-d", "8", "--epochs", "1", "--batch-size", "16",
+        "--vis-batch-size", "8"])
+    assert np.isfinite(history["perceptual_losses"]).all()
+    stats = generate_synthetic_cgan.main([
+        "--cpu", "--model-path", str(models / "cgan" / "generator_final.pth"),
+        "--output-dir", str(synth), "--num-images", "6", "--batch-size", "4",
+        *GAN_FLAGS])
+    assert stats["written"] == 6
+    assert decode_png(str(synth / "synthetic_00006.png")).shape == \
+        (SIZE, SIZE, 3)
+    assert os.listdir(tmp_path / "figures") == ["cgan_loss_curve.png"]

@@ -1,6 +1,6 @@
-"""Shared inputs for the xgan_torch parity tests: random DCGAN and WGAN-GP
-generator and discriminator variables for the JAX package, made with numpy
-so both packages get the same numbers."""
+"""Shared inputs for the xgan_torch parity tests: random DCGAN, WGAN-GP
+and CGAN generator and discriminator variables for the JAX package, made
+with numpy so both packages get the same numbers."""
 from functools import partial
 
 import jax
@@ -68,6 +68,51 @@ def jax_discriminator(fd, size, seed=0, family=dcgan):
                 "mean": (0.1 * rng.normal(size=c)).astype(np.float32),
                 "var": (0.5 + rng.random(c)).astype(np.float32)}
     return model, params, stats
+
+
+def jax_cgan(latent, nf, size, seed=0, num_classes=2):
+    """(flax CGAN Generator, Discriminator, their (params, batch_stats))
+    with numpy leaves: conv and Dense kernels N(0, 2/fan) (N(0, 1/fan) for
+    the Dense, whose input z + emb has variance 2), biases N(0, 0.1²),
+    embeddings N(0, 1) for G and N(0, 1/width) for D's projection, random
+    BN scale/bias and running statistics."""
+    from xgan.models import cgan
+    g = cgan.Generator(latent_dim=latent, num_classes=num_classes,
+                       feature_maps=nf, image_size=size)
+    d = cgan.Discriminator(num_classes=num_classes, feature_maps=nf,
+                           image_size=size)
+    labels = jnp.zeros((2,), jnp.int32)
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, std):
+        return (rng.normal(size=shape) * std).astype(np.float32)
+
+    out = []
+    for model, x in ((g, jnp.zeros((2, latent))),
+                     (d, jnp.zeros((2, size, size, 3)))):
+        like = jax.eval_shape(partial(model.init, train=False),
+                              jax.random.key(0), x, labels)
+        params, stats = {}, {}
+        for name, leaf in like["params"].items():
+            if name == "label_emb":
+                params[name] = normal(leaf.shape, 1.0 if model is g
+                                      else leaf.shape[1] ** -0.5)
+            elif name.startswith(("Conv", "Dense")):
+                k = leaf["kernel"].shape
+                fan = int(np.prod(k[:-1]))
+                params[name] = {
+                    "kernel": normal(k, np.sqrt((1.0 if name == "Dense_0"
+                                                 else 2.0) / fan)),
+                    "bias": normal(leaf["bias"].shape, 0.1)}
+            else:
+                c = leaf["scale"].shape[0]
+                params[name] = {"scale": 1 + normal(c, 0.1),
+                                "bias": normal(c, 0.1)}
+                stats[name] = {"mean": normal(c, 0.1),
+                               "var": (0.5 + rng.random(c))
+                               .astype(np.float32)}
+        out.append((params, stats))
+    return g, d, out[0], out[1]
 
 
 def bn_stats_from_torch(module, seq_bn):

@@ -20,7 +20,7 @@ UNSUPPORTED = (".msgpack", ".stablehlo")
 
 def build_parser(description: str = "Generate synthetic images using a "
                                     "trained DCGAN generator "
-                                    "(PyTorch/CUDA)."):
+                                    "(PyTorch/CUDA).", fm_default: int = 64):
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--model-path", type=str, required=True,
                    help="Trained generator checkpoint in the reference "
@@ -28,7 +28,7 @@ def build_parser(description: str = "Generate synthetic images using a "
     p.add_argument("--output-dir", type=str, default="./data/synthetic")
     p.add_argument("--num-images", type=int, default=5000)
     p.add_argument("--latent-dim", type=int, default=100)
-    p.add_argument("--feature-maps-g", type=int, default=64)
+    p.add_argument("--feature-maps-g", type=int, default=fm_default)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--seed", type=int, default=0)
@@ -44,9 +44,10 @@ def main(argv=None) -> dict:
     return sample(build_parser().parse_args(argv), Generator)
 
 
-def sample(args, generator_cls) -> dict:
-    """The sampler on a ``generator_cls`` generator (the DCGAN or the
-    WGAN-GP one) with the parsed flags; returns its stats as :func:`main`."""
+def sample(args, generator_cls, conditional: bool = False) -> dict:
+    """The sampler on a ``generator_cls`` generator (the DCGAN, WGAN-GP or,
+    with ``conditional``, the 2-class CGAN one) with the parsed flags;
+    returns its stats as :func:`main`."""
     try:
         device = config.resolve_device(args.cpu)
     except RuntimeError as e:
@@ -69,7 +70,8 @@ def sample(args, generator_cls) -> dict:
     stats["written"] = generate_images(
         model, output_dir=args.output_dir, num_images=args.num_images,
         latent_dim=args.latent_dim, batch_size=args.batch_size,
-        seed=args.seed, device=device, dtype=dtype, stats=stats)
+        seed=args.seed, device=device, dtype=dtype,
+        conditional=conditional, stats=stats)
     return stats
 
 

@@ -1,5 +1,6 @@
 """GAN figures (role of xgan/io_/figures.py): the per-iteration loss
-curves of the DCGAN and WGAN-GP trainers and the image sheets, drawn by
+curves of the DCGAN and WGAN-GP trainers, the CGAN trainer's two panels
+of per-epoch curves and the image sheets, drawn by
 ``xgan_torch.io_.plots`` and written with the port's own PNG encoder: the
 GPU host has neither matplotlib nor PIL."""
 from __future__ import annotations
@@ -31,6 +32,37 @@ def plot_gan_losses(history: Dict, output_path: str) -> None:
         xlabel="Iterations", ylabel="Loss (BCE)", size=(1200, 600),
         grid_style="--")
     plots.save_png(canvas, output_path)
+    print(f"Saved GAN loss plot to {output_path}")
+
+
+def plot_cgan_losses(history: Dict, output_path: str) -> None:
+    """Two panels of per-epoch curves (CGAN schema), the JAX writer's
+    stacked subplots: G and D losses above, the perceptual and
+    feature-matching losses below; or a printed warning when the G or D
+    series is missing."""
+    g = history.get("G_losses_epoch", [])
+    d = history.get("D_losses_epoch", [])
+    if not g or not d:
+        print("Warning: loss data missing; skipping plot.")
+        return
+    panels = []
+    for (a, a_label), (b, b_label), title in (
+            ((g, "Generator Loss"), (d, "Discriminator Loss"),
+             "Generator and Discriminator Loss During Training "
+             "(Per Epoch)"),
+            ((history.get("perceptual_losses", []), "Perceptual Loss"),
+             (history.get("feature_matching_losses", []),
+              "Feature Matching Loss"),
+             "Additional Loss Components During Training")):
+        canvas, _ = plots.chart(
+            [plots.Line(range(1, len(a) + 1), a, plots.CYCLE[0], alpha=0.8,
+                        label=a_label),
+             plots.Line(range(1, len(b) + 1), b, plots.CYCLE[1], alpha=0.8,
+                        label=b_label)],
+            title=title, xlabel="Epochs", ylabel="Loss", size=(1200, 300),
+            grid_style="--")
+        panels.append(canvas)
+    plots.save_png(np.concatenate(panels, axis=0), output_path)
     print(f"Saved GAN loss plot to {output_path}")
 
 

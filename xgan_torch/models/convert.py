@@ -12,6 +12,12 @@ Discriminator and WGAN-GP critic: flax ``Conv_i`` HWIO kernels become torch
 OIHW weights and ``TorchBatchNorm_i`` the BNs, at the reference indices
 ``SEQ_D_CONV`` / ``SEQ_D_BN`` (critic: ``SEQ_C_CONV`` / ``SEQ_C_BN``).
 
+CGAN: the same for the convs (with biases) and BNs, plus the two tensors
+whose flatten order differs: the JAX package views G's ``fc`` output and
+flattens D's last map HWC, the reference CHW, so ``fc``'s columns and D's
+``label_emb`` columns are permuted. VGG16: the seven ``{name}_kernel`` /
+``_bias`` params onto torchvision's ``features.{idx}``.
+
 ResNet-50: the JAX package's parameter tree (``stem``,
 ``layer{s}_{b}/conv{i}``, ``downsample``, each with its ``bn``; ``fc``)
 maps onto torchvision's keys with HWIO -> OIHW convolutions and the
@@ -23,7 +29,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xgan_torch.models.cgan import SEQ_D_BN as SEQ_CGAN_D_BN
+from xgan_torch.models.cgan import SEQ_D_CONV as SEQ_CGAN_D_CONV
+from xgan_torch.models.cgan import SEQ_G_BN, SEQ_G_CONV
 from xgan_torch.models.dcgan import SEQ_BN, SEQ_CONVT, SEQ_D_BN, SEQ_D_CONV
+from xgan_torch.models.vgg import VGG_LAYERS
 from xgan_torch.models.wgan import SEQ_C_BN, SEQ_C_CONV
 
 
@@ -87,6 +97,73 @@ def critic_state_dict_from_jax(params, batch_stats) -> dict:
     reference-layout torch state dict that ``xgan_torch.models.wgan.Critic``
     loads strictly."""
     return _conv_stack_state_dict(params, batch_stats, SEQ_C_CONV, SEQ_C_BN)
+
+
+def chw_to_hwc_perm(c: int, s0: int) -> np.ndarray:
+    """``perm[i_hwc] = i_chw`` for a flattened (c, s0, s0) <-> (s0, s0, c)
+    reindexing (a copy of the JAX package's ``_chw_to_hwc_perm``): the
+    reference views the CGAN ``fc`` output and flattens D's last map CHW,
+    the JAX package HWC."""
+    chw = np.arange(c * s0 * s0).reshape(c, s0, s0)
+    return np.transpose(chw, (1, 2, 0)).reshape(-1)
+
+
+def _conv_with_bias(p) -> tuple[torch.Tensor, torch.Tensor]:
+    """A flax ``Conv`` with bias (HWIO kernel) as torch (OIHW, bias)."""
+    return (_t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))),
+            _t(p["bias"]))
+
+
+def cgan_generator_state_dict_from_jax(params, batch_stats) -> dict:
+    """JAX CGAN generator ``(params, batch_stats)`` (numpy leaves) -> the
+    reference-layout torch state dict that
+    ``xgan_torch.models.cgan.Generator`` loads strictly: ``fc``'s columns
+    and bias from HWC to CHW order, HWIO -> OIHW convs."""
+    nf8 = np.asarray(params["TorchBatchNorm_0"]["scale"]).shape[0]
+    kernel = np.asarray(params["Dense_0"]["kernel"], np.float32)
+    s0 = int(round((kernel.shape[1] / nf8) ** 0.5))
+    inv = np.argsort(chw_to_hwc_perm(nf8, s0))
+    sd = {"label_emb.weight": _t(params["label_emb"]),
+          "fc.weight": _t(np.transpose(kernel[:, inv])),
+          "fc.bias": _t(np.asarray(params["Dense_0"]["bias"])[inv])}
+    for i, seq in enumerate(SEQ_G_CONV):
+        sd[f"main.{seq}.weight"], sd[f"main.{seq}.bias"] = _conv_with_bias(
+            params[f"Conv_{i}"])
+    for i, seq in enumerate(SEQ_G_BN):
+        _put_bn(sd, seq, params[f"TorchBatchNorm_{i}"],
+                batch_stats[f"TorchBatchNorm_{i}"])
+    return sd
+
+
+def cgan_discriminator_state_dict_from_jax(params, batch_stats) -> dict:
+    """JAX CGAN projection discriminator ``(params, batch_stats)`` (numpy
+    leaves) -> the reference-layout state dict that
+    ``xgan_torch.models.cgan.Discriminator`` loads strictly: the
+    embedding's columns from HWC to CHW order, HWIO -> OIHW convs."""
+    emb = np.asarray(params["label_emb"], np.float32)
+    nf8 = np.asarray(params["Conv_4"]["kernel"]).shape[-1]
+    s0 = int(round((emb.shape[1] / nf8) ** 0.5))
+    sd = {"label_emb.weight": _t(emb[:, np.argsort(chw_to_hwc_perm(nf8,
+                                                                   s0))])}
+    for i, seq in enumerate(SEQ_CGAN_D_CONV):
+        sd[f"main.{seq}.weight"], sd[f"main.{seq}.bias"] = _conv_with_bias(
+            params[f"Conv_{i}"])
+    for i, seq in enumerate(SEQ_CGAN_D_BN):
+        _put_bn(sd, seq, params[f"TorchBatchNorm_{i}"],
+                batch_stats[f"TorchBatchNorm_{i}"])
+    return sd
+
+
+def vgg_state_dict_from_jax(params) -> dict:
+    """JAX ``VGG16Features`` params (``{name}_kernel`` HWIO,
+    ``{name}_bias``) -> the torchvision-layout ``features.{idx}`` state
+    dict of ``xgan_torch.models.vgg.VGG16Features``."""
+    sd = {}
+    for name, idx in VGG_LAYERS:
+        sd[f"features.{idx}.weight"], sd[f"features.{idx}.bias"] = \
+            _conv_with_bias({"kernel": params[f"{name}_kernel"],
+                             "bias": params[f"{name}_bias"]})
+    return sd
 
 
 def load_generator_pth(path: str) -> dict:

@@ -1,7 +1,9 @@
 """Validity-weighted reductions (role of xgan/ops/reduce.py).
 
 Padded rows of a wrap-padded final batch carry weight 0, so the mean
-covers only the valid rows: the reference's smaller final batch.
+covers only the valid rows: the reference's smaller final batch. They
+live in ops/ so that a model-level loss (the VGG perceptual loss) shares
+them with the trainers.
 """
 from __future__ import annotations
 
@@ -19,3 +21,19 @@ def weighted_mean(values: torch.Tensor, weights=None) -> torch.Tensor:
         return values.mean()
     w = weights.float()
     return (values * w).sum() / torch.clamp(w.sum(), min=1e-9)
+
+
+def per_sample_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B,) mean-squared error per sample in f32, over all other dims."""
+    d = a.float() - b.float()
+    return d.square().reshape(d.shape[0], -1).mean(dim=1)
+
+
+def layerwise_mse(feats_a, feats_b, weights=None) -> torch.Tensor:
+    """Sum over layers of the (``weights``-weighted) per-layer MSE, in
+    layer order: the CGAN feature-matching loss and the VGG perceptual
+    loss, torch's ``F.mse_loss`` per layer, summed."""
+    total = 0.0
+    for a, b in zip(feats_a, feats_b):
+        total = total + weighted_mean(per_sample_mse(a, b), weights)
+    return total

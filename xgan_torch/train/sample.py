@@ -1,6 +1,7 @@
 """Synthetic-image generation (role of xgan/train/sample.py).
 
-Samples the eval-mode generator batch by batch on the device, converts
+Samples the eval-mode generator (the conditional one with a label per
+image) batch by batch on the device, converts
 to uint8 there (the reference's ``x*0.5+0.5`` export transform) and
 writes ``synthetic_00001.png`` ... on the host. The device work of batch
 k+1 is enqueued before the PNG encode of batch k, so the two overlap.
@@ -44,12 +45,18 @@ def generate_images(model, *, output_dir: str, num_images: int,
                     latent_dim: int, batch_size: int, seed: int = 0,
                     device: torch.device | str = "cuda",
                     dtype: torch.dtype = torch.bfloat16, noise=None,
+                    conditional: bool = False, labels=None,
                     stats: dict | None = None) -> int:
     """Sample ``num_images`` and write PNGs; returns the count written.
 
     ``z`` is drawn from ``torch.Generator(device).manual_seed(seed)``
-    unless ``noise`` (an iterable of (B, latent) arrays) is given; never
-    more than ``num_images`` files are written. ``stats`` receives
+    unless ``noise`` (an iterable of (B, latent) arrays) is given. A
+    ``conditional`` model is called as ``model(z, labels)``: each batch
+    draws its z, then its labels uniform over ``model.num_classes`` from
+    the same generator, unless ``labels`` (an iterable of (B,) int arrays)
+    is given. Never more than ``num_images`` files are written, named
+    ``synthetic_00001.png`` ....
+    ``stats`` receives
     ``imgs_per_sec`` (all images over the whole loop, writes included) and
     ``device_plus_transfer_imgs_per_sec`` (the JAX sampler's rate: the loop
     up to the last batch's arrival on the host, with the overlapped
@@ -60,15 +67,28 @@ def generate_images(model, *, output_dir: str, num_images: int,
     model.set_compute_dtype(dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     draws = iter(noise) if noise is not None else None
+    label_draws = iter(labels) if labels is not None else None
 
-    def next_z():
+    def injected(it, what, dtype):
+        x = next(it, None)
+        if x is None:
+            raise ValueError(f"{what} ran out before {num_images} images")
+        return torch.as_tensor(np.asarray(x, dtype), device=device)
+
+    def next_batch():
         if draws is None:
-            return torch.randn((batch_size, latent_dim), generator=gen,
-                               device=device)
-        z = next(draws, None)
-        if z is None:
-            raise ValueError(f"noise ran out before {num_images} images")
-        return torch.as_tensor(np.asarray(z, np.float32), device=device)
+            z = torch.randn((batch_size, latent_dim), generator=gen,
+                            device=device)
+        else:
+            z = injected(draws, "noise", np.float32)
+        if not conditional:
+            return model(z)
+        if label_draws is None:
+            y = torch.randint(0, model.num_classes, (z.shape[0],),
+                              generator=gen, device=device)
+        else:
+            y = injected(label_draws, "labels", np.int64)
+        return model(z, y)
 
     print(f"Generating {num_images} synthetic images (batch {batch_size}, "
           f"{device}, {dtype})...")
@@ -79,7 +99,7 @@ def generate_images(model, *, output_dir: str, num_images: int,
     while written < num_images:
         imgs_dev = None
         if sampled < num_images:
-            imgs_dev = tanh_to_u8(model(next_z()))
+            imgs_dev = tanh_to_u8(next_batch())
             sampled += imgs_dev.shape[0]
         if pending is not None:
             written = _write_pngs(pending, output_dir, written, num_images)
@@ -101,7 +121,8 @@ def generate_images(model, *, output_dir: str, num_images: int,
 def _write_pngs(images: np.ndarray, output_dir: str, written: int,
                 num_images: int) -> int:
     take = min(images.shape[0], num_images - written)
-    paths = [os.path.join(output_dir, f"synthetic_{written + i + 1:05d}.png")
+    paths = [os.path.join(output_dir,
+                          f"synthetic_{written + i + 1:05d}.png")
              for i in range(take)]
     failures = encode_png_batch(images[:take], paths)
     if failures:
