@@ -100,7 +100,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
     (ms per step, imgs/s, top device ops, the idle share, the model FLOPs
     and their bound) at epoch 0 and, with the gate read on the host, at
     epoch 5 with the gate held open and held closed;
-15. prints the kernel table line, the card line and, last, the result
+15. the GAN loop features through the CLIs, after the CGAN CLIs: resume
+    (the DCGAN CLI in f32 with TF32 off and deterministic cuDNN, EMA on,
+    2 epochs of 2 steps against 1 epoch and then ``--resume-from auto``:
+    history and final G, D and EMA within 1e-6 relative), the time the
+    loop blocks at an epoch boundary with async saves against the bytes
+    written, preemption (the DCGAN CLI in a subprocess gets SIGTERM after
+    its first epoch: exit 0, the notice, ``snapshot_last.pth``; ``--resume-
+    from auto`` completes the epochs), the EMA generator through the
+    sampler CLI (5 launches a batch), ``--trace-dir`` (one trace that
+    names the ConvT kernel) and the WGAN-GP and CGAN CLIs with
+    ``--ema-decay 0.999 --resume-from auto`` over 1 + 1 epochs;
+16. ``--grad-accum``, after the CGAN profile: the bf16 step at B = 128 as
+    A = 1 and A = 4 (ms, imgs/s, ConvT launches 5 and 40, peak memory),
+    and one f32 A = 2 step (B = 16) through the kernel against the plain
+    version at the GAN step check's limits;
+17. ``--steps-per-call``: 8 f32 steps (B = 16, EMA on) as K = 1 eager
+    steps against K = 4 (a graph replay) within rtol 2e-4, atol 2e-5, then
+    bf16 at B = 128: ms per step and the device idle share of K = 1 and
+    K = 4, the dispatcher's 5 ConvT launches a replayed step held against
+    a profiler trace of one replay, which must show the tensor-core
+    kernel;
+18. prints the kernel table line, the card line and, last, the result
     line.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
@@ -462,11 +483,38 @@ def phase_sampler(tmp: str):
     return launches, statistics.median(rates)
 
 
+def warm_profile(warm, active):
+    """torch.profiler (CPU and CUDA) over ``active()``, after a call of
+    ``warm()`` with the profiler already on and its events dropped: late
+    in a process that has opened many profiler windows, a window that
+    starts cold can miss its first kernels. Returns (the events of
+    ``active``, their key averages), without the step's own annotation,
+    which the trace also lays on the device's timeline across the whole
+    window."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def ours(e, name):
+        return not (getattr(e, "is_user_annotation", False)
+                    or name.startswith("ProfilerStep"))
+
+    got = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.update(
+                     events=[e for e in p.events() if ours(e, e.name)],
+                     averages=[a for a in p.key_averages()
+                               if ours(a, a.key)])) as prof:
+        for fn in (warm, active):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return got["events"], got["averages"]
+
+
 def phase_profile():
     """One sampler batch under torch.profiler: 5 convt4x4s2 kernels and no
     cuDNN convolution; prints the device-time breakdown."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from xgan_torch.data.pipeline import tanh_to_u8
     from xgan_torch.models.dcgan import Generator
     model = Generator(LATENT, 3, FG, SIZE, dtype=torch.bfloat16,
@@ -474,13 +522,17 @@ def phase_profile():
     z = torch.randn(B, LATENT, device="cuda")
     tanh_to_u8(model(z))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def batch():
         t0 = time.perf_counter()
         tanh_to_u8(model(z))
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    events, averages = warm_profile(batch, batch)
+    wall_ms = wall[-1]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     ours = [e for e in kernels if "convt4x4s2" in e.name]
     conv = [e.name for e in kernels if "convt4x4s2" not in e.name
             and ("cudnn" in e.name.lower() or "conv" in e.name.lower())]
@@ -489,8 +541,7 @@ def phase_profile():
     print(f"profile of one batch: {len(kernels)} kernels, {busy_ms:.3f} ms "
           f"device time ({ours_ms:.3f} ms in {len(ours)} convt4x4s2), "
           f"{wall_ms:.3f} ms wall under the profiler")
-    top = sorted(prof.key_averages(),
-                 key=lambda e: -e.self_device_time_total)
+    top = sorted(averages, key=lambda e: -e.self_device_time_total)
     for e in top[:8]:
         if e.self_device_time_total > 0:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
@@ -1050,9 +1101,10 @@ def phase_analyzer(tmp: str, root: str, synth_dir: str, smi: str):
           f"pred {pred}; report equal to --cpu's; {smi}")
 
 
-def gan_models(dtype, seed: int = 0):
+def gan_models(dtype, seed: int = 0, capturable: bool = False):
     """Seeded full-width G and D (fg = fd = 64, 224 px) on the card and
-    their Adam optimizers."""
+    their Adam optimizers (``capturable``: as the DCGAN trainer builds
+    them on the card, for every ``--steps-per-call``)."""
     from xgan_torch.models.dcgan import Discriminator, Generator
     from xgan_torch.train.common import adam
     dev = torch.device("cuda")
@@ -1060,8 +1112,8 @@ def gan_models(dtype, seed: int = 0):
                   generator=torch.Generator(dev).manual_seed(seed))
     d = Discriminator(3, FG, SIZE, dtype=dtype, device=dev,
                       generator=torch.Generator(dev).manual_seed(seed + 1))
-    return g, d, adam(g.parameters(), 2e-4, 0.5), adam(d.parameters(),
-                                                         2e-4, 0.5)
+    return (g, d, adam(g.parameters(), 2e-4, 0.5, capturable=capturable),
+            adam(d.parameters(), 2e-4, 0.5, capturable=capturable))
 
 
 def gan_layer_inputs(b: int, dtype, seed: int, widths=None):
@@ -1472,8 +1524,12 @@ def phase_wgan_train(tmp: str, root: str):
     names = sorted(os.listdir(wgan_dir))
     check(names == sorted(f"{m}_{t}.pth" for m in ("generator",
                                                      "discriminator")
-                          for t in ("epoch_001", "final")), names)
-    for name in names:
+                          for t in ("epoch_001", "final"))
+          + ["snapshot_last.pth"], names)
+    snap = torch.load(os.path.join(wgan_dir, names[-1]), weights_only=True)
+    check(set(snap) == {"g", "c", "opt_g", "opt_c", "rng", "epoch",
+                        "iters"} and snap["epoch"] == 1, sorted(snap))
+    for name in names[:-1]:
         model = (Generator(LATENT, 3, FG, SIZE) if name.startswith("gen")
                  else Critic(3, FG, SIZE))
         model.load_state_dict(torch.load(os.path.join(wgan_dir, name),
@@ -1775,8 +1831,12 @@ def phase_cgan_train(tmp: str, root: str):
     names = sorted(os.listdir(cgan_dir))
     check(names == sorted(f"{m}_{t}.pth" for m in ("generator",
                                                      "discriminator")
-                          for t in ("epoch_001", "final")), names)
-    for name in names:
+                          for t in ("epoch_001", "final"))
+          + ["snapshot_last.pth"], names)
+    snap = torch.load(os.path.join(cgan_dir, names[-1]), weights_only=True)
+    check(set(snap) == {"g", "d", "opt_g", "opt_d", "rng", "epoch",
+                        "iters"} and snap["epoch"] == 1, sorted(snap))
+    for name in names[:-1]:
         model = (Generator(LATENT, 2, 3, CGAN_FM, SIZE)
                  if name.startswith("gen")
                  else Discriminator(2, 3, CGAN_FM, SIZE))
@@ -2142,6 +2202,573 @@ def phase_cgan_profile(train_store, smi: str):
     run(GATE_EPOCHS, False)
 
 
+LOOP_A, LOOP_K = 4, 4  # --grad-accum (microbatches of 32), --steps-per-call
+LOOP_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_multistep.py:17
+
+
+def phase_loop_grad_accum(train_store, smi: str) -> int:
+    """``--grad-accum``: the bf16 step at B = 128 as A = 1 and A = 4
+    (microbatch 32), each the mean of 20 warm steps, its ConvT launches
+    (5 and 40) and its peak memory; then one f32 A = 2 step (B = 16, TF32
+    off, deterministic cuDNN) through the kernel against the same step
+    through the plain version, after 3 shared warm-up steps as the
+    WGAN-GP check holds its step: metrics within 1e-4 (1 + |ref|), each
+    of G's gradient norms within 1e-3 relative plus twice the floor that
+    the kernel's own rounding sets (as the CGAN check), and the same
+    kernel step with TF32 on must exceed those norm limits (the control).
+    Returns the launches of the counted steps."""
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.convt import (convt4x4s2_fused,
+                                          convt4x4s2_fused_ref,
+                                          pack_convt_weight)
+    from xgan_torch.train.gan import dcgan_step
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    launched = 0
+    for accum in (1, LOOP_A):
+        g_net, d_net, opt_g, opt_d = gan_models(torch.bfloat16, seed=20)
+        gen = torch.Generator(dev).manual_seed(21)
+        idx = torch.randint(0, len(store), (24, GAN_B), generator=gen,
+                            device=dev)
+
+        def step(i):
+            return dcgan_step(g_net, d_net, opt_g, opt_d, store.images,
+                              idx[i], latent_dim=LATENT,
+                              dtype=torch.bfloat16, generator=gen,
+                              grad_accum=accum)
+
+        for i in range(3):
+            step(i)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(3)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(kernels.LAUNCHES)
+        launched += launches.get("convt4x4s2_fused", 0)
+        want = 10 * accum if accum > 1 else 5  # 2 * A * 5 with microbatches
+        check(launches.get("convt4x4s2_mma", 0) == want
+              and launches.get("convt4x4s2_fused", 0) == want,
+              (accum, launches))
+        t0 = time.perf_counter()
+        for i in range(4, 24):
+            m = step(i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 20 * 1e3
+        check(bool(torch.isfinite(m).all()), m)
+        print(f"grad-accum A={accum} (bf16, B={GAN_B}, microbatch "
+              f"{GAN_B // accum}, 224 px, fg = fd = 64): {ms:.3f} ms per "
+              f"step (mean of 20 warm), {GAN_B / ms * 1e3:.1f} imgs/s; "
+              f"ConvT launches per step {launches}; peak memory of a step "
+              f"{peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} GiB "
+              f"above the {before / 2**30:.3f} GiB held before it) [{smi}]")
+        del g_net, d_net, opt_g, opt_d
+        torch.cuda.empty_cache()
+
+    # f32 A = 2: after 3 shared warm-up steps, as phase_wgan_step_check
+    # holds its step, and (as phase_cgan_step_check) each G gradient norm
+    # within 1e-3 plus twice the floor that the kernel's own f32 rounding
+    # sets: the plain version with each ConvT output perturbed by noise of
+    # the kernel's measured relative error, two draws. The two
+    # microbatches' gradients partly cancel in BN scales' sums, so
+    # rounding alone moves their norms near the plain 1e-3 (from the
+    # fresh reference init, past it: printed, not held).
+    import copy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    b = 16
+    conv_rel = 0.0  # the kernel's relative rms error at the step's layers
+    for x, w, _ in gan_layer_inputs(b, torch.float32, seed=26):
+        wp = pack_convt_weight(w, x.dtype)
+        ones = torch.ones(w.shape[1], device=dev)
+        zeros = torch.zeros(w.shape[1], device=dev)
+        got = convt4x4s2_fused(x, wp, ones, zeros, act="none")
+        want = convt4x4s2_fused_ref(x, wp, ones, zeros, act="none")
+        conv_rel = max(conv_rel, ((got - want).square().mean().sqrt()
+                                  / want.square().mean().sqrt()).item())
+    g = torch.Generator(device=dev).manual_seed(24)
+    idx = torch.randint(0, len(store), (b,), generator=g, device=dev)
+    draws = {"flip": torch.rand(b, generator=g, device=dev) < 0.5,
+             "noise": torch.randn(b, LATENT, generator=g, device=dev)}
+    nets = gan_models(torch.float32, seed=25)
+    fresh = copy.deepcopy([m.state_dict() for m in nets])
+    for _ in range(3):
+        dcgan_step(*nets, store.images,
+                   torch.randint(0, len(store), (b,), generator=g,
+                                 device=dev),
+                   latent_dim=LATENT, convt=convt4x4s2_fused_ref,
+                   generator=g, grad_accum=2)
+    warm = copy.deepcopy([m.state_dict() for m in nets])
+    noise = torch.Generator(device=dev)
+
+    def perturbed(*args, **kw):
+        y = convt4x4s2_fused_ref(*args, **kw)
+        return y * (1 + conv_rel * torch.randn(y.shape, generator=noise,
+                                               device=dev))
+
+    def run(state, convt, seed=0):
+        for m, sd in zip(nets, copy.deepcopy(state)):
+            m.load_state_dict(sd)
+        kw = {} if convt is None else {"convt": convt}
+        kernels.reset_launch_counts()
+        noise.manual_seed(seed)
+        m = dcgan_step(*nets, store.images, idx, latent_dim=LATENT,
+                       grad_accum=2, **draws, **kw)
+        check(kernels.LAUNCHES["convt4x4s2_fused"]
+              == (20 if convt is None else 0), dict(kernels.LAUNCHES))
+        return m, torch.stack([p.grad.norm() for p in nets[0].parameters()])
+
+    def diffs(a, ref):
+        (m_a, n_a), (m_r, n_r) = a, ref
+        return (((m_a - m_r).abs() / (1 + m_r.abs())).max().item(),
+                ((n_a - n_r).abs() / n_r))
+
+    try:
+        names = [k for k, _ in nets[0].named_parameters()]
+        cold_plain = run(fresh, convt4x4s2_fused_ref)
+        cold_m, cold_rel = diffs(run(fresh, None), cold_plain)
+        kern, plain, kern2 = (run(warm, None), run(warm, convt4x4s2_fused_ref),
+                              run(warm, None))
+        floors = [diffs(run(warm, perturbed, seed), plain) for seed in (1, 2)]
+        # the control: the kernel step with TF32 convolutions and matmuls
+        # (10 mantissa bits) must fail the norm limits below
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        kern_tf32 = run(warm, None)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = False
+    m_err, rel = diffs(kern, plain)
+    m_floor, rel_floor = diffs(kern2, kern)
+    floor = torch.maximum(floors[0][1], floors[1][1])
+    limit = 1e-3 + 2 * floor
+    ratio = (rel / limit).max().item()
+    worst = sorted(zip(rel.tolist(), floor.tolist(), names),
+                   reverse=True)[:3]
+    print(f"f32 A=2 GAN step (B={b}, after 3 warm-up steps), kernel vs "
+          f"plain G forward: metrics max |diff| / (1 + |ref|) {m_err:.3g} "
+          f"(tol 1e-4; kernel vs kernel {m_floor:.3g}); G gradient norms "
+          f"max relative diff {rel.max().item():.3g} (kernel vs kernel "
+          f"{rel_floor.max().item():.3g}); the kernel's relative rms error "
+          f"{conv_rel:.3g}, the plain version perturbed by it: metrics "
+          f"{max(f[0] for f in floors):.3g}, norms up to "
+          f"{floor.max().item():.3g}; worst (diff, floor) "
+          + ", ".join(f"{k} ({r:.3g}, {f:.3g})" for r, f, k in worst)
+          + f"; held at 1e-3 + 2 floor: {ratio:.3f} of the limit. From the "
+          f"fresh weights (not held): metrics {cold_m:.3g}, gradient norms "
+          f"{cold_rel.max().item():.3g} "
+          f"({names[int(cold_rel.argmax())]})")
+    tf_m, tf_rel = diffs(kern_tf32, plain)
+    tf_ratio = tf_rel / limit
+    print(f"control, the kernel step with TF32 on, against the same "
+          f"limits: metrics {tf_m:.3g} (tol 1e-4), G gradient norms max "
+          f"relative diff {tf_rel.max().item():.3g}, "
+          f"{tf_ratio.max().item():.3f} of the limit "
+          f"({names[int(tf_ratio.argmax())]}), over it on "
+          f"{int((tf_ratio > 1).sum())} of {len(names)} tensors")
+    check(m_err <= 1e-4, "f32 A=2 GAN step: kernel vs plain metrics differ")
+    check(ratio <= 1.0, "f32 A=2 GAN step: G gradient norms differ")
+    check(tf_ratio.max().item() > 1.0,
+          "f32 A=2 GAN step check: a TF32 step passes its norm limits too")
+    return launched
+
+
+def idle_share(events, steps: int, step_ms: float) -> tuple[float, int, int]:
+    """(device ms per step, kernels, ConvT kernels) of the profiler
+    ``events`` of ``steps`` steps; the idle share is 1 - that /
+    ``step_ms``."""
+    from torch.autograd import DeviceType
+    events = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time for e in events) / 1e3 / steps
+    return busy, len(events), sum("convt4x4s2" in e.name for e in events)
+
+
+def phase_loop_steps_per_call(train_store, smi: str) -> int:
+    """``--steps-per-call``: 8 f32 steps (B = 16, with the EMA) as K = 1
+    eager steps and as K = 4 (the first call eager, the second a graph
+    replay), each with the capturable Adam that the DCGAN trainer builds
+    on the card for every K, from the same weights, draws and indices,
+    within LOOP_TOL; then bf16 at B = 128: ms per step of K = 1 and K = 4
+    and, from one profiled window each, the device idle share (and, for
+    the record, K = 1 with the default host-rounded Adam); the
+    dispatcher's ConvT count per replay (5 a step) against a profiler
+    trace of one replay. Returns the launches of the timed replays."""
+    from torch.autograd import DeviceType
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.train.ema import ema_update, init_ema
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.multistep import StepsPerCall
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+
+    def run(k, dtype, b, steps, seed, capturable=True):
+        g_net, d_net, opt_g, opt_d = gan_models(dtype, seed=seed,
+                                                capturable=capturable)
+        ema = init_ema(g_net)
+        gen = torch.Generator(dev).manual_seed(seed + 2)
+        idx = torch.randint(0, len(store), (steps, b), device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                seed + 3))
+
+        def step(i):
+            m = dcgan_step(g_net, d_net, opt_g, opt_d, store.images, i,
+                           latent_dim=LATENT, dtype=dtype, generator=gen)
+            ema_update(ema, g_net, 0.999)
+            return m
+
+        if k == 1:
+            calls = [lambda t=t: step(idx[t])[None] for t in range(steps)]
+        else:
+            multi = StepsPerCall(step, k, gen)
+            calls = [lambda t=t: multi(idx[t:t + k])
+                     for t in range(0, steps, k)]
+        return calls, (g_net, d_net, ema), (multi if k > 1 else None)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for k in (1, LOOP_K):
+            calls, nets, multi = run(k, torch.float32, 16, 8, seed=26)
+            metrics = torch.cat([c() for c in calls])
+            torch.cuda.synchronize()
+            if multi is not None:
+                check(multi.replays == 1, multi.replays)
+            state = {f"{name}.{key}": v.detach().clone()
+                     for name, sd in (("G", nets[0].state_dict()),
+                                      ("D", nets[1].state_dict()),
+                                      ("EMA", nets[2]))
+                     for key, v in sd.items()}
+            out[k] = (metrics, state)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    (m_k, s_k), (m_1, s_1) = out[LOOP_K], out[1]
+    torch.testing.assert_close(m_k, m_1, **LOOP_TOL)
+    worst, bitwise = (m_k - m_1).abs().max().item(), torch.equal(m_k, m_1)
+    for key, v in s_1.items():
+        torch.testing.assert_close(s_k[key], v, msg=key, **LOOP_TOL)
+        worst = max(worst, (s_k[key].float() - v.float()).abs().max().item())
+        bitwise = bitwise and torch.equal(s_k[key], v)
+    print(f"f32 K={LOOP_K} graph replay vs K=1 eager, 8 steps (B=16, EMA "
+          f"on, the trainer's capturable Adam): metric histories, G, D and "
+          f"EMA within rtol 2e-4, atol 2e-5: max |diff| {worst:.3g}; "
+          f"bitwise equal {bitwise}")
+
+    times = {}
+    launched = 0
+    # the trainer's capturable Adam at K = 1 and K; then K = 1 with the
+    # default Adam, for what the device-side update costs an eager step
+    for k, capturable in ((1, True), (LOOP_K, True), (1, False)):
+        steps = 40 if k == 1 else 44
+        calls, nets, multi = run(k, torch.bfloat16, GAN_B, steps, seed=30,
+                                 capturable=capturable)
+        warm = 3 if k == 1 else 2  # K > 1: the eager call, then capture
+        for c in calls[:warm]:
+            c()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_timed = 20 if k == 1 else 5
+        for c in calls[warm:warm + n_timed]:
+            m = c()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 20 * 1e3
+        check(bool(torch.isfinite(m).all()), m)
+        timed = dict(kernels.LAUNCHES)
+        check(timed.get("convt4x4s2_mma", 0) == 100, (k, timed))
+        launched += timed["convt4x4s2_fused"]
+        rest = calls[warm + n_timed:]
+        events, _ = warm_profile(
+            rest[0], lambda: [c() for c in rest[1:5 if k == 1 else 2]])
+        busy, n_kernels, n_convt = idle_share(events, 4, ms)
+        check(n_convt == 20, f"K={k}: {n_convt} ConvT kernels in the "
+              "profiled window of 4 steps, expected 20")
+        if multi is not None:
+            per = dict(multi.launches_per_replay)
+            check(per.get("convt4x4s2_mma", 0) == 5 * k
+                  and per.get("convt4x4s2_fused", 0) == 5 * k, per)
+            names = {e.name for e in events if "convt4x4s2" in e.name
+                     and e.device_type == DeviceType.CUDA}
+            check(any(MMA_KERNEL in n for n in names), names)
+            print(f"K={k}: the dispatcher counts {per} ConvT launches per "
+                  f"replay ({multi.replays} replays); the profiler sees "
+                  f"{n_convt} ConvT kernels in one replay: "
+                  f"{sorted(n[:60] for n in names)}")
+        times[k, capturable] = ms
+        print(f"steps-per-call K={k} (bf16, B={GAN_B}, 224 px, EMA on, "
+              f"{'capturable' if capturable else 'default'} Adam): "
+              f"{ms:.3f} ms per step (mean of 20 warm), "
+              f"{GAN_B / ms * 1e3:.1f} imgs/s; profiled window of 4 steps: "
+              f"{n_kernels} kernels, {busy:.3f} device ms per step, device "
+              f"idle share ~{1 - busy / ms:.3f} [{smi}]")
+        del calls, nets, multi
+        torch.cuda.empty_cache()
+    print(f"K={LOOP_K} / K=1 step time "
+          f"{times[LOOP_K, True] / times[1, True]:.3f}; K=1, capturable / "
+          f"default Adam {times[1, True] / times[1, False]:.3f}")
+    return launched
+
+
+def gan_cli_argv(tmp: str, root: str, out: str, *extra) -> list:
+    """The DCGAN CLI at full width on the RSNA tree, into ``out``."""
+    return ["--data-dir", root, "--model-dir", os.path.join(out, "models"),
+            "--output-dir", os.path.join(out, "results"),
+            "--results-dir", os.path.join(out, "metrics"),
+            "--figures-dir", os.path.join(out, "figures"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--feature-maps-g", str(FG),
+            "--feature-maps-d", str(FG), "--latent-dim", str(LATENT),
+            "--batch-size", str(GAN_B), "--save-interval", "1000", *extra]
+
+
+def state_dicts_close(a_path: str, b_path: str, rel: float):
+    """(max relative diff, bitwise) of two ``.pth`` state dicts; fails
+    above ``rel`` of each tensor's largest magnitude."""
+    a = torch.load(a_path, weights_only=True)
+    b = torch.load(b_path, weights_only=True)
+    check(set(a) == set(b), (a_path, sorted(set(a) ^ set(b))))
+    worst, bitwise = 0.0, True
+    for k, v in a.items():
+        d = (b[k].double() - v.double()).abs().max().item()
+        scale = max(v.double().abs().max().item(), 1e-30)
+        worst = max(worst, d / scale)
+        bitwise = bitwise and torch.equal(b[k], v)
+    check(worst <= rel, (a_path, worst))
+    return worst, bitwise
+
+
+def phase_loop_cli(tmp: str, root: str, train_store, smi: str) -> int:
+    """The loop features through the CLIs on the card at full width:
+
+    - resume: the DCGAN CLI (f32, TF32 off, deterministic cuDNN, EMA on)
+      for 2 epochs of 2 steps against 1 epoch and then ``--resume-from
+      auto``: history and final G, D and EMA within 1e-6 relative;
+    - the boundary's blocked time with async saves (the loop's four
+      calls on a bf16 B = 128 training state), against the bytes written;
+    - preemption: the DCGAN CLI in a subprocess, SIGTERM after its first
+      epoch: exit 0, the notice, ``snapshot_last.pth``; then ``--resume-
+      from auto`` completes the epochs;
+    - the EMA generator of the resume run through the sampler CLI (5
+      launches a batch); ``--trace-dir`` on the DCGAN CLI (one trace
+      naming the ConvT kernel); WGAN-GP and CGAN with ``--ema-decay 0.999
+      --resume-from auto``, 1 + 1 epochs of 2 steps, ending with their
+      EMA files.
+
+    Returns the ConvT launches of the counted runs."""
+    import signal
+    import threading
+    from xgan_torch import kernels
+    from xgan_torch.cli.generate_synthetic import main as sample_main
+    from xgan_torch.cli.train_cgan import main as cgan_main
+    from xgan_torch.cli.train_gan import main as gan_main
+    from xgan_torch.cli.train_wggan import main as wgan_main
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.native.png import decode_png
+    from xgan_torch.train.ema import ema_update, init_ema
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.snapshot import SnapshotManager, run_state
+    launched = 0
+
+    # resume: straight against stopped and resumed, f32
+    base = ["--epochs", "2", "--limit-batches", "2", "--checkpoint-interval",
+            "1", "--ema-decay", "0.999", "--compute-dtype", "f32"]
+    runs = {name: os.path.join(tmp, "loop", name)
+            for name in ("straight", "resumed")}
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels.reset_launch_counts()
+        straight = gan_main(gan_cli_argv(tmp, root, runs["straight"], *base))
+        first = gan_main(gan_cli_argv(tmp, root, runs["resumed"], *base[:1],
+                                      "1", *base[2:]))
+        resumed = gan_main(gan_cli_argv(tmp, root, runs["resumed"], *base,
+                                        "--resume-from", "auto"))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launched += kernels.LAUNCHES["convt4x4s2_fused"]
+    check(len(first["G_losses_iter"]) == 2
+          and len(resumed["G_losses_iter"]) == 4, (first, resumed))
+    worst_h = max(abs(b - a) / max(abs(a), 1e-30)
+                  for key in straight
+                  for a, b in zip(straight[key], resumed[key]))
+    check(worst_h <= 1e-6, worst_h)
+    print(f"resume (f32, B={GAN_B}, 2 epochs x 2 steps, EMA 0.999): the "
+          f"resumed history within {worst_h:.3g} relative of the straight "
+          f"one (bitwise {resumed == straight})")
+    for name in ("generator_final.pth", "discriminator_final.pth",
+                 "generator_ema_final.pth"):
+        rel, bitwise = state_dicts_close(
+            os.path.join(runs["straight"], "models", "gan", name),
+            os.path.join(runs["resumed"], "models", "gan", name), 1e-6)
+        print(f"  {name}: max relative diff {rel:.3g} (limit 1e-6), "
+              f"bitwise {bitwise}")
+
+    # the boundary: the loop's four calls with a step in flight
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    g_net, d_net, opt_g, opt_d = gan_models(torch.bfloat16, seed=40)
+    ema, gen = init_ema(g_net), torch.Generator(dev).manual_seed(41)
+    bdir = os.path.join(tmp, "loop", "boundary")
+    os.makedirs(bdir)
+    mgr = SnapshotManager(os.path.join(bdir, "snapshot_last.pth"),
+                          async_io=True)
+    history = {"G_losses_iter": [0.5] * 1000}
+    for epoch in (1, 2):
+        for _ in range(2):
+            dcgan_step(g_net, d_net, opt_g, opt_d, store.images,
+                       torch.randint(0, len(store), (GAN_B,), device=dev,
+                                     generator=gen),
+                       latent_dim=LATENT, dtype=torch.bfloat16,
+                       generator=gen)
+            ema_update(ema, g_net, 0.999)
+        t0 = time.perf_counter()
+        mgr.save_file(os.path.join(bdir, f"generator_epoch_{epoch:03d}.pth"),
+                      g_net.state_dict())
+        mgr.save_file(os.path.join(bdir,
+                                   f"discriminator_epoch_{epoch:03d}.pth"),
+                      d_net.state_dict())
+        mgr.save(run_state({"g": g_net, "d": d_net},
+                           {"g": opt_g, "d": opt_d}, ema, gen), epoch,
+                 2 * epoch)
+        mgr.save_json(os.path.join(bdir, "history.json"), history)
+        blocked = time.perf_counter() - t0
+        mgr.flush()
+        drained = time.perf_counter() - t0
+        sizes = {n: os.path.getsize(os.path.join(bdir, n))
+                 for n in os.listdir(bdir)}
+        snap_mb = sizes["snapshot_last.pth"] / 1e6
+        ckpt_mb = sum(v for n, v in sizes.items() if "epoch" in n and
+                      f"{epoch:03d}" in n) / 1e6
+        print(f"boundary {epoch} (bf16 DCGAN-224, B={GAN_B}, EMA on, async "
+              f"saves, a step in flight): the loop blocked "
+              f"{blocked * 1e3:.1f} ms for a {snap_mb:.1f} MB snapshot + "
+              f"{ckpt_mb:.1f} MB of checkpoints + the history; the writer "
+              f"drained {drained * 1e3:.1f} ms after the first call [{smi}]")
+    del g_net, d_net, opt_g, opt_d, ema, store
+    torch.cuda.empty_cache()
+
+    # preemption: SIGTERM to the CLI in a subprocess after its first epoch
+    pre = os.path.join(tmp, "loop", "preempt")
+    epochs = 20
+    argv = gan_cli_argv(tmp, root, pre, "--epochs", str(epochs),
+                        "--limit-batches", "1", "--compute-dtype", "bf16")
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen([sys.executable, "-u", "-m", "xgan_torch.cli."
+                          "train_gan", *argv], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, cwd=here)
+    sent, lines = False, []
+    watchdog = threading.Timer(300, p.kill)  # a hung child fails the phase
+    watchdog.start()
+    try:
+        for ln in p.stdout:
+            lines.append(ln)
+            if not sent and f"Epoch 1/{epochs} Summary" in ln:
+                p.send_signal(signal.SIGTERM)
+                sent = True
+        rc = p.wait(timeout=300)
+    finally:
+        watchdog.cancel()
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    text = "".join(lines)
+    snap_path = os.path.join(pre, "models", "gan", "snapshot_last.pth")
+    check(sent and rc == 0 and "Received signal" in text
+          and "Preempted: training stopped after epoch" in text
+          and os.path.exists(snap_path), text[-3000:])
+    stopped = torch.load(snap_path, weights_only=True)["epoch"]
+    kernels.reset_launch_counts()
+    hist = gan_main(argv + ["--resume-from", "auto"])
+    torch.cuda.synchronize()
+    launched += kernels.LAUNCHES["convt4x4s2_fused"]
+    check(len(hist["G_losses_epoch"]) == epochs, len(hist["G_losses_epoch"]))
+    print(f"preemption: SIGTERM after epoch 1 of {epochs}: exit {rc}, the "
+          f"run stopped after epoch {stopped} with snapshot_last.pth; "
+          f"--resume-from auto trained epochs {stopped + 1}-{epochs} "
+          f"(history of {epochs} epochs)")
+
+    # the EMA generator through the sampler
+    kernels.reset_launch_counts()
+    stats = sample_main([
+        "--model-path", os.path.join(runs["resumed"], "models", "gan",
+                                     "generator_ema_final.pth"),
+        "--output-dir", os.path.join(tmp, "loop", "ema_synth"),
+        "--num-images", str(B), "--latent-dim", str(LATENT),
+        "--feature-maps-g", str(FG), "--image-size", str(SIZE),
+        "--batch-size", str(B), "--compute-dtype", "bf16"])
+    torch.cuda.synchronize()
+    ema_launches = dict(kernels.LAUNCHES)
+    launched += ema_launches.get("convt4x4s2_fused", 0)
+    check(stats["written"] == B and ema_launches.get("convt4x4s2_mma") == 5,
+          (stats, ema_launches))
+    img = decode_png(os.path.join(tmp, "loop", "ema_synth",
+                                  f"synthetic_{B:05d}.png"))
+    check(img.shape == (SIZE, SIZE, 3), img.shape)
+    print(f"EMA generator -> sampler: {stats['written']} PNGs from "
+          f"generator_ema_final.pth, launches {ema_launches}")
+
+    # --trace-dir: one trace, naming the ConvT kernel
+    trace_dir = os.path.join(tmp, "loop", "trace")
+    kernels.reset_launch_counts()
+    gan_main(gan_cli_argv(tmp, root, os.path.join(tmp, "loop", "traced"),
+                          "--epochs", "2", "--limit-batches", "2",
+                          "--compute-dtype", "bf16", "--trace-dir",
+                          trace_dir))
+    torch.cuda.synchronize()
+    launched += kernels.LAUNCHES["convt4x4s2_fused"]
+    traces = os.listdir(trace_dir)
+    check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"), traces)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    ours = [e for e in events if e.get("cat") == "kernel"
+            and "convt4x4s2" in e.get("name", "")]
+    # epoch 2: 2 train steps and the final sheet, 5 ConvT kernels each
+    check(len(ours) == 15 and any(MMA_KERNEL in e["name"] for e in ours),
+          (len(ours), [e.get("name") for e in ours][:4]))
+    print(f"--trace-dir: one trace ({traces[0]}, "
+          f"{os.path.getsize(os.path.join(trace_dir, traces[0])) / 1e6:.1f} "
+          f"MB) of epoch 2, {len(ours)} ConvT kernels in it")
+
+    # WGAN-GP and CGAN: EMA and resume, 1 + 1 epochs of 2 steps
+    for name, main, sub, extra in (
+            ("WGAN-GP", wgan_main, "wgan",
+             ["--batch-size", str(WGAN_B), "--critic-iters",
+              str(WGAN_CRITIC)]),
+            ("CGAN", cgan_main, "cgan",
+             ["--batch-size", str(CGAN_B), "--feature-maps-g",
+              str(CGAN_FM), "--feature-maps-d", str(CGAN_FM)])):
+        out = os.path.join(tmp, "loop", sub)
+        argv = gan_cli_argv(tmp, root, out, "--limit-batches", "2",
+                            "--compute-dtype", "bf16", "--ema-decay",
+                            "0.999", "--resume-from", "auto", *extra)
+        main(argv + ["--epochs", "1"])
+        kernels.reset_launch_counts()
+        hist = main(argv + ["--epochs", "2"])
+        torch.cuda.synchronize()
+        counted = dict(kernels.LAUNCHES)
+        launched += counted.get("convt4x4s2_fused", 0)
+        ema_path = os.path.join(out, "models", sub, "generator_ema_final.pth")
+        check(os.path.exists(ema_path), ema_path)
+        first_key = "D_losses" if sub == "wgan" else "G_losses_iter"
+        want_len = 2 * 2 * (WGAN_CRITIC if sub == "wgan" else 1)
+        check(len(hist[first_key]) == want_len, (name, len(hist[first_key])))
+        check((counted.get("convt4x4s2_mma", 0) > 0) == (sub == "wgan"),
+              (name, counted))
+        print(f"{name}: 1 epoch, then --resume-from auto for the second "
+              f"(2 steps each, EMA 0.999): {len(hist[first_key])} "
+              f"{first_key} entries, generator_ema_final.pth written; "
+              f"launches of the resumed run {counted}")
+    return launched
+
+
 def main():
     smi = phase_card()
     phase_build()
@@ -2159,6 +2786,7 @@ def main():
         phase_analyzer(tmp, root, synth_dir, smi)
         wgan_launches = phase_wgan_sampler(tmp) + phase_wgan_train(tmp, root)
         phase_cgan_train(tmp, root)
+        loop_launches = phase_loop_cli(tmp, root, train, smi)
     phase_f32_step(train, synth)
     phase_classifier_profile(train, synth)
     phase_gan_step_check(train)
@@ -2167,13 +2795,15 @@ def main():
     phase_wgan_profile(train, smi)
     phase_cgan_step_check(train)
     phase_cgan_profile(train, smi)
+    loop_launches += phase_loop_grad_accum(train, smi)
+    loop_launches += phase_loop_steps_per_call(train, smi)
     busy_ms = phase_profile()
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "
           f"(warm median) vs {busy_ms:.3f} ms profiled device time per "
           f"batch: device idle share ~{1 - busy_ms / loop_ms_per_batch:.3f}")
     entry["launches"] = (launches["convt4x4s2_fused"] + gan_launches
-                         + wgan_launches)
+                         + wgan_launches + loop_launches)
     print(json.dumps({"kernels": [entry, gather_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -655,3 +655,213 @@ def test_cgan_step_on_card_matches_cpu(dev):
     for k, v in n_cpu.items():
         floor = max(abs(f[k] - v) / v for f in floors)
         assert abs(n_card[k] - v) <= (1e-3 + 2 * floor) * v, (k, floor)
+
+
+# ---- the GAN loop features: K steps per call, grad-accum, snapshots ------
+
+def _dcgan_run(dev, dtype, fg=8, size=32):
+    """Seeded G and D (fd 8), their Adam optimizers (capturable, as the
+    DCGAN trainer builds them on the card), an EMA and the step-draw
+    generator, on the card."""
+    from xgan_torch.models.dcgan import Discriminator
+    from xgan_torch.train.common import adam
+    from xgan_torch.train.ema import init_ema
+    g_net = Generator(16, 3, fg, size, dtype=dtype, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))
+    d_net = Discriminator(3, 8, size, dtype=dtype, device=dev,
+                          generator=torch.Generator(dev).manual_seed(1))
+    opts = (adam(g_net.parameters(), 2e-4, 0.5, capturable=True),
+            adam(d_net.parameters(), 2e-4, 0.5, capturable=True))
+    return (g_net, d_net, *opts, init_ema(g_net),
+            torch.Generator(dev).manual_seed(2))
+
+
+def test_gan_steps_per_call_graph_matches_eager(dev):
+    """Six f32 32-px steps with the EMA, as six eager steps and as three
+    K = 2 calls (eager warm-up, capture and replay, replay), from the same
+    weights and draws: metrics, weights and EMA within rtol 2e-4, atol
+    2e-5 (tests/test_multistep.py:17); the dispatcher counts 2 replays of
+    10 ConvT launches and the launch count comes out as six steps'."""
+    from xgan_torch.train.ema import ema_update
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.multistep import StepsPerCall
+    store = torch.randint(0, 256, (24, 32, 32, 3), device=dev,
+                          dtype=torch.uint8,
+                          generator=torch.Generator(dev).manual_seed(3))
+    idx = torch.randperm(24, device=dev,
+                         generator=torch.Generator(dev).manual_seed(4)) \
+        .repeat(2).reshape(6, 8)
+    runs = []
+    for k in (1, 2):
+        g_net, d_net, opt_g, opt_d, ema, draws = _dcgan_run(
+            dev, torch.float32)
+
+        def step(i):
+            m = dcgan_step(g_net, d_net, opt_g, opt_d, store, i,
+                           latent_dim=16, generator=draws)
+            ema_update(ema, g_net, 0.9)
+            return m
+
+        kernels.reset_launch_counts()
+        if k == 1:
+            metrics = torch.stack([step(idx[t]) for t in range(6)])
+        else:
+            multi = StepsPerCall(step, 2, draws)
+            metrics = torch.cat([multi(idx[t:t + 2]) for t in (0, 2, 4)])
+            assert multi.replays == 2
+            assert multi.launches_per_replay["convt4x4s2_fused"] == 10
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["convt4x4s2_fused"] == 30
+        runs.append((metrics, g_net.state_dict(), d_net.state_dict(), ema))
+    (m1, g1, d1, e1), (m2, g2, d2, e2) = runs
+    torch.testing.assert_close(m2, m1, rtol=2e-4, atol=2e-5)
+    for a, b in ((g1, g2), (d1, d2), (e1, e2)):
+        for key in a:
+            torch.testing.assert_close(b[key], a[key], rtol=2e-4,
+                                       atol=2e-5, msg=key)
+
+
+def test_gan_accum_step_kernel_matches_plain(dev):
+    """One f32 A = 2 step (TF32 off, deterministic cuDNN) with G's k4s2
+    forwards on the kernel and on the plain version: metrics within
+    1e-4, G's gradient norms within 1e-3 relative; 2 * A * 5 launches."""
+    from xgan_torch.kernels.convt import convt4x4s2_fused_ref
+    from xgan_torch.train.gan import dcgan_step
+    g = torch.Generator(device=dev).manual_seed(5)
+    store = torch.randint(0, 256, (12, 64, 64, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    idx = torch.arange(8, device=dev)
+    flip = torch.rand(8, generator=g, device=dev) < 0.5
+    noise = torch.randn(8, 16, generator=g, device=dev)
+    out = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for convt in (None, convt4x4s2_fused_ref):
+            g_net, d_net, opt_g, opt_d = _gan_models(dev, 16, 64,
+                                                     torch.float32)
+            kw = {} if convt is None else {"convt": convt}
+            kernels.reset_launch_counts()
+            m = dcgan_step(g_net, d_net, opt_g, opt_d, store, idx,
+                           latent_dim=16, flip=flip, noise=noise,
+                           grad_accum=2, **kw)
+            assert kernels.LAUNCHES["convt4x4s2_fused"] == (
+                20 if convt is None else 0)
+            out.append((m, [p.grad.norm().item()
+                            for p in g_net.parameters()]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (m_k, n_k), (m_p, n_p) = out
+    assert (m_k - m_p).abs().max().item() <= 1e-4
+    for a, b in zip(n_k, n_p):
+        assert abs(a - b) <= 1e-3 * b
+
+
+def test_snapshot_round_trip_of_cuda_tensors(dev, tmp_path):
+    """An async snapshot of a run on the card (capturable Adam state on
+    the device, the CUDA step-draw generator) holds the state of the
+    ``save`` call although the weights change right after it, and resumes
+    into a fresh run: equal tensors, the same next draws."""
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.snapshot import (SnapshotManager, load_run_state,
+                                           run_state)
+    g_net, d_net, opt_g, opt_d, ema, draws = _dcgan_run(
+        dev, torch.float32)
+    store = torch.randint(0, 256, (8, 32, 32, 3), device=dev,
+                          dtype=torch.uint8)
+    dcgan_step(g_net, d_net, opt_g, opt_d, store, torch.arange(8, device=dev),
+               latent_dim=16, generator=draws)
+    models, opts = {"g": g_net, "d": d_net}, {"g": opt_g, "d": opt_d}
+    want = {k: v.detach().cpu().clone()
+            for k, v in g_net.state_dict().items()}
+    mgr = SnapshotManager(str(tmp_path / "snapshot_last.pth"),
+                          async_io=True)
+    mgr.save(run_state(models, opts, ema, draws), 1, 1)
+    want_draws = torch.randn(4, generator=draws, device=dev).cpu()
+    with torch.no_grad():
+        for p in g_net.parameters():
+            p.add_(1.0)
+    mgr.flush()
+    fresh = _dcgan_run(dev, torch.float32)
+    f_models = {"g": fresh[0], "d": fresh[1]}
+    f_opts = {"g": fresh[2], "d": fresh[3]}
+    snap, epoch, iters = mgr.try_resume(
+        "auto", run_state(f_models, f_opts, fresh[4], fresh[5]))
+    assert (epoch, iters) == (1, 1)
+    load_run_state(snap, f_models, f_opts, fresh[4], fresh[5])
+    for k, v in fresh[0].state_dict().items():
+        torch.testing.assert_close(v.cpu(), want[k], rtol=0, atol=0)
+    for st in fresh[2].state.values():
+        assert st["step"].is_cuda and st["exp_avg"].is_cuda
+    torch.testing.assert_close(
+        torch.randn(4, generator=fresh[5], device=dev).cpu(), want_draws,
+        rtol=0, atol=0)
+
+
+def _rsna_tree(root, n_train=24, n_test=2, size=48):
+    """A tiny RSNA-layout tree (PNGs by the port's own encoder, the two
+    metadata CSVs), for the card tests, which run without the conftest's
+    fixtures."""
+    from xgan_torch.native.png import encode_png_batch
+    rng = np.random.default_rng(0)
+    for sub, n, prefix in (("Training/Images", n_train, "train"),
+                           ("Test", n_test, "test")):
+        (root / sub).mkdir(parents=True)
+        assert encode_png_batch(
+            rng.integers(0, 255, (n, size, size, 3), dtype=np.uint8),
+            [str(root / sub / f"{prefix}{i:03d}.png")
+             for i in range(n)]) == 0
+    classes = ["Lung Opacity", "Normal", "No Lung Opacity / Not Normal"]
+    (root / "stage2_train_metadata.csv").write_text(
+        "patientId,class\n" + "".join(f"train{i:03d},{classes[i % 3]}\n"
+                                      for i in range(n_train)))
+    (root / "stage2_test_metadata.csv").write_text(
+        "patientId,PredictionString\n" + "".join(
+            f"test{i:03d},0.5 0 0 10 10\n" for i in range(n_test)))
+    return str(root)
+
+
+def test_gan_cli_steps_per_call_resume_is_bitwise(dev, tmp_path):
+    """The DCGAN CLI on the card at K = 2 with the EMA, f32, B = 5 over
+    24 train images: two chunks of 2 replayed as one graph and a
+    masked tail run as one eager step an epoch. Straight through 2 epochs
+    against 1 epoch then ``--resume-from auto`` (a new process state: the
+    first chunk eager, a new capture): the histories equal and the final
+    G, D and EMA state dicts bitwise equal, so the snapshot carried the
+    capturable Adam state and the step-draw generator's offset after the
+    replays."""
+    from xgan_torch.cli import train_gan
+    data_dir = _rsna_tree(tmp_path / "rsna")
+
+    def run(name, n, *extra):
+        out = tmp_path / name
+        return train_gan.main([
+            "--data-dir", data_dir,
+            "--model-dir", str(out / "models"),
+            "--output-dir", str(out / "results"),
+            "--results-dir", str(out / "metrics"),
+            "--figures-dir", str(out / "figures"),
+            "--cache-dir", str(tmp_path / "cache"), "--image-size", "32",
+            "--feature-maps-g", "8", "--feature-maps-d", "8",
+            "--latent-dim", "16", "--vis-batch-size", "8",
+            "--compute-dtype", "f32", "--batch-size", "5",
+            "--steps-per-call", "2", "--ema-decay", "0.9",
+            "--checkpoint-interval", "1", "--epochs", str(n), *extra])
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight = run("straight", 2)
+        run("resumed", 1)
+        resumed = run("resumed", 2, "--resume-from", "auto")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert len(straight["G_losses_iter"]) == 10
+    assert resumed == straight
+    for name in ("generator_final.pth", "discriminator_final.pth",
+                 "generator_ema_final.pth"):
+        a = torch.load(tmp_path / "straight/models/gan" / name,
+                       weights_only=True)
+        b = torch.load(tmp_path / "resumed/models/gan" / name,
+                       weights_only=True)
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), f"{name} {k}"

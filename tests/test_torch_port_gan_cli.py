@@ -3,8 +3,9 @@
 masked tail; 2 epochs; tiny widths): the history has the JAX schema and
 ``epochs * ceil(24 / 16)`` finite entries per iteration series, the
 sample sheets decode to the expected grid, the checkpoints load strictly
-(the final generator also into the JAX package and the port's sampler),
-and the flags the port does not support exit 1. Beside the run: the
+(the final generator also into the JAX package and the port's sampler)
+beside the run's snapshot, the loop flags the port supports pass its
+refusal and the flags it does not support exit 1. Beside the run: the
 sheet transform, the real-batch preprocessing, the sheet layout and the
 loop's cadence against the JAX package's, and the progress line."""
 import importlib.util
@@ -94,8 +95,12 @@ def test_checkpoints_load_strictly(run, tmp_path, capsys):
     assert names == sorted(
         [f"{m}_epoch_{e:03d}.pth" for m in ("generator", "discriminator")
          for e in (1, 2)] + ["generator_final.pth",
-                             "discriminator_final.pth"])
-    for name in names:
+                             "discriminator_final.pth", "snapshot_last.pth"])
+    snap = torch.load(gan_dir / "snapshot_last.pth", weights_only=True)
+    assert set(snap) == {"g", "d", "opt_g", "opt_d", "rng", "epoch",
+                         "iters"}
+    assert snap["epoch"] == 2
+    for name in names[:-1]:
         sd = torch.load(gan_dir / name, weights_only=True)
         model = (Generator(LATENT, 3, FM, SIZE) if name.startswith("gen")
                  else Discriminator(3, FM, SIZE))
@@ -121,12 +126,7 @@ def test_flags_and_defaults_follow_the_jax_cli():
             assert ours[dest] == default, dest
 
 
-@pytest.mark.parametrize("flag", [["--resume-from", "auto"],
-                                  ["--ema-decay", "0.999"],
-                                  ["--grad-accum", "2"],
-                                  ["--steps-per-call", "2"],
-                                  ["--trace-dir", "t"], ["--shard-store"],
-                                  ["--shard-opt-state"],
+@pytest.mark.parametrize("flag", [["--shard-store"], ["--shard-opt-state"],
                                   ["--model-parallel", "2"]])
 def test_unported_flags_exit_1(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -134,6 +134,23 @@ def test_unported_flags_exit_1(flag, capsys):
     assert e.value.code == 1
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("Error:") and "not supported" in last
+
+@pytest.mark.parametrize("flag", [["--resume-from", "auto"],
+                                  ["--ema-decay", "0.999"],
+                                  ["--grad-accum", "2"],
+                                  ["--steps-per-call", "2"],
+                                  ["--trace-dir", "t"]])
+def test_ported_loop_flags_are_accepted(flag, tmp_path, capsys):
+    """The loop flags the port now supports parse and pass the refusal:
+    the run goes on to the dataset check."""
+    assert cli.main(["--cpu", *flag, "--data-dir", str(tmp_path / "none"),
+                     "--model-dir", str(tmp_path / "m"),
+                     "--output-dir", str(tmp_path / "o"),
+                     "--results-dir", str(tmp_path / "r"),
+                     "--figures-dir", str(tmp_path / "f")]) is None
+    out = capsys.readouterr().out
+    assert "Dataset not found" in out and "not supported" not in out
+
 
 
 def test_no_cuda_without_cpu_flag_exits_1(tmp_path, capsys):
@@ -224,9 +241,17 @@ def test_loop_helpers():
     for iters in range(12):
         for last in (False, True):
             i = iters % 4
-            assert grid_iters(iters, 5, last, i, 4) == jax_grid_iters(
+            assert grid_iters(iters, 1, 5, last, i, 4) == jax_grid_iters(
                 iters, 1, 5, last, i, 4)
-    assert [e for e in range(7) if checkpoint_boundary(e, 7, 3)] == [2, 5, 6]
+
+    class Running:
+        requested = False
+
+    saved = []
+    for e in range(7):
+        assert not checkpoint_boundary(Running(), e, 7, 3,
+                                       lambda: saved.append(e))
+    assert saved == [2, 5, 6]
 
 
 def test_progress_line_shows_fetched_metrics(monkeypatch, capsys):

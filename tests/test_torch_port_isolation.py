@@ -41,6 +41,9 @@ def test_port_files_exist():
     assert "xgan_torch/train/cgan_loop.py" in names
     assert "xgan_torch/cli/train_cgan.py" in names
     assert "xgan_torch/cli/generate_synthetic_cgan.py" in names
+    assert "xgan_torch/train/snapshot.py" in names
+    assert "xgan_torch/train/ema.py" in names
+    assert "xgan_torch/train/multistep.py" in names
     assert len(names) > 10
 
 

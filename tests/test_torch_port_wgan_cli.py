@@ -125,8 +125,12 @@ def test_checkpoints_load_strictly(run, tmp_path):
     assert names == sorted(
         [f"{m}_epoch_{e:03d}.pth" for m in ("generator", "discriminator")
          for e in (1, 2)] + ["generator_final.pth",
-                             "discriminator_final.pth"])
-    for name in names:
+                             "discriminator_final.pth", "snapshot_last.pth"])
+    snap = torch.load(wgan_dir / "snapshot_last.pth", weights_only=True)
+    assert set(snap) == {"g", "c", "opt_g", "opt_c", "rng", "epoch",
+                         "iters"}
+    assert snap["epoch"] == 2
+    for name in names[:-1]:
         sd = torch.load(wgan_dir / name, weights_only=True)
         model = (Generator(LATENT, 3, FM, SIZE) if name.startswith("gen")
                  else Critic(3, FM, SIZE))
@@ -165,12 +169,9 @@ def test_flags_and_defaults_follow_the_jax_cli(script, parser):
                 ours["lambda_gp"]) == (30, 64, 5, 10.0)
 
 
-@pytest.mark.parametrize("flag", [["--resume-from", "auto"],
-                                  ["--ema-decay", "0.999"],
-                                  ["--grad-accum", "2"],
+@pytest.mark.parametrize("flag", [["--grad-accum", "2"],
                                   ["--steps-per-call", "2"],
-                                  ["--trace-dir", "t"], ["--shard-store"],
-                                  ["--shard-opt-state"],
+                                  ["--shard-store"], ["--shard-opt-state"],
                                   ["--model-parallel", "2"]])
 def test_unported_flags_exit_1(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -178,6 +179,21 @@ def test_unported_flags_exit_1(flag, capsys):
     assert e.value.code == 1
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("Error:") and "not supported" in last
+
+@pytest.mark.parametrize("flag", [["--resume-from", "auto"],
+                                  ["--ema-decay", "0.999"],
+                                  ["--trace-dir", "t"]])
+def test_ported_loop_flags_are_accepted(flag, tmp_path, capsys):
+    """The loop flags the port now supports parse and pass the refusal:
+    the run goes on to the dataset check."""
+    assert cli.main(["--cpu", *flag, "--data-dir", str(tmp_path / "none"),
+                     "--model-dir", str(tmp_path / "m"),
+                     "--output-dir", str(tmp_path / "o"),
+                     "--results-dir", str(tmp_path / "r"),
+                     "--figures-dir", str(tmp_path / "f")]) is None
+    out = capsys.readouterr().out
+    assert "Dataset not found" in out and "not supported" not in out
+
 
 
 def test_no_cuda_without_cpu_flag_exits_1(tmp_path, capsys):

@@ -8,8 +8,14 @@ Writes ``{output_dir}/gan_images/fake_samples_epoch_EEE_iter_TTTTTT.png``
 sheets, ``{model_dir}/gan/{generator,discriminator}_epoch_EEE.pth`` and
 ``..._final.pth`` reference-layout state dicts,
 ``{results_dir}/gan_training_history.json`` and
-``{figures_dir}/gan_loss_curve.png``. Runs on the CUDA device
-unless ``--cpu`` is given; without a CUDA device it exits 1 with a
+``{figures_dir}/gan_loss_curve.png``, and ``{model_dir}/gan/
+snapshot_last.pth`` at every checkpoint: ``--resume-from auto`` continues
+the run from it, and a first SIGTERM or SIGINT stops the run at the end of
+its epoch with that snapshot saved (exit 0). ``--ema-decay`` adds
+``generator_ema_final.pth``, ``--grad-accum A`` splits each update into A
+microbatches, ``--steps-per-call K`` replays K steps as one CUDA graph,
+``--trace-dir`` writes a profiler trace of one epoch. Runs on the CUDA
+device unless ``--cpu`` is given; without a CUDA device it exits 1 with a
 structured ``Error:`` line. Flags of the JAX CLI that this port does not
 support yet exit 1 when set away from their default.
 """
@@ -23,9 +29,8 @@ import torch
 from xgan_torch import config
 
 # flag -> its default: other values are not supported by the port yet
-UNSUPPORTED = {"resume_from": "", "ema_decay": 0.0, "grad_accum": 1,
-               "steps_per_call": 1, "trace_dir": "", "shard_store": False,
-               "shard_opt_state": False, "model_parallel": 1}
+UNSUPPORTED = {"shard_store": False, "shard_opt_state": False,
+               "model_parallel": 1}
 
 
 def build_parser():
@@ -42,7 +47,8 @@ def build_parser():
 
 def add_run_args(p: argparse.ArgumentParser) -> None:
     """The run flags of the JAX GAN CLIs: size, seed, dtype, cache, batch
-    cap and device, and the flags the port does not support yet."""
+    cap, device, dispatch, tracing and resume, and the flags the port does
+    not support yet."""
     p.add_argument("--image-size", type=int, default=224,
                    help="Image size (multiple of 32; 224 = reference)")
     p.add_argument("--seed", type=int, default=0)
@@ -51,26 +57,34 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--limit-batches", type=int, default=0,
                    help="Debug: cap batches per epoch (0 = all)")
     config.add_device_arg(p)
-    # flags of the JAX CLI that the port does not support yet
     p.add_argument("--steps-per-call", type=int, default=1,
-                   help="(not supported by xgan_torch yet)")
+                   help="Run K training steps per call, replayed as one "
+                        "captured CUDA graph (K=1 reproduces the "
+                        "reference loop exactly; K>1 amortizes per-step "
+                        "launch overhead, with sample-sheet emission "
+                        "quantized to chunk boundaries; DCGAN trainer "
+                        "only, so far)")
     p.add_argument("--trace-dir", type=str, default="",
-                   help="(not supported by xgan_torch yet)")
+                   help="Write a torch.profiler trace of one epoch here")
+    p.add_argument("--resume-from", type=str, default="",
+                   help="Resume from a snapshot_last.pth ('auto' = pick "
+                        "up the run's own last snapshot)")
+    # flags of the JAX CLI that the port does not support yet
     p.add_argument("--shard-store", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--shard-opt-state", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="(not supported by xgan_torch yet)")
-    p.add_argument("--resume-from", type=str, default="",
-                   help="(not supported by xgan_torch yet)")
 
 
-def start(args) -> tuple[torch.device, torch.dtype]:
-    """Refuse the unsupported flags, resolve the device (exit 1 with an
-    ``Error:`` line without CUDA and ``--cpu``) and the compute dtype,
-    and print the arguments."""
-    config.refuse_unsupported(args, UNSUPPORTED)
+def start(args, unsupported: dict = UNSUPPORTED
+          ) -> tuple[torch.device, torch.dtype]:
+    """Refuse the ``unsupported`` flags (dest -> the one value the port
+    takes), resolve the device (exit 1 with an ``Error:`` line without
+    CUDA and ``--cpu``) and the compute dtype, and print the
+    arguments."""
+    config.refuse_unsupported(args, unsupported)
     try:
         device = config.resolve_device(args.cpu)
     except RuntimeError as e:

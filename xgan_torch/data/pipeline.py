@@ -7,6 +7,8 @@ matrix crosses from the host, once per epoch.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -33,11 +35,19 @@ def epoch_batches(n: int, batch_size: int, rng: np.random.Generator,
     return padded.reshape(num_batches, batch_size)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """The ImageNet mean and std on ``device``, copied there once: a
+    host-to-device copy inside a step could not be captured into a CUDA
+    graph."""
+    return (torch.as_tensor(IMAGENET_MEAN, device=device),
+            torch.as_tensor(IMAGENET_STD, device=device))
+
+
 def normalize_images(u8: torch.Tensor, *,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 (B,S,S,3) -> ImageNet-normalized images in ``dtype``."""
-    mean = torch.as_tensor(IMAGENET_MEAN, device=u8.device)
-    std = torch.as_tensor(IMAGENET_STD, device=u8.device)
+    mean, std = _imagenet_stats(u8.device)
     x = u8.float() * (1.0 / 255.0)
     return ((x - mean) / std).to(dtype)
 

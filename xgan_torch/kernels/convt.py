@@ -30,6 +30,7 @@ generator calls: its forward is one :func:`convt4x4s2_fused` call.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -42,6 +43,13 @@ ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 
 # ky (or kx) of the torch weight feeding phase p through tap j: 3 - p - 2j
 _TAP = torch.tensor([[3, 1], [2, 0]])
+
+
+@functools.lru_cache(maxsize=None)
+def _tap(device: torch.device) -> torch.Tensor:
+    """``_TAP`` on ``device``, copied there once: a host-to-device copy
+    inside a step could not be captured into a CUDA graph."""
+    return _TAP.to(device)
 
 
 def _act_code(act: str) -> int:
@@ -57,7 +65,7 @@ def pack_convt_weight(w: torch.Tensor,
     if w.dim() != 4 or tuple(w.shape[2:]) != (4, 4):
         raise ValueError(f"expected a (Cin, Cout, 4, 4) weight, got "
                          f"{tuple(w.shape)}")
-    tap = _TAP.to(w.device)
+    tap = _tap(w.device)
     wk = w.permute(2, 3, 0, 1)  # (ky, kx, Cin, Cout)
     wp = wk[tap[:, None, :, None], tap[None, :, None, :]]
     return wp.to(dtype or w.dtype).contiguous()

@@ -72,6 +72,21 @@ def generator_state_dict_from_jax(params, batch_stats) -> dict:
     return sd
 
 
+BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def ema_from_jax(ema_params, batch_stats,
+                 convert=generator_state_dict_from_jax) -> dict:
+    """A JAX generator EMA params tree (``--ema-decay``) -> the port's
+    EMA as :func:`xgan_torch.train.ema.init_ema` makes it and a snapshot's
+    ``ema`` holds it: {parameter name: f32 tensor}, without the BN
+    buffers. ``batch_stats``: the raw generator's, which ``convert``, the
+    family's generator converter (:func:`cgan_generator_state_dict_from_jax`
+    for the CGAN), lays out beside the parameters and this drops."""
+    return {k: v.float() for k, v in convert(ema_params, batch_stats).items()
+            if k.rsplit(".", 1)[-1] not in BN_BUFFERS}
+
+
 def _conv_stack_state_dict(params, batch_stats, seq_conv, seq_bn) -> dict:
     """Flax ``Conv_i`` (HWIO) and ``TorchBatchNorm_i`` -> torch OIHW convs
     at ``main.{seq_conv[i]}`` and BNs at ``main.{seq_bn[i]}``."""

@@ -165,22 +165,27 @@ class Generator(nn.Module):
         return torch.tanh(x.float())
 
     def forward_train(self, z: torch.Tensor, mask=None, *,
-                      convt=convt4x4s2_fused) -> torch.Tensor:
+                      convt=convt4x4s2_fused,
+                      update_stats: bool = True) -> torch.Tensor:
         """Train-mode forward, differentiable in the parameters: z (B,
         latent) -> (B, S, S, C) f32 in [-1, 1]. ``mask``: (B,) validity
         weights of a padded tail batch for the BN statistics (outputs at
         masked rows are garbage by contract). ``convt`` as in
-        :meth:`forward`."""
+        :meth:`forward`. ``update_stats=False`` leaves the BN running
+        statistics where they are (a recompute of a forward that already
+        advanced them)."""
         b = z.shape[0]
         x = (z.to(self.dtype) @ self._w0_mat()).reshape(b, self.s0, self.s0,
                                                         -1)
         x = torch.relu(batch_norm(self.main[SEQ_BN[0]], x, train=True,
-                                  mask=mask, dim=-1))
+                                  mask=mask, dim=-1,
+                                  update_stats=update_stats))
         for i, seq in enumerate(SEQ_CONVT[1:]):
             x = convt4x4s2_train(x, self.main[seq].weight, convt)
             if i < 4:
                 x = torch.relu(batch_norm(self.main[SEQ_BN[i + 1]], x,
-                                          train=True, mask=mask, dim=-1))
+                                          train=True, mask=mask, dim=-1,
+                                          update_stats=update_stats))
         return torch.tanh(x.float())
 
 

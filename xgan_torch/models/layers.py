@@ -37,21 +37,26 @@ def gan_init_(modules, generator: torch.Generator | None = None) -> None:
 
 
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, *, train: bool,
-               mask=None, dim: int = 1) -> torch.Tensor:
+               mask=None, dim: int = 1,
+               update_stats: bool = True) -> torch.Tensor:
     """BN over channel axis ``dim`` (1 for NCHW, -1 for NHWC) with the
     parameters and running statistics of ``bn``; see the module
-    docstring."""
+    docstring. ``update_stats=False``: train mode that leaves the running
+    statistics as they are (the same arithmetic, its update discarded)."""
     if train and mask is not None:
         y, new_mean, new_var = batch_norm_train(
             x, bn.weight, bn.bias, bn.running_mean, bn.running_var, dim=dim,
             momentum=bn.momentum, eps=bn.eps, mask=mask)
-        with torch.no_grad():
-            bn.running_mean.copy_(new_mean)
-            bn.running_var.copy_(new_var)
+        if update_stats:
+            with torch.no_grad():
+                bn.running_mean.copy_(new_mean)
+                bn.running_var.copy_(new_var)
         return y
-    y = F.batch_norm(x.movedim(dim, 1), bn.running_mean, bn.running_var,
-                     bn.weight, bn.bias, training=train,
-                     momentum=bn.momentum, eps=bn.eps)
+    mean, var = bn.running_mean, bn.running_var
+    if train and not update_stats:  # scratch copies take the update
+        mean, var = mean.clone(), var.clone()
+    y = F.batch_norm(x.movedim(dim, 1), mean, var, bn.weight, bn.bias,
+                     training=train, momentum=bn.momentum, eps=bn.eps)
     return y.movedim(1, dim)
 
 

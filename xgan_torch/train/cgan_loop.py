@@ -14,9 +14,13 @@ masked -> sample sheets ``cgan_images/fake_samples_epoch_EEE_iter_TTTTTT
 
 Step metrics stay on the device and come to the host once per epoch.
 Checkpoints are reference-layout ``.pth`` state dicts where the JAX
-package writes ``.msgpack``. Not ported yet (ROADMAP A13): snapshots and
-resume, EMA, gradient accumulation, K > 1 steps per call, tracing and
-several devices.
+package writes ``.msgpack``. Resume and preemption
+(``cgan/snapshot_last.pth``: G, D, both optimizers, the EMA and the
+step-draw generator), ``--ema-decay`` and ``--trace-dir`` work as in the
+DCGAN loop (:mod:`xgan_torch.train.gan_loop`); the adaptive gate reads
+the run's epoch, so after a resume it opens from epoch 5 of the run, not
+of the process. Not ported yet: gradient accumulation and K > 1 steps
+per call (their flags exit 1 in the CLI), and several devices.
 """
 from __future__ import annotations
 
@@ -29,16 +33,16 @@ import torch
 
 from xgan_torch.data.pipeline import DeviceStore, minmax_to_u8
 from xgan_torch.io_.figures import plot_cgan_losses, save_image_grid
-from xgan_torch.io_.metrics import write_json
 from xgan_torch.models.cgan import Discriminator, Generator
 from xgan_torch.models.vgg import VGG16Features, load_vgg16_pth, \
     read_vgg16_pth
 from xgan_torch.train.cgan import cgan_step
 from xgan_torch.train.common import adam
+from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan_loop import load_train_store
-from xgan_torch.train.loop_common import EpochProgress, \
-    checkpoint_boundary, epoch_plan, gan_live_postfix, grid_iters, \
-    save_gan_checkpoints
+from xgan_torch.train.loop_common import EpochProgress, EpochRun, \
+    epoch_plan, gan_live_postfix, grid_iters, preempt_notice, \
+    resume_preflight
 from xgan_torch.utils import StepTimer, check_create_dir
 
 NUM_CLASSES = 2
@@ -66,7 +70,7 @@ def check_vgg_path(vgg_path: str) -> bool:
 def train_cgan(args, device: torch.device, dtype: torch.dtype):
     """args: the namespace of ``xgan_torch.cli.train_cgan``. Returns the
     history, or None after a printed error."""
-    if not check_vgg_path(args.vgg_path):
+    if not resume_preflight(args) or not check_vgg_path(args.vgg_path):
         return None
     model_dir = check_create_dir(os.path.join(args.model_dir, "cgan"))
     image_dir = check_create_dir(os.path.join(args.output_dir,
@@ -108,66 +112,79 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
                 args.vis_batch_size // NUM_CLASSES + 1)
         [:args.vis_batch_size]).to(device)
     step_draws = seeds[4]
+    ema = init_ema(g) if args.ema_decay > 0 else None
 
     def sample_grid(path):
         imgs = minmax_to_u8(g(fixed_noise, fixed_labels))
         save_image_grid(imgs.cpu().numpy(), path, nrow=8)
 
     history = {k: [] for k in HISTORY_KEYS}
+    history_path = os.path.join(metrics_dir, "cgan_training_history.json")
     data_rng = np.random.default_rng(args.seed)
     batch_size = args.batch_size
+    run = EpochRun(args, model_dir, history_path, history,
+                   {"g": g, "d": d}, {"g": opt_g, "d": opt_d}, ema,
+                   step_draws)
+    if not run.resume(len(store), batch_size, data_rng):
+        return None
+    history, iters = run.history, run.iters
+
     timer = StepTimer(device)
     start_time = time.time()
-    iters = 0
     print("Starting Training Loop...")
-    for epoch in range(args.epochs):
-        epoch_start = time.time()
-        idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
-                                     args.limit_batches, device)
-        num_batches = idx_all.shape[0]
-        epoch_metrics = []
-        with EpochProgress(f"Epoch {epoch + 1}/{args.epochs}", num_batches,
-                           postfix_fn=gan_live_postfix) as progress:
-            for i in range(num_batches):
-                is_tail = t_mask is not None and i == num_batches - 1
-                metrics = cgan_step(
-                    g, d, vgg, opt_g, opt_d, device_store.images,
-                    device_store.labels, idx_all[i], epoch,
-                    latent_dim=args.latent_dim, dtype=dtype,
-                    mask=t_mask if is_tail else None, generator=step_draws)
-                epoch_metrics.append(metrics)
-                for t in grid_iters(iters, args.save_interval,
-                                    epoch == args.epochs - 1, i,
-                                    num_batches):
-                    sample_grid(os.path.join(
-                        image_dir, f"fake_samples_epoch_{epoch + 1:03d}"
-                        f"_iter_{t:06d}.png"))
-                iters += 1
-                progress.update(i + 1, metrics)
-        # one device -> host copy per epoch for all per-step metrics
-        em = torch.stack(epoch_metrics).cpu().numpy()
-        timer.tick(num_batches)
-        for col, key in enumerate(HISTORY_KEYS[:5]):
-            history[key].extend(em[:, col].tolist())
-        for col, key in ((0, "G_losses_epoch"), (1, "D_losses_epoch"),
-                         (5, "perceptual_losses"),
-                         (6, "feature_matching_losses")):
-            history[key].append(float(em[:, col].mean()))
-        print(f"Epoch {epoch + 1}/{args.epochs} Summary - "
-              f"Time: {time.time() - epoch_start:.2f}s, "
-              f"Avg Loss_D: {em[:, 1].mean():.4f}, "
-              f"Avg Loss_G: {em[:, 0].mean():.4f}, "
-              f"{timer.rate * batch_size:.1f} imgs/s")
+    with run:
+        for epoch in run.epochs():
+            epoch_start = time.time()
+            idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
+                                         args.limit_batches, device)
+            num_batches = idx_all.shape[0]
+            epoch_metrics = []
+            with run.traced(epoch), \
+                    EpochProgress(f"Epoch {epoch + 1}/{args.epochs}",
+                                  num_batches,
+                                  postfix_fn=gan_live_postfix) as progress:
+                for i in range(num_batches):
+                    is_tail = t_mask is not None and i == num_batches - 1
+                    # the run's epoch: the gate holds open for its first 5
+                    metrics = cgan_step(
+                        g, d, vgg, opt_g, opt_d, device_store.images,
+                        device_store.labels, idx_all[i], epoch,
+                        latent_dim=args.latent_dim, dtype=dtype,
+                        mask=t_mask if is_tail else None,
+                        generator=step_draws)
+                    if ema is not None:
+                        ema_update(ema, g, args.ema_decay)
+                    epoch_metrics.append(metrics)
+                    for t in grid_iters(iters, 1, args.save_interval,
+                                        epoch == args.epochs - 1, i,
+                                        num_batches):
+                        sample_grid(os.path.join(
+                            image_dir, f"fake_samples_epoch_"
+                            f"{epoch + 1:03d}_iter_{t:06d}.png"))
+                    iters += 1
+                    progress.update(i + 1, metrics)
+                # one device -> host copy per epoch for all step metrics
+                em = torch.stack(epoch_metrics).cpu().numpy()
+            timer.tick(num_batches)
+            for col, key in enumerate(HISTORY_KEYS[:5]):
+                history[key].extend(em[:, col].tolist())
+            for col, key in ((0, "G_losses_epoch"), (1, "D_losses_epoch"),
+                             (5, "perceptual_losses"),
+                             (6, "feature_matching_losses")):
+                history[key].append(float(em[:, col].mean()))
+            print(f"Epoch {epoch + 1}/{args.epochs} Summary - "
+                  f"Time: {time.time() - epoch_start:.2f}s, "
+                  f"Avg Loss_D: {em[:, 1].mean():.4f}, "
+                  f"Avg Loss_G: {em[:, 0].mean():.4f}, "
+                  f"{timer.rate * batch_size:.1f} imgs/s")
 
-        if checkpoint_boundary(epoch, args.epochs, args.checkpoint_interval):
-            save_gan_checkpoints(model_dir, f"epoch_{epoch + 1:03d}", g, d)
-            print(f"Saved checkpoints for epoch {epoch + 1} to {model_dir}")
-
+            if run.boundary(epoch, iters):
+                break
+    if run.preempted:
+        preempt_notice(run.preempted)
+        return history
     print(f"Training finished in {time.time() - start_time:.2f} seconds.")
-    save_gan_checkpoints(model_dir, "final", g, d)
-    print(f"Saved final models to {model_dir}")
-    write_json(os.path.join(metrics_dir, "cgan_training_history.json"),
-               history)
+    run.save_final()
     plot_cgan_losses(history, os.path.join(figures_dir,
                                            "cgan_loss_curve.png"))
     return history

@@ -22,7 +22,12 @@ def bce_with_logits(logits: torch.Tensor, target: float | torch.Tensor,
     return weighted_mean(per_sample, mask)
 
 
-def adam(params, lr: float, beta1: float,
-         beta2: float = 0.999) -> torch.optim.Adam:
-    """torch.optim.Adam with the JAX package's settings (eps 1e-8)."""
-    return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8)
+def adam(params, lr: float, beta1: float, beta2: float = 0.999, *,
+         capturable: bool = False) -> torch.optim.Adam:
+    """torch.optim.Adam with the JAX package's settings (eps 1e-8).
+    ``capturable``: keeps the step count and the bias correction on the
+    device, so that the update can be captured into a CUDA graph (it
+    rounds the bias correction in f32 on the device, where the default
+    computes it in double on the host)."""
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8,
+                            capturable=capturable)

@@ -16,10 +16,30 @@ The reference iteration, in its order:
 D's BN running statistics advance three times per step and G's once. A
 (B,) ``mask`` of a padded tail batch enters every BN batch statistic and
 every loss and metric mean. Metrics stay on the device.
+
+``grad_accum=A > 1`` (``step_accum`` of the JAX package) runs each update
+as A sequential microbatches of B/A rows, with the draws of A = 1 (flip,
+then noise, over the full batch) sliced:
+
+1. a D phase per microbatch: G's forward under ``no_grad`` (G's running
+   statistics advance once per microbatch), D on the real and the fake
+   rows, and the backward of the valid-row loss *sum*; then the summed
+   gradients are divided by the batch's valid-row total and D takes one
+   Adam step;
+2. a G phase through the updated D per microbatch: G's forward is
+   recomputed (batch statistics make it the D phase's fake) without
+   advancing G's running statistics again, D's advance (train mode), and
+   the loss sum's backward reaches G's parameters; then one G Adam step.
+
+Only one microbatch's activations are alive at a time: the D phase's
+fakes are not kept for the G phase. A microbatch whose rows are all
+padding (a tail batch) is skipped: its BN statistics stay frozen and it
+adds a zero gradient, as the JAX package's select does.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from xgan_torch.data.pipeline import gather_preprocess
 from xgan_torch.kernels.convt import convt4x4s2_fused
@@ -33,20 +53,26 @@ FAKE_LABEL = 0.0
 def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
                dtype: torch.dtype = torch.float32, mask=None, noise=None,
                flip=None, generator: torch.Generator | None = None,
-               convt=convt4x4s2_fused) -> torch.Tensor:
+               convt=convt4x4s2_fused, grad_accum: int = 1) -> torch.Tensor:
     """One iteration; returns the (5,) device tensor ``[loss_G, loss_D,
-    D_x, D_G_z1, D_G_z2]`` without a host sync.
+    D_x, D_G_z1, D_G_z2]``, without a host sync unless ``grad_accum > 1``
+    and a ``mask`` is given (it then reads which microbatches hold valid
+    rows).
 
     ``store_u8`` (N,S,S,3) uint8 and ``idx`` (B,) int64 live on the
     device. The flip mask and the (B, latent) noise are drawn from
     ``generator`` on the device (flip first) unless injected. ``convt``:
     the forward of G's k4s2 layers (the kernel; a check passes its plain
-    version)."""
+    version). ``grad_accum``: microbatches per update (it must divide
+    B)."""
     real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
                              dtype=dtype)
     if noise is None:
         noise = torch.randn((idx.shape[0], latent_dim), generator=generator,
                             device=store_u8.device)
+    if grad_accum > 1:
+        return _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
+                           grad_accum)
     fake = g.forward_train(noise, mask, convt=convt)
 
     opt_d.zero_grad(set_to_none=True)
@@ -67,3 +93,85 @@ def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
         probs = [weighted_mean(torch.sigmoid(lg), mask)
                  for lg in (logits_real, logits_fake, logits_g)]
         return torch.stack([loss_g, loss_d, *probs]).detach()
+
+
+def _zeroed_grads(params) -> list[torch.Tensor]:
+    """Each parameter's ``.grad``, zeroed in place (made when missing), so
+    that backward passes accumulate into it and a skipped microbatch
+    leaves a zero gradient, not None."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        else:
+            p.grad.zero_()
+    return [p.grad for p in params]
+
+
+def _guarded_sum(per_sample: torch.Tensor, mask_mb) -> torch.Tensor:
+    """Sum over the valid rows in f32 (a select, so masked NaNs drop)."""
+    per_sample = per_sample.float()
+    if mask_mb is None:
+        return per_sample.sum()
+    return torch.where(mask_mb > 0, per_sample, 0.0).sum()
+
+
+def _bce_sum(logits: torch.Tensor, target: float, mask_mb) -> torch.Tensor:
+    logits = logits.float()
+    return _guarded_sum(F.binary_cross_entropy_with_logits(
+        logits, torch.full_like(logits, target), reduction="none"), mask_mb)
+
+
+def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
+                accum: int) -> torch.Tensor:
+    """``dcgan_step`` with ``grad_accum=accum``; see the module
+    docstring."""
+    b = real.shape[0]
+    if b % accum:
+        raise ValueError(f"grad_accum={accum} must divide batch size {b}")
+    mb = b // accum
+    if mask is None:
+        w_total = float(b)
+        micro = [(j, None) for j in range(accum)]
+    else:
+        valid = mask.reshape(accum, mb).float().sum(1).tolist()
+        w_total = max(float(sum(valid)), 1e-9)
+        micro = [(j, mask[j * mb:(j + 1) * mb])
+                 for j in range(accum) if valid[j] > 0]
+    rows = lambda t, j: t[j * mb:(j + 1) * mb]  # noqa: E731
+
+    d_params, g_params = list(d.parameters()), list(g.parameters())
+    zero = real.new_zeros((), dtype=torch.float32)
+    ds = dxs = dgz1s = zero
+    d_grads = _zeroed_grads(d_params)
+    for j, mask_mb in micro:
+        with torch.no_grad():
+            fake = g.forward_train(rows(noise, j), mask_mb, convt=convt)
+        logits_real = d(rows(real, j), train=True, mask=mask_mb)
+        logits_fake = d(fake, train=True, mask=mask_mb)
+        s = (_bce_sum(logits_real, REAL_LABEL, mask_mb)
+             + _bce_sum(logits_fake, FAKE_LABEL, mask_mb))
+        s.backward()
+        with torch.no_grad():
+            ds = ds + s
+            dxs = dxs + _guarded_sum(torch.sigmoid(logits_real.float()),
+                                     mask_mb)
+            dgz1s = dgz1s + _guarded_sum(torch.sigmoid(logits_fake.float()),
+                                         mask_mb)
+    torch._foreach_div_(d_grads, w_total)
+    opt_d.step()
+
+    gs = dgz2s = zero
+    g_grads = _zeroed_grads(g_params)
+    for j, mask_mb in micro:
+        fake = g.forward_train(rows(noise, j), mask_mb, convt=convt,
+                               update_stats=False)
+        logits = d(fake, train=True, mask=mask_mb)
+        s = _bce_sum(logits, REAL_LABEL, mask_mb)
+        s.backward(inputs=g_params)
+        with torch.no_grad():
+            gs = gs + s
+            dgz2s = dgz2s + _guarded_sum(torch.sigmoid(logits.float()),
+                                         mask_mb)
+    torch._foreach_div_(g_grads, w_total)
+    opt_g.step()
+    return torch.stack([gs, ds, dxs, dgz1s, dgz2s]).detach() / w_total

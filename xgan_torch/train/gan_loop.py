@@ -9,9 +9,22 @@ Per-step metrics stay on the device and come to the host once per epoch.
 Every sample sheet renders the eval forward of G's current weights, so it
 repacks them first. Checkpoints are reference-layout ``.pth`` state
 dicts where the JAX package writes ``.msgpack``: flax serialization is
-absent on the GPU host. Not ported yet (ROADMAP A13): snapshots and
-resume, EMA, gradient accumulation, K > 1 steps per call, tracing and
-several devices.
+absent on the GPU host.
+
+The loop features, in the JAX loop's order: the ``--resume-from`` check
+before the dataset is decoded; the snapshot manager and ``try_resume``
+(G, D, both optimizers, the EMA, the step-draw generator), the batch
+order replayed past the trained epochs and the prior history merged; a
+first SIGTERM/SIGINT stops the run at its epoch boundary with a snapshot
+(``GracefulShutdown``); ``--trace-dir`` profiles one epoch; every
+checkpoint, the snapshot and the history go through one async writer,
+flushed on every exit path. ``--ema-decay`` updates an f32 EMA of G's
+parameters after each G step (``generator_ema_final.pth``);
+``--grad-accum A`` runs each update as A microbatches;
+``--steps-per-call K`` dispatches K full batches per call through
+:class:`~xgan_torch.train.multistep.StepsPerCall` (one CUDA graph
+replay), the masked tail batch as one eager step. Not ported yet:
+several devices (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -25,13 +38,14 @@ from xgan_torch.data import rsna
 from xgan_torch.data.pipeline import DeviceStore, minmax_to_u8
 from xgan_torch.data.store import ImageStore
 from xgan_torch.io_.figures import plot_gan_losses, save_image_grid
-from xgan_torch.io_.metrics import write_json
 from xgan_torch.models.dcgan import Discriminator, Generator
 from xgan_torch.train.common import adam
+from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan import dcgan_step
-from xgan_torch.train.loop_common import EpochProgress, \
-    checkpoint_boundary, epoch_plan, gan_live_postfix, grid_iters, \
-    save_gan_checkpoints
+from xgan_torch.train.loop_common import EpochProgress, EpochRun, \
+    epoch_plan, gan_live_postfix, grid_iters, preempt_notice, \
+    resume_preflight
+from xgan_torch.train.multistep import StepsPerCall
 from xgan_torch.utils import StepTimer, check_create_dir
 
 HISTORY_KEYS = ("G_losses_iter", "D_losses_iter", "D_x_iter", "D_G_z1_iter",
@@ -57,6 +71,8 @@ def load_train_store(args):
 def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     """args: the namespace of ``xgan_torch.cli.train_gan``. Returns the
     history, or None after a printed error."""
+    if not resume_preflight(args):
+        return None
     gan_model_dir = check_create_dir(os.path.join(args.model_dir, "gan"))
     gan_output_dir = check_create_dir(
         os.path.join(args.output_dir, "gan_images"))
@@ -69,6 +85,7 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     print(f"Loaded training data with {len(store)} samples.")
     device_store = DeviceStore(store, device)
     print(f"Device: {device}; compute dtype {dtype}")
+    batch_size = args.batch_size
 
     seeds = [torch.Generator(device).manual_seed(args.seed + i)
              for i in range(4)]
@@ -78,71 +95,107 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     d = Discriminator(args.num_channels, args.feature_maps_d,
                       args.image_size, dtype=dtype, device=device,
                       generator=seeds[1])
-    opt_g = adam(g.parameters(), args.lr, args.beta1)
-    opt_d = adam(d.parameters(), args.lr, args.beta1)
+    k_steps = max(1, args.steps_per_call)
+    # on the card, Adam's update stays on the device for every K: a step
+    # inside a CUDA graph needs it, and K = 1 then trains as K > 1 does
+    capturable = device.type == "cuda"
+    opt_g = adam(g.parameters(), args.lr, args.beta1, capturable=capturable)
+    opt_d = adam(d.parameters(), args.lr, args.beta1, capturable=capturable)
     print("Generator and Discriminator initialized.")
     fixed_noise = torch.randn((args.vis_batch_size, args.latent_dim),
                               generator=seeds[2], device=device)
     step_draws = seeds[3]
+
+    # --ema-decay: an f32 EMA of G's parameters, written after each G step
+    # and read by nothing in training
+    ema = init_ema(g) if args.ema_decay > 0 else None
+    ga = max(1, args.grad_accum)
+    if ga > 1 and batch_size % ga:
+        print(f"Note: --grad-accum {ga} does not divide the "
+              f"(device-padded) batch size {batch_size}; running "
+              "without accumulation.")
+        ga = 1
+
+    def train_step(idx, mask=None):
+        metrics = dcgan_step(g, d, opt_g, opt_d, device_store.images, idx,
+                             latent_dim=args.latent_dim, dtype=dtype,
+                             mask=mask, generator=step_draws,
+                             grad_accum=ga)
+        if ema is not None:
+            ema_update(ema, g, args.ema_decay)
+        return metrics
+
+    multi = StepsPerCall(train_step, k_steps, step_draws) \
+        if k_steps > 1 else None
 
     def sample_grid(path):
         g.repack()  # the eval forward reads tensors derived at repack
         imgs = minmax_to_u8(g(fixed_noise))
         save_image_grid(imgs.cpu().numpy(), path, nrow=8)
 
-    history = {k: [] for k in HISTORY_KEYS}
     data_rng = np.random.default_rng(args.seed)
-    batch_size = args.batch_size
+    run = EpochRun(args, gan_model_dir,
+                   os.path.join(metrics_dir, "gan_training_history.json"),
+                   {k: [] for k in HISTORY_KEYS}, {"g": g, "d": d},
+                   {"g": opt_g, "d": opt_d}, ema, step_draws)
+    if not run.resume(len(store), batch_size, data_rng):
+        return None
+    history, iters = run.history, run.iters
+
     timer = StepTimer(device)
     start_time = time.time()
-    iters = 0
     print("Starting Training Loop...")
-    for epoch in range(args.epochs):
-        epoch_start = time.time()
-        idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
-                                     args.limit_batches, device)
-        num_batches = idx_all.shape[0]
-        epoch_metrics = []
-        with EpochProgress(f"Epoch {epoch + 1}/{args.epochs}", num_batches,
-                           postfix_fn=gan_live_postfix) as progress:
-            for i in range(num_batches):
-                is_tail = t_mask is not None and i == num_batches - 1
-                metrics = dcgan_step(
-                    g, d, opt_g, opt_d, device_store.images, idx_all[i],
-                    latent_dim=args.latent_dim, dtype=dtype,
-                    mask=t_mask if is_tail else None, generator=step_draws)
-                epoch_metrics.append(metrics)
-                for t in grid_iters(iters, args.save_interval,
-                                    epoch == args.epochs - 1, i,
-                                    num_batches):
-                    sample_grid(os.path.join(
-                        gan_output_dir, f"fake_samples_epoch_{epoch + 1:03d}"
-                        f"_iter_{t:06d}.png"))
-                iters += 1
-                progress.update(i + 1, metrics)
-        # one device -> host copy per epoch for all per-step metrics
-        em = torch.stack(epoch_metrics).cpu().numpy()
-        timer.tick(num_batches)
-        for col, key in enumerate(HISTORY_KEYS[:5]):
-            history[key].extend(em[:, col].tolist())
-        history["G_losses_epoch"].append(float(em[:, 0].mean()))
-        history["D_losses_epoch"].append(float(em[:, 1].mean()))
-        print(f"Epoch {epoch + 1}/{args.epochs} Summary - "
-              f"Time: {time.time() - epoch_start:.2f}s, "
-              f"Avg Loss_D: {em[:, 1].mean():.4f}, "
-              f"Avg Loss_G: {em[:, 0].mean():.4f}, "
-              f"{timer.rate * batch_size:.1f} imgs/s")
+    with run:
+        for epoch in run.epochs():
+            epoch_start = time.time()
+            idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
+                                         args.limit_batches, device)
+            num_batches = idx_all.shape[0]
+            chunkable = num_batches - (1 if t_mask is not None else 0)
+            epoch_metrics = []
+            with run.traced(epoch), \
+                    EpochProgress(f"Epoch {epoch + 1}/{args.epochs}",
+                                  num_batches,
+                                  postfix_fn=gan_live_postfix) as progress:
+                i = 0
+                while i < num_batches:
+                    chunk = (k_steps if multi is not None
+                             and i + k_steps <= chunkable else 1)
+                    if chunk > 1:
+                        metrics = multi(idx_all[i:i + chunk])
+                    else:
+                        is_tail = t_mask is not None and i == num_batches - 1
+                        metrics = train_step(idx_all[i],
+                                             t_mask if is_tail else None)
+                    epoch_metrics.append(metrics.reshape(-1, 5))
+                    for t in grid_iters(iters, chunk, args.save_interval,
+                                        epoch == args.epochs - 1, i,
+                                        num_batches):
+                        sample_grid(os.path.join(
+                            gan_output_dir, f"fake_samples_epoch_"
+                            f"{epoch + 1:03d}_iter_{t:06d}.png"))
+                    iters += chunk
+                    i += chunk
+                    progress.update(i, metrics)
+                # one device -> host copy per epoch for all step metrics
+                em = torch.cat(epoch_metrics).cpu().numpy()
+            timer.tick(num_batches)
+            for col, key in enumerate(HISTORY_KEYS[:5]):
+                history[key].extend(em[:, col].tolist())
+            history["G_losses_epoch"].append(float(em[:, 0].mean()))
+            history["D_losses_epoch"].append(float(em[:, 1].mean()))
+            print(f"Epoch {epoch + 1}/{args.epochs} Summary - "
+                  f"Time: {time.time() - epoch_start:.2f}s, "
+                  f"Avg Loss_D: {em[:, 1].mean():.4f}, "
+                  f"Avg Loss_G: {em[:, 0].mean():.4f}, "
+                  f"{timer.rate * batch_size:.1f} imgs/s")
 
-        if checkpoint_boundary(epoch, args.epochs, args.checkpoint_interval):
-            save_gan_checkpoints(gan_model_dir, f"epoch_{epoch + 1:03d}", g,
-                                 d)
-            print(f"Saved checkpoints for epoch {epoch + 1} to "
-                  f"{gan_model_dir}")
-
+            if run.boundary(epoch, iters):
+                break
+    if run.preempted:
+        preempt_notice(run.preempted)
+        return history
     print(f"Training finished in {time.time() - start_time:.2f} seconds.")
-    save_gan_checkpoints(gan_model_dir, "final", g, d)
-    print(f"Saved final models to {gan_model_dir}")
-    write_json(os.path.join(metrics_dir, "gan_training_history.json"),
-               history)
+    run.save_final()
     plot_gan_losses(history, os.path.join(figures_dir, "gan_loss_curve.png"))
     return history

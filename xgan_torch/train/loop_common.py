@@ -1,7 +1,12 @@
-"""Epoch-loop helpers (role of xgan/train/loop_common.py)."""
+"""Epoch-loop helpers of the trainers (role of
+xgan/train/loop_common.py): the batch plan, checkpoints, the sample
+cadence, preemption, resume (:class:`EpochRun`, which the three GAN loops
+share) and the progress line."""
 from __future__ import annotations
 
+import json
 import os
+import signal
 import sys
 import time
 
@@ -9,6 +14,10 @@ import numpy as np
 import torch
 
 from xgan_torch.data.pipeline import epoch_batches
+from xgan_torch.io_.metrics import write_json
+from xgan_torch.train.snapshot import SnapshotManager, resume_run, \
+    save_epoch
+from xgan_torch.utils.timer import maybe_trace
 
 
 def batch_tail_mask(n_valid: int, num_batches: int, batch_size: int):
@@ -54,25 +63,239 @@ def host_state(model) -> dict:
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
 
-def grid_iters(iters: int, save_interval: int, last_epoch: bool, i: int,
-               num_batches: int) -> list[int]:
-    """The iterations whose sample sheet is due after iteration ``iters``
-    (the ``i``-th batch of its epoch): ``[iters]`` every
-    ``save_interval`` iterations, as the reference (train_gan.py:166-169),
-    and after the final iteration of the final epoch; else ``[]``."""
-    due = iters % save_interval == 0 or (last_epoch and i == num_batches - 1)
-    return [iters] if due else []
+def grid_iters(iters: int, chunk: int, save_interval: int,
+               last_epoch: bool, i: int, num_batches: int) -> list[int]:
+    """Iterations in ``[iters, iters + chunk)`` (the ``i``-th batch of
+    its epoch onwards) whose sample sheet is due: every ``save_interval``
+    iterations, as the reference (train_gan.py:166-169), and the final
+    iteration of the final epoch. A chunk of K steps per call renders the
+    same post-chunk state for every due iteration in it, so only the last
+    due one gets a sheet: at most one per dispatch."""
+    due = [t for t in range(iters, iters + chunk)
+           if t % save_interval == 0
+           or (last_epoch and i + (t - iters) == num_batches - 1)]
+    return due[-1:]
 
 
-def checkpoint_boundary(epoch: int, epochs: int, interval: int) -> bool:
-    """Whether checkpoints are due after ``epoch`` (0-based): every
-    ``interval`` epochs and after the final one."""
-    return (epoch + 1) % interval == 0 or epoch + 1 == epochs
+class GracefulShutdown:
+    """SIGTERM/SIGINT -> checkpoint at the epoch boundary -> exit 0.
+
+    Between :meth:`install` and :meth:`restore` the FIRST signal only
+    sets ``requested``; the loops read it at their epoch boundary
+    (:func:`checkpoint_boundary`), save a snapshot even off
+    ``--checkpoint-interval``, and return, so a rerun with
+    ``--resume-from auto`` continues the run. A SECOND signal raises
+    KeyboardInterrupt at once; the loops' ``finally`` still flushes the
+    queued snapshot writes. Off the main thread (where ``signal.signal``
+    raises) it is an inert flag. :meth:`restore` puts back the previous
+    handlers."""
+
+    def __init__(self, what: str = "training"):
+        self.requested = False
+        self._what = what
+        self._prev = {}
+
+    def install(self):
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self._prev[sig] = signal.signal(sig, self._handle)
+        except ValueError:  # not the main thread: an inert flag
+            self._prev = {}
+        return self
+
+    def __enter__(self):
+        return self.install()
+
+    def _handle(self, signum, frame):
+        if self.requested:  # second signal: unwind now
+            raise KeyboardInterrupt
+        self.requested = True
+        # os.write, not print(): a signal that lands while the main thread
+        # is inside a buffered stdout write would make print() raise
+        # "reentrant call" in the middle of the epoch
+        os.write(2, (f"\nReceived signal {signum}: will checkpoint and "
+                     f"stop {self._what} at the end of this epoch "
+                     "(signal again to abort immediately).\n").encode())
+
+    def restore(self):
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        self._prev = {}
+
+    def __exit__(self, *exc):
+        self.restore()
+        return False
+
+
+def checkpoint_boundary(shutdown: GracefulShutdown, epoch: int,
+                        epochs: int, interval: int, save) -> bool:
+    """The epoch-boundary checkpoint and the stop decision of the GAN
+    loops. Reads ``shutdown.requested`` once, so that the same value
+    forces the off-interval save and decides the stop (two reads would let
+    a signal between them stop the loop without the snapshot the preempt
+    notice promises). Calls ``save()`` every ``interval`` epochs, after
+    the final epoch and on a stop; returns True when the loop should stop
+    early."""
+    stop = bool(shutdown.requested)
+    if (epoch + 1) % interval == 0 or (epoch + 1) == epochs or stop:
+        save()
+    return stop and (epoch + 1) < epochs
+
+
+def preempt_notice(preempted_epoch: int) -> None:
+    """The message of a preempted GAN run."""
+    print(f"Preempted: training stopped after epoch {preempted_epoch} "
+          "with a resumable snapshot; re-run with --resume-from auto "
+          "to continue.")
+
+
+def resume_history(history_path: str, history: dict, start_epoch: int):
+    """On resume, the prior run's history JSON, so that the final file
+    covers every epoch; a fresh run (or one whose keys differ) keeps the
+    empty ``history``."""
+    if start_epoch and os.path.exists(history_path):
+        with open(history_path) as f:
+            prior = json.load(f)
+        if set(prior) == set(history):
+            return prior
+    return history
+
+
+def replay_data_rng(n: int, batch_size: int, data_rng, start_epoch: int):
+    """Advance the numpy batch-order generator past the epochs already
+    trained, so that a resumed run sees the batches it would have."""
+    for _ in range(start_epoch):
+        epoch_batches(n, batch_size, data_rng)
+
+
+def resume_preflight(args) -> bool:
+    """False after a printed error when an explicit ``--resume-from``
+    path does not exist, before the dataset is decoded; ``auto`` and
+    ``""`` pass."""
+    r = getattr(args, "resume_from", "")
+    if r and r != "auto" and not os.path.exists(r):
+        print(f"Error: snapshot {r} not found (use --resume-from auto to "
+              "start fresh when no snapshot exists)")
+        return False
+    return True
+
+
+def trace_epoch(start_epoch: int, epochs: int) -> int:
+    """The epoch ``--trace-dir`` traces: the second of this process (the
+    first one warms up), or the only one left on a short run."""
+    return min(start_epoch + 1, epochs - 1)
+
+
+def save_ema_final(model_dir: str, g, ema) -> None:
+    """``generator_ema_final.pth``: ``g``'s state dict with the EMA
+    parameters and the raw generator's BN buffers (already a running
+    average), loadable by the samplers as is. No-op without EMA."""
+    if ema is None:
+        return
+    sd = host_state(g)
+    sd.update({k: v.detach().cpu().clone() for k, v in ema.items()})
+    path = os.path.join(model_dir, "generator_ema_final.pth")
+    torch.save(sd, path)
+    print(f"Saved EMA generator to {path}")
+
+
+class EpochRun:
+    """The run-level part of the three GAN loops, in the JAX loops'
+    order. ``models``/``opts``: name -> module / optimizer (``g`` and
+    ``d`` or ``c``); ``ema``: the EMA dict or None; ``rng``: the
+    step-draw generator.
+
+    - :meth:`resume`: ``--resume-from`` restores them in place from
+      ``{model_dir}/snapshot_last.pth``, replays the batch order past the
+      trained epochs and merges the prior history (``self.history``);
+    - between ``__enter__`` and ``__exit__`` a first SIGTERM/SIGINT asks
+      for a stop at the epoch boundary (:class:`GracefulShutdown`);
+      ``__exit__`` flushes the queued writes on every exit path, then
+      gives the handlers back;
+    - :meth:`traced` is the profiler window of ``--trace-dir``'s epoch;
+    - :meth:`boundary` saves the epoch's checkpoints, snapshot and history
+      through the async writer and says whether to stop (``preempted``);
+    - :meth:`save_final` writes the final checkpoints, the EMA generator
+      and the history."""
+
+    def __init__(self, args, model_dir: str, history_path: str,
+                 history: dict, models: dict, opts: dict, ema,
+                 rng: torch.Generator):
+        self.args = args
+        self.model_dir, self.history_path = model_dir, history_path
+        self.history = history
+        self.models, self.opts, self.ema, self.rng = models, opts, ema, rng
+        self.snapshots = SnapshotManager(
+            os.path.join(model_dir, "snapshot_last.pth"),
+            async_io=True)  # overlap the next epoch
+        self.shutdown = GracefulShutdown()
+        self.start_epoch = self.iters = self.preempted = 0
+
+    def resume(self, n_train: int, batch_size: int, data_rng) -> bool:
+        """False after a printed error (a missing explicit path, a
+        snapshot that does not fit the flags)."""
+        try:
+            self.start_epoch, self.iters = resume_run(
+                self.snapshots, self.args.resume_from, self.models,
+                self.opts, self.ema, self.rng)
+        except (FileNotFoundError, ValueError) as e:
+            print(f"Error: {e}")
+            return False
+        replay_data_rng(n_train, batch_size, data_rng, self.start_epoch)
+        self.history = resume_history(self.history_path, self.history,
+                                      self.start_epoch)
+        return True
+
+    def epochs(self) -> range:
+        return range(self.start_epoch, self.args.epochs)
+
+    def traced(self, epoch: int):
+        """``maybe_trace`` of ``--trace-dir`` at :func:`trace_epoch`, a
+        no-op at every other epoch."""
+        on = (self.args.trace_dir and epoch ==
+              trace_epoch(self.start_epoch, self.args.epochs))
+        return maybe_trace(self.args.trace_dir if on else None)
+
+    def boundary(self, epoch: int, iters: int) -> bool:
+        """:func:`checkpoint_boundary` with the epoch's writes; True (and
+        ``preempted`` set) when the loop should stop."""
+        stop = checkpoint_boundary(
+            self.shutdown, epoch, self.args.epochs,
+            self.args.checkpoint_interval,
+            lambda: save_epoch(self.snapshots, self.model_dir, epoch + 1,
+                               iters, self.models, self.opts, self.ema,
+                               self.rng, self.history_path, self.history))
+        if stop:
+            self.preempted = epoch + 1  # its snapshot is queued
+        return stop
+
+    def __enter__(self):
+        self.shutdown.install()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        # land the queued writes on every exit path, before the handlers
+        # go back: a second signal while they drain must still be ours
+        try:
+            self.snapshots.flush(reraise=exc_type is None)
+        finally:
+            self.shutdown.restore()
+        return False
+
+    def save_final(self) -> None:
+        """``{generator,discriminator}_final.pth``, the EMA generator and
+        the history JSON."""
+        g, second = self.models.values()
+        save_gan_checkpoints(self.model_dir, "final", g, second)
+        save_ema_final(self.model_dir, g, self.ema)
+        print(f"Saved final models to {self.model_dir}")
+        write_json(self.history_path, self.history)
 
 
 def gan_live_postfix(m) -> str:
-    """DCGAN step metrics [G, D, D_x, D_G_z1, D_G_z2] for the progress
-    line."""
+    """DCGAN step metrics [G, D, D_x, D_G_z1, D_G_z2] ((5,) of one step or
+    (K, 5) of a K-step call) for the progress line."""
+    m = np.atleast_2d(m)[-1]
     return f"Loss_D: {m[1]:.4f}, Loss_G: {m[0]:.4f}, D(x): {m[2]:.4f}"
 
 

@@ -13,8 +13,12 @@ Step losses stay on the device and come to the host once per epoch. Every
 sample sheet renders the eval forward of G's current weights, so it
 repacks them first. Checkpoints are reference-layout ``.pth`` state dicts
 where the JAX package writes ``.msgpack`` (and a ``generator_final.pth``
-twin). Not ported yet (ROADMAP A13): snapshots and resume, EMA, gradient
-accumulation, K > 1 steps per call, tracing and several devices.
+twin). Resume and preemption (``wgan/snapshot_last.pth``: G, the critic,
+both optimizers, the EMA and the step-draw generator), ``--ema-decay``
+and ``--trace-dir`` work as in the DCGAN loop
+(:mod:`xgan_torch.train.gan_loop`). Not ported yet: gradient
+accumulation and K > 1 steps per call (their flags exit 1 in the CLI),
+and several devices.
 """
 from __future__ import annotations
 
@@ -26,12 +30,12 @@ import torch
 
 from xgan_torch.data.pipeline import DeviceStore, minmax_to_u8
 from xgan_torch.io_.figures import plot_wgan_losses, save_image_grid
-from xgan_torch.io_.metrics import write_json
 from xgan_torch.models.wgan import Critic, Generator
 from xgan_torch.train.common import adam
+from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan_loop import load_train_store
-from xgan_torch.train.loop_common import EpochProgress, \
-    checkpoint_boundary, epoch_plan, grid_iters, save_gan_checkpoints, \
+from xgan_torch.train.loop_common import EpochProgress, EpochRun, \
+    epoch_plan, grid_iters, preempt_notice, resume_preflight, \
     wgan_live_postfix
 from xgan_torch.train.wgan import wgan_step
 from xgan_torch.utils import StepTimer, check_create_dir
@@ -40,6 +44,8 @@ from xgan_torch.utils import StepTimer, check_create_dir
 def train_wgan(args, device: torch.device, dtype: torch.dtype):
     """args: the namespace of ``xgan_torch.cli.train_wggan``. Returns the
     history, or None after a printed error."""
+    if not resume_preflight(args):
+        return None
     model_dir = check_create_dir(os.path.join(args.model_dir, "wgan"))
     image_dir = check_create_dir(os.path.join(args.output_dir,
                                               "wgan_images"))
@@ -68,6 +74,7 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
     fixed_noise = torch.randn((args.vis_batch_size, args.latent_dim),
                               generator=seeds[2], device=device)
     step_draws = seeds[3]
+    ema = init_ema(g) if args.ema_decay > 0 else None
 
     def sample_grid(path):
         g.repack()  # the eval forward reads tensors derived at repack
@@ -76,60 +83,71 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
 
     history = {"D_losses": [], "G_losses": [], "D_losses_epoch": [],
                "G_losses_epoch": []}
+    history_path = os.path.join(metrics_dir, "wgan_training_history.json")
     data_rng = np.random.default_rng(args.seed)
     batch_size = args.batch_size
+    run = EpochRun(args, model_dir, history_path, history,
+                   {"g": g, "c": c}, {"g": opt_g, "c": opt_c}, ema,
+                   step_draws)
+    if not run.resume(len(store), batch_size, data_rng):
+        return None
+    history, iters = run.history, run.iters
+
     timer = StepTimer(device)
     start_time = time.time()
-    iters = 0
     print("Starting Training Loop...")
-    for epoch in range(args.epochs):
-        epoch_start = time.time()
-        idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
-                                     args.limit_batches, device)
-        num_batches = idx_all.shape[0]
-        epoch_losses = []
-        with EpochProgress(f"Epoch {epoch + 1}/{args.epochs}", num_batches,
-                           postfix_fn=wgan_live_postfix) as progress:
-            for i in range(num_batches):
-                is_tail = t_mask is not None and i == num_batches - 1
-                losses = wgan_step(
-                    g, c, opt_g, opt_c, device_store.images, idx_all[i],
-                    latent_dim=args.latent_dim,
-                    critic_iters=args.critic_iters,
-                    lambda_gp=args.lambda_gp, dtype=dtype,
-                    mask=t_mask if is_tail else None, generator=step_draws)
-                epoch_losses.append(losses)
-                for t in grid_iters(iters, args.save_interval,
-                                    epoch == args.epochs - 1, i,
-                                    num_batches):
-                    sample_grid(os.path.join(
-                        image_dir, f"fake_samples_epoch_{epoch + 1:03d}"
-                        f"_iter_{t:06d}.png"))
-                iters += 1
-                progress.update(i + 1, losses)
-        # one device -> host copy per epoch for all per-step losses
-        el = torch.stack(epoch_losses).cpu().numpy()
-        timer.tick(num_batches)
-        d_ep, g_ep = el[:, :-1].reshape(-1), el[:, -1]
-        history["D_losses"].extend(d_ep.tolist())
-        history["G_losses"].extend(g_ep.tolist())
-        history["D_losses_epoch"].append(float(d_ep.mean()))
-        history["G_losses_epoch"].append(float(g_ep.mean()))
-        print(f"Epoch {epoch + 1}/{args.epochs} Summary - "
-              f"Time: {time.time() - epoch_start:.2f}s, "
-              f"Avg Loss_D: {d_ep.mean():.4f}, "
-              f"Avg Loss_G: {g_ep.mean():.4f}, "
-              f"{timer.rate * batch_size:.1f} imgs/s")
+    with run:
+        for epoch in run.epochs():
+            epoch_start = time.time()
+            idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
+                                         args.limit_batches, device)
+            num_batches = idx_all.shape[0]
+            epoch_losses = []
+            with run.traced(epoch), \
+                    EpochProgress(f"Epoch {epoch + 1}/{args.epochs}",
+                                  num_batches,
+                                  postfix_fn=wgan_live_postfix) as progress:
+                for i in range(num_batches):
+                    is_tail = t_mask is not None and i == num_batches - 1
+                    losses = wgan_step(
+                        g, c, opt_g, opt_c, device_store.images,
+                        idx_all[i], latent_dim=args.latent_dim,
+                        critic_iters=args.critic_iters,
+                        lambda_gp=args.lambda_gp, dtype=dtype,
+                        mask=t_mask if is_tail else None,
+                        generator=step_draws)
+                    if ema is not None:
+                        ema_update(ema, g, args.ema_decay)
+                    epoch_losses.append(losses)
+                    for t in grid_iters(iters, 1, args.save_interval,
+                                        epoch == args.epochs - 1, i,
+                                        num_batches):
+                        sample_grid(os.path.join(
+                            image_dir, f"fake_samples_epoch_"
+                            f"{epoch + 1:03d}_iter_{t:06d}.png"))
+                    iters += 1
+                    progress.update(i + 1, losses)
+                # one device -> host copy per epoch for all step losses
+                el = torch.stack(epoch_losses).cpu().numpy()
+            timer.tick(num_batches)
+            d_ep, g_ep = el[:, :-1].reshape(-1), el[:, -1]
+            history["D_losses"].extend(d_ep.tolist())
+            history["G_losses"].extend(g_ep.tolist())
+            history["D_losses_epoch"].append(float(d_ep.mean()))
+            history["G_losses_epoch"].append(float(g_ep.mean()))
+            print(f"Epoch {epoch + 1}/{args.epochs} Summary - "
+                  f"Time: {time.time() - epoch_start:.2f}s, "
+                  f"Avg Loss_D: {d_ep.mean():.4f}, "
+                  f"Avg Loss_G: {g_ep.mean():.4f}, "
+                  f"{timer.rate * batch_size:.1f} imgs/s")
 
-        if checkpoint_boundary(epoch, args.epochs, args.checkpoint_interval):
-            save_gan_checkpoints(model_dir, f"epoch_{epoch + 1:03d}", g, c)
-            print(f"Saved checkpoints for epoch {epoch + 1} to {model_dir}")
-
+            if run.boundary(epoch, iters):
+                break
+    if run.preempted:
+        preempt_notice(run.preempted)
+        return history
     print(f"Training finished in {time.time() - start_time:.2f} seconds.")
-    save_gan_checkpoints(model_dir, "final", g, c)
-    print(f"Saved final models to {model_dir}")
-    write_json(os.path.join(metrics_dir, "wgan_training_history.json"),
-               history)
+    run.save_final()
     plot_wgan_losses(history, os.path.join(figures_dir,
                                            "wgan_loss_curve.png"))
     return history

@@ -1,4 +1,5 @@
-"""Step/epoch rate timing (role of xgan/utils/timer.py).
+"""Step/epoch rate timing and the optional profiler window
+(role of xgan/utils/timer.py).
 
 CUDA work is asynchronous, so on a CUDA device the timer synchronises
 before it reads the clock: a rate then covers finished device work, not
@@ -6,6 +7,7 @@ the enqueue.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -35,3 +37,26 @@ class StepTimer:
         self.t0 = self._now()
         self.count = 0
         self.total = 0.0
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: str | None):
+    """A ``torch.profiler`` window (host activity, and the CUDA device's
+    when there is one) that writes one Chrome/TensorBoard trace,
+    ``<worker>.<time>.pt.trace.json``, into ``trace_dir`` when the window
+    closes, also when it closes on an exception; a no-op when
+    ``trace_dir`` is empty."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()  # the window holds this epoch's work only
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
