@@ -98,8 +98,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
     (metrics, G's and D's gradient norms; the same step with TF32 on must
     fail those limits), and 20 warm bf16 steps at B = 32 with one profiled
     (ms per step, imgs/s, top device ops, the idle share, the model FLOPs
-    and their bound) at epoch 0 and, with the gate read on the host, at
-    epoch 5 with the gate held open and held closed;
+    and their bound) at epoch 0 and, the gate a select on the device (the
+    trainer's capturable Adam), at epoch 5 with the gate held open and
+    held closed;
 15. the GAN loop features through the CLIs, after the CGAN CLIs: resume
     (the DCGAN CLI in f32 with TF32 off and deterministic cuDNN, EMA on,
     2 epochs of 2 steps against 1 epoch and then ``--resume-from auto``:
@@ -121,7 +122,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
     K = 4, the dispatcher's 5 ConvT launches a replayed step held against
     a profiler trace of one replay, which must show the tensor-core
     kernel;
-18. prints the kernel table line, the card line and, last, the result
+18. the classifier's loop flags through its CLI at full width, right
+    after phase 15 on the same tree: ``--grad-accum 4`` against A = 1
+    (one ``mixed_gather`` launch a train step, the run's time and peak
+    memory), ``--remat`` in each scope against none (ms per step and peak
+    memory; one f32 step each within 1e-6 of no remat, BN statistics
+    included), preemption (SIGTERM to a 2-fold f32 run in fold 1's last
+    epoch: exit 0, the notice, no summary; ``--resume-from auto`` loads
+    fold 1, trains fold 2, and its summary is within 1e-6 of a straight
+    run's) and ``--trace-dir`` (one trace naming ``mixed_gather``);
+19. WGAN-GP's loop flags, after phase 17: one f32 A = 2 step through the
+    kernel against the plain version (phase 16's limits and TF32
+    control), 8 f32 steps as K = 4 replays against K = 1 (LOOP_TOL), and
+    bf16 at B = 64 with 5 critic updates: ms per step, idle share and
+    peak memory for K = 1, K = 4 and A = 4, ConvT launches of 5 (5 + 1) A
+    a step and 5 (5 + 1) K a replay, held against the dispatcher's count
+    and a profiler trace of one replay that shows the tensor-core kernel;
+20. CGAN's loop flags: 12 f32 steps as K = 4 replays against K = 1, the
+    replay after the capture at epoch 5 (the epoch a device input); a
+    replay at epoch 5 with the gate held closed (D and its Adam state
+    bitwise unchanged, its BN buffers moved) and one held open; one f32
+    A = 2 step on the card against the CPU (phase 14's limits and TF32
+    control); bf16 K = 1 and K = 4 ms per step at B = 32; no kernel
+    launch;
+21. prints the kernel table line, the card line and, last, the result
     line.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
@@ -1556,9 +1580,10 @@ def phase_wgan_train(tmp: str, root: str):
     return want + chain.get("convt4x4s2_fused", 0)
 
 
-def wgan_models(dtype, seed: int = 0):
+def wgan_models(dtype, seed: int = 0, capturable: bool = False):
     """Seeded full-width WGAN-GP G and critic (fg = fd = 64, 224 px) on the
-    card and their Adam optimizers (betas (0.5, 0.9))."""
+    card and their Adam optimizers (betas (0.5, 0.9); ``capturable``: as
+    the trainer builds them on the card)."""
     from xgan_torch.models.wgan import Critic, Generator
     from xgan_torch.train.common import adam
     dev = torch.device("cuda")
@@ -1566,8 +1591,8 @@ def wgan_models(dtype, seed: int = 0):
                   generator=torch.Generator(dev).manual_seed(seed))
     c = Critic(3, FG, SIZE, dtype=dtype, device=dev,
                generator=torch.Generator(dev).manual_seed(seed + 1))
-    return g, c, adam(g.parameters(), 2e-4, 0.5, 0.9), adam(c.parameters(),
-                                                              2e-4, 0.5, 0.9)
+    return (g, c, adam(g.parameters(), 2e-4, 0.5, 0.9, capturable=capturable),
+            adam(c.parameters(), 2e-4, 0.5, 0.9, capturable=capturable))
 
 
 def phase_wgan_step_check(train_store):
@@ -1867,9 +1892,10 @@ def phase_cgan_train(tmp: str, root: str):
           f"wall (one cold run)")
 
 
-def cgan_models(dev, dtype, seed: int = 0):
+def cgan_models(dev, dtype, seed: int = 0, capturable: bool = False):
     """Seeded full-width CGAN G and D (fg = fd = 32, 224 px), random VGG16
-    features, on ``dev``, and the Adam optimizers of G and D."""
+    features, on ``dev``, and the Adam optimizers of G and D
+    (``capturable``: as the trainer builds them on the card)."""
     from xgan_torch.models.cgan import Discriminator, Generator
     from xgan_torch.models.vgg import VGG16Features
     from xgan_torch.train.common import adam
@@ -1878,8 +1904,9 @@ def cgan_models(dev, dtype, seed: int = 0):
     d = Discriminator(2, 3, CGAN_FM, SIZE, dtype=dtype, generator=gen)
     vgg = VGG16Features(dtype=dtype, generator=gen)
     g, d, vgg = g.to(dev), d.to(dev), vgg.to(dev)
-    return g, d, vgg, adam(g.parameters(), 2e-4, 0.5), adam(d.parameters(),
-                                                             2e-4, 0.5)
+    return (g, d, vgg,
+            adam(g.parameters(), 2e-4, 0.5, capturable=capturable),
+            adam(d.parameters(), 2e-4, 0.5, capturable=capturable))
 
 
 def pre_bn_biases():
@@ -1916,9 +1943,10 @@ def noisy_convs(rel_rms: float, seed: int):
 CGAN_FLOOR_RMS = 1e-6
 
 
-def phase_cgan_step_check(train_store):
+def phase_cgan_step_check(train_store, grad_accum: int = 1):
     """One f32 CGAN step at full width (B = 16, TF32 off, deterministic
-    cuDNN) on the card against the same step on the CPU, from the same
+    cuDNN; ``grad_accum`` microbatches, the warm-up steps' too) on the
+    card against the same step on the CPU, from the same
     weights, Adam states and injected draws, after 3 warm-up steps on the
     card shared by both sides through a snapshot: the 7 metrics within
     1e-4 * (1 + |ref|); each tensor's gradient norm within 1e-3 relative
@@ -1964,7 +1992,7 @@ def phase_cgan_step_check(train_store):
         cgan_step(*nets, *on_card,
                   torch.randint(0, len(labels), (b,), generator=warm_gen,
                                 device=dev), 0, latent_dim=LATENT,
-                  generator=warm_gen)
+                  generator=warm_gen, grad_accum=grad_accum)
     warm = copy.deepcopy([m.state_dict() for m in nets[:2] + nets[3:]])
 
     def run(state, device, floor_seed=None):
@@ -1976,7 +2004,7 @@ def phase_cgan_step_check(train_store):
         with (noisy_convs(CGAN_FLOOR_RMS, floor_seed)
               if floor_seed is not None else contextlib.nullcontext()):
             m = cgan_step(g, d, vgg, opt_g, opt_d, *store, idx.to(device),
-                          0, latent_dim=LATENT,
+                          0, latent_dim=LATENT, grad_accum=grad_accum,
                           **{k: v.to(device) for k, v in draws.items()})
         params = [(f"G.{k}", p) for k, p in g.named_parameters()] \
             + [(f"D.{k}", p) for k, p in d.named_parameters()]
@@ -2023,8 +2051,8 @@ def phase_cgan_step_check(train_store):
     limit = {k: 1e-3 + 2 * floor[k] for k in rel}
     ratio = {k: rel[k] / limit[k] for k in rel}
     over = sorted(k for k in rel if floor[k] > 1e-3)
-    print(f"f32 CGAN step (B={b}, 224 px, fg = fd = 32, after 3 warm-up "
-          f"steps), card vs CPU: metrics "
+    print(f"f32 CGAN step (B={b}, A={grad_accum}, 224 px, fg = fd = 32, "
+          f"after 3 warm-up steps), card vs CPU: metrics "
           f"{[round(v, 6) for v in card[0].tolist()]}, max |diff| / (1 + "
           f"|ref|) {l_err:.3g} (tol 1e-4; card vs card {l_k:.3g}; floor "
           f"{max(f[0] for f in floors):.3g}); gradient norms, largest "
@@ -2088,14 +2116,15 @@ def cgan_step_flops(b: int) -> dict:
 
 def phase_cgan_profile(train_store, smi: str):
     """Warm bf16 CGAN steps at B = 32 (fg = fd = 32, random VGG16
-    features) in the three forms of the adaptive gate: epoch 0 (open
-    without a look, no host sync), and from epoch 5 on, where the gate is
-    read on the host each step, open and closed (no D backward, no D Adam
-    step). For each form: ms per step over 20 warm steps, imgs/s and D's
-    Adam steps taken (20 open, 0 closed); one profiled step: kernels,
-    device ms, the device idle share and the longest host read of a
-    device value (the gate's, where it is read). For epoch 0 also the top device ops and the model FLOPs with the
-    bound they give.
+    features, the trainer's capturable Adam) in the three forms of the
+    adaptive gate, a select on the device in each (D's backward and Adam
+    step always run; a closed gate selects D and its Adam state back):
+    epoch 0 (held open by the epoch), and epoch 5, open and closed. For
+    each form: ms per step over 20 warm steps, imgs/s and D's Adam steps
+    that stood (20 open, 0 closed); one profiled step: kernels, device
+    ms, the device idle share and the longest host read of a device value
+    (none is expected). For epoch 0 also the top device ops and the model
+    FLOPs with the bound they give.
 
     The epoch-5 forms fix the gate through D's projection: D's last BN
     with scale 0 and shift 1 makes the last LeakyReLU map all ones,
@@ -2117,7 +2146,7 @@ def phase_cgan_profile(train_store, smi: str):
                         device=dev)
 
     def run(epoch, closed=None):
-        nets = cgan_models(dev, torch.bfloat16, seed=24)
+        nets = cgan_models(dev, torch.bfloat16, seed=24, capturable=True)
         d, opt_d = nets[1], nets[4]
         labels, draws = store.labels, {}
         if closed is not None:
@@ -2169,13 +2198,13 @@ def phase_cgan_profile(train_store, smi: str):
         print(f"CGAN train step (bf16, B={CGAN_B}, 224 px, fg = fd = "
               f"{CGAN_FM}, random VGG16), epoch {epoch}, gate "
               f"{'open' if not closed else 'closed'}"
-              f"{' (not read)' if closed is None else ' (read on the host)'}"
+              f" (the device select)"
               f": {step_ms:.3f} ms per step (mean of 20 warm), "
               f"{CGAN_B / step_ms * 1e3:.1f} imgs/s, {updates} D updates; "
               f"profiled step: {len(events)} kernels, {busy_ms:.3f} ms "
               f"device time, device idle share ~{1 - busy_ms / step_ms:.3f}"
-              f", longest host read of a device value (the gate's, from "
-              f"epoch {GATE_EPOCHS}) {wait_ms:.3f} ms; {smi}")
+              f", longest host read of a device value {wait_ms:.3f} ms; "
+              f"{smi}")
         return step_ms, prof
 
     step_ms, prof = run(0)
@@ -2219,9 +2248,6 @@ def phase_loop_grad_accum(train_store, smi: str) -> int:
     Returns the launches of the counted steps."""
     from xgan_torch import kernels
     from xgan_torch.data.pipeline import DeviceStore
-    from xgan_torch.kernels.convt import (convt4x4s2_fused,
-                                          convt4x4s2_fused_ref,
-                                          pack_convt_weight)
     from xgan_torch.train.gan import dcgan_step
     dev = torch.device("cuda")
     store = DeviceStore(train_store, dev)
@@ -2268,28 +2294,14 @@ def phase_loop_grad_accum(train_store, smi: str) -> int:
         del g_net, d_net, opt_g, opt_d
         torch.cuda.empty_cache()
 
-    # f32 A = 2: after 3 shared warm-up steps, as phase_wgan_step_check
-    # holds its step, and (as phase_cgan_step_check) each G gradient norm
-    # within 1e-3 plus twice the floor that the kernel's own f32 rounding
-    # sets: the plain version with each ConvT output perturbed by noise of
-    # the kernel's measured relative error, two draws. The two
-    # microbatches' gradients partly cancel in BN scales' sums, so
-    # rounding alone moves their norms near the plain 1e-3 (from the
-    # fresh reference init, past it: printed, not held).
+    # f32 A = 2, held by hold_f32_kernel_step
     import copy
+    from xgan_torch.kernels.convt import convt4x4s2_fused_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     b = 16
-    conv_rel = 0.0  # the kernel's relative rms error at the step's layers
-    for x, w, _ in gan_layer_inputs(b, torch.float32, seed=26):
-        wp = pack_convt_weight(w, x.dtype)
-        ones = torch.ones(w.shape[1], device=dev)
-        zeros = torch.zeros(w.shape[1], device=dev)
-        got = convt4x4s2_fused(x, wp, ones, zeros, act="none")
-        want = convt4x4s2_fused_ref(x, wp, ones, zeros, act="none")
-        conv_rel = max(conv_rel, ((got - want).square().mean().sqrt()
-                                  / want.square().mean().sqrt()).item())
+    conv_rel = convt_rel_rms(b)
     g = torch.Generator(device=dev).manual_seed(24)
     idx = torch.randint(0, len(store), (b,), generator=g, device=dev)
     draws = {"flip": torch.rand(b, generator=g, device=dev) < 0.5,
@@ -2303,6 +2315,63 @@ def phase_loop_grad_accum(train_store, smi: str) -> int:
                    latent_dim=LATENT, convt=convt4x4s2_fused_ref,
                    generator=g, grad_accum=2)
     warm = copy.deepcopy([m.state_dict() for m in nets])
+
+    def step(convt):
+        kw = {} if convt is None else {"convt": convt}
+        return dcgan_step(*nets, store.images, idx, latent_dim=LATENT,
+                          grad_accum=2, **draws, **kw)
+
+    hold_f32_kernel_step(f"A=2 GAN step (B={b})", nets, fresh, warm, step,
+                         20, lambda: list(nets[0].parameters()), conv_rel)
+    return launched
+
+
+def convt_rel_rms(b: int, widths=None) -> float:
+    """The kernel's relative rms error against its plain version at the
+    five f32 layers of a GAN train forward (act none) at batch ``b``."""
+    from xgan_torch.kernels.convt import (convt4x4s2_fused,
+                                          convt4x4s2_fused_ref,
+                                          pack_convt_weight)
+    dev = torch.device("cuda")
+    rel = 0.0
+    for x, w, _ in gan_layer_inputs(b, torch.float32, seed=26,
+                                    widths=widths):
+        wp = pack_convt_weight(w, x.dtype)
+        ones = torch.ones(w.shape[1], device=dev)
+        zeros = torch.zeros(w.shape[1], device=dev)
+        got = convt4x4s2_fused(x, wp, ones, zeros, act="none")
+        want = convt4x4s2_fused_ref(x, wp, ones, zeros, act="none")
+        rel = max(rel, ((got - want).square().mean().sqrt()
+                        / want.square().mean().sqrt()).item())
+    return rel
+
+
+def hold_f32_kernel_step(label: str, nets, fresh, warm, step, launches: int,
+                         params, conv_rel: float) -> None:
+    """One f32 GAN step (TF32 off, deterministic cuDNN) through the kernel
+    against the same step through the plain version, from the state
+    ``warm`` (after 3 shared warm-up steps, as phase_wgan_step_check holds
+    its step): metrics within 1e-4 (1 + |ref|), each gradient norm of
+    ``params()`` within 1e-3 relative plus twice the floor that the
+    kernel's own rounding sets (as the CGAN check): the plain version with
+    each ConvT output perturbed by noise of the kernel's measured relative
+    error ``conv_rel``, two draws. The same kernel step with TF32 on must
+    exceed those norm limits (the control). Microbatches' gradients partly
+    cancel in BN scales' sums, so rounding alone moves their norms near
+    the plain 1e-3 (from the fresh reference init ``fresh``, past it:
+    printed, not held).
+
+    ``nets``: the modules and optimizers that ``fresh`` and ``warm`` hold;
+    ``step(convt)`` runs the step on fixed inputs and draws (``convt``
+    None: the kernel) and returns its metrics; ``launches``: the ConvT
+    launches of a kernel step."""
+    import copy
+    from xgan_torch import kernels
+    from xgan_torch.kernels.convt import convt4x4s2_fused_ref
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     noise = torch.Generator(device=dev)
 
     def perturbed(*args, **kw):
@@ -2313,14 +2382,12 @@ def phase_loop_grad_accum(train_store, smi: str) -> int:
     def run(state, convt, seed=0):
         for m, sd in zip(nets, copy.deepcopy(state)):
             m.load_state_dict(sd)
-        kw = {} if convt is None else {"convt": convt}
         kernels.reset_launch_counts()
         noise.manual_seed(seed)
-        m = dcgan_step(*nets, store.images, idx, latent_dim=LATENT,
-                       grad_accum=2, **draws, **kw)
+        m = step(convt)
         check(kernels.LAUNCHES["convt4x4s2_fused"]
-              == (20 if convt is None else 0), dict(kernels.LAUNCHES))
-        return m, torch.stack([p.grad.norm() for p in nets[0].parameters()])
+              == (launches if convt is None else 0), dict(kernels.LAUNCHES))
+        return m, torch.stack([p.grad.norm() for p in params()])
 
     def diffs(a, ref):
         (m_a, n_a), (m_r, n_r) = a, ref
@@ -2328,7 +2395,11 @@ def phase_loop_grad_accum(train_store, smi: str) -> int:
                 ((n_a - n_r).abs() / n_r))
 
     try:
-        names = [k for k, _ in nets[0].named_parameters()]
+        held = params()
+        names = [f"{type(m).__name__}.{k}" for m in nets
+                 if isinstance(m, torch.nn.Module)
+                 for k, p in m.named_parameters()
+                 if any(p is q for q in held)]
         cold_plain = run(fresh, convt4x4s2_fused_ref)
         cold_m, cold_rel = diffs(run(fresh, None), cold_plain)
         kern, plain, kern2 = (run(warm, None), run(warm, convt4x4s2_fused_ref),
@@ -2350,10 +2421,10 @@ def phase_loop_grad_accum(train_store, smi: str) -> int:
     ratio = (rel / limit).max().item()
     worst = sorted(zip(rel.tolist(), floor.tolist(), names),
                    reverse=True)[:3]
-    print(f"f32 A=2 GAN step (B={b}, after 3 warm-up steps), kernel vs "
-          f"plain G forward: metrics max |diff| / (1 + |ref|) {m_err:.3g} "
-          f"(tol 1e-4; kernel vs kernel {m_floor:.3g}); G gradient norms "
-          f"max relative diff {rel.max().item():.3g} (kernel vs kernel "
+    print(f"f32 {label}, after 3 warm-up steps, kernel vs plain G "
+          f"forward: metrics max |diff| / (1 + |ref|) {m_err:.3g} (tol "
+          f"1e-4; kernel vs kernel {m_floor:.3g}); gradient norms max "
+          f"relative diff {rel.max().item():.3g} (kernel vs kernel "
           f"{rel_floor.max().item():.3g}); the kernel's relative rms error "
           f"{conv_rel:.3g}, the plain version perturbed by it: metrics "
           f"{max(f[0] for f in floors):.3g}, norms up to "
@@ -2366,16 +2437,15 @@ def phase_loop_grad_accum(train_store, smi: str) -> int:
     tf_m, tf_rel = diffs(kern_tf32, plain)
     tf_ratio = tf_rel / limit
     print(f"control, the kernel step with TF32 on, against the same "
-          f"limits: metrics {tf_m:.3g} (tol 1e-4), G gradient norms max "
+          f"limits: metrics {tf_m:.3g} (tol 1e-4), gradient norms max "
           f"relative diff {tf_rel.max().item():.3g}, "
           f"{tf_ratio.max().item():.3f} of the limit "
           f"({names[int(tf_ratio.argmax())]}), over it on "
           f"{int((tf_ratio > 1).sum())} of {len(names)} tensors")
-    check(m_err <= 1e-4, "f32 A=2 GAN step: kernel vs plain metrics differ")
-    check(ratio <= 1.0, "f32 A=2 GAN step: G gradient norms differ")
+    check(m_err <= 1e-4, f"f32 {label}: kernel vs plain metrics differ")
+    check(ratio <= 1.0, f"f32 {label}: gradient norms differ")
     check(tf_ratio.max().item() > 1.0,
-          "f32 A=2 GAN step check: a TF32 step passes its norm limits too")
-    return launched
+          f"f32 {label} check: a TF32 step passes its norm limits too")
 
 
 def idle_share(events, steps: int, step_ms: float) -> tuple[float, int, int]:
@@ -2389,25 +2459,21 @@ def idle_share(events, steps: int, step_ms: float) -> tuple[float, int, int]:
 
 
 def phase_loop_steps_per_call(train_store, smi: str) -> int:
-    """``--steps-per-call``: 8 f32 steps (B = 16, with the EMA) as K = 1
-    eager steps and as K = 4 (the first call eager, the second a graph
-    replay), each with the capturable Adam that the DCGAN trainer builds
-    on the card for every K, from the same weights, draws and indices,
-    within LOOP_TOL; then bf16 at B = 128: ms per step of K = 1 and K = 4
-    and, from one profiled window each, the device idle share (and, for
-    the record, K = 1 with the default host-rounded Adam); the
-    dispatcher's ConvT count per replay (5 a step) against a profiler
-    trace of one replay. Returns the launches of the timed replays."""
+    """``--steps-per-call``: :func:`hold_k_replay` of the DCGAN step (EMA
+    on); then bf16 at B = 128: ms per step of K = 1 and K = 4 and, from
+    one profiled window each, the device idle share (and, for the record,
+    K = 1 with the default host-rounded Adam); the dispatcher's ConvT
+    count per replay (5 a step) against a profiler trace of one replay.
+    Returns the launches of the timed steps."""
     from torch.autograd import DeviceType
     from xgan_torch import kernels
     from xgan_torch.data.pipeline import DeviceStore
     from xgan_torch.train.ema import ema_update, init_ema
     from xgan_torch.train.gan import dcgan_step
-    from xgan_torch.train.multistep import StepsPerCall
     dev = torch.device("cuda")
     store = DeviceStore(train_store, dev)
 
-    def run(k, dtype, b, steps, seed, capturable=True):
+    def setup(k, dtype, b, steps, seed, capturable=True):
         g_net, d_net, opt_g, opt_d = gan_models(dtype, seed=seed,
                                                 capturable=capturable)
         ema = init_ema(g_net)
@@ -2422,72 +2488,41 @@ def phase_loop_steps_per_call(train_store, smi: str) -> int:
             ema_update(ema, g_net, 0.999)
             return m
 
-        if k == 1:
-            calls = [lambda t=t: step(idx[t])[None] for t in range(steps)]
-        else:
-            multi = StepsPerCall(step, k, gen)
-            calls = [lambda t=t: multi(idx[t:t + k])
-                     for t in range(0, steps, k)]
-        return calls, (g_net, d_net, ema), (multi if k > 1 else None)
+        calls, multi = k_calls(step, k, gen, idx)
+        return calls, multi, dict(G=g_net, D=d_net, opt_G=opt_g,
+                                  opt_D=opt_d, EMA=ema)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    out = {}
-    try:
-        for k in (1, LOOP_K):
-            calls, nets, multi = run(k, torch.float32, 16, 8, seed=26)
-            metrics = torch.cat([c() for c in calls])
-            torch.cuda.synchronize()
-            if multi is not None:
-                check(multi.replays == 1, multi.replays)
-            state = {f"{name}.{key}": v.detach().clone()
-                     for name, sd in (("G", nets[0].state_dict()),
-                                      ("D", nets[1].state_dict()),
-                                      ("EMA", nets[2]))
-                     for key, v in sd.items()}
-            out[k] = (metrics, state)
-    finally:
-        torch.backends.cudnn.deterministic = False
+    def f32_run(k):
+        calls, multi, named = setup(k, torch.float32, 16, 8, seed=26)
+        metrics = torch.cat([c() for c in calls])
+        torch.cuda.synchronize()
+        return metrics, state_of(**named), multi
 
-    (m_k, s_k), (m_1, s_1) = out[LOOP_K], out[1]
-    torch.testing.assert_close(m_k, m_1, **LOOP_TOL)
-    worst, bitwise = (m_k - m_1).abs().max().item(), torch.equal(m_k, m_1)
-    for key, v in s_1.items():
-        torch.testing.assert_close(s_k[key], v, msg=key, **LOOP_TOL)
-        worst = max(worst, (s_k[key].float() - v.float()).abs().max().item())
-        bitwise = bitwise and torch.equal(s_k[key], v)
-    print(f"f32 K={LOOP_K} graph replay vs K=1 eager, 8 steps (B=16, EMA "
-          f"on, the trainer's capturable Adam): metric histories, G, D and "
-          f"EMA within rtol 2e-4, atol 2e-5: max |diff| {worst:.3g}; "
-          f"bitwise equal {bitwise}")
+    hold_k_replay("DCGAN (EMA on)", f32_run)
 
     times = {}
     launched = 0
     # the trainer's capturable Adam at K = 1 and K; then K = 1 with the
     # default Adam, for what the device-side update costs an eager step
     for k, capturable in ((1, True), (LOOP_K, True), (1, False)):
-        steps = 40 if k == 1 else 44
-        calls, nets, multi = run(k, torch.bfloat16, GAN_B, steps, seed=30,
-                                 capturable=capturable)
-        warm = 3 if k == 1 else 2  # K > 1: the eager call, then capture
+        # warm calls (K > 1: the eager one, then the capture), 20 timed
+        # steps, then the profiled window: one warm call and 4 steps
+        warm, n_timed = (3, 20) if k == 1 else (2, 20 // LOOP_K)
+        window = 4 // k
+        calls, multi, _ = setup(k, torch.bfloat16, GAN_B,
+                                (warm + n_timed + 1 + window) * k, seed=30,
+                                capturable=capturable)
         for c in calls[:warm]:
             c()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        n_timed = 20 if k == 1 else 5
-        for c in calls[warm:warm + n_timed]:
-            m = c()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / 20 * 1e3
-        check(bool(torch.isfinite(m).all()), m)
+        ms = time_calls(calls[warm:], k, n_timed)
         timed = dict(kernels.LAUNCHES)
-        check(timed.get("convt4x4s2_mma", 0) == 100, (k, timed))
+        check(timed.get("convt4x4s2_mma", 0) == 5 * n_timed * k, (k, timed))
         launched += timed["convt4x4s2_fused"]
         rest = calls[warm + n_timed:]
         events, _ = warm_profile(
-            rest[0], lambda: [c() for c in rest[1:5 if k == 1 else 2]])
+            rest[0], lambda: [c() for c in rest[1:1 + window]])
         busy, n_kernels, n_convt = idle_share(events, 4, ms)
         check(n_convt == 20, f"K={k}: {n_convt} ConvT kernels in the "
               "profiled window of 4 steps, expected 20")
@@ -2505,16 +2540,40 @@ def phase_loop_steps_per_call(train_store, smi: str) -> int:
         times[k, capturable] = ms
         print(f"steps-per-call K={k} (bf16, B={GAN_B}, 224 px, EMA on, "
               f"{'capturable' if capturable else 'default'} Adam): "
-              f"{ms:.3f} ms per step (mean of 20 warm), "
+              f"{ms:.3f} ms per step (mean of {n_timed * k} warm), "
               f"{GAN_B / ms * 1e3:.1f} imgs/s; profiled window of 4 steps: "
               f"{n_kernels} kernels, {busy:.3f} device ms per step, device "
               f"idle share ~{1 - busy / ms:.3f} [{smi}]")
-        del calls, nets, multi
+        del calls, multi
         torch.cuda.empty_cache()
     print(f"K={LOOP_K} / K=1 step time "
           f"{times[LOOP_K, True] / times[1, True]:.3f}; K=1, capturable / "
           f"default Adam {times[1, True] / times[1, False]:.3f}")
     return launched
+
+
+def read_trace(trace_dir: str):
+    """The one ``*.pt.trace.json`` that ``maybe_trace`` wrote into
+    ``trace_dir``: (its file name, its events, the launches whose kernel
+    the trace lacks: in the window's ``trace_lead``, after it). Fails on
+    a launch after the lead without its kernel."""
+    traces = os.listdir(trace_dir)
+    check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"), traces)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    lead = [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == "trace_lead"]
+    check(len(lead) == 1, lead)
+    lead_end = lead[0]["ts"] + lead[0]["dur"]
+    seen = {e["args"].get("correlation") for e in events
+            if e.get("cat") == "kernel"}
+    lost = [e for e in events if e.get("cat") == "cuda_runtime"
+            and "LaunchKernel" in e.get("name", "")
+            and e["args"].get("correlation") not in seen]
+    after = [e["name"] for e in lost if e["ts"] > lead_end]
+    check(not after, f"{traces[0]}: launches without their kernel after "
+          f"the lead: {after[:8]}")
+    return traces[0], events, (len(lost), len(after))
 
 
 def gan_cli_argv(tmp: str, root: str, out: str, *extra) -> list:
@@ -2724,18 +2783,16 @@ def phase_loop_cli(tmp: str, root: str, train_store, smi: str) -> int:
                           trace_dir))
     torch.cuda.synchronize()
     launched += kernels.LAUNCHES["convt4x4s2_fused"]
-    traces = os.listdir(trace_dir)
-    check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"), traces)
-    with open(os.path.join(trace_dir, traces[0])) as f:
-        events = json.load(f)["traceEvents"]
+    name, events, (lost, _) = read_trace(trace_dir)
     ours = [e for e in events if e.get("cat") == "kernel"
             and "convt4x4s2" in e.get("name", "")]
     # epoch 2: 2 train steps and the final sheet, 5 ConvT kernels each
     check(len(ours) == 15 and any(MMA_KERNEL in e["name"] for e in ours),
           (len(ours), [e.get("name") for e in ours][:4]))
-    print(f"--trace-dir: one trace ({traces[0]}, "
-          f"{os.path.getsize(os.path.join(trace_dir, traces[0])) / 1e6:.1f} "
-          f"MB) of epoch 2, {len(ours)} ConvT kernels in it")
+    print(f"--trace-dir: one trace ({name}, "
+          f"{os.path.getsize(os.path.join(trace_dir, name)) / 1e6:.1f} MB) "
+          f"of epoch 2, {len(ours)} ConvT kernels in it; {lost} launches "
+          f"without their kernel, all in the window's lead")
 
     # WGAN-GP and CGAN: EMA and resume, 1 + 1 epochs of 2 steps
     for name, main, sub, extra in (
@@ -2769,6 +2826,596 @@ def phase_loop_cli(tmp: str, root: str, train_store, smi: str) -> int:
     return launched
 
 
+
+def k_calls(step, k: int, gen, idx, *inputs):
+    """The calls that run ``step(idx[t], *inputs)`` over the rows of
+    ``idx``: one eager step each (K = 1, each returning a (1, M) tensor) or
+    one :class:`StepsPerCall` of K steps each (a replay from its second
+    call). Returns (the calls, the dispatcher or None)."""
+    from xgan_torch.train.multistep import StepsPerCall
+    if k == 1:
+        return [lambda t=t: step(idx[t], *inputs)[None]
+                for t in range(len(idx))], None
+    multi = StepsPerCall(step, k, gen)
+    return [lambda t=t: multi(idx[t:t + k], *inputs)
+            for t in range(0, len(idx), k)], multi
+
+
+def hold_k_replay(label: str, run) -> None:
+    """f32 steps (B = 16, TF32 off, deterministic cuDNN) as K = 1 eager
+    steps and as K = LOOP_K (the first call eager, the later ones graph
+    replays), each with the trainers' capturable Adam, from the same
+    weights, draws and indices: the metrics and every state tensor within
+    LOOP_TOL. ``run(k)`` returns (the stacked metrics, the state by name,
+    the dispatcher or None)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {k: run(k) for k in (1, LOOP_K)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (m_k, s_k, multi), (m_1, s_1, _) = out[LOOP_K], out[1]
+    check(multi.replays >= 1, multi.replays)
+    torch.testing.assert_close(m_k, m_1, **LOOP_TOL)
+    worst, bitwise = (m_k - m_1).abs().max().item(), torch.equal(m_k, m_1)
+    for key, v in s_1.items():
+        torch.testing.assert_close(s_k[key], v, msg=key, **LOOP_TOL)
+        worst = max(worst, (s_k[key].float() - v.float()).abs().max().item())
+        bitwise = bitwise and torch.equal(s_k[key], v)
+    print(f"{label}: f32 K={LOOP_K} graph replays vs K=1 eager, "
+          f"{m_1.shape[0]} steps (B=16, the trainer's capturable Adam, "
+          f"{multi.replays} replays): metrics and state within "
+          f"rtol 2e-4, atol 2e-5: max |diff| {worst:.3g}; bitwise equal "
+          f"{bitwise}")
+
+
+def state_of(**named) -> dict:
+    """Name -> a copy of each module's (or EMA dict's) tensors and each
+    optimizer's state tensors."""
+    out = {}
+    for name, obj in named.items():
+        if isinstance(obj, torch.optim.Optimizer):
+            items = [(f"{i}.{k}", v) for i, st in enumerate(
+                obj.state_dict()["state"].values()) for k, v in st.items()]
+        elif isinstance(obj, torch.nn.Module):
+            items = obj.state_dict().items()
+        else:
+            items = obj.items()
+        out.update({f"{name}.{k}": v.detach().clone() for k, v in items
+                    if torch.is_tensor(v)})
+    return out
+
+
+def time_calls(calls, steps_per_call: int, n_timed: int) -> float:
+    """ms per step of ``calls[:n_timed]``, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in calls[:n_timed]:
+        m = c()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(m).all()), m)
+    return (time.perf_counter() - t0) / (n_timed * steps_per_call) * 1e3
+
+
+def phase_loop_wgan(train_store, smi: str) -> int:
+    """WGAN-GP's loop flags on the card:
+
+    - one f32 A = 2 step (B = 16, 2 critic updates, after 3 shared warm-up
+      steps) through the kernel against the plain version, held as the
+      DCGAN A = 2 step (:func:`hold_f32_kernel_step`, its TF32 control
+      included), the gradient norms of G and the critic;
+    - :func:`hold_k_replay` of the WGAN-GP step (2 critic updates, EMA
+      on): the graph captures the penalty's double backward and the
+      ConvT kernel;
+    - bf16 at B = 64, 5 critic updates: ms per step and, from one
+      profiled window, the device idle share for K = 1 and K = 4, and
+      for A = 1 and A = 4 with the peak memory of a step; the ConvT
+      launches per step (5 (critic_iters + 1) A) and per replay (K times
+      5 (critic_iters + 1)) against the wrappers' and the dispatcher's
+      counts and a profiler trace of one replay, which must show the
+      tensor-core kernel.
+
+    Returns the launches of the counted steps."""
+    import copy
+    from torch.autograd import DeviceType
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.convt import convt4x4s2_fused_ref
+    from xgan_torch.train.ema import ema_update, init_ema
+    from xgan_torch.train.wgan import wgan_step
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    n = 2
+
+    # f32 A = 2 through the kernel against the plain version
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    b = 16
+    conv_rel = convt_rel_rms(b, WGAN_WIDTHS)
+    g = torch.Generator(device=dev).manual_seed(50)
+    idx = torch.randint(0, len(store), (b,), generator=g, device=dev)
+    draws = {"flip": torch.rand(b, generator=g, device=dev) < 0.5,
+             "noises": [torch.randn(b, LATENT, generator=g, device=dev)
+                        for _ in range(n)],
+             "alphas": [torch.rand(b, 1, 1, 1, generator=g, device=dev)
+                        for _ in range(n)],
+             "g_noise": torch.randn(b, LATENT, generator=g, device=dev)}
+    nets = wgan_models(torch.float32, seed=51)
+    fresh = copy.deepcopy([m.state_dict() for m in nets])
+    for _ in range(3):
+        wgan_step(*nets, store.images,
+                  torch.randint(0, len(store), (b,), generator=g, device=dev),
+                  latent_dim=LATENT, critic_iters=n, lambda_gp=10.0,
+                  convt=convt4x4s2_fused_ref, generator=g, grad_accum=2)
+    warm = copy.deepcopy([m.state_dict() for m in nets])
+
+    def f32_step(convt):
+        kw = {} if convt is None else {"convt": convt}
+        return wgan_step(*nets, store.images, idx, latent_dim=LATENT,
+                         critic_iters=n, lambda_gp=10.0, grad_accum=2,
+                         **draws, **kw)
+
+    hold_f32_kernel_step(
+        f"A=2 WGAN-GP step (B={b}, {n} critic updates)", nets, fresh, warm,
+        f32_step, 5 * (n + 1) * 2,
+        lambda: [*nets[0].parameters(), *nets[1].parameters()], conv_rel)
+    del nets, fresh, warm
+
+    def setup(k, dtype, b, steps, critic_iters, seed, accum=1):
+        g_net, c_net, opt_g, opt_c = wgan_models(dtype, seed=seed,
+                                                 capturable=True)
+        ema = init_ema(g_net)
+        gen = torch.Generator(dev).manual_seed(seed + 2)
+        idx = torch.randint(0, len(store), (steps, b), device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                seed + 3))
+
+        def step(i):
+            m = wgan_step(g_net, c_net, opt_g, opt_c, store.images, i,
+                          latent_dim=LATENT, critic_iters=critic_iters,
+                          lambda_gp=10.0, dtype=dtype, generator=gen,
+                          grad_accum=accum)
+            ema_update(ema, g_net, 0.999)
+            return m
+
+        calls, multi = k_calls(step, k, gen, idx)
+        return calls, multi, dict(G=g_net, C=c_net, opt_G=opt_g,
+                                  opt_C=opt_c, EMA=ema)
+
+    def f32_run(k):
+        calls, multi, named = setup(k, torch.float32, 16, 8, n, seed=52)
+        metrics = torch.cat([c() for c in calls])
+        torch.cuda.synchronize()
+        return metrics, state_of(**named), multi
+
+    hold_k_replay(f"WGAN-GP ({n} critic updates, EMA on)", f32_run)
+
+    # bf16 at the trainer's batch: K = 1, K = 4; A = 1, A = 4
+    launched = 0
+    per_step = 5 * (WGAN_CRITIC + 1)
+    times = {}
+    for k, accum in ((1, 1), (LOOP_K, 1), (1, LOOP_A)):
+        # 2 warm calls (K > 1: the eager one, then the capture), the timed
+        # ones, 2 for the profiled window
+        n_timed = 8 if k == 1 else 2
+        calls, multi, named = setup(k, torch.bfloat16, WGAN_B,
+                                    (4 + n_timed) * k, WGAN_CRITIC, seed=54,
+                                    accum=accum)
+        warm_calls = 2
+        for c in calls[:warm_calls]:
+            c()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ms = time_calls(calls[warm_calls:], k, n_timed)
+        peak = torch.cuda.max_memory_allocated()
+        timed = dict(kernels.LAUNCHES)
+        want = per_step * accum * n_timed * k
+        check(timed.get("convt4x4s2_mma", 0) == want
+              and timed.get("convt4x4s2_fused", 0) == want,
+              (k, accum, timed, want))
+        launched += timed["convt4x4s2_fused"]
+        rest = calls[warm_calls + n_timed:]
+        events, _ = warm_profile(rest[0], rest[1])
+        busy, n_kernels, n_convt = idle_share(events, k, ms)
+        check(n_convt == per_step * accum * k,
+              f"K={k}, A={accum}: {n_convt} ConvT kernels in the profiled "
+              f"window of {k} steps, expected {per_step * accum * k}")
+        if multi is not None:
+            per = dict(multi.launches_per_replay)
+            check(per.get("convt4x4s2_mma", 0) == per_step * k
+                  and per.get("convt4x4s2_fused", 0) == per_step * k, per)
+            names = {e.name for e in events if "convt4x4s2" in e.name
+                     and e.device_type == DeviceType.CUDA}
+            check(any(MMA_KERNEL in nm for nm in names), names)
+            print(f"WGAN-GP K={k}: the dispatcher counts {per} ConvT "
+                  f"launches per replay ({multi.replays} replays); the "
+                  f"profiler sees {n_convt} ConvT kernels in one replay: "
+                  f"{sorted(nm[:60] for nm in names)}")
+        times[k, accum] = ms
+        print(f"WGAN-GP K={k}, A={accum} (bf16, B={WGAN_B}, {WGAN_CRITIC} "
+              f"critic updates, 224 px, EMA on, capturable Adam): {ms:.3f} "
+              f"ms per step (mean of {n_timed * k} warm), "
+              f"{WGAN_B / ms * 1e3:.1f} imgs/s; ConvT launches "
+              f"{timed['convt4x4s2_fused'] // (n_timed * k)} a step; peak "
+              f"memory {peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} "
+              f"GiB above the {before / 2**30:.3f} held); profiled window of "
+              f"{k} step(s): {n_kernels} kernels, {busy:.3f} device ms per "
+              f"step, device idle share ~{1 - busy / ms:.3f} [{smi}]")
+        del calls, multi, named
+        torch.cuda.empty_cache()
+    print(f"WGAN-GP K={LOOP_K} / K=1 step time "
+          f"{times[LOOP_K, 1] / times[1, 1]:.3f}; A={LOOP_A} / A=1 "
+          f"{times[1, LOOP_A] / times[1, 1]:.3f}")
+    return launched
+
+
+def phase_loop_cgan(train_store, smi: str) -> None:
+    """CGAN's loop flags on the card (no hand-written kernel launches):
+
+    - :func:`hold_k_replay` of the CGAN step (EMA on), 12 steps: at
+      K = 4 an eager call and a captured one at epoch 0, then a replay at
+      epoch 5 (the epoch a device input of the graph);
+    - a replay at epoch 5 with the gate held open and one with it held
+      closed (D's projection pinned as in phase_cgan_profile): after the
+      closed replay D's parameters and Adam state are bitwise those before
+      it and its BN buffers have moved; after the open one they moved;
+    - one f32 A = 2 step (B = 16) on the card against the CPU, held as
+      phase_cgan_step_check holds A = 1 (after 3 warm-up steps, its
+      floor rule and TF32 control);
+    - bf16 at B = 32: ms per step for K = 1 and K = 4 (the closed gate's
+      cost under the select is read in phase_cgan_profile).
+
+    Every kernel launch count stays 0."""
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.models.cgan import SEQ_D_BN
+    from xgan_torch.train.cgan import GATE_EPOCHS, cgan_step
+    from xgan_torch.train.ema import ema_update, init_ema
+    dev = torch.device("cuda")
+    store = DeviceStore(train_store, dev)
+    kernels.reset_launch_counts()
+    epochs = [0, GATE_EPOCHS]
+
+    def setup(k, dtype, b, steps, seed, pin=None):
+        nets = cgan_models(dev, dtype, seed=seed, capturable=True)
+        ema = init_ema(nets[0])
+        gen = torch.Generator(dev).manual_seed(seed + 2)
+        idx = torch.randint(0, len(store), (steps, b), device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                seed + 3))
+        labels, draws = store.labels, {}
+        if pin is not None:  # the gate held open (False) or closed (True)
+            d = nets[1]
+            emb, bn = d.label_emb.weight, d.main[SEQ_D_BN[-1]]
+            c = 500.0 / emb.shape[1] * (1 if pin else -1)
+            with torch.no_grad():
+                emb[0], emb[1] = c, -c
+                bn.weight.zero_()
+                bn.bias.fill_(1.0)
+            labels = torch.zeros_like(store.labels)
+            draws["fake_labels"] = torch.ones(b, dtype=torch.int64,
+                                              device=dev)
+
+        def step(i, epoch):
+            m = cgan_step(*nets, store.images, labels, i, epoch,
+                          latent_dim=LATENT, dtype=dtype, generator=gen,
+                          **draws)
+            ema_update(ema, nets[0], 0.999)
+            return m
+
+        return nets, ema, gen, idx, step
+
+    def f32_run(k):
+        # 12 steps: a graph captured at epoch 0 replays at epoch 5
+        nets, ema, gen, idx, step = setup(k, torch.float32, 16, 12, seed=60)
+        e = torch.tensor(0, device=dev)
+        calls, multi = k_calls(step, k, gen, idx, e)
+        out = []
+        for j, c in enumerate(calls):
+            e.fill_(0 if j < 2 * len(calls) // 3 else GATE_EPOCHS)
+            out.append(c())
+        torch.cuda.synchronize()
+        named = dict(G=nets[0], D=nets[1], opt_G=nets[3], opt_D=nets[4],
+                     EMA=ema)
+        return torch.cat(out), state_of(**named), multi
+
+    hold_k_replay("CGAN (epochs 0, 0, 5 a call at K = 4; EMA on)", f32_run)
+
+    # one dispatcher, replays at epoch 5 with the gate held open, closed
+    for closed in (False, True):
+        nets, ema, gen, idx, step = setup(LOOP_K, torch.float32, 16, 12,
+                                          seed=62, pin=closed)
+        e = torch.tensor(0, device=dev)
+        calls, multi = k_calls(step, LOOP_K, gen, idx, e)
+        calls[0]()  # eager, epoch 0
+        calls[1]()  # capture and the first replay, epoch 0
+        e.fill_(GATE_EPOCHS)
+        d, opt_d = nets[1], nets[4]
+        torch.cuda.synchronize()
+        before = state_of(D=d, opt_D=opt_d)
+        bn = [t.clone() for t in d.buffers()]
+        m = calls[2]()
+        torch.cuda.synchronize()
+        after = state_of(D=d, opt_D=opt_d)
+        same = [torch.equal(after[key], v) for key, v in before.items()
+                if "running" not in key and "num_batches" not in key]
+        moved = any(not torch.equal(a, b) for a, b in zip(d.buffers(), bn))
+        d_x, d_g_z1 = m[:, 2].min().item(), m[:, 3].max().item()
+        check(multi.replays == 2 and moved, (multi.replays, moved))
+        check((d_x >= 0.8 and d_g_z1 <= 0.2) == closed, (closed, d_x, d_g_z1))
+        check(all(same) if closed else not all(same), (closed, same))
+        print(f"CGAN K={LOOP_K} replay at epoch {GATE_EPOCHS} of a graph "
+              f"captured at epoch 0, gate held "
+              f"{'closed' if closed else 'open'}"
+              f" (D(x) >= {d_x:.3f}, D(G(z)) <= {d_g_z1:.3f}): D's parameters "
+              f"and Adam state bitwise unchanged {all(same)}; D's BN "
+              f"buffers moved {moved}")
+        del nets, ema, calls, multi
+
+    phase_cgan_step_check(train_store, grad_accum=2)
+
+    times = {}
+    for k in (1, LOOP_K):
+        nets, ema, gen, idx, step = setup(k, torch.bfloat16, CGAN_B, 24,
+                                          seed=64)
+        calls, _ = k_calls(step, k, gen, idx, torch.tensor(0, device=dev))
+        for c in calls[:2]:  # K > 1: the eager call, then the capture
+            c()
+        ms = time_calls(calls[2:], k, 20 if k == 1 else 4)
+        times[k] = ms
+        print(f"CGAN K={k} (bf16, B={CGAN_B}, 224 px, fg = fd = {CGAN_FM}, "
+              f"random VGG16, EMA on, capturable Adam, epoch 0): {ms:.3f} ms "
+              f"per step (mean of {20 if k == 1 else 4 * k} warm), "
+              f"{CGAN_B / ms * 1e3:.1f} imgs/s [{smi}]")
+        del nets, ema, calls
+        torch.cuda.empty_cache()
+    print(f"CGAN K={LOOP_K} / K=1 step time {times[LOOP_K] / times[1]:.3f}")
+    check(sum(kernels.LAUNCHES.values()) == 0, dict(kernels.LAUNCHES))
+
+
+def phase_loop_classifier(tmp: str, root: str, synth_dir: str, train,
+                          synth, smi: str) -> int:
+    """The classifier's loop flags through its CLI at full width (ResNet-50
+    (3,4,6,3), 224 px, B = 32) on the tree of phase 7:
+
+    - bf16 ``--grad-accum 4`` (augmented, ``--unfreeze``, 1 epoch of 6
+      steps): one ``mixed_gather`` launch per train step;
+    - the train step of run B's configuration (concat, ``--unfreeze``,
+      bf16, B = 32) at A = 1 and A = 4 and with each remat scope: ms per
+      step over 10 warm steps, one ``mixed_gather`` a step, and the peak
+      memory above the held state; then one f32 step (TF32 off,
+      deterministic cuDNN) of the model with each remat scope against one
+      without, from the same weights and batch: logits, every gradient
+      and the BN running statistics within 1e-6 relative;
+    - preemption: a 2-fold run (curriculum, frozen base, f32,
+      deterministic cuDNN) in a subprocess gets SIGTERM in the last epoch
+      of its first fold: exit 0, the notice, no summary; then
+      ``--resume-from auto`` completes it (fold 1 loaded, not retrained),
+      and its summary equals a straight run's within 1e-6;
+    - ``--trace-dir``: one trace that holds the traced epoch's 3
+      ``mixed_gather`` kernels, and every kernel launched after the
+      window's lead (:func:`read_trace`).
+
+    Returns the ``mixed_gather`` launches of the counted runs."""
+    import copy
+    import signal
+    import threading
+    from xgan_torch import kernels
+    from xgan_torch.cli.train_classifier import main as cls_main
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.models.resnet import REMAT_SCOPES, ResNet50
+    from xgan_torch.train.classifier import classifier_optimizer, train_step
+    out = os.path.join(tmp, "loop_cls")
+    launched = 0
+
+    def argv(name, *extra):
+        d = os.path.join(out, name)
+        return ["--data-dir", root, "--synthetic-dir", synth_dir,
+                "--model-dir", os.path.join(d, "models"),
+                "--results-dir", os.path.join(d, "metrics"),
+                "--figures-dir", os.path.join(d, "figures"),
+                "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+                "--image-size", str(SIZE), "--batch-size", str(CLS_B),
+                *extra]
+
+    def timed_run(name, *extra):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = cls_main(argv(name, *extra))
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    # --grad-accum 4 through the CLI, augmented so that every step gathers
+    steps = 6
+    result, wall, launches = timed_run(
+        "a4", "--use-synthetic", "--unfreeze", "--k-folds", "1", "--epochs",
+        "1", "--limit-batches", str(steps), "--compute-dtype", "bf16",
+        "--grad-accum", str(LOOP_A))
+    gathers = launches.get("mixed_gather", 0)
+    launched += gathers
+    check(gathers == steps and np.isfinite(result["loss"]),
+          (launches, result))
+    print(f"classifier CLI --grad-accum {LOOP_A} (augmented, --unfreeze, "
+          f"bf16, B={CLS_B}, 1 epoch of {steps} steps): {gathers} "
+          f"mixed_gather launches, {gathers / steps:.0f} a train step; run "
+          f"{wall:.3f} s [{smi}]")
+
+    # the step at A = 1 and A = 4, and with each remat scope: run B's
+    # configuration (concat, --unfreeze), bf16, B = 32, 10 warm steps each
+    dev = torch.device("cuda")
+    real, syn = DeviceStore(train, dev), DeviceStore(synth, dev)
+    gen = torch.Generator(dev).manual_seed(70)
+    idx = torch.randint(0, len(real) + len(syn), (14, CLS_B), generator=gen,
+                        device=dev)
+    times = {}
+    for accum, scope in ((1, None), (LOOP_A, None),
+                         *((1, sc) for sc in REMAT_SCOPES)):
+        model = ResNet50(2, dtype=torch.bfloat16, device=dev,
+                         generator=torch.Generator(dev).manual_seed(71),
+                         remat=scope is not None,
+                         remat_scope=scope or "block")
+        opt = classifier_optimizer(model, 1e-3, freeze_base=False)
+
+        def step(i):
+            return train_step(model, opt, real, syn, idx[i], mode="concat",
+                              dtype=torch.bfloat16, generator=gen,
+                              grad_accum=accum)
+
+        for i in range(3):
+            step(i)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for i in range(3, 13):
+            step(i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 10 * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        check(kernels.LAUNCHES["mixed_gather"] == 10, dict(kernels.LAUNCHES))
+        launched += 10
+        times[accum, scope] = ms
+        print(f"classifier step A={accum}, remat {scope or 'none'} (concat, "
+              f"--unfreeze, bf16, B={CLS_B}, 224 px): {ms:.3f} ms per step "
+              f"(mean of 10 warm), {CLS_B / ms * 1e3:.1f} imgs/s, one "
+              f"mixed_gather a step; peak memory {peak / 2**30:.3f} GiB, "
+              f"{(peak - held) / 2**30:.3f} GiB above the "
+              f"{held / 2**30:.3f} GiB held [{smi}]")
+        del model, opt
+        torch.cuda.empty_cache()
+    base = times[1, None]
+    print("classifier step time against A=1 without remat: "
+          + ", ".join(f"A={a} remat {sc or 'none'} {t / base:.3f}"
+                      for (a, sc), t in times.items()))
+
+    # one f32 step with remat against one without, from the same weights
+    x = torch.randn(CLS_B, SIZE, SIZE, 3, generator=gen, device=dev)
+    y = torch.randint(0, 2, (CLS_B,), generator=gen, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = ResNet50(2, device=dev,
+                         generator=torch.Generator(dev).manual_seed(72))
+        got = {}
+        for scope in (None, *REMAT_SCOPES):
+            model = copy.deepcopy(plain)
+            model.remat = scope is not None
+            model.remat_scope = scope or "block"
+            logits = model(x, train=True)
+            torch.nn.functional.cross_entropy(logits, y).backward()
+            got[scope] = (logits.detach(), {k: p.grad for k, p in
+                                            model.named_parameters()},
+                          {k: v for k, v in model.state_dict().items()
+                           if "running" in k})
+            del model
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ref = got.pop(None)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp_min(1e-30)).item()
+
+    for scope, (logits, grads, stats) in got.items():
+        worst = max([rel(logits, ref[0])]
+                    + [rel(grads[k], v) for k, v in ref[1].items()]
+                    + [rel(stats[k], v) for k, v in ref[2].items()])
+        check(worst <= 1e-6, (scope, worst))
+        print(f"f32 ResNet-50 step, remat {scope} vs none: logits, "
+              f"gradients and BN running statistics max relative diff "
+              f"{worst:.3g} (limit 1e-6)")
+    del plain, got, ref
+
+    # preemption between folds, then --resume-from auto, f32
+    cv = ["--use-synthetic", "--use-curriculum", "--curriculum-schedule",
+          "0:0.25,1:0.5", "--k-folds", "2", "--epochs", "2",
+          "--limit-batches", "3", "--compute-dtype", "f32"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels.reset_launch_counts()
+        straight = cls_main(argv("straight", *cv))
+        torch.cuda.synchronize()
+        launched += kernels.LAUNCHES["mixed_gather"]
+        stop_argv = argv("stopped", *cv)
+        here = os.path.dirname(os.path.abspath(__file__))
+        p = subprocess.Popen(
+            [sys.executable, "-u", "-c",
+             "import sys, torch; torch.backends.cudnn.deterministic = True; "
+             "from xgan_torch.cli.train_classifier import main; "
+             "main(sys.argv[1:])", *stop_argv],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=here)
+        sent, lines = False, []
+        watchdog = threading.Timer(600, p.kill)
+        watchdog.start()
+        try:
+            for ln in p.stdout:
+                lines.append(ln)
+                # fold 1's last epoch line: the fold completes, then the
+                # run stops before fold 2 (its checkpoint save and test
+                # evaluation lie between this line and the flag's read)
+                if not sent and "Epoch 2/2 [fold_1_" in ln:
+                    p.send_signal(signal.SIGTERM)
+                    sent = True
+            rc = p.wait(timeout=600)
+        finally:
+            watchdog.cancel()
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        text = "".join(lines)
+        summary_path = os.path.join(out, "stopped", "metrics",
+                                    "curriculum_cv_summary.json")
+        check(sent and rc == 0 and "Received signal" in text
+              and "Preempted: stopping after completed fold 1" in text
+              and not os.path.exists(summary_path), text[-3000:])
+        kernels.reset_launch_counts()
+        resumed = cls_main(stop_argv + ["--resume-from", "auto"])
+        torch.cuda.synchronize()
+        launched += kernels.LAUNCHES["mixed_gather"]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(os.path.exists(summary_path), summary_path)
+    worst = max(abs(resumed[part][m] - straight[part][m])
+                / max(abs(straight[part][m]), 1e-30)
+                for part in ("average", "std_dev")
+                for m in straight[part])
+    check(worst <= 1e-6, (worst, resumed, straight))
+    print(f"classifier preemption: SIGTERM in the last epoch of fold 1 of "
+          f"2 (curriculum, f32): exit {rc}, the notice, no summary; "
+          f"--resume-from auto "
+          f"loaded fold 1 and trained fold 2: summary within {worst:.3g} "
+          f"relative of a straight run's (limit 1e-6; bitwise "
+          f"{resumed == straight})")
+
+    # --trace-dir: one trace that holds the epoch's 3 gather kernels
+    trace_dir = os.path.join(out, "trace")
+    kernels.reset_launch_counts()
+    cls_main(argv("traced", "--use-synthetic", "--k-folds", "1", "--epochs",
+                  "2", "--limit-batches", "3", "--compute-dtype", "bf16",
+                  "--trace-dir", trace_dir))
+    torch.cuda.synchronize()
+    launched += kernels.LAUNCHES["mixed_gather"]
+    name, events, (lost, _) = read_trace(trace_dir)
+    ours = [e for e in events if e.get("cat") == "kernel"
+            and "mixed_gather" in e.get("name", "")]
+    # epoch 2: 3 train steps, one gather each
+    check(len(ours) == 3, [e.get("name") for e in events
+                           if e.get("cat") == "kernel"][:8])
+    print(f"classifier --trace-dir: one trace ({name}) of epoch 2, "
+          f"{len(ours)} mixed_gather kernels in it (3 train steps; the "
+          f"wrapper counted {kernels.LAUNCHES['mixed_gather']} launches in "
+          f"the 2 epochs); {lost} launches without their kernel, all in "
+          f"the window's lead")
+    return launched
+
+
 def main():
     smi = phase_card()
     phase_build()
@@ -2787,6 +3434,8 @@ def main():
         wgan_launches = phase_wgan_sampler(tmp) + phase_wgan_train(tmp, root)
         phase_cgan_train(tmp, root)
         loop_launches = phase_loop_cli(tmp, root, train, smi)
+        gather_entry["launches"] += phase_loop_classifier(
+            tmp, root, synth_dir, train, synth, smi)
     phase_f32_step(train, synth)
     phase_classifier_profile(train, synth)
     phase_gan_step_check(train)
@@ -2797,6 +3446,8 @@ def main():
     phase_cgan_profile(train, smi)
     loop_launches += phase_loop_grad_accum(train, smi)
     loop_launches += phase_loop_steps_per_call(train, smi)
+    loop_launches += phase_loop_wgan(train, smi)
+    phase_loop_cgan(train, smi)
     busy_ms = phase_profile()
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "

@@ -253,7 +253,8 @@ def test_closed_gate_leaves_d_and_its_adam_state_untouched():
             assert torch.equal(after[i][k], s[k]), (i, k)
     moved = [not torch.equal(a, b) for a, b in zip(d.buffers(), bn)]
     assert any(moved)  # BN running statistics advance under a closed gate
-    assert all(p.grad is None for p in d.parameters())
+    # the select form: D's backward ran, its update was selected away
+    assert all(p.grad is not None for p in d.parameters())
     assert np.isfinite(m0.numpy()).all()
 
     # the same inputs at epoch 0: the gate is forced open, D moves
@@ -272,9 +273,10 @@ def test_bn_advances_once_for_g_and_four_times_for_d(monkeypatch):
     calls = []
     bn_fn = port_cgan.batch_norm
 
-    def spy(bn, x, *, train, mask=None, dim=1):
-        calls.append((id(bn), train))
-        return bn_fn(bn, x, train=train, mask=mask, dim=dim)
+    def spy(bn, x, *, train, mask=None, dim=1, update_stats=True):
+        calls.append((id(bn), train and update_stats))
+        return bn_fn(bn, x, train=train, mask=mask, dim=dim,
+                     update_stats=update_stats)
     monkeypatch.setattr(port_cgan, "batch_norm", spy)
     _port_step(port, _store(8, 10), np.arange(8) % 2, np.arange(B), 0,
                generator=torch.Generator().manual_seed(3))

@@ -64,11 +64,12 @@ def _device_store(images, labels):
     return DeviceStore(ImageStore(images, labels, SIZE), "cpu")
 
 
-def _mix_draws(key, ratio, n_pool):
-    """The mixer's draws as xgan.data.mixer.mix_batch makes them."""
+def _mix_draws(key, ratio, n_pool, b=B):
+    """The mixer's draws as xgan.data.mixer.mix_batch makes them for a
+    batch of ``b``."""
     k_mask, k_pick = jax.random.split(key)
-    use_synth = np.array(jax.random.uniform(k_mask, (B,)) < ratio)
-    pick = np.array(jax.random.randint(k_pick, (B,), 0, n_pool), np.int64)
+    use_synth = np.array(jax.random.uniform(k_mask, (b,)) < ratio)
+    pick = np.array(jax.random.randint(k_pick, (b,), 0, n_pool), np.int64)
     return torch.from_numpy(use_synth), torch.from_numpy(pick)
 
 
@@ -311,9 +312,7 @@ def test_cli_errors(tmp_path, fake_dataset, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the no-GPU error")
     for argv in (["--data-dir", fake_dataset["data_dir"]],
-                 ["--cpu", "--grad-accum", "2"],
-                 ["--cpu", "--parallel-folds"],
-                 ["--cpu", "--trace-dir", str(tmp_path)]):
+                 ["--cpu", "--parallel-folds"]):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
         assert e.value.code == 1
@@ -324,3 +323,18 @@ def test_cli_errors(tmp_path, fake_dataset, capsys):
                      "--results-dir", str(tmp_path / "r"),
                      "--figures-dir", str(tmp_path / "f")]) is None
     assert "Dataset not found" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", [["--grad-accum", "2"], ["--remat"],
+                                  ["--remat-scope", "stage"],
+                                  ["--resume-from", "auto"],
+                                  ["--trace-dir", "t"]])
+def test_cli_ported_loop_flags_are_accepted(flag, tmp_path, capsys):
+    """The loop flags the port now supports parse and pass the refusal:
+    the run goes on to the dataset check."""
+    assert cli.main(["--cpu", *flag, "--data-dir", str(tmp_path / "none"),
+                     "--model-dir", str(tmp_path / "m"),
+                     "--results-dir", str(tmp_path / "r"),
+                     "--figures-dir", str(tmp_path / "f")]) is None
+    out = capsys.readouterr().out
+    assert "Dataset not found" in out and "not supported" not in out

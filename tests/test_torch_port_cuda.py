@@ -865,3 +865,178 @@ def test_gan_cli_steps_per_call_resume_is_bitwise(dev, tmp_path):
         assert set(a) == set(b)
         for k in a:
             assert torch.equal(a[k], b[k]), f"{name} {k}"
+
+
+# ---- WGAN-GP and CGAN steps per call, the CGAN gate, remat ---------------
+
+@pytest.mark.parametrize("family", ["wgan", "cgan"])
+def test_gan_family_cli_k2_matches_k1(dev, tmp_path, family):
+    """The WGAN-GP (2 critic updates) and CGAN CLIs on the card, f32,
+    B = 5 over 24 train images, 1 epoch: K = 2 (two chunks replayed as
+    one graph each after the eager first, the masked tail as one step)
+    against K = 1, both with the trainer's capturable Adam: history and
+    final G and D within rtol 2e-4, atol 2e-5 (tests/test_multistep.py:17);
+    WGAN-GP's graph holds the penalty's double backward and the ConvT
+    kernel."""
+    from xgan_torch.cli import train_cgan, train_wggan
+    cli = train_wggan if family == "wgan" else train_cgan
+    data_dir = _rsna_tree(tmp_path / "rsna")
+
+    def run(name, *extra):
+        out = tmp_path / name
+        kernels.reset_launch_counts()
+        history = cli.main([
+            "--data-dir", data_dir, "--model-dir", str(out / "models"),
+            "--output-dir", str(out / "results"),
+            "--results-dir", str(out / "metrics"),
+            "--figures-dir", str(out / "figures"),
+            "--cache-dir", str(tmp_path / "cache"), "--image-size", "32",
+            "--feature-maps-g", "8", "--feature-maps-d", "8",
+            "--latent-dim", "16", "--vis-batch-size", "8",
+            "--compute-dtype", "f32", "--batch-size", "5", "--epochs", "1",
+            *(["--critic-iters", "2"] if family == "wgan" else []), *extra])
+        torch.cuda.synchronize()
+        return history, dict(kernels.LAUNCHES)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        (h1, l1), (h2, l2) = run("k1"), run("k2", "--steps-per-call", "2")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # 5 steps, (2 + 1) G forwards a step, 5 layers each, and the sheets
+    assert l2 == l1 and (l1.get("convt4x4s2_fused", 0) > 0) == (
+        family == "wgan")
+    for key in h1:
+        np.testing.assert_allclose(h2[key], h1[key], rtol=2e-4, atol=2e-5,
+                                   err_msg=key)
+    for name in ("generator_final.pth", "discriminator_final.pth"):
+        a = torch.load(tmp_path / "k1/models" / family / name,
+                       weights_only=True)
+        b = torch.load(tmp_path / "k2/models" / family / name,
+                       weights_only=True)
+        for k in a:
+            torch.testing.assert_close(b[k], a[k], rtol=2e-4, atol=2e-5,
+                                       msg=f"{name} {k}")
+
+
+def test_cgan_closed_gate_replay_leaves_d_untouched(dev):
+    """A K = 2 CGAN dispatcher (capturable Adam) captured at epoch 0 and
+    replayed at epoch 5 with the gate held closed (D's last BN pinned to
+    a map of ones, label embeddings of +-c, reals labelled 0 and fakes
+    1: D(x) ~ 1, D(G(z)) ~ 0): D's parameters and Adam state bitwise as
+    before the replay, its BN buffers moved; G trained."""
+    from xgan_torch.models.cgan import SEQ_D_BN
+    from xgan_torch.train.cgan import cgan_step
+    from xgan_torch.train.common import adam
+    from xgan_torch.train.multistep import StepsPerCall
+    g_net, d_net, vgg = _cgan_nets(dev, seed=7)[:3]
+    opt_g = adam(g_net.parameters(), 2e-4, 0.5, capturable=True)
+    opt_d = adam(d_net.parameters(), 2e-4, 0.5, capturable=True)
+    emb, bn = d_net.label_emb.weight, d_net.main[SEQ_D_BN[-1]]
+    c = 500.0 / emb.shape[1]
+    with torch.no_grad():
+        emb[0], emb[1] = c, -c
+        bn.weight.zero_()
+        bn.bias.fill_(1.0)
+    gen = torch.Generator(dev).manual_seed(8)
+    store = torch.randint(0, 256, (24, 64, 64, 3), device=dev,
+                          dtype=torch.uint8, generator=gen)
+    labels = torch.zeros(24, dtype=torch.int64, device=dev)
+    fake_labels = torch.ones(8, dtype=torch.int64, device=dev)
+
+    def step(i, epoch):
+        return cgan_step(g_net, d_net, vgg, opt_g, opt_d, store, labels, i,
+                         epoch, latent_dim=16, generator=gen,
+                         fake_labels=fake_labels)
+
+    multi = StepsPerCall(step, 2, gen)
+    epoch = torch.tensor(0, device=dev)
+    idx = torch.arange(16, device=dev).reshape(2, 8)
+    multi(idx, epoch)
+    multi(idx, epoch)  # the capture, then its first replay
+    epoch.fill_(5)
+
+    def snapshot(*objs):
+        return [t.detach().clone() for o in objs
+                for t in ([*o.parameters()] if isinstance(o, torch.nn.Module)
+                          else [v for st in o.state.values()
+                                for v in st.values() if torch.is_tensor(v)])]
+    d_before, g_before = snapshot(d_net, opt_d), snapshot(g_net)
+    bn_before = [b.clone() for b in d_net.buffers()]
+    m = multi(idx, epoch)
+    torch.cuda.synchronize()
+    assert multi.replays == 2
+    assert (m[:, 2] > 0.8).all() and (m[:, 3] < 0.2).all(), m
+    assert all(torch.equal(a, b) for a, b in zip(snapshot(d_net, opt_d),
+                                                 d_before))
+    assert any(not torch.equal(a, b) for a, b in zip(d_net.buffers(),
+                                                     bn_before))
+    assert any(not torch.equal(a, b) for a, b in zip(snapshot(g_net),
+                                                     g_before))
+
+
+def test_remat_lowers_peak_memory(dev):
+    """ResNet-50 (3,4,6,3) at 224 px, B = 16, f32, every parameter
+    trained: a step's peak memory with stage and nested remat below the
+    one without, and the logits of the three equal."""
+    from xgan_torch.models.resnet import ResNet50
+    x = torch.randn(16, 224, 224, 3, device=dev,
+                    generator=torch.Generator(dev).manual_seed(9))
+    peaks, logits = {}, {}
+    for scope in (None, "stage", "nested"):
+        model = ResNet50(2, device=dev, remat=scope is not None,
+                         remat_scope=scope or "block",
+                         generator=torch.Generator(dev).manual_seed(10))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = model(x, train=True)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        peaks[scope] = torch.cuda.max_memory_allocated() - held
+        logits[scope] = out.detach()
+        del model, out
+        torch.cuda.empty_cache()
+    assert peaks["stage"] < peaks[None] and peaks["nested"] < peaks[None], \
+        peaks
+    for scope in ("stage", "nested"):
+        torch.testing.assert_close(logits[scope], logits[None], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_maybe_trace_holds_every_kernel_of_its_window(dev, tmp_path):
+    """``maybe_trace`` after a few other profiler windows in the same
+    process, its first launches 3 ``mixed_gather`` kernels: the trace
+    holds each of them, and every launch after the window's lead has its
+    kernel in the trace."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from xgan_torch.utils.timer import maybe_trace
+    real, synth, ridx, sidx, mask = _gather_inputs(dev, 64, 16, 32, 224)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            mixed_gather(real, synth, ridx, sidx, mask)
+            torch.cuda.synchronize()
+    err = new_error_flag(dev)
+    with maybe_trace(str(tmp_path)):
+        for _ in range(3):
+            mixed_gather(real, synth, ridx, sidx, mask, err=err)
+    raise_if_flagged(err)
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(traces) == 1, traces
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    ours = [e for e in events if e.get("cat") == "kernel"
+            and "mixed_gather" in e.get("name", "")]
+    assert len(ours) == 3, [e.get("name") for e in events
+                            if e.get("cat") == "kernel"]
+    lead = [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == "trace_lead"]
+    assert len(lead) == 1, lead
+    lead_end = lead[0]["ts"] + lead[0]["dur"]
+    kernels_seen = {e["args"].get("correlation") for e in events
+                    if e.get("cat") == "kernel"}
+    lost = [e["name"] for e in events if e.get("cat") == "cuda_runtime"
+            and "LaunchKernel" in e.get("name", "") and e["ts"] > lead_end
+            and e["args"].get("correlation") not in kernels_seen]
+    assert not lost, lost

@@ -11,6 +11,7 @@ import torch
 from xgan.train.loop_common import trace_epoch as jax_trace_epoch
 from xgan_torch.cli import train_cgan, train_gan, train_wggan
 from xgan_torch.train.loop_common import trace_epoch
+from xgan_torch.utils.timer import maybe_trace
 
 torch.set_num_threads(1)
 
@@ -54,3 +55,31 @@ def test_trace_dir_writes_one_trace(fake_dataset, tmp_path, name):
     assert not list(tmp_path.glob("plain/**/*.pt.trace.json"))
     assert sorted(p.relative_to(plain).as_posix() for p in plain.iterdir()) \
         == ["figures", "metrics", "models", "results"]
+
+
+def _trace_names(trace_dir) -> list:
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1, traces
+    return [e.get("name") for e in
+            json.loads(traces[0].read_text())["traceEvents"]]
+
+
+def test_maybe_trace_holds_the_head_of_its_window(tmp_path):
+    """The first and the last op of the window are in its one trace."""
+    with maybe_trace(str(tmp_path)):
+        with torch.profiler.record_function("head_of_window"):
+            torch.ones(4).add_(1)
+        with torch.profiler.record_function("tail_of_window"):
+            torch.ones(4).mul_(2)
+    names = _trace_names(tmp_path)
+    assert names.count("head_of_window") == 1
+    assert names.count("tail_of_window") == 1
+
+
+def test_maybe_trace_writes_its_trace_on_an_exception(tmp_path):
+    with pytest.raises(RuntimeError, match="stopped"):
+        with maybe_trace(str(tmp_path)):
+            with torch.profiler.record_function("before_the_error"):
+                torch.ones(4).add_(1)
+            raise RuntimeError("stopped")
+    assert "before_the_error" in _trace_names(tmp_path)

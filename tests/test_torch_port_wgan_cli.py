@@ -78,8 +78,9 @@ def run(tmp_path_factory, fake_dataset):
     betas = []
     adam = wgan_loop.adam
     mp = pytest.MonkeyPatch()
-    mp.setattr(wgan_loop, "adam", lambda params, lr, beta1, beta2=0.999: (
-        betas.append((lr, beta1, beta2)), adam(params, lr, beta1, beta2))[1])
+    mp.setattr(wgan_loop, "adam", lambda params, lr, beta1, beta2=0.999,
+               **kw: (betas.append((lr, beta1, beta2)),
+                      adam(params, lr, beta1, beta2, **kw))[1])
     kernels.reset_launch_counts()
     try:
         history = cli.main(argv)
@@ -169,9 +170,7 @@ def test_flags_and_defaults_follow_the_jax_cli(script, parser):
                 ours["lambda_gp"]) == (30, 64, 5, 10.0)
 
 
-@pytest.mark.parametrize("flag", [["--grad-accum", "2"],
-                                  ["--steps-per-call", "2"],
-                                  ["--shard-store"], ["--shard-opt-state"],
+@pytest.mark.parametrize("flag", [["--shard-store"], ["--shard-opt-state"],
                                   ["--model-parallel", "2"]])
 def test_unported_flags_exit_1(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -182,7 +181,9 @@ def test_unported_flags_exit_1(flag, capsys):
 
 @pytest.mark.parametrize("flag", [["--resume-from", "auto"],
                                   ["--ema-decay", "0.999"],
-                                  ["--trace-dir", "t"]])
+                                  ["--trace-dir", "t"],
+                                  ["--grad-accum", "2"],
+                                  ["--steps-per-call", "2"]])
 def test_ported_loop_flags_are_accepted(flag, tmp_path, capsys):
     """The loop flags the port now supports parse and pass the refusal:
     the run goes on to the dataset check."""

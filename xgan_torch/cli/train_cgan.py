@@ -12,10 +12,10 @@ sheets, ``{model_dir}/cgan/{generator,discriminator}_epoch_EEE.pth`` and
 vgg16 ``.pth`` for the perceptual loss; without it the VGG features are
 random (a warning says so). Runs on the CUDA device unless ``--cpu`` is
 given; without a CUDA device it exits 1 with a structured ``Error:``
-line. ``--resume-from``, ``--ema-decay`` and ``--trace-dir`` work as in
-the DCGAN trainer (the snapshot is ``{model_dir}/cgan/snapshot_last.pth``);
-``--grad-accum`` and ``--steps-per-call`` other than 1, and the flags the
-DCGAN trainer does not support, exit 1.
+line. ``--resume-from``, ``--ema-decay``, ``--trace-dir``,
+``--grad-accum`` and ``--steps-per-call`` work as in the DCGAN trainer
+(the snapshot is ``{model_dir}/cgan/snapshot_last.pth``); the flags the
+DCGAN trainer does not support exit 1.
 """
 from __future__ import annotations
 
@@ -23,11 +23,6 @@ import argparse
 
 from xgan_torch import config
 from xgan_torch.cli import train_gan
-
-# the DCGAN trainer's refusals, and its step-level flags
-UNSUPPORTED = {**train_gan.UNSUPPORTED, "grad_accum": 1,
-               "steps_per_call": 1}
-
 
 def build_parser():
     p = argparse.ArgumentParser(
@@ -48,7 +43,7 @@ def build_parser():
 def main(argv=None):
     """Train; returns the history (None after a printed error)."""
     args = build_parser().parse_args(argv)
-    device, dtype = train_gan.start(args, UNSUPPORTED)
+    device, dtype = train_gan.start(args)
     from xgan_torch.train.cgan_loop import train_cgan
     return train_cgan(args, device, dtype)
 

@@ -7,8 +7,14 @@
 Strategies baseline, augmented (--use-synthetic) and curriculum (with
 --use-curriculum), each with k-fold CV or one run on the test split.
 Runs on the CUDA device unless ``--cpu`` is given; without a CUDA device
-it exits 1 with a structured ``Error:`` line. Flags of the JAX CLI that
-this port does not support yet exit 1 when set away from their default.
+it exits 1 with a structured ``Error:`` line. ``--grad-accum A`` splits
+each step into A microbatches, ``--remat`` recomputes ResNet activations
+in the backward (``--remat-scope block|stage|nested``), ``--trace-dir``
+writes a profiler trace of one train epoch per run, and with k-fold CV
+``--resume-from auto`` loads the folds a stopped run completed (a first
+SIGTERM or SIGINT stops the run at the end of its epoch). Flags of the
+JAX CLI that this port does not support yet exit 1 when set away from
+their default.
 """
 from __future__ import annotations
 
@@ -20,10 +26,8 @@ import torch
 from xgan_torch import config
 
 # flag -> its default: other values are not supported by the port yet
-UNSUPPORTED = {"parallel_folds": False, "remat": False,
-               "remat_scope": "block", "grad_accum": 1,
-               "shard_store": False, "shard_opt_state": False,
-               "model_parallel": 1, "trace_dir": "", "resume_from": ""}
+UNSUPPORTED = {"parallel_folds": False, "shard_store": False,
+               "shard_opt_state": False, "model_parallel": 1}
 
 
 def build_parser():
@@ -62,27 +66,40 @@ def build_parser():
                    help="Debug: cap batches per epoch (0 = all)")
     config.add_device_arg(p)
     config.add_resnet_stages_arg(p)
-    # flags of the JAX CLI that the port does not support yet
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="(JAX GAN trainers only; ignored here)")
-    p.add_argument("--parallel-folds", action="store_true",
-                   help="(not supported by xgan_torch yet)")
     p.add_argument("--remat", action="store_true",
-                   help="(not supported by xgan_torch yet)")
+                   help="Recompute ResNet activations in the backward "
+                        "(torch.utils.checkpoint) instead of keeping "
+                        "them: less activation memory, about one more "
+                        "forward of compute; same results")
     p.add_argument("--remat-scope", default="block",
                    choices=["block", "stage", "nested"],
-                   help="(not supported by xgan_torch yet)")
+                   help="What --remat checkpoints: each bottleneck block, "
+                        "each of the four stages, or each stage with its "
+                        "blocks checkpointed inside the recompute")
     p.add_argument("--grad-accum", type=int, default=1,
+                   help="Split every step into K sequential microbatches: "
+                        "gradients accumulate, one optimizer update fires "
+                        "per step, only one microbatch's activations are "
+                        "live. BN batch statistics are per-microbatch "
+                        "(torch accumulation semantics). Must divide the "
+                        "batch size.")
+    p.add_argument("--trace-dir", type=str, default="",
+                   help="Write a torch.profiler trace of one train epoch "
+                        "(of every run) here")
+    p.add_argument("--resume-from", type=str, default="",
+                   help="'auto': k-fold CV loads the folds a stopped run "
+                        "completed (their history and best checkpoint) "
+                        "and trains the rest")
+    # flags of the JAX CLI that the port does not support yet
+    p.add_argument("--parallel-folds", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--shard-store", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--shard-opt-state", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="(not supported by xgan_torch yet)")
-    p.add_argument("--trace-dir", type=str, default="",
-                   help="(not supported by xgan_torch yet)")
-    p.add_argument("--resume-from", type=str, default="",
                    help="(not supported by xgan_torch yet)")
     return p
 

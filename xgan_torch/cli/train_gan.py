@@ -62,8 +62,7 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
                         "captured CUDA graph (K=1 reproduces the "
                         "reference loop exactly; K>1 amortizes per-step "
                         "launch overhead, with sample-sheet emission "
-                        "quantized to chunk boundaries; DCGAN trainer "
-                        "only, so far)")
+                        "quantized to chunk boundaries)")
     p.add_argument("--trace-dir", type=str, default="",
                    help="Write a torch.profiler trace of one epoch here")
     p.add_argument("--resume-from", type=str, default="",

@@ -10,10 +10,10 @@ sheets, ``{model_dir}/wgan/{generator,discriminator}_epoch_EEE.pth`` and
 ``{results_dir}/wgan_training_history.json`` and
 ``{figures_dir}/wgan_loss_curve.png``. Runs on the CUDA device unless
 ``--cpu`` is given; without a CUDA device it exits 1 with a structured
-``Error:`` line. ``--resume-from``, ``--ema-decay`` and ``--trace-dir``
-work as in the DCGAN trainer (the snapshot is ``{model_dir}/wgan/
-snapshot_last.pth``); ``--grad-accum`` and ``--steps-per-call`` other
-than 1, and the flags the DCGAN trainer does not support, exit 1.
+``Error:`` line. ``--resume-from``, ``--ema-decay``, ``--trace-dir``,
+``--grad-accum`` and ``--steps-per-call`` work as in the DCGAN trainer
+(the snapshot is ``{model_dir}/wgan/snapshot_last.pth``); the flags the
+DCGAN trainer does not support exit 1.
 """
 from __future__ import annotations
 
@@ -21,11 +21,6 @@ import argparse
 
 from xgan_torch import config
 from xgan_torch.cli import train_gan
-
-# the DCGAN trainer's refusals, and its step-level flags
-UNSUPPORTED = {**train_gan.UNSUPPORTED, "grad_accum": 1,
-               "steps_per_call": 1}
-
 
 def build_parser():
     p = argparse.ArgumentParser(
@@ -47,7 +42,7 @@ def build_parser():
 def main(argv=None):
     """Train; returns the history (None after a printed error)."""
     args = build_parser().parse_args(argv)
-    device, dtype = train_gan.start(args, UNSUPPORTED)
+    device, dtype = train_gan.start(args)
     from xgan_torch.train.wgan_loop import train_wgan
     return train_wgan(args, device, dtype)
 

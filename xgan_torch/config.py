@@ -67,7 +67,7 @@ def add_gan_train_args(p: argparse.ArgumentParser, *, epochs: int,
                         "activation-memory reduction). BN batch "
                         "statistics are per-microbatch (torch "
                         "accumulation semantics). Must divide the batch "
-                        "size. (DCGAN trainer only, so far)")
+                        "size.")
     p.add_argument("--ema-decay", type=ema_decay, default=0.0,
                    help="Keep an exponential moving average of the "
                         "generator weights (e.g. 0.999) and save it as "

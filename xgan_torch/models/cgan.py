@@ -120,27 +120,32 @@ class Generator(nn.Module):
         return self._run(z, labels, train=False, mask=None)
 
     def forward_train(self, z: torch.Tensor, labels: torch.Tensor,
-                      mask=None) -> torch.Tensor:
+                      mask=None, *, update_stats: bool = True
+                      ) -> torch.Tensor:
         """Train forward, differentiable in the parameters: BN with batch
-        statistics (the running ones advance once). ``mask``: (B,)
-        validity weights of a padded tail batch for the BN statistics
-        (masked rows' outputs are garbage by contract)."""
-        return self._run(z, labels, train=True, mask=mask)
+        statistics (the running ones advance once, or not at all with
+        ``update_stats=False``). ``mask``: (B,) validity weights of a
+        padded tail batch for the BN statistics (masked rows' outputs are
+        garbage by contract)."""
+        return self._run(z, labels, train=True, mask=mask,
+                         update_stats=update_stats)
 
-    def _run(self, z, labels, *, train: bool, mask) -> torch.Tensor:
+    def _run(self, z, labels, *, train: bool, mask,
+             update_stats: bool = True) -> torch.Tensor:
         dt, b = self.dtype, z.shape[0]
         x = z.float() + self.label_emb.weight.index_select(0, labels.long())
         x = F.linear(x.to(dt), self.fc.weight.to(dt)) + self.fc.bias.to(dt)
         x = x.view(b, -1, self.s0, self.s0) \
             .contiguous(memory_format=torch.channels_last)
         x = torch.relu(batch_norm(self.main[SEQ_G_BN[0]], x, train=train,
-                                  mask=mask))
+                                  mask=mask, update_stats=update_stats))
         for i, seq in enumerate(SEQ_G_CONV):
             x = _conv(self.main[seq],
                       F.interpolate(x, scale_factor=2, mode="nearest"), 1, 1)
             if i < 4:
                 x = torch.relu(batch_norm(self.main[seq + 1], x, train=train,
-                                          mask=mask))
+                                          mask=mask,
+                                          update_stats=update_stats))
         # channels_last NCHW -> NHWC, a view unless a 1x1 map at S0 = 1
         # lost the channels_last strides on the way
         return torch.tanh(x.float()).permute(0, 2, 3, 1).contiguous()

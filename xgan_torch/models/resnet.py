@@ -22,16 +22,28 @@ train mode BN uses batch statistics and updates its running statistics
 in place (momentum 0.1, the unbiased variance); a (B,) validity ``mask``
 restricts the statistics to the valid rows of a padded tail batch
 (``xgan_torch.models.layers.batch_norm``).
+
+``remat=True`` (``--remat``) recomputes activations in the backward
+instead of keeping them: ``torch.utils.checkpoint`` (non-reentrant)
+around each Bottleneck (``remat_scope="block"``), each stage
+(``"stage"``: only the four stage inputs are kept), or each stage whose
+recompute checkpoints each of its blocks (``"nested"``). The recompute
+runs BN with ``update_stats=False``, so each running statistic advances
+once a step, as without remat, and it sees the same ``mask``. The
+parameters and buffers, hence the state-dict keys, are those without
+remat, so checkpoints move between the two; ``cam=True`` never remats.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from xgan_torch.models.layers import batch_norm
 
 WIDTHS = (64, 128, 256, 512)
+REMAT_SCOPES = ("block", "stage", "nested")
 
 
 def _conv(cin, cout, k, stride=1, padding=0, device=None):
@@ -45,9 +57,24 @@ def conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv_bn(conv_: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor, *,
-            train: bool, mask=None) -> torch.Tensor:
+            train: bool, mask=None, update_stats: bool = True
+            ) -> torch.Tensor:
     """:func:`conv`, then BN in f32 with its result in ``x.dtype``."""
-    return batch_norm(bn, conv(conv_, x), train=train, mask=mask)
+    return batch_norm(bn, conv(conv_, x), train=train, mask=mask,
+                      update_stats=update_stats)
+
+
+def remat(fn, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+    """``checkpoint(fn)`` on ``x``, where ``fn(x, update_stats)``: the
+    first run passes ``update_stats`` on, the recompute in the backward
+    passes False, so BN's running statistics advance once."""
+    runs = []
+
+    def run(x):
+        runs.append(None)
+        return fn(x, update_stats and len(runs) == 1)
+    # preserve_rng_state=False: the forward draws nothing
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class Bottleneck(nn.Module):
@@ -66,19 +93,20 @@ class Bottleneck(nn.Module):
                 _conv(cin, width * 4, 1, stride, device=device),
                 nn.BatchNorm2d(width * 4, device=device))
 
-    def forward(self, x, *, train: bool, mask=None, tap: bool = False):
+    def forward(self, x, *, train: bool, mask=None, tap: bool = False,
+                update_stats: bool = True):
         """The block's output, and with ``tap`` also conv3's pre-BN
-        output."""
-        out = torch.relu(conv_bn(self.conv1, self.bn1, x, train=train,
-                                 mask=mask))
-        out = torch.relu(conv_bn(self.conv2, self.bn2, out, train=train,
-                                 mask=mask))
+        output. ``update_stats=False``: train-mode BN that leaves the
+        running statistics (a remat recompute)."""
+        kw = {"train": train, "mask": mask, "update_stats": update_stats}
+        out = torch.relu(conv_bn(self.conv1, self.bn1, x, **kw))
+        out = torch.relu(conv_bn(self.conv2, self.bn2, out, **kw))
         pre_bn = conv(self.conv3, out)
-        out = batch_norm(self.bn3, pre_bn, train=train, mask=mask)
+        out = batch_norm(self.bn3, pre_bn, **kw)
         identity = x
         if self.downsample is not None:
             identity = conv_bn(self.downsample[0], self.downsample[1], x,
-                               train=train, mask=mask)
+                               **kw)
         out = torch.relu(out + identity)
         return (out, pre_bn) if tap else out
 
@@ -88,13 +116,19 @@ class ResNet50(nn.Module):
                  stage_sizes=(3, 4, 6, 3),
                  dtype: torch.dtype = torch.float32,
                  device: torch.device | str | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 remat: bool = False, remat_scope: str = "block"):
         """``dtype``: compute dtype of the convolutions. ``generator``
         draws the init (it must live on ``device``): kaiming-normal
         fan-out convolutions, BN scale 1 and bias 0, and torch's
-        U(+-1/sqrt(fan_in)) for ``fc``."""
+        U(+-1/sqrt(fan_in)) for ``fc``. ``remat``, ``remat_scope``: see
+        the module docstring."""
         super().__init__()
+        if remat_scope not in REMAT_SCOPES:
+            raise ValueError(f"remat_scope must be one of {REMAT_SCOPES}, "
+                             f"got {remat_scope!r}")
         self.dtype = dtype
+        self.remat, self.remat_scope = remat, remat_scope
         self.stage_sizes = tuple(stage_sizes)
         self.conv1 = _conv(3, 64, 7, 2, 3, device=device)
         self.bn1 = nn.BatchNorm2d(64, device=device)
@@ -140,6 +174,12 @@ class ResNet50(nn.Module):
         x = torch.relu(conv_bn(self.conv1, self.bn1, x, train=train,
                                mask=mask))
         x = F.max_pool2d(x, 3, 2, 1)
+        if self.remat and train and not cam:
+            for stage in range(len(self.stage_sizes)):
+                x = self._remat_stage(getattr(self, f"layer{stage + 1}"), x,
+                                      train, mask)
+            return F.linear(x.float().mean(dim=(2, 3)), self.fc.weight,
+                            self.fc.bias)
         blocks = list(self.blocks())
         for block in blocks[:-1]:
             x = block(x, train=train, mask=mask)
@@ -147,3 +187,22 @@ class ResNet50(nn.Module):
         logits = F.linear(x.float().mean(dim=(2, 3)), self.fc.weight,
                           self.fc.bias)
         return (logits, conv3, x) if cam else logits
+
+    def _remat_stage(self, layer: nn.Sequential, x: torch.Tensor,
+                     train: bool, mask) -> torch.Tensor:
+        """One stage under ``remat_scope``."""
+        def block_fn(block):
+            return lambda x, update: block(x, train=train, mask=mask,
+                                           update_stats=update)
+
+        def stage_fn(x, update, nested=self.remat_scope == "nested"):
+            for block in layer:
+                x = (remat(block_fn(block), x, update) if nested
+                     else block_fn(block)(x, update))
+            return x
+
+        if self.remat_scope == "block":
+            for block in layer:
+                x = remat(block_fn(block), x, True)
+            return x
+        return remat(stage_fn, x, True)

@@ -8,13 +8,16 @@ order:
    statistics advance once);
 2. D on the real batch and on ``fake.detach()``, two BN batches, against
    per-sample noisy targets (real ``0.9 - 0.1 U``, fake ``0.1 + 0.1 U``);
-3. the adaptive gate ``D(x) < 0.8 or D(G(z)) > 0.2 or epoch < 5``: D's
-   backward and Adam step run only when it is open, so a closed gate
-   leaves D's parameters and its Adam state (``exp_avg``,
-   ``exp_avg_sq``, ``step``) untouched while its BN statistics have
-   advanced. The gate is read on the host: one sync per step from epoch
-   5 on, none before. That is the exact form (``Adam.step`` advances
-   ``step`` even on zero gradients);
+3. the adaptive gate ``D(x) < 0.8 or D(G(z)) > 0.2 or epoch < 5`` as a
+   select on the device (:func:`gated_step`): D's backward and Adam step
+   always run, then ``torch.where(gate, new, old)`` puts back D's
+   parameters and its Adam state (``exp_avg``, ``exp_avg_sq`` and
+   ``step``, which ``Adam.step`` advances even on a zero gradient) when
+   the gate is closed, so a closed gate leaves them bitwise untouched
+   while D's BN statistics have advanced. ``epoch`` may be a device
+   scalar: nothing in the step reads the device on the host, so it can
+   be captured into a CUDA graph whose replays read the epoch of each
+   call;
 4. D on ``fake`` with ``features=True`` through the possibly updated D,
    then on the real batch under ``no_grad`` (D's BN statistics advance
    four times a step);
@@ -26,8 +29,21 @@ order:
 
 A (B,) ``mask`` of a padded tail batch enters every BN statistic, every
 loss and metric mean, and each layer's mean in the perceptual and FM
-losses. Metrics stay on the device. ``--grad-accum`` (``step_accum``) is
-not ported yet (ROADMAP A13).
+losses. Metrics stay on the device.
+
+``grad_accum=A > 1`` (``step_accum`` of the JAX package) runs the D and
+the G update each as A sequential microbatches of B/A rows, with A = 1's
+draws (flip, noise, fake labels, targets, over the full batch) sliced:
+a D phase per microbatch (G's forward under ``no_grad``, its running
+statistics advancing once per microbatch; D on the real and fake rows;
+the backward of the valid-row BCE *sum*), the gradients divided by the
+batch's valid-row total, the gate on the accumulated full-batch D(x) and
+D(G(z)) (the inputs of A = 1's gate), D's gated Adam step; then a G phase
+per microbatch through the updated D (G's forward recomputed without
+advancing its statistics again; D on the fake rows with features, then
+on the real rows; the adversarial, perceptual and FM losses as valid-row
+sums) and one G Adam step. A microbatch whose rows are all padding is
+skipped: its statistics stay frozen and it adds a zero gradient.
 """
 from __future__ import annotations
 
@@ -35,8 +51,10 @@ import torch
 
 from xgan_torch.data.pipeline import gather_preprocess
 from xgan_torch.models.vgg import perceptual_loss
-from xgan_torch.ops.reduce import layerwise_mse, weighted_mean
-from xgan_torch.train.common import bce_with_logits
+from xgan_torch.ops.reduce import layerwise_mse, per_sample_mse, \
+    weighted_mean
+from xgan_torch.train.common import bce_sum, bce_with_logits, guarded_sum, \
+    microbatches, zeroed_grads
 
 PERCEPTUAL_WEIGHT = 10.0
 FM_WEIGHT = 5.0
@@ -49,20 +67,58 @@ def feature_matching_loss(real_feats, fake_feats, weights=None):
     return layerwise_mse(real_feats, fake_feats, weights)
 
 
+def gate_open(epoch, d_x: torch.Tensor, d_g_z1: torch.Tensor
+              ) -> torch.Tensor:
+    """The adaptive gate as a 0-dim device bool; ``epoch`` an int or a
+    device scalar."""
+    return (d_x < 0.8) | (d_g_z1 > 0.2) | (epoch < GATE_EPOCHS)
+
+
+@torch.no_grad()
+def gated_step(opt: torch.optim.Optimizer, gate: torch.Tensor) -> None:
+    """``opt.step()`` that takes effect only where ``gate`` is true: the
+    parameters and every tensor of their optimizer state (Adam's
+    ``exp_avg``, ``exp_avg_sq``, ``step``) are selected back to their
+    values before the step when it is false. A state that the step
+    created is selected against zeros, the state it starts from. A
+    ``step`` kept on the host (Adam without ``capturable``, on a CUDA
+    parameter) takes the gate to the host; the trainers' Adam on the card
+    is capturable."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    old_params = [p.detach().clone() for p in params]
+    old_state = [{k: v.clone() for k, v in opt.state[p].items()
+                  if torch.is_tensor(v)} for p in params]
+    opt.step()
+    news, olds = [], []
+    for p, old_p, old_st in zip(params, old_params, old_state):
+        news.append(p)
+        olds.append(old_p)
+        for k, v in opt.state[p].items():
+            if torch.is_tensor(v):
+                news.append(v)
+                olds.append(old_st.get(k, torch.zeros_like(v)))
+    for new, old in zip(news, olds):
+        new.copy_(torch.where(gate.to(new.device), new, old))
+
+
 def cgan_step(g, d, vgg, opt_g, opt_d, store_u8, labels_all, idx,
-              epoch: int, *, latent_dim: int,
+              epoch, *, latent_dim: int,
               dtype: torch.dtype = torch.float32, mask=None, flip=None,
               noise=None, fake_labels=None, real_targets=None,
-              fake_targets=None,
-              generator: torch.Generator | None = None) -> torch.Tensor:
+              fake_targets=None, generator: torch.Generator | None = None,
+              grad_accum: int = 1) -> torch.Tensor:
     """One iteration; returns the (7,) device tensor ``[loss_G, loss_D,
-    D_x, D_G_z1, D_G_z2, perceptual, fm]``.
+    D_x, D_G_z1, D_G_z2, perceptual, fm]``, without a host sync unless
+    ``grad_accum > 1`` and a ``mask`` is given (it then reads which
+    microbatches hold valid rows).
 
     ``store_u8`` (N,S,S,3) uint8, ``labels_all`` (N,) int and ``idx`` (B,)
-    int64 live on the device. The draws, unless injected, come from
+    int64 live on the device; ``epoch`` is the run's epoch, an int or a
+    0-dim device tensor. The draws, unless injected, come from
     ``generator`` on the device in this order: the flip mask, the (B,
     latent) noise, the fake labels (uniform over G's ``num_classes``), the
-    real targets ``0.9 - 0.1 U`` and the fake targets ``0.1 + 0.1 U``."""
+    real targets ``0.9 - 0.1 U`` and the fake targets ``0.1 + 0.1 U``.
+    ``grad_accum``: microbatches per update (it must divide B)."""
     dev = store_u8.device
     b = idx.shape[0]
     real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
@@ -79,6 +135,10 @@ def cgan_step(g, d, vgg, opt_g, opt_d, store_u8, labels_all, idx,
     if fake_targets is None:
         fake_targets = 0.1 + 0.1 * torch.rand(b, generator=generator,
                                               device=dev)
+    if grad_accum > 1:
+        return _step_accum(g, d, vgg, opt_g, opt_d, epoch, real,
+                           real_labels, noise, fake_labels, real_targets,
+                           fake_targets, mask, grad_accum)
     fake = g.forward_train(noise, fake_labels, mask)
 
     opt_d.zero_grad(set_to_none=True)
@@ -89,9 +149,8 @@ def cgan_step(g, d, vgg, opt_g, opt_d, store_u8, labels_all, idx,
     with torch.no_grad():
         d_x = weighted_mean(torch.sigmoid(logits_real), mask)
         d_g_z1 = weighted_mean(torch.sigmoid(logits_fake), mask)
-    if epoch < GATE_EPOCHS or bool((d_x < 0.8) | (d_g_z1 > 0.2)):
-        loss_d.backward()
-        opt_d.step()
+    loss_d.backward()
+    gated_step(opt_d, gate_open(epoch, d_x, d_g_z1))
 
     opt_g.zero_grad(set_to_none=True)
     logits, fake_feats = d(fake, fake_labels, train=True, features=True,
@@ -110,3 +169,71 @@ def cgan_step(g, d, vgg, opt_g, opt_d, store_u8, labels_all, idx,
         d_g_z2 = weighted_mean(torch.sigmoid(logits), mask)
         return torch.stack([loss_g, loss_d, d_x, d_g_z1, d_g_z2, perc,
                             fm]).detach()
+
+
+def _feats_mse_sum(feats_a, feats_b, mask_mb) -> torch.Tensor:
+    """The valid-row sum form of :func:`layerwise_mse`: the sum over
+    layers of each valid row's MSE (divided by the batch's valid rows
+    once, at the end)."""
+    total = 0.0
+    for a, b in zip(feats_a, feats_b):
+        total = total + guarded_sum(per_sample_mse(a, b), mask_mb)
+    return total
+
+
+def _step_accum(g, d, vgg, opt_g, opt_d, epoch, real, real_labels, noise,
+                fake_labels, real_targets, fake_targets, mask,
+                accum: int) -> torch.Tensor:
+    """``cgan_step`` with ``grad_accum=accum``; see the module
+    docstring."""
+    w_total, micro = microbatches(mask, real.shape[0], accum)
+    zero = real.new_zeros((), dtype=torch.float32)
+    ds = dxs = dgz1s = zero
+    d_grads = zeroed_grads(list(d.parameters()))
+    for rows, mask_mb in micro:
+        flab = rows(fake_labels)
+        with torch.no_grad():
+            fake = g.forward_train(rows(noise), flab, mask_mb)
+        logits_real = d(rows(real), rows(real_labels), train=True,
+                        mask=mask_mb)
+        logits_fake = d(fake, flab, train=True, mask=mask_mb)
+        s = (bce_sum(logits_real, rows(real_targets), mask_mb)
+             + bce_sum(logits_fake, rows(fake_targets), mask_mb))
+        s.backward()
+        with torch.no_grad():
+            ds = ds + s
+            dxs = dxs + guarded_sum(torch.sigmoid(logits_real.float()),
+                                    mask_mb)
+            dgz1s = dgz1s + guarded_sum(torch.sigmoid(logits_fake.float()),
+                                        mask_mb)
+    torch._foreach_div_(d_grads, w_total)
+    gated_step(opt_d, gate_open(epoch, dxs / w_total, dgz1s / w_total))
+
+    gs = dgz2s = percs = fms = zero
+    g_params = list(g.parameters())
+    g_grads = zeroed_grads(g_params)
+    for rows, mask_mb in micro:
+        flab, real_mb = rows(fake_labels), rows(real)
+        fake = g.forward_train(rows(noise), flab, mask_mb,
+                               update_stats=False)
+        logits, fake_feats = d(fake, flab, train=True, features=True,
+                               mask=mask_mb)
+        with torch.no_grad():
+            _, real_feats = d(real_mb, rows(real_labels), train=True,
+                              features=True, mask=mask_mb)
+            vgg_real = vgg(real_mb)
+        adv = bce_sum(logits, rows(real_targets), mask_mb)
+        perc = _feats_mse_sum(vgg(fake), vgg_real, mask_mb)
+        fm = _feats_mse_sum(real_feats, fake_feats, mask_mb)
+        s = adv + PERCEPTUAL_WEIGHT * perc + FM_WEIGHT * fm
+        s.backward(inputs=g_params)
+        with torch.no_grad():
+            gs = gs + s
+            dgz2s = dgz2s + guarded_sum(torch.sigmoid(logits.float()),
+                                        mask_mb)
+            percs = percs + perc
+            fms = fms + fm
+    torch._foreach_div_(g_grads, w_total)
+    opt_g.step()
+    return torch.stack([gs, ds, dxs, dgz1s, dgz2s, percs,
+                        fms]).detach() / w_total

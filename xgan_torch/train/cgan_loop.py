@@ -17,10 +17,13 @@ Checkpoints are reference-layout ``.pth`` state dicts where the JAX
 package writes ``.msgpack``. Resume and preemption
 (``cgan/snapshot_last.pth``: G, D, both optimizers, the EMA and the
 step-draw generator), ``--ema-decay`` and ``--trace-dir`` work as in the
-DCGAN loop (:mod:`xgan_torch.train.gan_loop`); the adaptive gate reads
-the run's epoch, so after a resume it opens from epoch 5 of the run, not
-of the process. Not ported yet: gradient accumulation and K > 1 steps
-per call (their flags exit 1 in the CLI), and several devices.
+DCGAN loop (:mod:`xgan_torch.train.gan_loop`), and so do ``--grad-accum
+A`` (the D and G updates as A microbatches) and ``--steps-per-call K``
+(K full batches per CUDA graph replay, the masked tail as one eager step;
+Adam capturable on the card for every K). The adaptive gate reads the
+run's epoch as a device scalar, which a graph captured at one epoch reads
+anew at every replay, so after a resume it opens from epoch 5 of the
+run, not of the process. Not ported yet: several devices.
 """
 from __future__ import annotations
 
@@ -41,8 +44,9 @@ from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan_loop import load_train_store
 from xgan_torch.train.loop_common import EpochProgress, EpochRun, \
-    epoch_plan, gan_live_postfix, grid_iters, preempt_notice, \
-    resume_preflight
+    epoch_dispatches, epoch_plan, gan_live_postfix, grid_iters, \
+    preempt_notice, resolve_grad_accum, resume_preflight
+from xgan_torch.train.multistep import StepsPerCall
 from xgan_torch.utils import StepTimer, check_create_dir
 
 NUM_CLASSES = 2
@@ -102,8 +106,10 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
               "randomly-initialized VGG features (random-feature perceptual "
               "losses still provide a training signal, but quality parity "
               "with the reference needs the ImageNet checkpoint).")
-    opt_g = adam(g.parameters(), args.lr, args.beta1)
-    opt_d = adam(d.parameters(), args.lr, args.beta1)
+    # on the card capturable for every K, so that K = 1 trains as K > 1
+    capturable = device.type == "cuda"
+    opt_g = adam(g.parameters(), args.lr, args.beta1, capturable=capturable)
+    opt_d = adam(d.parameters(), args.lr, args.beta1, capturable=capturable)
     print("Generator and Discriminator initialized.")
     fixed_noise = torch.randn((args.vis_batch_size, args.latent_dim),
                               generator=seeds[3], device=device)
@@ -113,6 +119,21 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
         [:args.vis_batch_size]).to(device)
     step_draws = seeds[4]
     ema = init_ema(g) if args.ema_decay > 0 else None
+    batch_size = args.batch_size
+    ga = resolve_grad_accum(args.grad_accum, batch_size)
+    k_steps = max(1, args.steps_per_call)
+
+    def train_step(idx, epoch, mask=None):
+        metrics = cgan_step(g, d, vgg, opt_g, opt_d, device_store.images,
+                            device_store.labels, idx, epoch,
+                            latent_dim=args.latent_dim, dtype=dtype,
+                            mask=mask, generator=step_draws, grad_accum=ga)
+        if ema is not None:
+            ema_update(ema, g, args.ema_decay)
+        return metrics
+
+    multi = StepsPerCall(train_step, k_steps, step_draws) \
+        if k_steps > 1 else None
 
     def sample_grid(path):
         imgs = minmax_to_u8(g(fixed_noise, fixed_labels))
@@ -121,7 +142,6 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
     history = {k: [] for k in HISTORY_KEYS}
     history_path = os.path.join(metrics_dir, "cgan_training_history.json")
     data_rng = np.random.default_rng(args.seed)
-    batch_size = args.batch_size
     run = EpochRun(args, model_dir, history_path, history,
                    {"g": g, "d": d}, {"g": opt_g, "d": opt_d}, ema,
                    step_draws)
@@ -138,33 +158,33 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
             idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
                                          args.limit_batches, device)
             num_batches = idx_all.shape[0]
+            # the run's epoch, on the device: the gate holds open for its
+            # first 5, also inside a graph captured at an earlier epoch
+            epoch_t = torch.tensor(epoch, device=device)
             epoch_metrics = []
             with run.traced(epoch), \
                     EpochProgress(f"Epoch {epoch + 1}/{args.epochs}",
                                   num_batches,
                                   postfix_fn=gan_live_postfix) as progress:
-                for i in range(num_batches):
-                    is_tail = t_mask is not None and i == num_batches - 1
-                    # the run's epoch: the gate holds open for its first 5
-                    metrics = cgan_step(
-                        g, d, vgg, opt_g, opt_d, device_store.images,
-                        device_store.labels, idx_all[i], epoch,
-                        latent_dim=args.latent_dim, dtype=dtype,
-                        mask=t_mask if is_tail else None,
-                        generator=step_draws)
-                    if ema is not None:
-                        ema_update(ema, g, args.ema_decay)
-                    epoch_metrics.append(metrics)
-                    for t in grid_iters(iters, 1, args.save_interval,
+                for i, chunk in epoch_dispatches(
+                        num_batches, t_mask is not None, k_steps):
+                    if chunk > 1:
+                        metrics = multi(idx_all[i:i + chunk], epoch_t)
+                    else:
+                        is_tail = t_mask is not None and i == num_batches - 1
+                        metrics = train_step(idx_all[i], epoch_t,
+                                             t_mask if is_tail else None)
+                    epoch_metrics.append(metrics.reshape(chunk, -1))
+                    for t in grid_iters(iters, chunk, args.save_interval,
                                         epoch == args.epochs - 1, i,
                                         num_batches):
                         sample_grid(os.path.join(
                             image_dir, f"fake_samples_epoch_"
                             f"{epoch + 1:03d}_iter_{t:06d}.png"))
-                    iters += 1
-                    progress.update(i + 1, metrics)
+                    iters += chunk
+                    progress.update(i + chunk, metrics)
                 # one device -> host copy per epoch for all step metrics
-                em = torch.stack(epoch_metrics).cpu().numpy()
+                em = torch.cat(epoch_metrics).cpu().numpy()
             timer.tick(num_batches)
             for col, key in enumerate(HISTORY_KEYS[:5]):
                 history[key].extend(em[:, col].tolist())

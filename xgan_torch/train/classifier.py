@@ -15,6 +15,16 @@ frozen torch backbone under ``model.train()``. This equals the JAX
 package's optax ``set_to_zero`` on the base (Adam on zero gradients never
 moves a parameter), and skips a backward that would update nothing.
 
+``grad_accum=A > 1`` (``--grad-accum``; ``_microbatch_grads`` of the
+JAX package) assembles, flips and normalizes the batch once, on the full
+batch (one ``mixed_gather`` launch), then runs A microbatches of B/A rows
+through the forward and the backward of their valid-row loss *sum*, BN
+statistics per microbatch (torch gradient accumulation); the summed
+gradient is divided by the batch's valid rows before the one optimizer
+step. A microbatch whose rows are all padding is skipped: its statistics
+stay frozen, it adds no gradient, and its rows' outputs are zeros (the
+loop drops padded rows).
+
 The metrics replace sklearn's with numpy and scipy:
 :func:`weighted_prf` (support-weighted precision, recall and F1 with
 ``zero_division=0``), :func:`accuracy` and :func:`auroc` (the rank
@@ -32,6 +42,7 @@ from xgan_torch.data.pipeline import normalize_images, random_flip, \
     take_rows
 from xgan_torch.kernels.gather import mixed_gather
 from xgan_torch.ops.reduce import weighted_mean
+from xgan_torch.train.common import guarded_sum, microbatches, zeroed_grads
 
 MODES = ("real", "concat", "mix")
 
@@ -89,27 +100,53 @@ def train_step(model, opt, real, synth, idx, *, mode: str,
                dtype: torch.dtype = torch.float32, ratio: float = 0.0,
                n_real: int | None = None, synth_pool=None, mask=None,
                generator: torch.Generator | None = None, flip=None,
-               use_synth=None, synth_pick=None, err=None):
+               use_synth=None, synth_pick=None, err=None,
+               grad_accum: int = 1):
     """One optimizer step; returns per-sample (losses, preds, labels) as
-    device tensors (no host sync).
+    device tensors (no host sync unless ``grad_accum > 1`` and a ``mask``
+    is given: it then reads which microbatches hold valid rows).
 
     ``mask``: (B,) 0/1 float validity of a padded tail batch; padded rows
     leave the loss mean and the BN statistics (their per-sample outputs
     are still returned; the loop drops them). Random draws come from
     ``generator`` on the device unless injected: the mixer's ``use_synth``
-    and ``synth_pick`` first, then the ``flip`` mask."""
+    and ``synth_pick`` first, then the ``flip`` mask. ``grad_accum``:
+    microbatches per step (it must divide B)."""
     images, labels = assemble(mode, real, synth, idx, ratio=ratio,
                               n_real=n_real, synth_pool=synth_pool,
                               generator=generator, use_synth=use_synth,
                               synth_pick=synth_pick, err=err)
     images = random_flip(images, flip, generator=generator)
     x = normalize_images(images, dtype=dtype)
-    logits = model(x, train=True, mask=mask)
-    losses = softmax_ce(logits, labels)
     opt.zero_grad(set_to_none=True)
-    weighted_mean(losses, mask).backward()
+    if grad_accum > 1:
+        losses, logits = microbatch_grads(model, x, labels, mask, grad_accum)
+    else:
+        logits = model(x, train=True, mask=mask)
+        losses = softmax_ce(logits, labels)
+        weighted_mean(losses, mask).backward()
     opt.step()
     return losses.detach(), logits.detach().argmax(-1), labels
+
+
+def microbatch_grads(model, x, labels, mask, accum: int):
+    """The gradient of the valid-row mean loss of ``model`` on the
+    normalized batch ``x``, accumulated over ``accum`` microbatches into
+    the ``.grad`` of its trainable parameters; returns the per-sample
+    (losses, logits), zeros for the rows of a skipped microbatch."""
+    w_total, micro = microbatches(mask, x.shape[0], accum)
+    grads = zeroed_grads([p for p in model.parameters() if p.requires_grad])
+    losses = x.new_zeros(x.shape[0], dtype=torch.float32)
+    logits = x.new_zeros((x.shape[0], model.fc.out_features),
+                         dtype=torch.float32)
+    for rows, mask_mb in micro:
+        logits_mb = model(rows(x), train=True, mask=mask_mb)
+        losses_mb = softmax_ce(logits_mb, rows(labels))
+        guarded_sum(losses_mb, mask_mb).backward()
+        rows(losses).copy_(losses_mb.detach())
+        rows(logits).copy_(logits_mb.detach())
+    torch._foreach_div_(grads, w_total)
+    return losses, logits
 
 
 @torch.no_grad()

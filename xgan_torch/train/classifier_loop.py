@@ -19,9 +19,24 @@ file names.
 Per-step outputs stay on the device and are fetched once per epoch; the
 epoch's index matrix goes to the device once. The ``mixed_gather`` error
 flag is read once per epoch, after that fetch.
+
+The loop flags, in the JAX loop's order: ``--grad-accum A`` (A
+microbatches a step; a non-dividing A prints a note and runs as 1),
+``--remat``/``--remat-scope`` (activation recompute in the ResNet),
+``--trace-dir`` (one profiler trace of the train phase of the epoch
+``trace_epoch(0, epochs)`` picks, in every run), and fold-level
+``--resume-from auto``: a fold whose history JSON covers every epoch and
+whose best checkpoint ``fold_{N}_{strategy}_resnet50.pth`` loads into
+the flags' model is taken as trained, an incomplete one retrains, a
+checkpoint that does not fit the flags is an ``Error:``. A first SIGTERM
+or SIGINT stops the run at the end of its epoch (``GracefulShutdown``):
+a stopped fold writes no history (so a resume retrains it), and a CV run
+stopped before its last fold writes no summary. A single (non-CV) run
+has no resume: it keeps its history and notes the stop.
 """
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -41,9 +56,10 @@ from xgan_torch.train.classifier import (accuracy, auroc,
                                          train_step, weighted_prf)
 from xgan_torch.train.curriculum import (get_current_synthetic_ratio,
                                          parse_curriculum_schedule)
-from xgan_torch.train.loop_common import EpochProgress, batch_tail_mask, \
-    host_state
+from xgan_torch.train.loop_common import EpochProgress, GracefulShutdown, \
+    batch_tail_mask, host_state, resolve_grad_accum, trace_epoch
 from xgan_torch.utils import check_create_dir
+from xgan_torch.utils.timer import maybe_trace
 
 KFOLD_SEED = 42  # split parity with the reference's KFold
 STRATEGY_MODES = {"baseline": "real", "augmented": "concat",
@@ -75,9 +91,15 @@ def resnet_stages(args) -> tuple:
 
 
 def init_resnet(args, dtype, device, seed: int):
+    if args.remat and args.remat_scope == "block":
+        print("Note: --remat (block scope) recomputes each block's "
+              "activations in the backward, about one more forward a step; "
+              "--remat-scope stage and nested checkpoint other regions, "
+              "and --grad-accum also lowers the activation peak.")
     model = ResNet50(2, stage_sizes=resnet_stages(args), dtype=dtype,
                      device=device,
-                     generator=torch.Generator(device).manual_seed(seed))
+                     generator=torch.Generator(device).manual_seed(seed),
+                     remat=args.remat, remat_scope=args.remat_scope)
     if args.pretrained_path:
         load_resnet_pth(model, args.pretrained_path)
         print(f"Loaded ImageNet weights from {args.pretrained_path}")
@@ -95,7 +117,8 @@ def _fetch(outputs, n: int):
 
 
 def epoch_pass(model, opt, stores, batches, n_samples, *, mode, dtype,
-               ratio, generator, err, synth_pool=None, label="Train"):
+               ratio, generator, err, synth_pool=None, label="Train",
+               grad_accum: int = 1):
     """One train epoch over the (num_batches, B) index matrix; returns
     (loss, acc) over the first ``n_samples`` rows (the wrap-around padding
     dropped) and raises ``IndexError`` if the gather met a bad index."""
@@ -114,7 +137,7 @@ def epoch_pass(model, opt, stores, batches, n_samples, *, mode, dtype,
                 model, opt, real, synth, idx_all[i], mode=mode, dtype=dtype,
                 ratio=ratio, n_real=len(real), synth_pool=synth_pool,
                 mask=t_mask if is_tail else None, generator=generator,
-                err=err))
+                err=err, grad_accum=grad_accum))
             progress.update(i + 1)
     losses, preds, labels = _fetch(outputs, n_samples)
     raise_if_flagged(err)
@@ -172,10 +195,12 @@ def fallback_pool(real: DeviceStore, train_indices) -> torch.Tensor:
 
 def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
                   fold, strategy, schedule, seed_offset=0,
-                  synth_fallback=False):
+                  synth_fallback=False, shutdown=None):
     """Train one model (a fold or the single run). ``val_spec``:
     (DeviceStore, indices or None). Returns (best state dict on the host,
-    history)."""
+    history). ``shutdown``: a :class:`GracefulShutdown` read at each epoch
+    boundary; a fold it stops writes no history (a resume then retrains
+    it), the single run keeps its history."""
     real, synth, _ = stores
     mode = STRATEGY_MODES[strategy]
     synth_pool = None
@@ -187,6 +212,7 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
     opt = classifier_optimizer(model, args.lr, freeze_base=not args.unfreeze)
     generator = torch.Generator(device).manual_seed(seed + 1)
     err = new_error_flag(device)
+    ga = resolve_grad_accum(args.grad_accum, args.batch_size)
 
     n_real = len(real)
     if strategy == "augmented" and not synth_fallback:
@@ -220,10 +246,13 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
         if args.limit_batches:
             batches = batches[:args.limit_batches]
         n_seen = min(len(epoch_space), batches.size)
-        tr_loss, tr_acc = epoch_pass(
-            model, opt, (real, synth), batches, n_seen, mode=mode,
-            dtype=dtype, ratio=ratio, generator=generator, err=err,
-            synth_pool=synth_pool, label=f"Train Epoch {epoch + 1}")
+        traced = epoch == trace_epoch(0, args.epochs)
+        with maybe_trace(args.trace_dir if traced else None):
+            tr_loss, tr_acc = epoch_pass(
+                model, opt, (real, synth), batches, n_seen, mode=mode,
+                dtype=dtype, ratio=ratio, generator=generator, err=err,
+                synth_pool=synth_pool, label=f"Train Epoch {epoch + 1}",
+                grad_accum=ga)
         history["train_loss"].append(tr_loss)
         history["train_acc"].append(tr_acc)
 
@@ -251,10 +280,47 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
             torch.save(best_state, ckpt)
             print(f"Saved best model checkpoint to {ckpt}")
 
-    write_json(os.path.join(args.results_dir,
-                            f"{run_prefix}training_history.json"), history)
+        if stopped(shutdown, history, args.epochs):
+            break
+
+    if not (fold is not None and stopped(shutdown, history, args.epochs)):
+        write_json(os.path.join(args.results_dir,
+                                f"{run_prefix}training_history.json"),
+                   history)
     print(f"Best val Acc: {best_acc:.4f}")
     return best_state, history
+
+
+def stopped(shutdown, history: dict, epochs: int) -> bool:
+    """A stop was asked for and the run has epochs left."""
+    return (shutdown is not None and shutdown.requested
+            and len(history["epoch"]) < epochs)
+
+
+def load_completed_fold(args, fold: int, strategy: str):
+    """Fold-level resume: (best state dict, history) of a fold that a
+    prior run trained to the end, or None when its history or checkpoint
+    is missing or its history is short (the fold retrains). Raises
+    ``ValueError`` when the checkpoint does not fit the flags' model: a
+    mismatch is never a silent retrain."""
+    hist_path = os.path.join(
+        args.results_dir, f"fold_{fold}_{strategy}_training_history.json")
+    ckpt_path = os.path.join(args.model_dir,
+                             f"fold_{fold}_{strategy}_resnet50.pth")
+    if not (os.path.exists(hist_path) and os.path.exists(ckpt_path)):
+        return None
+    with open(hist_path) as f:
+        history = json.load(f)
+    if len(history.get("epoch", [])) < args.epochs:
+        return None
+    state = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    try:
+        ResNet50(2, stage_sizes=resnet_stages(args),
+                 device="meta").load_state_dict(state, assign=True)
+    except RuntimeError as e:
+        raise ValueError(f"fold checkpoint {ckpt_path} does not match the "
+                         f"current model flags ({e})") from None
+    return state, history
 
 
 def load_stores(args, device):
@@ -330,6 +396,14 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
         print(f"Error: pretrained checkpoint {args.pretrained_path} not "
               "found.")
         return None
+    resume = args.resume_from
+    if resume and resume != "auto":
+        print("Error: the classifier supports only --resume-from auto "
+              f"(fold-level resume); got {resume!r}.")
+        return None
+    if resume == "auto" and args.k_folds <= 1:
+        print("Note: --resume-from auto has no effect on single (non-CV) "
+              "classifier runs; training from scratch.")
     loaded = load_stores(args, device)
     if loaded is None:
         return None
@@ -346,16 +420,42 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
 
     if args.k_folds > 1:
         fold_metrics, fold_histories = [], []
-        for fold, (tr_idx, val_idx) in enumerate(
-                kfold_splits(len(real), args.k_folds)):
-            print(f"\n===== Fold {fold + 1} / {args.k_folds} =====")
-            best_state, history = train_one_run(
-                args, device, dtype, stores, tr_idx, (real, val_idx),
-                fold=fold + 1, strategy=strategy, schedule=schedule,
-                seed_offset=fold, synth_fallback=synth_fallback)
-            fold_histories.append(history)
-            print(f"--- Evaluating Fold {fold + 1} Model on Test Set ---")
-            fold_metrics.append(evaluate(best_state))
+        # a completed fold's artifacts are on disk, so --resume-from auto
+        # skips it; an incomplete fold retrains
+        with GracefulShutdown("cross-validation") as shutdown:
+            for fold, (tr_idx, val_idx) in enumerate(
+                    kfold_splits(len(real), args.k_folds)):
+                print(f"\n===== Fold {fold + 1} / {args.k_folds} =====")
+                try:
+                    done = (load_completed_fold(args, fold + 1, strategy)
+                            if resume == "auto" else None)
+                except ValueError as e:
+                    print(f"Error: {e}")
+                    return None
+                if done is not None:
+                    print(f"Resuming: fold {fold + 1} already trained; "
+                          "loading its checkpoint and history.")
+                    best_state, history = done
+                else:
+                    best_state, history = train_one_run(
+                        args, device, dtype, stores, tr_idx,
+                        (real, val_idx), fold=fold + 1, strategy=strategy,
+                        schedule=schedule, seed_offset=fold,
+                        synth_fallback=synth_fallback, shutdown=shutdown)
+                if stopped(shutdown, history, args.epochs):
+                    print(f"Preempted: fold {fold + 1} is incomplete and "
+                          "will retrain on --resume-from auto; no summary "
+                          "written.")
+                    return None
+                fold_histories.append(history)
+                print(f"--- Evaluating Fold {fold + 1} Model on Test Set "
+                      "---")
+                fold_metrics.append(evaluate(best_state))
+                if shutdown.requested and fold + 1 < args.k_folds:
+                    print(f"Preempted: stopping after completed fold "
+                          f"{fold + 1}; re-run with --resume-from auto to "
+                          "train the remaining folds (no summary written).")
+                    return None
         summary = cv_summary(fold_metrics)
         print("\n===== Cross-Validation Summary =====")
         for k, v in summary["average"].items():
@@ -368,10 +468,16 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
 
     # single run: the test set doubles as validation (reference behavior)
     print("Warning: using test set as validation for non-CV run.")
-    best_state, history = train_one_run(
-        args, device, dtype, stores, np.arange(len(real)), (test, None),
-        fold=None, strategy=strategy, schedule=schedule,
-        synth_fallback=synth_fallback)
+    with GracefulShutdown() as shutdown:
+        best_state, history = train_one_run(
+            args, device, dtype, stores, np.arange(len(real)), (test, None),
+            fold=None, strategy=strategy, schedule=schedule,
+            synth_fallback=synth_fallback, shutdown=shutdown)
+    if stopped(shutdown, history, args.epochs):
+        # no resume path for single runs: keep the partial artifacts
+        print(f"Note: run preempted after epoch {len(history['epoch'])}"
+              f"/{args.epochs}; metrics below reflect the best checkpoint "
+              "reached so far.")
     metrics = evaluate(best_state)
     write_json(os.path.join(args.results_dir,
                             f"{run_prefix}final_metrics.json"),

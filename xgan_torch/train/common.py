@@ -1,5 +1,5 @@
-"""Losses and the optimizer shared by the GAN trainers
-(role of xgan/train/common.py)."""
+"""Losses, the optimizer and the gradient-accumulation pieces shared by
+the trainers (role of xgan/train/common.py)."""
 from __future__ import annotations
 
 import torch
@@ -31,3 +31,56 @@ def adam(params, lr: float, beta1: float, beta2: float = 0.999, *,
     computes it in double on the host)."""
     return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8,
                             capturable=capturable)
+
+
+def zeroed_grads(params) -> list[torch.Tensor]:
+    """Each parameter's ``.grad``, zeroed in place (made when missing), so
+    that backward passes accumulate into it and a skipped microbatch
+    leaves a zero gradient, not None."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        else:
+            p.grad.zero_()
+    return [p.grad for p in params]
+
+
+def guarded_sum(per_sample: torch.Tensor, mask_mb) -> torch.Tensor:
+    """Sum over the valid rows in f32 (a select, so masked NaNs drop)."""
+    per_sample = per_sample.float()
+    if mask_mb is None:
+        return per_sample.sum()
+    return torch.where(mask_mb > 0, per_sample, 0.0).sum()
+
+
+def bce_sum(logits: torch.Tensor, target: float | torch.Tensor,
+             mask_mb) -> torch.Tensor:
+    """The valid-row sum of the BCE on ``logits`` against one label for
+    every row or (B,) per-sample targets."""
+    logits = logits.float()
+    if not torch.is_tensor(target):
+        target = torch.full_like(logits, target)
+    return guarded_sum(F.binary_cross_entropy_with_logits(
+        logits, target.float(), reduction="none"), mask_mb)
+
+
+def microbatches(mask, b: int, accum: int):
+    """The microbatches of a (B,) batch split ``accum`` ways: the weight
+    the summed gradients are divided by (the batch's valid rows) and
+    ``(rows, mask_mb)`` for each microbatch that holds a valid row
+    (``rows`` slices a (B, ...) tensor to it). Reads ``mask`` on the
+    host: only a padded tail batch has one, and it never enters a CUDA
+    graph."""
+    if b % accum:
+        raise ValueError(f"grad_accum={accum} must divide batch size {b}")
+    mb = b // accum
+
+    def rows(j):
+        return lambda t: t[j * mb:(j + 1) * mb]
+
+    if mask is None:
+        return float(b), [(rows(j), None) for j in range(accum)]
+    valid = mask.reshape(accum, mb).float().sum(1).tolist()
+    return (max(float(sum(valid)), 1e-9),
+            [(rows(j), mask[j * mb:(j + 1) * mb])
+             for j in range(accum) if valid[j] > 0])

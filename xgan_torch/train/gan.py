@@ -39,12 +39,12 @@ adds a zero gradient, as the JAX package's select does.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from xgan_torch.data.pipeline import gather_preprocess
 from xgan_torch.kernels.convt import convt4x4s2_fused
 from xgan_torch.ops.reduce import weighted_mean
-from xgan_torch.train.common import bce_with_logits
+from xgan_torch.train.common import bce_sum, bce_with_logits, \
+    guarded_sum, microbatches, zeroed_grads
 
 REAL_LABEL = 0.9  # one-sided label smoothing (reference train_gan.py:92)
 FAKE_LABEL = 0.0
@@ -95,82 +95,43 @@ def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
         return torch.stack([loss_g, loss_d, *probs]).detach()
 
 
-def _zeroed_grads(params) -> list[torch.Tensor]:
-    """Each parameter's ``.grad``, zeroed in place (made when missing), so
-    that backward passes accumulate into it and a skipped microbatch
-    leaves a zero gradient, not None."""
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        else:
-            p.grad.zero_()
-    return [p.grad for p in params]
-
-
-def _guarded_sum(per_sample: torch.Tensor, mask_mb) -> torch.Tensor:
-    """Sum over the valid rows in f32 (a select, so masked NaNs drop)."""
-    per_sample = per_sample.float()
-    if mask_mb is None:
-        return per_sample.sum()
-    return torch.where(mask_mb > 0, per_sample, 0.0).sum()
-
-
-def _bce_sum(logits: torch.Tensor, target: float, mask_mb) -> torch.Tensor:
-    logits = logits.float()
-    return _guarded_sum(F.binary_cross_entropy_with_logits(
-        logits, torch.full_like(logits, target), reduction="none"), mask_mb)
-
-
 def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
                 accum: int) -> torch.Tensor:
     """``dcgan_step`` with ``grad_accum=accum``; see the module
     docstring."""
-    b = real.shape[0]
-    if b % accum:
-        raise ValueError(f"grad_accum={accum} must divide batch size {b}")
-    mb = b // accum
-    if mask is None:
-        w_total = float(b)
-        micro = [(j, None) for j in range(accum)]
-    else:
-        valid = mask.reshape(accum, mb).float().sum(1).tolist()
-        w_total = max(float(sum(valid)), 1e-9)
-        micro = [(j, mask[j * mb:(j + 1) * mb])
-                 for j in range(accum) if valid[j] > 0]
-    rows = lambda t, j: t[j * mb:(j + 1) * mb]  # noqa: E731
-
+    w_total, micro = microbatches(mask, real.shape[0], accum)
     d_params, g_params = list(d.parameters()), list(g.parameters())
     zero = real.new_zeros((), dtype=torch.float32)
     ds = dxs = dgz1s = zero
-    d_grads = _zeroed_grads(d_params)
-    for j, mask_mb in micro:
+    d_grads = zeroed_grads(d_params)
+    for rows, mask_mb in micro:
         with torch.no_grad():
-            fake = g.forward_train(rows(noise, j), mask_mb, convt=convt)
-        logits_real = d(rows(real, j), train=True, mask=mask_mb)
+            fake = g.forward_train(rows(noise), mask_mb, convt=convt)
+        logits_real = d(rows(real), train=True, mask=mask_mb)
         logits_fake = d(fake, train=True, mask=mask_mb)
-        s = (_bce_sum(logits_real, REAL_LABEL, mask_mb)
-             + _bce_sum(logits_fake, FAKE_LABEL, mask_mb))
+        s = (bce_sum(logits_real, REAL_LABEL, mask_mb)
+             + bce_sum(logits_fake, FAKE_LABEL, mask_mb))
         s.backward()
         with torch.no_grad():
             ds = ds + s
-            dxs = dxs + _guarded_sum(torch.sigmoid(logits_real.float()),
+            dxs = dxs + guarded_sum(torch.sigmoid(logits_real.float()),
                                      mask_mb)
-            dgz1s = dgz1s + _guarded_sum(torch.sigmoid(logits_fake.float()),
+            dgz1s = dgz1s + guarded_sum(torch.sigmoid(logits_fake.float()),
                                          mask_mb)
     torch._foreach_div_(d_grads, w_total)
     opt_d.step()
 
     gs = dgz2s = zero
-    g_grads = _zeroed_grads(g_params)
-    for j, mask_mb in micro:
-        fake = g.forward_train(rows(noise, j), mask_mb, convt=convt,
+    g_grads = zeroed_grads(g_params)
+    for rows, mask_mb in micro:
+        fake = g.forward_train(rows(noise), mask_mb, convt=convt,
                                update_stats=False)
         logits = d(fake, train=True, mask=mask_mb)
-        s = _bce_sum(logits, REAL_LABEL, mask_mb)
+        s = bce_sum(logits, REAL_LABEL, mask_mb)
         s.backward(inputs=g_params)
         with torch.no_grad():
             gs = gs + s
-            dgz2s = dgz2s + _guarded_sum(torch.sigmoid(logits.float()),
+            dgz2s = dgz2s + guarded_sum(torch.sigmoid(logits.float()),
                                          mask_mb)
     torch._foreach_div_(g_grads, w_total)
     opt_g.step()

@@ -43,8 +43,8 @@ from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan import dcgan_step
 from xgan_torch.train.loop_common import EpochProgress, EpochRun, \
-    epoch_plan, gan_live_postfix, grid_iters, preempt_notice, \
-    resume_preflight
+    epoch_dispatches, epoch_plan, gan_live_postfix, grid_iters, \
+    preempt_notice, resolve_grad_accum, resume_preflight
 from xgan_torch.train.multistep import StepsPerCall
 from xgan_torch.utils import StepTimer, check_create_dir
 
@@ -109,12 +109,7 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     # --ema-decay: an f32 EMA of G's parameters, written after each G step
     # and read by nothing in training
     ema = init_ema(g) if args.ema_decay > 0 else None
-    ga = max(1, args.grad_accum)
-    if ga > 1 and batch_size % ga:
-        print(f"Note: --grad-accum {ga} does not divide the "
-              f"(device-padded) batch size {batch_size}; running "
-              "without accumulation.")
-        ga = 1
+    ga = resolve_grad_accum(args.grad_accum, batch_size)
 
     def train_step(idx, mask=None):
         metrics = dcgan_step(g, d, opt_g, opt_d, device_store.images, idx,
@@ -151,16 +146,13 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
             idx_all, t_mask = epoch_plan(len(store), batch_size, data_rng,
                                          args.limit_batches, device)
             num_batches = idx_all.shape[0]
-            chunkable = num_batches - (1 if t_mask is not None else 0)
             epoch_metrics = []
             with run.traced(epoch), \
                     EpochProgress(f"Epoch {epoch + 1}/{args.epochs}",
                                   num_batches,
                                   postfix_fn=gan_live_postfix) as progress:
-                i = 0
-                while i < num_batches:
-                    chunk = (k_steps if multi is not None
-                             and i + k_steps <= chunkable else 1)
+                for i, chunk in epoch_dispatches(
+                        num_batches, t_mask is not None, k_steps):
                     if chunk > 1:
                         metrics = multi(idx_all[i:i + chunk])
                     else:
@@ -175,8 +167,7 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
                             gan_output_dir, f"fake_samples_epoch_"
                             f"{epoch + 1:03d}_iter_{t:06d}.png"))
                     iters += chunk
-                    i += chunk
-                    progress.update(i, metrics)
+                    progress.update(i + chunk, metrics)
                 # one device -> host copy per epoch for all step metrics
                 em = torch.cat(epoch_metrics).cpu().numpy()
             timer.tick(num_batches)

@@ -48,6 +48,30 @@ def epoch_plan(n_valid: int, batch_size: int, data_rng,
     return torch.from_numpy(batches.astype(np.int64)).to(device), t_mask
 
 
+def epoch_dispatches(num_batches: int, has_tail: bool, k: int):
+    """``(i, chunk)`` of an epoch's calls from batch ``i``: chunks of ``k``
+    full batches while they fit (``--steps-per-call``), the rest (the
+    masked tail among them) one step a call."""
+    chunkable = num_batches - (1 if has_tail else 0)
+    i = 0
+    while i < num_batches:
+        chunk = k if k > 1 and i + k <= chunkable else 1
+        yield i, chunk
+        i += chunk
+
+
+def resolve_grad_accum(grad_accum: int, batch_size: int) -> int:
+    """``--grad-accum``, or 1 after the JAX package's note when it does
+    not divide the batch."""
+    ga = max(1, grad_accum)
+    if ga > 1 and batch_size % ga:
+        print(f"Note: --grad-accum {ga} does not divide the "
+              f"(device-padded) batch size {batch_size}; running "
+              "without accumulation.")
+        ga = 1
+    return ga
+
+
 def save_gan_checkpoints(model_dir: str, tag: str, g, d) -> None:
     """``generator_{tag}.pth`` and ``discriminator_{tag}.pth``: host copies
     of the reference-layout state dicts."""

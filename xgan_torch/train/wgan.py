@@ -23,6 +23,19 @@ critic's ``3 * critic_iters + 1`` times. A (B,) ``mask`` of a padded tail
 batch enters every BN statistic, every loss mean and the penalty. Losses
 stay on the device.
 
+``grad_accum=A > 1`` (``step_accum`` of the JAX package) runs every
+critic update and the G update as A sequential microbatches of B/A rows,
+with A = 1's draws (the flip; per critic update the noise and α; G's
+noise, each over the full batch) sliced. Per microbatch: G's forward,
+the critic's three BN batches and the penalty (its mean over the
+microbatch's valid rows, times their count, enters the loss sum); the
+backward of the valid-row loss *sum* accumulates into ``.grad``; BN
+statistics advance per microbatch. The summed gradients are divided by
+the batch's valid-row total before each Adam step, and the losses are
+the sums over that total. A microbatch whose rows are all padding (a
+tail batch) is skipped: its statistics stay frozen and it adds a zero
+gradient, as the JAX package's select does.
+
 The penalty is a double backward: ``torch.autograd.grad(..., create_graph=
 True)`` through the critic (cuDNN convolutions, BN, LeakyReLU), then the
 loss's backward through that graph. The fake batch is made under
@@ -36,6 +49,8 @@ import torch
 from xgan_torch.data.pipeline import gather_preprocess
 from xgan_torch.kernels.convt import convt4x4s2_fused
 from xgan_torch.ops.reduce import weighted_mean
+from xgan_torch.train.common import guarded_sum, microbatches, \
+    zeroed_grads
 
 
 def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
@@ -69,9 +84,11 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
               dtype: torch.dtype = torch.float32, mask=None, flip=None,
               noises=None, alphas=None, g_noise=None,
               generator: torch.Generator | None = None,
-              convt=convt4x4s2_fused) -> torch.Tensor:
+              convt=convt4x4s2_fused, grad_accum: int = 1) -> torch.Tensor:
     """One iteration; returns the ``(critic_iters + 1,)`` device tensor
-    ``[d_loss_1, ..., d_loss_n, g_loss]`` without a host sync.
+    ``[d_loss_1, ..., d_loss_n, g_loss]``, without a host sync unless
+    ``grad_accum > 1`` and a ``mask`` is given (it then reads which
+    microbatches hold valid rows).
 
     ``store_u8`` (N,S,S,3) uint8 and ``idx`` (B,) int64 live on the
     device. The draws, unless injected, come from ``generator`` on the
@@ -79,18 +96,26 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
     (B, latent) noise and its (B, 1, 1, 1) α (``noises`` and ``alphas``:
     ``critic_iters`` of each); then G's (B, latent) noise (``g_noise``).
     ``convt``: the forward of G's k4s2 layers (the kernel; a check passes
-    its plain version)."""
+    its plain version). ``grad_accum``: microbatches per update (it must
+    divide B)."""
     dev = store_u8.device
     b = idx.shape[0]
     real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
                              dtype=dtype)
+    draws = [(noises[i] if noises is not None else torch.randn(
+                  (b, latent_dim), generator=generator, device=dev),
+              alphas[i] if alphas is not None else torch.rand(
+                  (b, 1, 1, 1), generator=generator, device=dev))
+             for i in range(critic_iters)]
+    if g_noise is None:
+        g_noise = torch.randn((b, latent_dim), generator=generator,
+                              device=dev)
+    if grad_accum > 1:
+        return _step_accum(g, c, opt_g, opt_c, real, draws, g_noise, mask,
+                           lambda_gp, grad_accum, convt)
     c_params = list(c.parameters())
     losses = []
-    for i in range(critic_iters):
-        noise = noises[i] if noises is not None else torch.randn(
-            (b, latent_dim), generator=generator, device=dev)
-        alpha = alphas[i] if alphas is not None else torch.rand(
-            (b, 1, 1, 1), generator=generator, device=dev)
+    for noise, alpha in draws:
         with torch.no_grad():
             fake = g.forward_train(noise, mask, convt=convt)
         opt_c.zero_grad(set_to_none=True)
@@ -102,9 +127,6 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
         opt_c.step()
         losses.append(loss.detach())
 
-    if g_noise is None:
-        g_noise = torch.randn((b, latent_dim), generator=generator,
-                              device=dev)
     opt_g.zero_grad(set_to_none=True)
     scores = c(g.forward_train(g_noise, mask, convt=convt), train=True,
                mask=mask)
@@ -113,3 +135,57 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
     opt_g.step()
     losses.append(loss_g.detach())
     return torch.stack(losses)
+
+
+def _step_accum(g, c, opt_g, opt_c, real, draws, g_noise, mask, lambda_gp,
+                accum: int, convt) -> torch.Tensor:
+    """``wgan_step`` with ``grad_accum=accum``; see the module
+    docstring."""
+    w_total, micro = microbatches(mask, real.shape[0], accum)
+    losses = [_critic_update_accum(g, c, opt_c, real, noise, alpha,
+                                   lambda_gp, micro, w_total, convt)
+              for noise, alpha in draws]
+    losses.append(_g_update_accum(g, c, opt_g, g_noise, micro, w_total,
+                                  convt))
+    return torch.stack(losses)
+
+
+def _critic_update_accum(g, c, opt_c, real, noise, alpha, lambda_gp, micro,
+                         w_total: float, convt) -> torch.Tensor:
+    """One critic update of ``wgan_step(grad_accum=A)`` over ``micro``
+    (:func:`~xgan_torch.train.gan.microbatches`); returns its loss."""
+    c_params = list(c.parameters())
+    grads = zeroed_grads(c_params)
+    total = real.new_zeros((), dtype=torch.float32)
+    for rows, mask_mb in micro:
+        real_mb = rows(real)
+        with torch.no_grad():
+            fake = g.forward_train(rows(noise), mask_mb, convt=convt)
+        d_real = c(real_mb, train=True, mask=mask_mb)
+        d_fake = c(fake, train=True, mask=mask_mb)
+        gp = gradient_penalty(c, real_mb, fake, rows(alpha), lambda_gp,
+                              mask_mb)
+        w_mb = real_mb.shape[0] if mask_mb is None else mask_mb.float().sum()
+        s = guarded_sum(d_fake.float() - d_real.float(), mask_mb) + gp * w_mb
+        s.backward(inputs=c_params)
+        total = total + s.detach()
+    torch._foreach_div_(grads, w_total)
+    opt_c.step()
+    return total / w_total
+
+
+def _g_update_accum(g, c, opt_g, g_noise, micro, w_total: float,
+                    convt) -> torch.Tensor:
+    """The G update of ``wgan_step(grad_accum=A)``; returns its loss."""
+    g_params = list(g.parameters())
+    grads = zeroed_grads(g_params)
+    total = g_noise.new_zeros((), dtype=torch.float32)
+    for rows, mask_mb in micro:
+        scores = c(g.forward_train(rows(g_noise), mask_mb, convt=convt),
+                   train=True, mask=mask_mb)
+        s = -guarded_sum(scores, mask_mb)
+        s.backward(inputs=g_params)
+        total = total + s.detach()
+    torch._foreach_div_(grads, w_total)
+    opt_g.step()
+    return total / w_total

@@ -14,11 +14,12 @@ sample sheet renders the eval forward of G's current weights, so it
 repacks them first. Checkpoints are reference-layout ``.pth`` state dicts
 where the JAX package writes ``.msgpack`` (and a ``generator_final.pth``
 twin). Resume and preemption (``wgan/snapshot_last.pth``: G, the critic,
-both optimizers, the EMA and the step-draw generator), ``--ema-decay``
-and ``--trace-dir`` work as in the DCGAN loop
-(:mod:`xgan_torch.train.gan_loop`). Not ported yet: gradient
-accumulation and K > 1 steps per call (their flags exit 1 in the CLI),
-and several devices.
+both optimizers, the EMA and the step-draw generator), ``--ema-decay``,
+``--trace-dir``, ``--grad-accum A`` (every critic update and the G update
+as A microbatches) and ``--steps-per-call K`` (K full batches per CUDA
+graph replay, the masked tail as one eager step; Adam capturable on the
+card for every K) work as in the DCGAN loop
+(:mod:`xgan_torch.train.gan_loop`). Not ported yet: several devices.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan_loop import load_train_store
 from xgan_torch.train.loop_common import EpochProgress, EpochRun, \
-    epoch_plan, grid_iters, preempt_notice, resume_preflight, \
-    wgan_live_postfix
+    epoch_dispatches, epoch_plan, grid_iters, preempt_notice, \
+    resolve_grad_accum, resume_preflight, wgan_live_postfix
+from xgan_torch.train.multistep import StepsPerCall
 from xgan_torch.train.wgan import wgan_step
 from xgan_torch.utils import StepTimer, check_create_dir
 
@@ -67,14 +69,34 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
                   generator=seeds[0])
     c = Critic(args.num_channels, args.feature_maps_d, args.image_size,
                dtype=dtype, device=device, generator=seeds[1])
-    # Adam betas (beta1, 0.9), as the reference's WGAN-GP trainer
-    opt_g = adam(g.parameters(), args.lr, args.beta1, 0.9)
-    opt_c = adam(c.parameters(), args.lr, args.beta1, 0.9)
+    # Adam betas (beta1, 0.9), as the reference's WGAN-GP trainer; on the
+    # card capturable for every K, so that K = 1 trains as K > 1 does
+    capturable = device.type == "cuda"
+    opt_g = adam(g.parameters(), args.lr, args.beta1, 0.9,
+                 capturable=capturable)
+    opt_c = adam(c.parameters(), args.lr, args.beta1, 0.9,
+                 capturable=capturable)
     print("Generator and Critic initialized.")
     fixed_noise = torch.randn((args.vis_batch_size, args.latent_dim),
                               generator=seeds[2], device=device)
     step_draws = seeds[3]
     ema = init_ema(g) if args.ema_decay > 0 else None
+    batch_size = args.batch_size
+    ga = resolve_grad_accum(args.grad_accum, batch_size)
+    k_steps = max(1, args.steps_per_call)
+
+    def train_step(idx, mask=None):
+        losses = wgan_step(g, c, opt_g, opt_c, device_store.images, idx,
+                           latent_dim=args.latent_dim,
+                           critic_iters=args.critic_iters,
+                           lambda_gp=args.lambda_gp, dtype=dtype, mask=mask,
+                           generator=step_draws, grad_accum=ga)
+        if ema is not None:
+            ema_update(ema, g, args.ema_decay)
+        return losses
+
+    multi = StepsPerCall(train_step, k_steps, step_draws) \
+        if k_steps > 1 else None
 
     def sample_grid(path):
         g.repack()  # the eval forward reads tensors derived at repack
@@ -85,7 +107,6 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
                "G_losses_epoch": []}
     history_path = os.path.join(metrics_dir, "wgan_training_history.json")
     data_rng = np.random.default_rng(args.seed)
-    batch_size = args.batch_size
     run = EpochRun(args, model_dir, history_path, history,
                    {"g": g, "c": c}, {"g": opt_g, "c": opt_c}, ema,
                    step_draws)
@@ -107,28 +128,26 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
                     EpochProgress(f"Epoch {epoch + 1}/{args.epochs}",
                                   num_batches,
                                   postfix_fn=wgan_live_postfix) as progress:
-                for i in range(num_batches):
-                    is_tail = t_mask is not None and i == num_batches - 1
-                    losses = wgan_step(
-                        g, c, opt_g, opt_c, device_store.images,
-                        idx_all[i], latent_dim=args.latent_dim,
-                        critic_iters=args.critic_iters,
-                        lambda_gp=args.lambda_gp, dtype=dtype,
-                        mask=t_mask if is_tail else None,
-                        generator=step_draws)
-                    if ema is not None:
-                        ema_update(ema, g, args.ema_decay)
+                for i, chunk in epoch_dispatches(
+                        num_batches, t_mask is not None, k_steps):
+                    if chunk > 1:
+                        losses = multi(idx_all[i:i + chunk])
+                    else:
+                        is_tail = t_mask is not None and i == num_batches - 1
+                        losses = train_step(idx_all[i],
+                                            t_mask if is_tail else None)
+                    losses = losses.reshape(chunk, args.critic_iters + 1)
                     epoch_losses.append(losses)
-                    for t in grid_iters(iters, 1, args.save_interval,
+                    for t in grid_iters(iters, chunk, args.save_interval,
                                         epoch == args.epochs - 1, i,
                                         num_batches):
                         sample_grid(os.path.join(
                             image_dir, f"fake_samples_epoch_"
                             f"{epoch + 1:03d}_iter_{t:06d}.png"))
-                    iters += 1
-                    progress.update(i + 1, losses)
+                    iters += chunk
+                    progress.update(i + chunk, losses[-1])
                 # one device -> host copy per epoch for all step losses
-                el = torch.stack(epoch_losses).cpu().numpy()
+                el = torch.cat(epoch_losses).cpu().numpy()
             timer.tick(num_batches)
             d_ep, g_ep = el[:, :-1].reshape(-1), el[:, -1]
             history["D_losses"].extend(d_ep.tolist())

@@ -39,24 +39,41 @@ class StepTimer:
         self.total = 0.0
 
 
+# tiny kernels that open a trace window on a CUDA device; see maybe_trace
+_TRACE_LEAD_KERNELS = 64
+
+
 @contextlib.contextmanager
 def maybe_trace(trace_dir: str | None):
     """A ``torch.profiler`` window (host activity, and the CUDA device's
     when there is one) that writes one Chrome/TensorBoard trace,
     ``<worker>.<time>.pt.trace.json``, into ``trace_dir`` when the window
     closes, also when it closes on an exception; a no-op when
-    ``trace_dir`` is empty."""
+    ``trace_dir`` is empty.
+
+    On a CUDA device the window opens with ``_TRACE_LEAD_KERNELS`` tiny
+    kernels under a ``trace_lead`` annotation, synchronised before the
+    traced work. The profiler can drop the kernels of the first few
+    launches of a window, which were the head of the traced epoch (its
+    first gather among them) before the lead took that loss."""
     if not trace_dir:
         yield
         return
-    from torch.profiler import (ProfilerActivity, profile,
+    from torch.profiler import (ProfilerActivity, profile, record_function,
                                 tensorboard_trace_handler)
+    cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()  # the window holds this epoch's work only
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        if cuda:
+            with record_function("trace_lead"):
+                lead = torch.zeros(1, device="cuda")
+                for _ in range(_TRACE_LEAD_KERNELS):
+                    lead.add_(1)
+                torch.cuda.synchronize()
         yield
-        if torch.cuda.is_available():
+        if cuda:
             torch.cuda.synchronize()
