@@ -145,14 +145,46 @@ Phases, each of which raises on failure (the script then exits non-zero):
     A = 2 step on the card against the CPU (phase 14's limits and TF32
     control); bf16 K = 1 and K = 4 ms per step at B = 32; no kernel
     launch;
-21. prints the kernel table line, the card line and, last, the result
+21. PNGs of every kind, right after the store build of phase 7 (which,
+    like the classifier CLI's stores, must decode through the compiled
+    row unfilter only): the compiled ``png_unfilter`` op bitwise against
+    its plain version on every filter type at every bytes-per-pixel 1-8
+    and on the rows of 1024-px Paeth and Average grey PNGs written here
+    with numpy and zlib; the store's decode of those and of 16-bit grey
+    and RGB, 2-bit grey, 4-bit palette and interlaced PNGs through the
+    op bitwise against the plain path (both 16-bit rules); ms per image
+    of the decode and of the store build on 1 and on 8 threads (8
+    decodes on 8 threads must take under 4 times one on 1);
+22. ``--parallel-folds``, last (after the sampler profile of phase 5,
+    so that every earlier phase runs as before it): the fold-batched
+    ``mixed_gather`` (k = 5, (5, 32) indices, one launch) bitwise
+    against its plain version and 5 single launches, timed beside them;
+    one f32 lockstep step against the 5 sequential fold steps on the
+    card (losses, every gradient norm within 1e-3 plus twice a measured
+    floor; the same step with TF32 on must fail); a fold with an
+    all-zero mask bitwise frozen, its Adam step count included; the CLI
+    with run A's configuration and ``--parallel-folds`` (one launch a
+    lockstep step, run A's file names and JSON keys); bf16 lockstep
+    steps at k = 5, frozen and ``--unfreeze``, timed beside 5 sequential
+    steps with the idle share and the peak memory, and the fold-batched
+    gather's device time;
+23. prints the kernel table line, the card line and, last, the result
     line.
+
+A profiler window late in this long process has lost kernel records on
+the card (ROADMAP.md C6). So the phases that hold a kernel count read
+from a profiler window (5's profile, 12, 17 and 19) run each in a new
+process of this script (``--phase NAME TMP CARD``, on the train store
+saved under the temporary directory), and the ``--trace-dir`` runs of 15
+and 18 run their CLI in a process of its own: each such window is the
+first of its process.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import json
@@ -163,6 +195,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -185,6 +218,25 @@ def check(ok: bool, what) -> None:
     """Fail the run (unlike ``assert``, this also holds under ``-O``)."""
     if not ok:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def unfilter_routes():
+    """Counts, while open, the PNG row unfilter's calls by route
+    (``"compiled"``, ``"plain"``): ``xgan_torch.native.png.unfilter``
+    wrapped, also for the threads that decode."""
+    from xgan_torch.native import png
+    calls, lock, inner = collections.Counter(), threading.Lock(), png.unfilter
+
+    def counted(*args, compiled=False, **kw):
+        with lock:
+            calls["compiled" if compiled else "plain"] += 1
+        return inner(*args, compiled=compiled, **kw)
+    png.unfilter = counted
+    try:
+        yield calls
+    finally:
+        png.unfilter = inner
 
 
 # the WGAN-GP generator's ladder: the DCGAN one (fg*8 ... fg//2) one width up
@@ -701,18 +753,275 @@ def phase_stores(root: str, synth_dir: str):
     from xgan_torch.data.store import ImageStore, decode_folder_store
     ids, labels = rsna.load_train_metadata(
         os.path.join(root, "stage2_train_metadata.csv"))
-    t0 = time.perf_counter()
-    train = ImageStore.build(rsna.train_paths(root, ids), labels, SIZE,
-                             workers=8)
-    dt = time.perf_counter() - t0
+    with unfilter_routes() as routes:
+        t0 = time.perf_counter()
+        train = ImageStore.build(rsna.train_paths(root, ids), labels, SIZE,
+                                 workers=8, compiled=True)
+        dt = time.perf_counter() - t0
+    check(routes == {"compiled": len(ids)}, dict(routes))
     print(f"store build: {len(ids)} PNGs {RAW_SIZE} px -> {SIZE} px in "
           f"{dt:.3f} s ({dt / len(ids) * 1e3:.3f} ms per image, 8 "
-          "threads)")
+          "threads, the compiled unfilter)")
     check(train.images.shape == (N_TRAIN, SIZE, SIZE, 3)
           and train.images.std() > 10, "train store is wrong")
-    synth = decode_folder_store(synth_dir, SIZE, workers=8)
+    synth = decode_folder_store(synth_dir, SIZE, workers=8, compiled=True)
     check(len(synth) == NUM_IMAGES, len(synth))
     return train, synth
+
+
+# ---- PNGs of every kind, and the compiled row unfilter ---------------------
+
+PNG_SIG = b"\x89PNG\r\n\x1a\n"
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    import struct
+    import zlib
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _pack_samples(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, n) sample values -> (h, stride) bytes, big-endian at 16 bits,
+    most significant bits first below 8."""
+    h, n = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, 2 * n)
+    if depth == 8:
+        return samples.astype(np.uint8)
+    per = 8 // depth
+    s = np.zeros((h, -(-n // per) * per), np.uint8)
+    s[:, :n] = samples
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    return (s.reshape(h, -1, per) << shifts).sum(-1, dtype=np.uint8)
+
+
+def _filter_rows(rows: np.ndarray, bpp: int, filters) -> np.ndarray:
+    """PNG-filter each row of ``rows`` (h, stride) with the types of
+    ``filters`` in turn (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth);
+    vectorized, since a filter reads the unfiltered bytes."""
+    r = rows.astype(np.int16)
+    left = np.zeros_like(r)
+    left[:, bpp:] = r[:, :-bpp]
+    up = np.zeros_like(r)
+    up[1:] = r[:-1]
+    ul = np.zeros_like(r)
+    ul[1:, bpp:] = r[:-1, :-bpp]
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, ul))
+    preds = (np.zeros_like(r), left, up, (left + up) >> 1, paeth)
+    kinds = np.resize(np.asarray(filters, np.uint8), rows.shape[0])
+    out = np.empty((rows.shape[0], rows.shape[1] + 1), np.uint8)
+    out[:, 0] = kinds
+    for f in range(5):
+        sel = kinds == f
+        out[sel, 1:] = ((r[sel] - preds[f][sel]) & 0xFF).astype(np.uint8)
+    return out
+
+
+def png_bytes(samples: np.ndarray, ctype: int, depth: int, *,
+              interlace: bool = False, filters=(0,),
+              palette=None) -> bytes:
+    """A PNG of ``samples`` (h, w, channels) (palette indices for colour
+    type 3), written with numpy and zlib at any colour type, bit depth,
+    row filters and Adam7 interlace."""
+    import struct
+    import zlib
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+
+    def image(s):
+        hh, ww = s.shape[:2]
+        if not hh or not ww:
+            return b""
+        rows = _pack_samples(s.reshape(hh, ww * ch), depth)
+        return _filter_rows(rows, bpp, filters).tobytes()
+
+    raw = (b"".join(image(samples[y0::dy, x0::dx])
+                    for x0, y0, dx, dy in ADAM7)
+           if interlace else image(samples))
+    out = PNG_SIG + _png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))
+    if palette is not None:
+        out += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (out + _png_chunk(b"IDAT", zlib.compress(raw, 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def xray_like(rng, n: int, size: int) -> np.ndarray:
+    """``n`` smooth (size, size) grey images in [0, 1] with noise, whose
+    Paeth and Average rows do not compress to nothing."""
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    out = []
+    for _ in range(n):
+        f = rng.uniform(2, 9, 2)
+        img = (0.5 + 0.3 * np.sin(f[0] * xx * 6) * np.cos(f[1] * yy * 6)
+               + 0.02 * rng.standard_normal((size, size)))
+        out.append(np.clip(img, 0, 1))
+    return np.stack(out)
+
+
+PNG_SIZE, PNG_THREADS = 1024, 8
+
+
+def phase_png(tmp: str, smi: str) -> None:
+    """The store's decode of every PNG kind and the compiled unfilter:
+
+    - the compiled op ``png_unfilter`` bitwise against the plain version
+      on random rows of every filter type at every bytes-per-pixel 1-8,
+      and on the rows of a 1024-px Paeth and an Average image;
+    - the store's decode (compiled) of Paeth, Average, 16-bit grey and
+      RGB, 2-bit grey, 4-bit palette and interlaced PNGs bitwise against
+      the plain path's, and the analyzer's rule (16-bit grey clipped);
+    - ms per image of the decode and of the store build (decode + resize
+      to 224) of 1024-px Paeth and Average grey PNGs on 1 and on 8
+      threads (the better of two rounds), and the plain unfilter's decode
+      of one image: 8 decodes on 8 threads must take under 4 times one
+      decode on 1 (8 times would be no parallelism at all)."""
+    from xgan_torch.data.store import ImageStore
+    from xgan_torch.native import png as png_mod
+    dev_dir = os.path.join(tmp, "pngs")
+    os.makedirs(dev_dir)
+    rng = np.random.default_rng(41)
+
+    # the op against the plain version, every filter type and bpp
+    from xgan_torch.kernels.build import load_ops
+    op = load_ops().png_unfilter
+    n = 0
+    for bpp in range(1, 9):
+        for kind in range(5):
+            for stride in (bpp, 3 * bpp, 64 * bpp):
+                raw = rng.integers(0, 256, (7, 1 + stride), dtype=np.uint8)
+                raw[:, 0] = kind
+                raw[3, 0] = rng.integers(0, 5)
+                got = op(torch.from_numpy(raw), 7, stride, bpp).numpy()
+                check(np.array_equal(got, png_mod._unfilter(raw, 7, stride,
+                                                            bpp)),
+                      ("png_unfilter", bpp, kind, stride))
+                n += 1
+    try:
+        bad = np.zeros((2, 5), np.uint8)
+        bad[1, 0] = 9
+        op(torch.from_numpy(bad), 2, 4, 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("png_unfilter took filter type 9")
+
+    grey = (xray_like(rng, 2 * PNG_THREADS, PNG_SIZE) * 255).astype(np.uint8)
+    kinds = {}
+    for j, (f, name) in enumerate(((4, "paeth"), (3, "average"))):
+        paths = []
+        for i in range(PNG_THREADS):
+            p = os.path.join(dev_dir, f"{name}{i}.png")
+            with open(p, "wb") as fh:
+                fh.write(png_bytes(grey[j * PNG_THREADS + i, ..., None], 0,
+                                   8, filters=(f,)))
+            paths.append(p)
+        kinds[name] = paths
+    import zlib
+    for name in ("paeth", "average"):  # the rows of a 1024-px image
+        with open(kinds[name][0], "rb") as fh:
+            data = fh.read()
+        idat = data[data.index(b"IDAT") + 4:data.rindex(b"IEND") - 8]
+        raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+            PNG_SIZE, 1 + PNG_SIZE)
+        check(np.array_equal(op(torch.from_numpy(raw.copy()), PNG_SIZE,
+                                PNG_SIZE, 1).numpy(),
+                             png_mod._unfilter(raw, PNG_SIZE, PNG_SIZE, 1)),
+              f"png_unfilter on the {name} rows")
+    print(f"png_unfilter: bitwise equal to the plain version on {n} random "
+          f"row sets (filter types 0-4 each, bpp 1-8) and on the rows of a "
+          f"{PNG_SIZE}-px Paeth and Average image; filter type 9 raises "
+          "ValueError")
+
+    # every kind through the store's decode, compiled against plain
+    small = 96
+    cases = {
+        "16-bit grey": (rng.integers(0, 65536, (small, small, 1)), 0, 16,
+                        False, None),
+        "16-bit RGB": (rng.integers(0, 65536, (small, small, 3)), 2, 16,
+                       False, None),
+        "2-bit grey": (rng.integers(0, 4, (small, small, 1)), 0, 2, False,
+                       None),
+        "4-bit palette": (rng.integers(0, 16, (small, small, 1)), 3, 4,
+                          False, rng.integers(0, 256, (16, 3))),
+        "interlaced RGB": (rng.integers(0, 256, (small, small, 3)), 2, 8,
+                           True, None),
+        "interlaced 16-bit grey+alpha": (
+            rng.integers(0, 65536, (small, small, 2)), 4, 16, True, None),
+    }
+    for name, (s, ctype, depth, inter, pal) in cases.items():
+        p = os.path.join(dev_dir, name.replace(" ", "_") + ".png")
+        with open(p, "wb") as fh:
+            fh.write(png_bytes(s, ctype, depth, interlace=inter,
+                               filters=(0, 1, 2, 3, 4), palette=pal))
+        got = png_mod.decode_png(p, compiled=True)
+        want = png_mod.decode_png(p)
+        check(np.array_equal(got, want) and got.shape == (small, small, 3)
+              and got.std() > 0, name)
+        check(np.array_equal(png_mod.decode_png(p, grey16="clip",
+                                                compiled=True),
+                             png_mod.decode_png(p, grey16="clip")), name)
+    for j, name in enumerate(kinds):
+        check(np.array_equal(png_mod.decode_png(kinds[name][0],
+                                                compiled=True),
+                             np.repeat(grey[j * PNG_THREADS, ..., None], 3,
+                                       2)), f"{name} decode")
+    print(f"store decode, compiled unfilter vs plain: bitwise equal on "
+          f"{PNG_SIZE}-px Paeth and Average grey and on "
+          + ", ".join(cases) + f" ({small} px, filter types 0-4 in turn), "
+          "with the store's and the analyzer's 16-bit rules")
+
+    # ms per image on 1 and on 8 threads: the decode alone (what the GIL
+    # would serialise) and the store build (decode + resize to 224)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def decode_all(paths, threads):
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(lambda p: png_mod.decode_png(p, compiled=True),
+                          paths))
+
+    def store_all(paths, threads):
+        store = ImageStore.build(paths, np.zeros(len(paths), np.int32),
+                                 SIZE, workers=threads, compiled=True)
+        check(store.images.std() > 10, "store build")
+
+    times = {}
+    for name, paths in kinds.items():
+        for what, fn in (("decode", decode_all), ("store", store_all)):
+            for threads in (1, PNG_THREADS, 1, PNG_THREADS):
+                with unfilter_routes() as routes:
+                    t0 = time.perf_counter()
+                    fn(paths, threads)
+                    dt = (time.perf_counter() - t0) / len(paths)
+                # the better of two rounds: the host's cores are shared
+                times[name, what, threads] = min(
+                    dt, times.get((name, what, threads), dt))
+                check(routes == {"compiled": len(paths)}, dict(routes))
+    t0 = time.perf_counter()
+    png_mod.decode_png(kinds["paeth"][0])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for name in kinds:
+        d1, d8 = (times[name, "decode", t] for t in (1, PNG_THREADS))
+        s1, s8 = (times[name, "store", t] for t in (1, PNG_THREADS))
+        print(f"{PNG_THREADS} {PNG_SIZE}-px {name} grey PNGs, compiled "
+              f"unfilter: decode {d1 * 1e3:.3f} ms per image on 1 thread, "
+              f"{d8 * 1e3:.3f} on {PNG_THREADS} ({PNG_THREADS} images in "
+              f"{PNG_THREADS * d8 / d1:.2f}x the time of one); store build "
+              f"(decode + resize to {SIZE} px, torch's own threads in the "
+              f"resize) {s1 * 1e3:.3f} ms per image on 1 thread, "
+              f"{s8 * 1e3:.3f} on {PNG_THREADS} [{smi}]")
+        check(d8 < 0.5 * d1, f"{name}: {PNG_THREADS} decodes on "
+              f"{PNG_THREADS} threads took {PNG_THREADS * d8 / d1:.2f}x one "
+              "decode on 1 thread")
+    print(f"the plain (Python) unfilter's decode of one {PNG_SIZE}-px Paeth "
+          f"PNG: {plain_ms:.1f} ms")
 
 
 RUNS = {
@@ -756,11 +1065,16 @@ def phase_classifier(tmp: str, root: str, synth_dir: str):
                 "--image-size", str(SIZE), "--batch-size", str(CLS_B),
                 "--compute-dtype", "bf16", "--workers", "8", *extra]
         kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        result = classifier_main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with unfilter_routes() as routes:
+            t0 = time.perf_counter()
+            result = classifier_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
+        # a card run decodes its stores (run B: from run A's cache) with
+        # the compiled PNG unfilter only
+        check(routes == ({"compiled": N_TRAIN + N_TEST + NUM_IMAGES}
+                         if run == "A" else {}), dict(routes))
         if run == "A":  # curriculum: k-fold train splits, real-length epochs
             strategy, folds, epochs = "curriculum", 2, 2
             steps = folds * epochs * math.ceil(N_TRAIN // 2 / CLS_B)
@@ -2458,13 +2772,20 @@ def idle_share(events, steps: int, step_ms: float) -> tuple[float, int, int]:
     return busy, len(events), sum("convt4x4s2" in e.name for e in events)
 
 
-def phase_loop_steps_per_call(train_store, smi: str) -> int:
-    """``--steps-per-call``: :func:`hold_k_replay` of the DCGAN step (EMA
-    on); then bf16 at B = 128: ms per step of K = 1 and K = 4 and, from
-    one profiled window each, the device idle share (and, for the record,
-    K = 1 with the default host-rounded Adam); the dispatcher's ConvT
-    count per replay (5 a step) against a profiler trace of one replay.
-    Returns the launches of the timed steps."""
+# (K, capturable Adam) of each run of phase_loop_steps_per_call: the
+# trainer's capturable Adam at K = 1 and K; then K = 1 with the default
+# Adam, for what the device-side update costs an eager step
+STEPS_PER_CALL_RUNS = ((1, True), (LOOP_K, True), (1, False))
+
+
+def phase_loop_steps_per_call(train_store, smi: str, run: int) -> list:
+    """``--steps-per-call``, run ``STEPS_PER_CALL_RUNS[run]`` (run 0 first
+    holds :func:`hold_k_replay` of the DCGAN step, EMA on): bf16 at
+    B = 128, ms per step and, from one profiled window, the device idle
+    share; for K > 1 the dispatcher's ConvT count per replay (5 a step)
+    against a profiler trace of one replay. One run a process, so that
+    its window is the first of its process (C6, ROADMAP.md). Returns
+    [the launches of the timed steps, ms per step]."""
     from torch.autograd import DeviceType
     from xgan_torch import kernels
     from xgan_torch.data.pipeline import DeviceStore
@@ -2498,58 +2819,49 @@ def phase_loop_steps_per_call(train_store, smi: str) -> int:
         torch.cuda.synchronize()
         return metrics, state_of(**named), multi
 
-    hold_k_replay("DCGAN (EMA on)", f32_run)
+    if run == 0:
+        hold_k_replay("DCGAN (EMA on)", f32_run)
 
-    times = {}
-    launched = 0
-    # the trainer's capturable Adam at K = 1 and K; then K = 1 with the
-    # default Adam, for what the device-side update costs an eager step
-    for k, capturable in ((1, True), (LOOP_K, True), (1, False)):
-        # warm calls (K > 1: the eager one, then the capture), 20 timed
-        # steps, then the profiled window: one warm call and 4 steps
-        warm, n_timed = (3, 20) if k == 1 else (2, 20 // LOOP_K)
-        window = 4 // k
-        calls, multi, _ = setup(k, torch.bfloat16, GAN_B,
-                                (warm + n_timed + 1 + window) * k, seed=30,
-                                capturable=capturable)
-        for c in calls[:warm]:
-            c()
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        ms = time_calls(calls[warm:], k, n_timed)
-        timed = dict(kernels.LAUNCHES)
-        check(timed.get("convt4x4s2_mma", 0) == 5 * n_timed * k, (k, timed))
-        launched += timed["convt4x4s2_fused"]
-        rest = calls[warm + n_timed:]
-        events, _ = warm_profile(
-            rest[0], lambda: [c() for c in rest[1:1 + window]])
-        busy, n_kernels, n_convt = idle_share(events, 4, ms)
-        check(n_convt == 20, f"K={k}: {n_convt} ConvT kernels in the "
-              "profiled window of 4 steps, expected 20")
-        if multi is not None:
-            per = dict(multi.launches_per_replay)
-            check(per.get("convt4x4s2_mma", 0) == 5 * k
-                  and per.get("convt4x4s2_fused", 0) == 5 * k, per)
-            names = {e.name for e in events if "convt4x4s2" in e.name
-                     and e.device_type == DeviceType.CUDA}
-            check(any(MMA_KERNEL in n for n in names), names)
-            print(f"K={k}: the dispatcher counts {per} ConvT launches per "
-                  f"replay ({multi.replays} replays); the profiler sees "
-                  f"{n_convt} ConvT kernels in one replay: "
-                  f"{sorted(n[:60] for n in names)}")
-        times[k, capturable] = ms
-        print(f"steps-per-call K={k} (bf16, B={GAN_B}, 224 px, EMA on, "
-              f"{'capturable' if capturable else 'default'} Adam): "
-              f"{ms:.3f} ms per step (mean of {n_timed * k} warm), "
-              f"{GAN_B / ms * 1e3:.1f} imgs/s; profiled window of 4 steps: "
-              f"{n_kernels} kernels, {busy:.3f} device ms per step, device "
-              f"idle share ~{1 - busy / ms:.3f} [{smi}]")
-        del calls, multi
-        torch.cuda.empty_cache()
-    print(f"K={LOOP_K} / K=1 step time "
-          f"{times[LOOP_K, True] / times[1, True]:.3f}; K=1, capturable / "
-          f"default Adam {times[1, True] / times[1, False]:.3f}")
-    return launched
+    k, capturable = STEPS_PER_CALL_RUNS[run]
+    # warm calls (K > 1: the eager one, then the capture), 20 timed
+    # steps, then the profiled window: one warm call and 4 steps
+    warm, n_timed = (3, 20) if k == 1 else (2, 20 // LOOP_K)
+    window = 4 // k
+    calls, multi, _ = setup(k, torch.bfloat16, GAN_B,
+                            (warm + n_timed + 1 + window) * k, seed=30,
+                            capturable=capturable)
+    for c in calls[:warm]:
+        c()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ms = time_calls(calls[warm:], k, n_timed)
+    timed = dict(kernels.LAUNCHES)
+    check(timed.get("convt4x4s2_mma", 0) == 5 * n_timed * k, (k, timed))
+    launched = timed["convt4x4s2_fused"]
+    rest = calls[warm + n_timed:]
+    events, _ = warm_profile(
+        rest[0], lambda: [c() for c in rest[1:1 + window]])
+    busy, n_kernels, n_convt = idle_share(events, 4, ms)
+    check(n_convt == 20, f"K={k}: {n_convt} ConvT kernels in the "
+          "profiled window of 4 steps, expected 20")
+    if multi is not None:
+        per = dict(multi.launches_per_replay)
+        check(per.get("convt4x4s2_mma", 0) == 5 * k
+              and per.get("convt4x4s2_fused", 0) == 5 * k, per)
+        names = {e.name for e in events if "convt4x4s2" in e.name
+                 and e.device_type == DeviceType.CUDA}
+        check(any(MMA_KERNEL in n for n in names), names)
+        print(f"K={k}: the dispatcher counts {per} ConvT launches per "
+              f"replay ({multi.replays} replays); the profiler sees "
+              f"{n_convt} ConvT kernels in one replay: "
+              f"{sorted(n[:60] for n in names)}")
+    print(f"steps-per-call K={k} (bf16, B={GAN_B}, 224 px, EMA on, "
+          f"{'capturable' if capturable else 'default'} Adam): "
+          f"{ms:.3f} ms per step (mean of {n_timed * k} warm), "
+          f"{GAN_B / ms * 1e3:.1f} imgs/s; profiled window of 4 steps: "
+          f"{n_kernels} kernels, {busy:.3f} device ms per step, device "
+          f"idle share ~{1 - busy / ms:.3f} [{smi}]")
+    return [launched, ms]
 
 
 def read_trace(trace_dir: str):
@@ -2570,10 +2882,68 @@ def read_trace(trace_dir: str):
     lost = [e for e in events if e.get("cat") == "cuda_runtime"
             and "LaunchKernel" in e.get("name", "")
             and e["args"].get("correlation") not in seen]
-    after = [e["name"] for e in lost if e["ts"] > lead_end]
-    check(not after, f"{traces[0]}: launches without their kernel after "
-          f"the lead: {after[:8]}")
+    after = [e for e in lost if e["ts"] > lead_end]
+    end = max(e["ts"] + e.get("dur", 0) for e in events if "ts" in e)
+    check(not after, f"{traces[0]}: {len(after)} launches without their "
+          f"kernel after the lead (of {len(lost)} lost), at us after the "
+          f"lead / before the window's end: "
+          + ", ".join(f"{e['ts'] - lead_end:.0f}/{end - e['ts']:.0f}"
+                      for e in after[:12]))
     return traces[0], events, (len(lost), len(after))
+
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def cli_process(module: str, argv: list) -> None:
+    """``python -m xgan_torch.cli.<module> argv`` in a process of its own,
+    as a user runs it; fails with its output's tail unless it exits 0."""
+    p = subprocess.run([sys.executable, "-u", "-m", f"xgan_torch.cli.{module}",
+                        *argv], stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True, cwd=HERE,
+                       timeout=600)
+    check(p.returncode == 0, f"{module}: exit {p.returncode}\n"
+          + p.stdout[-3000:])
+
+
+def save_store(store, tmp: str) -> None:
+    """The host train store, for :func:`in_fresh_process`."""
+    np.save(os.path.join(tmp, "train_images.npy"), store.images)
+    np.save(os.path.join(tmp, "train_labels.npy"), store.labels)
+
+
+def in_fresh_process(phase: str, tmp: str, smi: str):
+    """Runs ``FRESH_PHASES[phase]`` in a new process of this script
+    (``--phase``) on the train store that :func:`save_store` left in
+    ``tmp``; prints its output and returns its result. These phases hold
+    a kernel count read from a profiler window, and such a window is
+    then the first of its process: late in this long process, windows on
+    the card have lost kernel records (C6, ROADMAP.md)."""
+    p = subprocess.run([sys.executable, "-u", os.path.abspath(__file__),
+                        "--phase", phase, tmp, smi],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True, cwd=HERE, timeout=900)
+    lines = p.stdout.splitlines()
+    results = [ln for ln in lines if ln.startswith('{"result": ')]
+    print("\n".join(ln for ln in lines if ln not in results))
+    check(p.returncode == 0 and len(results) == 1,
+          f"phase {phase} in its own process: exit {p.returncode}; the "
+          f"end of its output:\n" + "\n".join(lines[-40:]))
+    return json.loads(results[0])["result"]
+
+
+def phase_child(phase: str, tmp: str, smi: str) -> None:
+    """The ``--phase`` side of :func:`in_fresh_process`."""
+    from xgan_torch.data.store import ImageStore
+    check(torch.cuda.is_available(), "no CUDA device")
+    # as phase_kernels leaves them in the parent process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train = ImageStore(np.load(os.path.join(tmp, "train_images.npy")),
+                       np.load(os.path.join(tmp, "train_labels.npy")), SIZE)
+    name, _, run = phase.partition("/")
+    result = FRESH_PHASES[name](train, smi, int(run or 0))
+    print(json.dumps({"result": result}))
 
 
 def gan_cli_argv(tmp: str, root: str, out: str, *extra) -> list:
@@ -2774,15 +3144,14 @@ def phase_loop_cli(tmp: str, root: str, train_store, smi: str) -> int:
     print(f"EMA generator -> sampler: {stats['written']} PNGs from "
           f"generator_ema_final.pth, launches {ema_launches}")
 
-    # --trace-dir: one trace, naming the ConvT kernel
+    # --trace-dir: one trace, naming the ConvT kernel; the CLI in a fresh
+    # process, as a user runs it (windows late in this long process have
+    # lost kernel records, C6)
     trace_dir = os.path.join(tmp, "loop", "trace")
-    kernels.reset_launch_counts()
-    gan_main(gan_cli_argv(tmp, root, os.path.join(tmp, "loop", "traced"),
-                          "--epochs", "2", "--limit-batches", "2",
-                          "--compute-dtype", "bf16", "--trace-dir",
-                          trace_dir))
-    torch.cuda.synchronize()
-    launched += kernels.LAUNCHES["convt4x4s2_fused"]
+    cli_process("train_gan", gan_cli_argv(
+        tmp, root, os.path.join(tmp, "loop", "traced"), "--epochs", "2",
+        "--limit-batches", "2", "--compute-dtype", "bf16", "--trace-dir",
+        trace_dir))
     name, events, (lost, _) = read_trace(trace_dir)
     ours = [e for e in events if e.get("cat") == "kernel"
             and "convt4x4s2" in e.get("name", "")]
@@ -2898,8 +3267,14 @@ def time_calls(calls, steps_per_call: int, n_timed: int) -> float:
     return (time.perf_counter() - t0) / (n_timed * steps_per_call) * 1e3
 
 
-def phase_loop_wgan(train_store, smi: str) -> int:
-    """WGAN-GP's loop flags on the card:
+# (K, A) of each run of phase_loop_wgan
+WGAN_LOOP_RUNS = ((1, 1), (LOOP_K, 1), (1, LOOP_A))
+
+
+def phase_loop_wgan(train_store, smi: str, run: int) -> list:
+    """WGAN-GP's loop flags on the card, run ``WGAN_LOOP_RUNS[run]`` (run
+    0 first holds the f32 checks), one run a process so that its profiled
+    window is the first of its process (C6, ROADMAP.md):
 
     - one f32 A = 2 step (B = 16, 2 critic updates, after 3 shared warm-up
       steps) through the kernel against the plain version, held as the
@@ -2916,7 +3291,7 @@ def phase_loop_wgan(train_store, smi: str) -> int:
       counts and a profiler trace of one replay, which must show the
       tensor-core kernel.
 
-    Returns the launches of the counted steps."""
+    Returns [the launches of the counted steps, ms per step]."""
     import copy
     from torch.autograd import DeviceType
     from xgan_torch import kernels
@@ -2928,40 +3303,42 @@ def phase_loop_wgan(train_store, smi: str) -> int:
     store = DeviceStore(train_store, dev)
     n = 2
 
-    # f32 A = 2 through the kernel against the plain version
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    b = 16
-    conv_rel = convt_rel_rms(b, WGAN_WIDTHS)
-    g = torch.Generator(device=dev).manual_seed(50)
-    idx = torch.randint(0, len(store), (b,), generator=g, device=dev)
-    draws = {"flip": torch.rand(b, generator=g, device=dev) < 0.5,
-             "noises": [torch.randn(b, LATENT, generator=g, device=dev)
-                        for _ in range(n)],
-             "alphas": [torch.rand(b, 1, 1, 1, generator=g, device=dev)
-                        for _ in range(n)],
-             "g_noise": torch.randn(b, LATENT, generator=g, device=dev)}
-    nets = wgan_models(torch.float32, seed=51)
-    fresh = copy.deepcopy([m.state_dict() for m in nets])
-    for _ in range(3):
-        wgan_step(*nets, store.images,
-                  torch.randint(0, len(store), (b,), generator=g, device=dev),
-                  latent_dim=LATENT, critic_iters=n, lambda_gp=10.0,
-                  convt=convt4x4s2_fused_ref, generator=g, grad_accum=2)
-    warm = copy.deepcopy([m.state_dict() for m in nets])
+    if run == 0:
+        # f32 A = 2 through the kernel against the plain version
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        b = 16
+        conv_rel = convt_rel_rms(b, WGAN_WIDTHS)
+        g = torch.Generator(device=dev).manual_seed(50)
+        idx = torch.randint(0, len(store), (b,), generator=g, device=dev)
+        draws = {"flip": torch.rand(b, generator=g, device=dev) < 0.5,
+                 "noises": [torch.randn(b, LATENT, generator=g, device=dev)
+                            for _ in range(n)],
+                 "alphas": [torch.rand(b, 1, 1, 1, generator=g, device=dev)
+                            for _ in range(n)],
+                 "g_noise": torch.randn(b, LATENT, generator=g, device=dev)}
+        nets = wgan_models(torch.float32, seed=51)
+        fresh = copy.deepcopy([m.state_dict() for m in nets])
+        for _ in range(3):
+            wgan_step(*nets, store.images,
+                      torch.randint(0, len(store), (b,), generator=g,
+                                    device=dev),
+                      latent_dim=LATENT, critic_iters=n, lambda_gp=10.0,
+                      convt=convt4x4s2_fused_ref, generator=g, grad_accum=2)
+        warm = copy.deepcopy([m.state_dict() for m in nets])
 
-    def f32_step(convt):
-        kw = {} if convt is None else {"convt": convt}
-        return wgan_step(*nets, store.images, idx, latent_dim=LATENT,
-                         critic_iters=n, lambda_gp=10.0, grad_accum=2,
-                         **draws, **kw)
+        def f32_step(convt):
+            kw = {} if convt is None else {"convt": convt}
+            return wgan_step(*nets, store.images, idx, latent_dim=LATENT,
+                             critic_iters=n, lambda_gp=10.0, grad_accum=2,
+                             **draws, **kw)
 
-    hold_f32_kernel_step(
-        f"A=2 WGAN-GP step (B={b}, {n} critic updates)", nets, fresh, warm,
-        f32_step, 5 * (n + 1) * 2,
-        lambda: [*nets[0].parameters(), *nets[1].parameters()], conv_rel)
-    del nets, fresh, warm
+        hold_f32_kernel_step(
+            f"A=2 WGAN-GP step (B={b}, {n} critic updates)", nets, fresh,
+            warm, f32_step, 5 * (n + 1) * 2,
+            lambda: [*nets[0].parameters(), *nets[1].parameters()], conv_rel)
+        del nets, fresh, warm
 
     def setup(k, dtype, b, steps, critic_iters, seed, accum=1):
         g_net, c_net, opt_g, opt_c = wgan_models(dtype, seed=seed,
@@ -2990,67 +3367,60 @@ def phase_loop_wgan(train_store, smi: str) -> int:
         torch.cuda.synchronize()
         return metrics, state_of(**named), multi
 
-    hold_k_replay(f"WGAN-GP ({n} critic updates, EMA on)", f32_run)
+    if run == 0:
+        hold_k_replay(f"WGAN-GP ({n} critic updates, EMA on)", f32_run)
 
-    # bf16 at the trainer's batch: K = 1, K = 4; A = 1, A = 4
-    launched = 0
+    # bf16 at the trainer's batch
     per_step = 5 * (WGAN_CRITIC + 1)
-    times = {}
-    for k, accum in ((1, 1), (LOOP_K, 1), (1, LOOP_A)):
-        # 2 warm calls (K > 1: the eager one, then the capture), the timed
-        # ones, 2 for the profiled window
-        n_timed = 8 if k == 1 else 2
-        calls, multi, named = setup(k, torch.bfloat16, WGAN_B,
-                                    (4 + n_timed) * k, WGAN_CRITIC, seed=54,
-                                    accum=accum)
-        warm_calls = 2
-        for c in calls[:warm_calls]:
-            c()
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        ms = time_calls(calls[warm_calls:], k, n_timed)
-        peak = torch.cuda.max_memory_allocated()
-        timed = dict(kernels.LAUNCHES)
-        want = per_step * accum * n_timed * k
-        check(timed.get("convt4x4s2_mma", 0) == want
-              and timed.get("convt4x4s2_fused", 0) == want,
-              (k, accum, timed, want))
-        launched += timed["convt4x4s2_fused"]
-        rest = calls[warm_calls + n_timed:]
-        events, _ = warm_profile(rest[0], rest[1])
-        busy, n_kernels, n_convt = idle_share(events, k, ms)
-        check(n_convt == per_step * accum * k,
-              f"K={k}, A={accum}: {n_convt} ConvT kernels in the profiled "
-              f"window of {k} steps, expected {per_step * accum * k}")
-        if multi is not None:
-            per = dict(multi.launches_per_replay)
-            check(per.get("convt4x4s2_mma", 0) == per_step * k
-                  and per.get("convt4x4s2_fused", 0) == per_step * k, per)
-            names = {e.name for e in events if "convt4x4s2" in e.name
-                     and e.device_type == DeviceType.CUDA}
-            check(any(MMA_KERNEL in nm for nm in names), names)
-            print(f"WGAN-GP K={k}: the dispatcher counts {per} ConvT "
-                  f"launches per replay ({multi.replays} replays); the "
-                  f"profiler sees {n_convt} ConvT kernels in one replay: "
-                  f"{sorted(nm[:60] for nm in names)}")
-        times[k, accum] = ms
-        print(f"WGAN-GP K={k}, A={accum} (bf16, B={WGAN_B}, {WGAN_CRITIC} "
-              f"critic updates, 224 px, EMA on, capturable Adam): {ms:.3f} "
-              f"ms per step (mean of {n_timed * k} warm), "
-              f"{WGAN_B / ms * 1e3:.1f} imgs/s; ConvT launches "
-              f"{timed['convt4x4s2_fused'] // (n_timed * k)} a step; peak "
-              f"memory {peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} "
-              f"GiB above the {before / 2**30:.3f} held); profiled window of "
-              f"{k} step(s): {n_kernels} kernels, {busy:.3f} device ms per "
-              f"step, device idle share ~{1 - busy / ms:.3f} [{smi}]")
-        del calls, multi, named
-        torch.cuda.empty_cache()
-    print(f"WGAN-GP K={LOOP_K} / K=1 step time "
-          f"{times[LOOP_K, 1] / times[1, 1]:.3f}; A={LOOP_A} / A=1 "
-          f"{times[1, LOOP_A] / times[1, 1]:.3f}")
-    return launched
+    k, accum = WGAN_LOOP_RUNS[run]
+    # 2 warm calls (K > 1: the eager one, then the capture), the timed
+    # ones, 2 for the profiled window
+    n_timed = 8 if k == 1 else 2
+    calls, multi, named = setup(k, torch.bfloat16, WGAN_B,
+                                (4 + n_timed) * k, WGAN_CRITIC, seed=54,
+                                accum=accum)
+    warm_calls = 2
+    for c in calls[:warm_calls]:
+        c()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms = time_calls(calls[warm_calls:], k, n_timed)
+    peak = torch.cuda.max_memory_allocated()
+    timed = dict(kernels.LAUNCHES)
+    want = per_step * accum * n_timed * k
+    check(timed.get("convt4x4s2_mma", 0) == want
+          and timed.get("convt4x4s2_fused", 0) == want,
+          (k, accum, timed, want))
+    launched = timed["convt4x4s2_fused"]
+    rest = calls[warm_calls + n_timed:]
+    events, _ = warm_profile(rest[0], rest[1])
+    busy, n_kernels, n_convt = idle_share(events, k, ms)
+    check(n_convt == per_step * accum * k,
+          f"K={k}, A={accum}: {n_convt} ConvT kernels in the profiled "
+          f"window of {k} steps, expected {per_step * accum * k}")
+    if multi is not None:
+        per = dict(multi.launches_per_replay)
+        check(per.get("convt4x4s2_mma", 0) == per_step * k
+              and per.get("convt4x4s2_fused", 0) == per_step * k, per)
+        names = {e.name for e in events if "convt4x4s2" in e.name
+                 and e.device_type == DeviceType.CUDA}
+        check(any(MMA_KERNEL in nm for nm in names), names)
+        print(f"WGAN-GP K={k}: the dispatcher counts {per} ConvT "
+              f"launches per replay ({multi.replays} replays); the "
+              f"profiler sees {n_convt} ConvT kernels in one replay: "
+              f"{sorted(nm[:60] for nm in names)}")
+    print(f"WGAN-GP K={k}, A={accum} (bf16, B={WGAN_B}, {WGAN_CRITIC} "
+          f"critic updates, 224 px, EMA on, capturable Adam): {ms:.3f} "
+          f"ms per step (mean of {n_timed * k} warm), "
+          f"{WGAN_B / ms * 1e3:.1f} imgs/s; ConvT launches "
+          f"{timed['convt4x4s2_fused'] // (n_timed * k)} a step; peak "
+          f"memory {peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} "
+          f"GiB above the {before / 2**30:.3f} held); profiled window of "
+          f"{k} step(s): {n_kernels} kernels, {busy:.3f} device ms per "
+          f"step, device idle share ~{1 - busy / ms:.3f} [{smi}]")
+    return [launched, ms]
 
 
 def phase_loop_cgan(train_store, smi: str) -> None:
@@ -3394,14 +3764,13 @@ def phase_loop_classifier(tmp: str, root: str, synth_dir: str, train,
           f"relative of a straight run's (limit 1e-6; bitwise "
           f"{resumed == straight})")
 
-    # --trace-dir: one trace that holds the epoch's 3 gather kernels
+    # --trace-dir: one trace that holds the epoch's 3 gather kernels; the
+    # CLI in a fresh process (C6)
     trace_dir = os.path.join(out, "trace")
-    kernels.reset_launch_counts()
-    cls_main(argv("traced", "--use-synthetic", "--k-folds", "1", "--epochs",
-                  "2", "--limit-batches", "3", "--compute-dtype", "bf16",
-                  "--trace-dir", trace_dir))
-    torch.cuda.synchronize()
-    launched += kernels.LAUNCHES["mixed_gather"]
+    cli_process("train_classifier", argv(
+        "traced", "--use-synthetic", "--k-folds", "1", "--epochs", "2",
+        "--limit-batches", "3", "--compute-dtype", "bf16", "--trace-dir",
+        trace_dir))
     name, events, (lost, _) = read_trace(trace_dir)
     ours = [e for e in events if e.get("cat") == "kernel"
             and "mixed_gather" in e.get("name", "")]
@@ -3409,11 +3778,436 @@ def phase_loop_classifier(tmp: str, root: str, synth_dir: str, train,
     check(len(ours) == 3, [e.get("name") for e in events
                            if e.get("cat") == "kernel"][:8])
     print(f"classifier --trace-dir: one trace ({name}) of epoch 2, "
-          f"{len(ours)} mixed_gather kernels in it (3 train steps; the "
-          f"wrapper counted {kernels.LAUNCHES['mixed_gather']} launches in "
-          f"the 2 epochs); {lost} launches without their kernel, all in "
-          f"the window's lead")
+          f"{len(ours)} mixed_gather kernels in it (3 train steps); {lost} "
+          f"launches without their kernel, all in the window's lead")
     return launched
+
+
+# ---- --parallel-folds: the lockstep folds -----------------------------------
+
+PF_K = 5  # the reference's CV folds
+
+
+def gather_timing_inputs(g, k: int, b: int):
+    """Random u8 stores of 4096 real and 1024 synthetic 224-px rows (770
+    MB) and 32 sets of (k, b) indices and masks, for timing the
+    fold-batched gather: the 32 sets (770 MB of rows at k = 5, B = 32) do
+    not fit the 50 MB L2, so a launch that takes the next set reads its
+    rows from HBM, as a train step does."""
+    dev = torch.device("cuda")
+    real = torch.randint(0, 256, (4096, SIZE, SIZE, 3), generator=g,
+                         device=dev, dtype=torch.uint8)
+    synth = torch.randint(0, 256, (1024, SIZE, SIZE, 3), generator=g,
+                          device=dev, dtype=torch.uint8)
+    sets = [(torch.randint(0, len(real), (k, b), generator=g, device=dev),
+             torch.randint(0, len(synth), (k, b), generator=g, device=dev),
+             torch.rand((k, b), generator=g, device=dev) < 0.5)
+            for _ in range(32)]
+    return real, synth, sets
+
+
+def _lockstep_models(dev, dtype, k: int, seed: int, freeze: bool):
+    """k ResNet-50s from seeds ``seed + f``, their host state dicts, and
+    the names a frozen base (``fc.*``) or ``--unfreeze`` trains."""
+    from xgan_torch.models.resnet import ResNet50
+    models = [ResNet50(2, dtype=dtype, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed + f)) for f in range(k)]
+    names = [n for n, _ in models[0].named_parameters()
+             if not freeze or n.startswith("fc.")]
+    return models, names
+
+
+def phase_parallel_folds(tmp: str, root: str, synth_dir: str, train, synth,
+                         smi: str) -> int:
+    """``--parallel-folds`` at full width (ResNet-50, 224 px, B = 32):
+
+    - the fold-batched ``mixed_gather`` (k = 5, (5, 32) indices, one
+      launch) bitwise against its plain version and against 5 single
+      launches; a bad index in one fold raises; its time, the plain
+      version's, 5 single launches' and ``torch.where``'s;
+    - one f32 lockstep step (TF32 off, deterministic cuDNN, k = 5, B = 16,
+      ``--unfreeze``, a padded tail in one fold) against the 5 sequential
+      fold steps on the card: per-fold losses within 1e-4 (1 + |ref|),
+      every gradient norm of every fold within 1e-3 plus twice the floor
+      that rounding sets in that fold: the largest relative change of
+      any of its gradient norms over four draws, the sequential steps on
+      their batches' rows in two other orders (every batch reduction,
+      BN's one-pass statistics among them, summed in another order, as
+      the grouped step sums them) and with 1e-6 rms noise on every conv
+      output (the CGAN check's stand-in for another f32 implementation);
+      the same lockstep step with TF32 on must fail those limits;
+    - the freeze: a lockstep step in which one fold's mask is all zeros
+      leaves its parameters, BN statistics, Adam moments and Adam step
+      count bitwise as they were, and moves the others;
+    - the CLI with ``--parallel-folds`` (run A's curriculum, 2 folds x 2
+      epochs, bf16): one ``mixed_gather`` launch a lockstep step, and run
+      A's file names and JSON keys.
+
+    It opens no profiler window (:func:`phase_parallel_times` profiles).
+    Returns the ``mixed_gather`` launches of the CLI run."""
+    import copy
+    from xgan_torch import kernels
+    from xgan_torch.cli.train_classifier import main as cls_main
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.gather import (mixed_gather, mixed_gather_ref,
+                                           new_error_flag, raise_if_flagged)
+    from xgan_torch.train.classifier import classifier_optimizer, train_step
+    from xgan_torch.train.parallel_folds import (FoldAdam, FoldStack,
+                                                 fold_view,
+                                                 lockstep_train_step)
+    dev = torch.device("cuda")
+    k, b = PF_K, CLS_B
+    real, syn = DeviceStore(train, dev), DeviceStore(synth, dev)
+    g = torch.Generator(dev).manual_seed(80)
+    launched = 0
+
+    # the fold-batched gather
+    sets = [(torch.randint(0, len(real), (k, b), generator=g, device=dev),
+             torch.randint(0, len(syn), (k, b), generator=g, device=dev),
+             torch.rand((k, b), generator=g, device=dev) < 0.5)
+            for _ in range(8)]
+    ridx, sidx, mix = sets[0]
+    for name, m in (("mixed", mix), ("all real", torch.zeros_like(mix)),
+                    ("all synthetic", torch.ones_like(mix))):
+        kernels.reset_launch_counts()
+        got = mixed_gather(real.images, syn.images, ridx, sidx, m)
+        check(kernels.LAUNCHES["mixed_gather"] == 1, dict(kernels.LAUNCHES))
+        singles = torch.stack([mixed_gather(real.images, syn.images, ridx[f],
+                                            sidx[f], m[f])
+                               for f in range(k)])
+        check(got.shape == (k, b, SIZE, SIZE, 3)
+              and torch.equal(got, mixed_gather_ref(real.images, syn.images,
+                                                    ridx, sidx, m))
+              and torch.equal(got, singles), f"fold-batched gather {name}")
+    bad = ridx.clone()
+    bad[3, 7] = len(real)
+    try:
+        mixed_gather(real.images, syn.images, bad, sidx, mix)
+    except IndexError:
+        pass
+    else:
+        raise AssertionError("a bad index in fold 4 did not raise")
+    err = new_error_flag(dev)
+    big_real, big_syn, big_sets = gather_timing_inputs(
+        torch.Generator(dev).manual_seed(81), k, b)
+
+    def in_turn(fn):
+        it = itertools.cycle(big_sets)
+        return lambda: fn(*next(it))
+
+    fold_ms = time_ms(in_turn(lambda r, s, m: mixed_gather(
+        big_real, big_syn, r, s, m, err)), reps=32)
+    raise_if_flagged(err)
+    single_ms = time_ms(in_turn(lambda r, s, m: [mixed_gather(
+        big_real, big_syn, r[f], s[f], m[f], err)
+        for f in range(k)]), reps=32)
+    plain_ms = time_ms(in_turn(lambda r, s, m: mixed_gather_ref(
+        big_real, big_syn, r, s, m)), reps=32)
+    where_ms = time_ms(in_turn(lambda r, s, m: torch.where(
+        m[..., None, None, None], big_syn[s], big_real[r])), reps=32)
+    del big_real, big_syn, big_sets
+    nbytes = 2 * k * b * SIZE * SIZE * 3 + k * b * 17
+    print(f"fold-batched mixed_gather, k={k}, B={b}, 224 px: bitwise equal "
+          f"to its plain version and to {k} single launches (mixed, all "
+          f"real, all synthetic), one launch; a bad index in one fold "
+          f"raises; {fold_ms:.4f} ms per launch by CUDA events, {k} single "
+          f"launches {single_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.where "
+          f"{where_ms:.4f} ms (32 index sets over 770 MB of stores, from "
+          f"HBM); {nbytes / 1e6:.3f} MB, bound {_bytes_ms(nbytes):.4f} ms "
+          f"(bytes) [{smi}]")
+
+    # one f32 lockstep step against the 5 sequential fold steps
+    fb = 16
+    ridx, sidx, mix = (t[:, :fb].contiguous() for t in sets[1])
+    flip = torch.rand((k, fb), generator=g, device=dev) < 0.5
+    mask = torch.ones((k, fb), device=dev)
+    mask[k - 1, fb - 4:] = 0  # a padded tail in the last fold
+    models, names = _lockstep_models(dev, torch.float32, k, 90,
+                                     freeze=False)
+    init = [copy.deepcopy(m.state_dict()) for m in models]
+    draws = dict(mode="mix", ratio=0.5, use_synth=mix, synth_pick=sidx,
+                 flip=flip)
+
+    def lockstep():
+        for m, sd in zip(models, init):
+            m.load_state_dict(sd)
+        stack = FoldStack(models, names)
+        opt = FoldAdam(stack.trainable, k, 1e-3)
+        kernels.reset_launch_counts()
+        losses, _, _ = lockstep_train_step(stack, opt, real, syn, ridx, mask,
+                                           **draws)
+        check(kernels.LAUNCHES["mixed_gather"] == 1, dict(kernels.LAUNCHES))
+        w = mask.float()
+        loss = (losses * w).sum(1) / w.sum(1)
+        return loss, torch.stack([torch.stack([
+            fold_view(stack.params[n].grad, k)[f].norm() for n in names])
+            for f in range(k)]), (stack, opt)
+
+    def sequential(order=None):
+        """The k fold steps, each batch's rows taken in ``order``."""
+        out, norms = [], []
+        rows = torch.arange(fb, device=dev) if order is None else order
+        for f, m in enumerate(models):
+            m.load_state_dict(init[f])
+            opt = classifier_optimizer(m, 1e-3, freeze_base=False)
+            losses, _, _ = train_step(
+                m, opt, real, syn, ridx[f][rows], mask=mask[f][rows],
+                mode="mix", ratio=0.5, use_synth=mix[f][rows],
+                synth_pick=sidx[f][rows], flip=flip[f][rows])
+            out.append((losses * mask[f][rows]).sum() / mask[f].sum())
+            params = dict(m.named_parameters())
+            norms.append(torch.stack([params[n].grad.norm() for n in names]))
+        return torch.stack(out), torch.stack(norms)
+
+    def diffs(a, ref):
+        return (((a[0] - ref[0]).abs() / (1 + ref[0].abs())).max().item(),
+                (a[1] - ref[1]).abs() / ref[1])
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        seq = sequential()
+        lock_loss, lock_norms, (stack, opt) = lockstep()
+        orders = torch.Generator(dev).manual_seed(81)
+        reordered = [diffs(sequential(torch.randperm(
+            fb, generator=orders, device=dev)), seq)[1] for _ in range(2)]
+        noisy = []
+        for seed in (1, 2):
+            with noisy_convs(CGAN_FLOOR_RMS, seed):
+                noisy.append(diffs(sequential(), seq)[1])
+        floor_draws = torch.stack(reordered + noisy)  # (4, k, tensors)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = lockstep()[:2]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = False
+    m_err, rel = diffs((lock_loss, lock_norms), seq)
+    # a fold's floor is the largest its draws moved any of its tensors:
+    # one tensor's own floor from a few draws is too noisy an estimate
+    # (against its own, the worst of 805 tensors read 1.38-1.73x)
+    own = floor_draws.amax(0)
+    floor = own.amax(1, keepdim=True)
+    limit = 1e-3 + 2 * floor
+    own_ratio = rel / (1e-3 + 2 * own)
+    ratio = (rel / limit).max().item()
+    f_w, n_w = divmod(int((rel / limit).argmax()), len(names))
+    tf_m, tf_rel = diffs(tf32, seq)
+    tf_ratio = tf_rel / limit
+    print(f"f32 lockstep step (k={k}, B={fb}, --unfreeze, one padded tail) "
+          f"vs {k} sequential fold steps on the card: losses max |diff| / "
+          f"(1 + |ref|) {m_err:.3g} (tol 1e-4); gradient norms max relative "
+          f"diff {rel.max().item():.3g} ({int((rel > 1e-3).sum())} of "
+          f"{rel.numel()} tensors over 1e-3); floors (the sequential steps "
+          f"on their rows in two other orders and with {CGAN_FLOOR_RMS:g} "
+          f"rms noise on every conv output) per fold "
+          + ", ".join(f"{v:.3g}" for v in floor.flatten().tolist())
+          + f"; held at 1e-3 + 2 floor: {ratio:.3f} of the limit (worst "
+          f"fold {f_w + 1} {names[n_w]}); against each tensor's own floor "
+          f"(not held): max {own_ratio.max().item():.3f}, over it on "
+          f"{int((own_ratio > 1).sum())} tensors")
+    print(f"control, the lockstep step with TF32 on: losses {tf_m:.3g}, "
+          f"gradient norms {tf_rel.max().item():.3g}, "
+          f"{tf_ratio.max().item():.3f} of the limit, over it on "
+          f"{int((tf_ratio > 1).sum())} of {tf_ratio.numel()} tensors")
+    check(m_err <= 1e-4, "f32 lockstep step: losses differ")
+    check(ratio <= 1.0, "f32 lockstep step: gradient norms differ")
+    check(tf_ratio.max().item() > 1.0,
+          "f32 lockstep check: a TF32 step passes its limits too")
+
+    # the freeze: fold 3 gets an all-zero mask
+    frozen = 2
+    held = stack.fold_tensors() + opt.state_tensors()
+    before = [fold_view(t, k)[frozen].clone() for t in held]
+    others = [fold_view(t, k)[0].clone() for t in stack.trainable]
+    steps_before = opt.step_count.copy()
+    mask2 = torch.ones((k, fb), device=dev)
+    mask2[frozen] = 0
+    lockstep_train_step(stack, opt, real, syn, ridx, mask2, **draws)
+    check(all(torch.equal(fold_view(t, k)[frozen], s)
+              for t, s in zip(held, before)), "a frozen fold moved")
+    check(not all(torch.equal(fold_view(t, k)[0], s)
+                  for t, s in zip(stack.trainable, others)),
+          "an active fold did not move")
+    want_steps = steps_before + 1
+    want_steps[frozen] -= 1
+    check(np.array_equal(opt.step_count, want_steps), opt.step_count)
+    print(f"freeze: fold {frozen + 1} with an all-zero mask kept its "
+          f"{len(held)} parameter, buffer and Adam tensors bitwise and its "
+          f"step count at {opt.step_count[frozen]} while the others "
+          f"advanced to {opt.step_count[0]}")
+    del stack, opt, models, init, held, before, others
+    torch.cuda.empty_cache()
+
+    # the CLI: run A's configuration with --parallel-folds
+    out = os.path.join(tmp, "parallel")
+    argv = ["--data-dir", root, "--synthetic-dir", synth_dir,
+            "--model-dir", os.path.join(out, "models"),
+            "--results-dir", os.path.join(out, "metrics"),
+            "--figures-dir", os.path.join(out, "figures"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--batch-size", str(CLS_B),
+            "--compute-dtype", "bf16", *RUNS["A"], "--parallel-folds"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = cls_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gathers = kernels.LAUNCHES["mixed_gather"]
+    launched += gathers
+    folds, epochs = 2, 2
+    steps = epochs * math.ceil(N_TRAIN // folds / CLS_B)
+    check(gathers == steps, f"--parallel-folds: {gathers} mixed_gather "
+          f"launches for {steps} lockstep steps")
+    run_a = os.path.join(tmp, "runA")
+    for sub in ("metrics", "models", "figures"):
+        check(sorted(os.listdir(os.path.join(out, sub)))
+              == sorted(os.listdir(os.path.join(run_a, sub))),
+              (sub, os.listdir(os.path.join(out, sub))))
+    for name in os.listdir(os.path.join(out, "metrics")):
+        with open(os.path.join(out, "metrics", name)) as f:
+            ours = json.load(f)
+        with open(os.path.join(run_a, "metrics", name)) as f:
+            theirs = json.load(f)
+        check(set(ours) == set(theirs), name)
+        if "history" in name:
+            check(ours["epoch"] == [1, 2]
+                  and ours["synthetic_ratio"] == [0.25, 0.5]
+                  and all(math.isfinite(v) for v in ours["train_loss"]),
+                  (name, ours))
+    check(set(summary["average"]) == METRIC_KEYS, summary)
+    print(f"classifier CLI --parallel-folds (run A: curriculum, 2 folds x "
+          f"2 epochs, bf16, B={CLS_B}): {wall:.1f} s wall, {gathers} "
+          f"mixed_gather launches for {steps} lockstep steps (one a step); "
+          f"file names and JSON keys equal to run A's; mean accuracy "
+          f"{summary['average']['accuracy']:.4f}")
+
+    return launched
+
+
+def phase_parallel_times(train, synth, smi: str) -> int:
+    """The fold-batched ``mixed_gather``'s device time per launch (k = 5,
+    B = 32), and the bf16 lockstep step at k = 5, frozen and
+    ``--unfreeze``, beside 5 sequential steps: ms, imgs/s, the device idle
+    share of a profiled step, peak memory above the held state. Returns
+    the ``mixed_gather`` launches of the timed lockstep steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.gather import mixed_gather
+    from xgan_torch.train.classifier import classifier_optimizer, train_step
+    from xgan_torch.train.parallel_folds import (FoldAdam, FoldStack,
+                                                 lockstep_train_step)
+    dev = torch.device("cuda")
+    k, b = PF_K, CLS_B
+    real, syn = DeviceStore(train, dev), DeviceStore(synth, dev)
+    g = torch.Generator(dev).manual_seed(82)
+    launched = 0
+    big_real, big_syn, big_sets = gather_timing_inputs(
+        torch.Generator(dev).manual_seed(81), k, b)
+    sets = itertools.cycle(big_sets)
+    fold_us = device_us(lambda: mixed_gather(big_real, big_syn, *next(sets)),
+                        calls=32)
+    del big_real, big_syn, big_sets, sets
+    out_bytes = k * b * SIZE * SIZE * 3
+    nbytes = 2 * out_bytes + k * b * 17
+    bound_us = _bytes_ms(nbytes) * 1e3
+    read_us = _bytes_ms(nbytes - out_bytes) * 1e3
+    # below 1 where the output is absorbed by the L2, which writes it back
+    # to HBM after the launch: within it only the reads must cross HBM
+    print(f"fold-batched mixed_gather, k={k}, B={b}, 224 px: {fold_us:.2f} "
+          f"us of device time per launch (profiler; 32 index sets over 770 "
+          f"MB of stores, rows read from HBM), bound {bound_us:.2f} us "
+          f"(bytes, the output written to HBM): time / bound "
+          f"{fold_us / bound_us:.3f}; the {out_bytes / 1e6:.1f} MB output "
+          f"fits the 50 MB L2, the reads alone {read_us:.2f} us: time / "
+          f"that {fold_us / read_us:.3f} [{smi}]")
+
+    # bf16 lockstep step against 5 sequential steps, frozen and --unfreeze
+    idx = torch.randint(0, len(real), (14, k, b), generator=g, device=dev)
+    ones = torch.ones((k, b), device=dev)
+    host_ones = np.ones((k, b), np.float32)
+    for freeze in (True, False):
+        tag = "frozen" if freeze else "--unfreeze"
+        models, names = _lockstep_models(dev, torch.bfloat16, k, 95, freeze)
+        opts = [classifier_optimizer(m, 1e-3, freeze_base=freeze)
+                for m in models]
+        stack = FoldStack(models, names)
+        fopt = FoldAdam(stack.trainable, k, 1e-3)
+
+        def lock(i):
+            return lockstep_train_step(
+                stack, fopt, real, syn, idx[i], ones, host_mask=host_ones,
+                mode="mix", dtype=torch.bfloat16, ratio=0.5, generator=g)
+
+        def seq(i):
+            for f in range(k):
+                train_step(models[f], opts[f], real, syn, idx[i, f],
+                           mode="mix", dtype=torch.bfloat16, ratio=0.5,
+                           generator=g)
+
+        res = {}
+        for name, fn in (("lockstep", lock), ("sequential", seq)):
+            for i in range(3):
+                fn(i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held_b = torch.cuda.memory_allocated()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            for i in range(3, 13):
+                fn(i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 10 * 1e3
+            peak = torch.cuda.max_memory_allocated() - held_b
+            check(kernels.LAUNCHES["mixed_gather"]
+                  == (10 if name == "lockstep" else 10 * k),
+                  (name, dict(kernels.LAUNCHES)))
+            if name == "lockstep":
+                launched += 10
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(13)
+                torch.cuda.synchronize()
+            busy = sum(e.device_time for e in prof.events()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            res[name] = ms
+            print(f"{name} step, k={k} folds (mix, {tag}, bf16, B={b} a "
+                  f"fold, 224 px): {ms:.3f} ms per step of all {k} folds "
+                  f"(mean of 10 warm), {k * b / ms * 1e3:.1f} imgs/s, "
+                  f"{busy:.3f} ms device time in one profiled step, idle "
+                  f"share ~{1 - busy / ms:.3f}; peak memory "
+                  f"{peak / 2**30:.3f} GiB above the "
+                  f"{held_b / 2**30:.3f} GiB held [{smi}]")
+        print(f"lockstep / sequential ({tag}): "
+              f"{res['lockstep'] / res['sequential']:.3f}")
+        del models, opts, stack, fopt
+        torch.cuda.empty_cache()
+    return launched
+
+
+# the phases that hold a kernel count read from a profiler window,
+# called with (the train store, the card's line, the run)
+FRESH_PHASES = {
+    "gan_profile": lambda train, smi, run: phase_gan_profile(train),
+    "loop_steps_per_call": phase_loop_steps_per_call,
+    "loop_wgan": phase_loop_wgan,
+    "profile": lambda train, smi, run: phase_profile(),
+}
+
+
+def fresh_runs(phase: str, runs, fields: str, tmp: str, smi: str) -> int:
+    """Each run of ``phase`` in a process of its own; prints each run's
+    ms per step over run 0's (``runs`` hold ``fields``) and returns their
+    launches."""
+    out = [in_fresh_process(f"{phase}/{i}", tmp, smi)
+           for i in range(len(runs))]
+    print(f"{phase}: ms per step, over {fields} = {runs[0]}'s: "
+          + "; ".join(f"{fields} = {r}: {ms / out[0][1]:.3f}"
+                      for r, (_, ms) in zip(runs[1:], out[1:])))
+    return sum(launched for launched, _ in out)
 
 
 def main():
@@ -3428,6 +4222,8 @@ def main():
             os.path.join(tmp, "synthetic")
         write_rsna_tree(root)
         train, synth = phase_stores(root, synth_dir)
+        save_store(train, tmp)
+        phase_png(tmp, smi)
         gather_entry["launches"] = phase_classifier(tmp, root, synth_dir)
         gan_launches = phase_gan(tmp, root)
         phase_analyzer(tmp, root, synth_dir, smi)
@@ -3436,19 +4232,25 @@ def main():
         loop_launches = phase_loop_cli(tmp, root, train, smi)
         gather_entry["launches"] += phase_loop_classifier(
             tmp, root, synth_dir, train, synth, smi)
-    phase_f32_step(train, synth)
-    phase_classifier_profile(train, synth)
-    phase_gan_step_check(train)
-    phase_gan_profile(train)
-    phase_wgan_step_check(train)
-    phase_wgan_profile(train, smi)
-    phase_cgan_step_check(train)
-    phase_cgan_profile(train, smi)
-    loop_launches += phase_loop_grad_accum(train, smi)
-    loop_launches += phase_loop_steps_per_call(train, smi)
-    loop_launches += phase_loop_wgan(train, smi)
-    phase_loop_cgan(train, smi)
-    busy_ms = phase_profile()
+        phase_f32_step(train, synth)
+        phase_classifier_profile(train, synth)
+        phase_gan_step_check(train)
+        in_fresh_process("gan_profile", tmp, smi)
+        phase_wgan_step_check(train)
+        phase_wgan_profile(train, smi)
+        phase_cgan_step_check(train)
+        phase_cgan_profile(train, smi)
+        loop_launches += phase_loop_grad_accum(train, smi)
+        loop_launches += fresh_runs("loop_steps_per_call",
+                                    STEPS_PER_CALL_RUNS,
+                                    "(K, capturable Adam)", tmp, smi)
+        loop_launches += fresh_runs("loop_wgan", WGAN_LOOP_RUNS, "(K, A)",
+                                    tmp, smi)
+        phase_loop_cgan(train, smi)
+        busy_ms = in_fresh_process("profile", tmp, smi)
+        gather_entry["launches"] += phase_parallel_folds(
+            tmp, root, synth_dir, train, synth, smi)
+        gather_entry["launches"] += phase_parallel_times(train, synth, smi)
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "
           f"(warm median) vs {busy_ms:.3f} ms profiled device time per "
@@ -3463,4 +4265,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase"]:
+        phase_child(*sys.argv[2:5])
+    else:
+        main()

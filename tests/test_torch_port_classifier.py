@@ -312,7 +312,7 @@ def test_cli_errors(tmp_path, fake_dataset, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the no-GPU error")
     for argv in (["--data-dir", fake_dataset["data_dir"]],
-                 ["--cpu", "--parallel-folds"]):
+                 ["--cpu", "--shard-store"]):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
         assert e.value.code == 1
@@ -328,7 +328,8 @@ def test_cli_errors(tmp_path, fake_dataset, capsys):
 @pytest.mark.parametrize("flag", [["--grad-accum", "2"], ["--remat"],
                                   ["--remat-scope", "stage"],
                                   ["--resume-from", "auto"],
-                                  ["--trace-dir", "t"]])
+                                  ["--trace-dir", "t"],
+                                  ["--parallel-folds"]])
 def test_cli_ported_loop_flags_are_accepted(flag, tmp_path, capsys):
     """The loop flags the port now supports parse and pass the refusal:
     the run goes on to the dataset check."""

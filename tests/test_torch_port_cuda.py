@@ -1040,3 +1040,137 @@ def test_maybe_trace_holds_every_kernel_of_its_window(dev, tmp_path):
             and "LaunchKernel" in e.get("name", "") and e["ts"] > lead_end
             and e["args"].get("correlation") not in kernels_seen]
     assert not lost, lost
+
+
+@pytest.mark.parametrize("k,b,s", [(5, 32, 224), (3, 5, 33), (2, 1, 8)])
+def test_fold_batched_gather_matches_plain(dev, k, b, s):
+    """(k, B) indices (--parallel-folds): one launch, bitwise equal to the
+    plain version and to k single launches; a bad index in one fold
+    raises through the flag."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    real, synth, _, _, _ = _gather_inputs(dev, 11, 4, 1, s)
+    ridx = torch.randint(0, 11, (k, b), generator=g, device=dev)
+    sidx = torch.randint(0, 4, (k, b), generator=g, device=dev)
+    mask = torch.rand((k, b), generator=g, device=dev) < 0.5
+    kernels.reset_launch_counts()
+    got = mixed_gather(real, synth, ridx, sidx, mask)
+    assert kernels.LAUNCHES["mixed_gather"] == 1
+    assert got.shape == (k, b, s, s, 3)
+    assert torch.equal(got, mixed_gather_ref(real, synth, ridx, sidx, mask))
+    singles = torch.stack([mixed_gather(real, synth, ridx[f], sidx[f],
+                                        mask[f]) for f in range(k)])
+    assert torch.equal(got, singles)
+    bad = ridx.clone()
+    bad[k - 1, b - 1] = 11
+    with pytest.raises(IndexError):
+        mixed_gather(real, synth, bad, sidx, mask)
+    with pytest.raises(RuntimeError):  # the op checks the shapes agree
+        mixed_gather_cuda(real, synth, ridx, sidx.reshape(-1), mask)
+
+
+def test_png_unfilter_op_matches_plain(dev):
+    """The compiled host op against the plain version: every filter type,
+    every bytes-per-pixel 1-8; an unknown filter type raises
+    ValueError."""
+    from xgan_torch.kernels.build import load_ops
+    from xgan_torch.native.png import _unfilter
+    op = load_ops().png_unfilter
+    rng = np.random.default_rng(0)
+    for bpp in range(1, 9):
+        for stride in (1, bpp, 7 * bpp + 1):
+            raw = rng.integers(0, 256, (10, 1 + stride), dtype=np.uint8)
+            raw[:, 0] = np.arange(10) % 5
+            np.testing.assert_array_equal(
+                op(torch.from_numpy(raw), 10, stride, bpp).numpy(),
+                _unfilter(raw, 10, stride, bpp))
+    raw[2, 0] = 6
+    with pytest.raises(ValueError, match="row filter 6"):
+        op(torch.from_numpy(raw), 10, stride, 8)
+
+
+@pytest.mark.parametrize("ctype,depth,interlace", [
+    (0, 8, False), (0, 16, False), (0, 1, True), (2, 16, True),
+    (3, 4, False), (4, 8, True), (6, 16, False)])
+def test_store_decode_with_the_compiled_unfilter(dev, tmp_path, monkeypatch,
+                                                 ctype, depth, interlace):
+    """The store's decode through the compiled op equals the plain
+    path's, for both 16-bit rules; a compiled store build calls no plain
+    unfilter."""
+    from chip_smoke import PNG_CHANNELS, png_bytes
+    from xgan_torch.data.store import ImageStore
+    from xgan_torch.native import png
+    from xgan_torch.native.png import decode_png
+    rng = np.random.default_rng(ctype + depth)
+    hi = min(1 << depth, 9) if ctype == 3 else 1 << depth
+    samples = rng.integers(0, hi, (37, 37, PNG_CHANNELS[ctype]))
+    path = str(tmp_path / "x.png")
+    with open(path, "wb") as f:
+        f.write(png_bytes(samples, ctype, depth, interlace=interlace,
+                          filters=(0, 1, 2, 3, 4),
+                          palette=rng.integers(0, 256, (9, 3))
+                          if ctype == 3 else None))
+    for rule in ("high", "clip"):
+        got = decode_png(path, grey16=rule, compiled=True)
+        assert np.array_equal(got, decode_png(path, grey16=rule))
+        assert got.std() > 0
+    routes, inner = [], png.unfilter
+
+    def counted(*args, compiled=False, **kw):
+        routes.append(compiled)
+        return inner(*args, compiled=compiled, **kw)
+    monkeypatch.setattr(png, "unfilter", counted)
+    ImageStore.build([path], np.zeros(1, np.int32), 37, compiled=True)
+    assert routes and all(routes)
+
+
+def test_lockstep_step_on_card_matches_cpu(dev):
+    """One f32 lockstep step (k = 3, stages (1,1,1,1), 32 px, B = 8, a
+    padded tail; TF32 off) on the card against the CPU from the same
+    weights and draws: one fold-batched gather launch; losses, fc and BN
+    statistics within 1e-4."""
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.data.store import ImageStore
+    from xgan_torch.models.resnet import ResNet50
+    from xgan_torch.train.parallel_folds import (FoldAdam, FoldStack,
+                                                 lockstep_train_step)
+    rng = np.random.default_rng(2)
+    k, b = 3, 8
+    real = ImageStore(rng.integers(0, 255, (12, 32, 32, 3), np.uint8),
+                      np.arange(12) % 2, 32)
+    synth = ImageStore(rng.integers(0, 255, (5, 32, 32, 3), np.uint8),
+                       np.ones(5), 32)
+    t = torch.from_numpy
+    draws = {"idx": t(rng.integers(0, 12, (k, b))),
+             "use_synth": t(rng.random((k, b)) < 0.5),
+             "synth_pick": t(rng.integers(0, 5, (k, b))),
+             "flip": t(rng.random((k, b)) < 0.5)}
+    mask = torch.ones(k, b)
+    mask[2, 6:] = 0
+    inits = [ResNet50(2, stage_sizes=(1, 1, 1, 1),
+                      generator=torch.Generator().manual_seed(f)).state_dict()
+             for f in range(k)]
+    out = {}
+    for d in ("cpu", dev):
+        models = []
+        for sd in inits:
+            m = ResNet50(2, stage_sizes=(1, 1, 1, 1), device=d)
+            m.load_state_dict(sd)
+            models.append(m)
+        stack = FoldStack(models, [n for n, _ in models[0]
+                                   .named_parameters()])
+        opt = FoldAdam(stack.trainable, k, 1e-3)
+        kernels.reset_launch_counts()
+        losses, _, _ = lockstep_train_step(
+            stack, opt, DeviceStore(real, d), DeviceStore(synth, d),
+            draws["idx"].to(d), mask.to(d), mode="mix", ratio=0.5,
+            **{n: v.to(d) for n, v in draws.items() if n != "idx"})
+        assert kernels.LAUNCHES["mixed_gather"] == (d != "cpu")
+        out[str(d)] = (losses.cpu(), [stack.state_dict(f) for f in range(k)])
+    (l_cpu, s_cpu), (l_dev, s_dev) = out.values()
+    valid = mask > 0
+    assert ((l_cpu - l_dev).abs()[valid]).max() <= 1e-4 * (
+        1 + l_cpu.abs().max())
+    for a, c in zip(s_cpu, s_dev):
+        for n, v in a.items():
+            if n.startswith("fc.") or "running" in n:
+                assert (v - c[n]).abs().max() <= 1e-4, n

@@ -75,3 +75,51 @@ def test_bad_index_raises(ridx, sidx):
     with pytest.raises(IndexError):
         mixed_gather(real, synth, torch.tensor(ridx), torch.tensor(sidx),
                      torch.tensor([False, True]))
+
+
+def _fold_inputs(k, b, seed=4):
+    rng = np.random.default_rng(seed)
+    real = rng.integers(0, 255, (9, 32, 32, 3), np.uint8)
+    synth = rng.integers(0, 255, (4, 32, 32, 3), np.uint8)
+    t = torch.from_numpy
+    return (t(real), t(synth), t(rng.integers(0, 9, (k, b))),
+            t(rng.integers(0, 4, (k, b))), t(rng.random((k, b)) < 0.5))
+
+
+@pytest.mark.parametrize("k,b", [(2, 8), (5, 3), (1, 4)])
+def test_fold_batched_call_equals_single_calls(k, b):
+    """(k, B) indices and mask (--parallel-folds): one call equals k single
+    calls, and the Pallas kernel under the fold vmap xgan runs."""
+    real, synth, ridx, sidx, mask = _fold_inputs(k, b)
+    kernels.reset_launch_counts()
+    out = mixed_gather(real, synth, ridx, sidx, mask)
+    assert kernels.LAUNCHES["mixed_gather"] == 0
+    assert out.shape == (k, b, 32, 32, 3) and out.dtype == torch.uint8
+    singles = torch.stack([mixed_gather(real, synth, ridx[f], sidx[f],
+                                        mask[f]) for f in range(k)])
+    assert torch.equal(out, singles)
+    import jax
+    want = jax.vmap(lambda r, s, m: pallas_mixed_gather(
+        jnp.asarray(real.numpy()), jnp.asarray(synth.numpy()), r, s, m,
+        interpret=True))(jnp.asarray(ridx.numpy(), jnp.int32),
+                         jnp.asarray(sidx.numpy(), jnp.int32),
+                         jnp.asarray(mask.numpy(), jnp.int32))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("which", ["real", "synth"])
+def test_fold_batched_bad_index_in_one_fold_raises(which):
+    real, synth, ridx, sidx, mask = _fold_inputs(3, 4)
+    bad_r, bad_s = ridx.clone(), sidx.clone()
+    if which == "real":
+        bad_r[1, 2] = 9
+    else:
+        bad_s[1, 2] = -1
+    with pytest.raises(IndexError):
+        mixed_gather(real, synth, bad_r, bad_s, mask)
+    with pytest.raises(IndexError):
+        mixed_gather(real, synth, bad_r[1], bad_s[1], mask[1])
+    for f in (0, 2):  # the other folds' single calls are fine
+        mixed_gather(real, synth, bad_r[f], bad_s[f], mask[f])
+    with pytest.raises(ValueError):
+        mixed_gather(real, synth, ridx, sidx[:, :2], mask)

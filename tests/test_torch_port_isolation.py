@@ -44,6 +44,8 @@ def test_port_files_exist():
     assert "xgan_torch/train/snapshot.py" in names
     assert "xgan_torch/train/ema.py" in names
     assert "xgan_torch/train/multistep.py" in names
+    assert "xgan_torch/train/parallel_folds.py" in names
+    assert "xgan_torch/train/parallel_cv.py" in names
     assert len(names) > 10
 
 

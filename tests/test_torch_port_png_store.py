@@ -91,12 +91,21 @@ def test_decode_png_average_filter(tmp_path):
 
 
 def test_decode_png_rejects_what_it_cannot_read(tmp_path):
-    p16, pint, bad = (str(tmp_path / n) for n in ("a.png", "b.png", "c.png"))
+    """16-bit and interlaced PNGs decode as PIL decodes them; a file that
+    is not a PNG, and interlaced image data that ends early, raise."""
+    p16, pint, bad, short = (str(tmp_path / n) for n in
+                             ("a.png", "b.png", "c.png", "d.png"))
     _png(p16, 2, 2, 2, 16, bytes(2 * (1 + 12)))
-    _png(pint, 2, 2, 2, 8, bytes(2 * 7), interlace=1)
+    # Adam7 on 2x2: passes 1, 6 and 7 hold 1, 1 and 2 pixels, 15 bytes
+    _png(pint, 2, 2, 2, 8, bytes([0, 9, 8, 7, 0, 6, 5, 4,
+                                  0, 3, 2, 1, 5, 5, 5]), interlace=1)
+    _png(short, 2, 2, 2, 8, bytes(2 * 7), interlace=1)
     with open(bad, "wb") as f:
         f.write(b"not a png")
-    for path in (p16, pint, bad):
+    for path in (p16, pint):
+        np.testing.assert_array_equal(decode_png(path), _pil_rgb(path))
+    assert decode_png(pint).std() > 0
+    for path in (bad, short):
         with pytest.raises(ValueError):
             decode_png(path)
     rng = np.random.default_rng(3)

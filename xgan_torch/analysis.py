@@ -261,14 +261,23 @@ def grey_u8(rgb_u8: np.ndarray) -> np.ndarray:
              + 0x8000) >> 16).astype(np.uint8)
 
 
-def _load_grayscale(paths: List[str], size: int) -> np.ndarray:
+def load_rgb(path: str, *, compiled: bool = False) -> np.ndarray:
+    """A PNG as PIL's ``Image.open(path).convert("RGB")`` gives it, which
+    the JAX analyzer reads (16-bit grey clipped at 255, every other 16-bit
+    sample's high byte); ``compiled``: the compiled PNG unfilter (a card
+    run)."""
+    return decode_png(path, grey16="clip", compiled=compiled)
+
+
+def _load_grayscale(paths: List[str], size: int, *,
+                    compiled: bool = False) -> np.ndarray:
     """Decode -> grey -> resize -> [0, 1] float stack (the reference's
     ssim_transform, analyze_results.py:362-366); the resize is the
     store's, within one u8 level of PIL's BILINEAR."""
     out = []
     for p in paths:
         try:
-            img = grey_u8(decode_png(str(p)))
+            img = grey_u8(load_rgb(str(p), compiled=compiled))
         except (OSError, ValueError) as e:
             print(f"Warning: could not load {p}: {e}")
             continue
@@ -330,8 +339,9 @@ def calculate_ssim_distribution(data_dir: str, synthetic_dir: str,
                        num_synthetic_samples, seed)
     if picks is None:
         return None
-    real = _load_grayscale(picks[0], image_size)
-    synth = _load_grayscale(picks[1], image_size)
+    compiled = device.type == "cuda"
+    real = _load_grayscale(picks[0], image_size, compiled=compiled)
+    synth = _load_grayscale(picks[1], image_size, compiled=compiled)
     if not len(real) or not len(synth):
         return None
     scores = mean_ssim_per_synthetic(
@@ -500,7 +510,9 @@ def generate_grad_cam_comparison(model_dir: str, data_dir: str,
         pid, label, stype = sample["patientId"], sample["label"], \
             sample["type"]
         try:
-            rgb_u8 = resize_u8(decode_png(sample["path"]), image_size)
+            rgb_u8 = resize_u8(load_rgb(sample["path"],
+                                        compiled=device.type == "cuda"),
+                               image_size)
         except (OSError, ValueError) as e:
             print(f"Warning: failed Grad-CAM for {pid} ({stype}): {e}")
             continue

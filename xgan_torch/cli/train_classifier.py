@@ -12,9 +12,10 @@ each step into A microbatches, ``--remat`` recomputes ResNet activations
 in the backward (``--remat-scope block|stage|nested``), ``--trace-dir``
 writes a profiler trace of one train epoch per run, and with k-fold CV
 ``--resume-from auto`` loads the folds a stopped run completed (a first
-SIGTERM or SIGINT stops the run at the end of its epoch). Flags of the
-JAX CLI that this port does not support yet exit 1 when set away from
-their default.
+SIGTERM or SIGINT stops the run at the end of its epoch), while
+``--parallel-folds`` trains the k folds in lockstep, one step advancing
+all of them (``xgan_torch.train.parallel_cv``). Flags of the JAX CLI that
+this port does not support yet exit 1 when set away from their default.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ import torch
 from xgan_torch import config
 
 # flag -> its default: other values are not supported by the port yet
-UNSUPPORTED = {"parallel_folds": False, "shard_store": False,
-               "shard_opt_state": False, "model_parallel": 1}
+UNSUPPORTED = {"shard_store": False, "shard_opt_state": False,
+               "model_parallel": 1}
 
 
 def build_parser():
@@ -92,9 +93,12 @@ def build_parser():
                    help="'auto': k-fold CV loads the folds a stopped run "
                         "completed (their history and best checkpoint) "
                         "and trains the rest")
-    # flags of the JAX CLI that the port does not support yet
     p.add_argument("--parallel-folds", action="store_true",
-                   help="(not supported by xgan_torch yet)")
+                   help="k-fold CV: train every fold at once in lockstep "
+                        "(stacked models, one step per batch for all "
+                        "folds); the same artifacts as the sequential "
+                        "path")
+    # flags of the JAX CLI that the port does not support yet
     p.add_argument("--shard-store", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--shard-opt-state", action="store_true",

@@ -54,18 +54,23 @@ def normalize_images(u8: torch.Tensor, *,
 
 def random_flip(u8: torch.Tensor, flip: torch.Tensor | None = None, *,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-    """Per-sample horizontal flip of (B,S,S,C) images. ``flip`` is the
-    (B,) bool mask; without one, each sample flips with p = 0.5, drawn
-    from ``generator`` on the images' device."""
+    """Per-sample horizontal flip of (B,S,S,C) images, or (k,B,S,S,C) for
+    k folds. ``flip`` is the (B,) or (k,B) bool mask; without one, each
+    sample flips with p = 0.5, drawn from ``generator`` on the images'
+    device."""
     if flip is None:
-        flip = torch.rand(u8.shape[0], generator=generator,
+        flip = torch.rand(u8.shape[:-3], generator=generator,
                           device=u8.device) < 0.5
-    return torch.where(flip[:, None, None, None], u8.flip(2), u8)
+    return torch.where(flip[..., None, None, None], u8.flip(-2), u8)
 
 
 def take_rows(images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` of a store (the single-source gather)."""
-    return images.index_select(0, idx)
+    """Rows ``idx`` of a store (the single-source gather); (B,) or (k,B)
+    indices give (B, ...) or (k, B, ...)."""
+    if idx.dim() == 1:
+        return images.index_select(0, idx)
+    return images.index_select(0, idx.reshape(-1)).reshape(
+        *idx.shape, *images.shape[1:])
 
 
 def gather_preprocess(images_u8: torch.Tensor, idx: torch.Tensor, *,

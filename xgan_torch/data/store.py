@@ -10,7 +10,10 @@ The resize stands in for PIL's ``Image.BILINEAR``, which widens its
 triangle filter when it shrinks: ``F.interpolate(mode="bilinear",
 antialias=True)`` on the f32 image, rounded to u8. It lands within one u8
 level of PIL. A missing or corrupt file becomes a black image with a
-warning, like the reference.
+warning, like the reference. The decode follows libpng's conversions, as
+the JAX package's native store does (``xgan_torch.native.png``); with
+``compiled=True`` (every card run) it undoes the row filters with the
+compiled host op, and a failed build of that op raises.
 """
 from __future__ import annotations
 
@@ -38,20 +41,21 @@ def resize_u8(img: np.ndarray, size: int) -> np.ndarray:
     return y.to(torch.uint8).numpy()
 
 
-def _decode_resize(path: str, size: int) -> np.ndarray:
+def _decode_resize(path: str, size: int, compiled: bool) -> np.ndarray:
     try:
-        img = decode_png(path)
+        img = decode_png(path, compiled=compiled)
     except (OSError, ValueError) as e:  # missing or corrupt -> black
         print(f"Warning: could not load image {path}: {e}")
         return np.zeros((size, size, 3), np.uint8)
     return resize_u8(img, size)
 
 
-def _decode_all(paths: list[str], size: int, workers: int) -> np.ndarray:
+def _decode_all(paths: list[str], size: int, workers: int,
+                compiled: bool) -> np.ndarray:
     images = np.empty((len(paths), size, size, 3), np.uint8)
 
     def one(i):
-        images[i] = _decode_resize(paths[i], size)
+        images[i] = _decode_resize(paths[i], size, compiled)
 
     with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
         for n, _ in enumerate(pool.map(one, range(len(paths))), 1):
@@ -85,9 +89,10 @@ class ImageStore:
     @staticmethod
     def build(paths: list[str], labels, size: int,
               cache_dir: str | None = None, name: str = "store",
-              workers: int = 4) -> "ImageStore":
+              workers: int = 4, compiled: bool = False) -> "ImageStore":
         """Decode (or load cached) images at the given square size;
-        ``workers`` threads decode and resize."""
+        ``workers`` threads decode and resize; ``compiled``: undo the PNG
+        row filters with the compiled op (a card run)."""
         labels = np.asarray(labels, np.int32)
         if cache_dir:
             os.makedirs(cache_dir, exist_ok=True)
@@ -97,7 +102,7 @@ class ImageStore:
             if os.path.exists(npy) and os.path.exists(meta):
                 return ImageStore(np.load(npy, mmap_mode="r"), labels, size)
 
-        images = _decode_all(paths, size, workers)
+        images = _decode_all(paths, size, workers, compiled)
 
         if cache_dir:
             # temp file + atomic rename: another process must never map a
@@ -116,7 +121,8 @@ class ImageStore:
 def decode_folder_store(folder: str, size: int, label: int = 1,
                         cache_dir: str | None = None,
                         name: str = "synthetic",
-                        workers: int = 4) -> ImageStore:
+                        workers: int = 4,
+                        compiled: bool = False) -> ImageStore:
     """Store over every ``*.png`` in a folder, all with ``label`` (the
     reference's synthetic images are all positive)."""
     files = sorted(os.path.join(folder, f) for f in os.listdir(folder)
@@ -124,4 +130,4 @@ def decode_folder_store(folder: str, size: int, label: int = 1,
     print(f"Found {len(files)} synthetic images in {folder}")
     labels = np.full((len(files),), label, np.int32)
     return ImageStore.build(files, labels, size, cache_dir=cache_dir,
-                            name=name, workers=workers)
+                            name=name, workers=workers, compiled=compiled)

@@ -3,9 +3,10 @@
 The kernels (``*.cu``) hold no torch headers and are compiled for Hopper
 (``sm_90a``, set explicitly: ``TORCH_CUDA_ARCH_LIST`` is not read). The op
 bindings (``*.cpp``) hold only host code and are compiled against torch's
-headers. All compiles start together, then one link makes a shared library
-that registers the ops under ``torch.ops.xgan_torch`` when
-:func:`load_ops` loads it.
+headers; one of them is a CPU op of its own, the PNG row unfilter of the
+image store (``png_unfilter.cpp``). All compiles start together, then one
+link makes a shared library that registers the ops under
+``torch.ops.xgan_torch`` when :func:`load_ops` loads it.
 
 ``nvcc`` drives every step, so the host side goes through nvcc's own host
 compiler and not through ``$CXX``: a ``$CXX`` wrapper whose op library
@@ -35,7 +36,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CUDA_SOURCES = ("convt4x4s2.cu", "convt4x4s2_mma.cu", "mixed_gather.cu")
-HOST_SOURCES = ("convt_op.cpp", "gather_op.cpp")
+HOST_SOURCES = ("convt_op.cpp", "gather_op.cpp", "png_unfilter.cpp")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _ABI = int(torch._C._GLIBCXX_USE_CXX11_ABI)

@@ -3,6 +3,10 @@
 // mixed_gather.cu on PyTorch's current stream. Out-of-range indices are
 // reported through ``err``, a one-element int32 device flag that the
 // caller owns and reads when it chooses (xgan_torch/kernels/gather.py).
+// The indices and the mask share one shape: (B,) for one batch, (k, B)
+// for the k folds of a lockstep step (--parallel-folds), whose rows are
+// gathered by one launch over the k * B rows; the output has that shape
+// followed by a store row's (S, S, C).
 //
 // This file holds no device code, so the host compiler builds it while
 // nvcc builds the kernel (xgan_torch/kernels/build.py).
@@ -54,20 +58,21 @@ at::Tensor mixed_gather(const at::Tensor& real, const at::Tensor& synth,
   TORCH_CHECK(use_synth.scalar_type() == at::kBool,
               "mixed_gather: use_synth must be bool, got ",
               use_synth.scalar_type());
-  TORCH_CHECK(real_idx.dim() == 1 && synth_idx.dim() == 1 &&
-                  use_synth.dim() == 1,
-              "mixed_gather: indices and mask must be (B,) tensors");
-  const int64_t B = real_idx.size(0);
-  TORCH_CHECK(synth_idx.size(0) == B && use_synth.size(0) == B,
-              "mixed_gather: real_idx has ", B, " rows, synth_idx ",
-              synth_idx.size(0), ", use_synth ", use_synth.size(0));
+  TORCH_CHECK(real_idx.dim() >= 1 &&
+                  synth_idx.sizes().equals(real_idx.sizes()) &&
+                  use_synth.sizes().equals(real_idx.sizes()),
+              "mixed_gather: indices and mask must share one shape, (B,) "
+              "or (k, B); got real_idx ", real_idx.sizes(), ", synth_idx ",
+              synth_idx.sizes(), ", use_synth ", use_synth.sizes());
+  const int64_t B = real_idx.numel();  // rows over every fold
   TORCH_CHECK(B <= 65535, "mixed_gather: at most 65535 rows, got ", B);
   TORCH_CHECK(err.scalar_type() == at::kInt && err.numel() == 1,
               "mixed_gather: err must be a one-element int32 tensor");
 
   c10::cuda::CUDAGuard guard(real.device());
-  std::vector<int64_t> shape(real.sizes().begin(), real.sizes().end());
-  shape[0] = B;
+  std::vector<int64_t> shape(real_idx.sizes().begin(),
+                             real_idx.sizes().end());
+  shape.insert(shape.end(), real.sizes().begin() + 1, real.sizes().end());
   at::Tensor out = at::empty(shape, real.options());
   const int64_t row_bytes = real.size(1) * real.size(2) * real.size(3);
   if (out.numel() == 0) return out;

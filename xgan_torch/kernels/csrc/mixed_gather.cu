@@ -1,6 +1,9 @@
 // Mixed-source row gather for Hopper (sm_90a):
 //   out[i] = use_synth[i] ? synth[synth_idx[i]] : real[real_idx[i]]
-// over uint8 image stores (N, S, S, 3) viewed as rows of S*S*3 bytes.
+// over uint8 image stores (N, S, S, 3) viewed as rows of S*S*3 bytes. The
+// B rows may be the k * B rows of k folds' batches (--parallel-folds): one
+// launch then gathers every fold's batch, as the vmapped Pallas call does
+// under xgan's fold vmap (xgan/train/parallel_folds.py:125-135).
 //
 // Replaces the Pallas TPU kernel xgan/ops/pallas/gather.py:mixed_gather
 // (body _mixed_gather_kernel, pallas_call at gather.py:109). Like it, each

@@ -8,6 +8,12 @@ curriculum mixer (``xgan_torch.data.mixer.mix_batch``) and the concat
 batch source (``xgan_torch.train.classifier.gather_concat``) build their
 images with it.
 
+Fold-batched form (``--parallel-folds``): ``(k, B)`` indices and mask over
+the shared stores give ``(k, B, S, S, 3)``, the counterpart of the Pallas
+call under xgan's fold ``vmap``. It is one launch over the ``k * B`` rows
+(one count in ``LAUNCHES``), and its plain version is the plain version
+over the flattened rows.
+
 :func:`mixed_gather` runs the CUDA kernel (``csrc/mixed_gather.cu``) on
 CUDA tensors and the plain version :func:`mixed_gather_ref` on CPU
 tensors. Both reject an index out of range (negative ones included) with
@@ -30,11 +36,20 @@ def _check_index(idx: torch.Tensor, n: int, what: str) -> None:
 
 
 def mixed_gather_ref(real, synth, real_idx, synth_idx, use_synth):
-    """Plain torch version: both gathers, then a select."""
+    """Plain torch version: both gathers, then a select, over the
+    flattened rows of (B,) or (k, B) indices."""
+    if not real_idx.shape == synth_idx.shape == use_synth.shape:
+        raise ValueError(f"mixed_gather: index and mask shapes differ: "
+                         f"{tuple(real_idx.shape)}, "
+                         f"{tuple(synth_idx.shape)}, "
+                         f"{tuple(use_synth.shape)}")
     _check_index(real_idx, real.shape[0], "real")
     _check_index(synth_idx, synth.shape[0], "synthetic")
-    return torch.where(use_synth[:, None, None, None], synth[synth_idx],
-                       real[real_idx])
+    shape = real_idx.shape
+    real_idx, synth_idx = real_idx.reshape(-1), synth_idx.reshape(-1)
+    out = torch.where(use_synth.reshape(-1, 1, 1, 1), synth[synth_idx],
+                      real[real_idx])
+    return out.reshape(*shape, *real.shape[1:])
 
 
 def new_error_flag(device) -> torch.Tensor:

@@ -32,6 +32,17 @@ runs BN with ``update_stats=False``, so each running statistic advances
 once a step, as without remat, and it sees the same ``mask``. The
 parameters and buffers, hence the state-dict keys, are those without
 remat, so checkpoints move between the two; ``cam=True`` never remats.
+
+``folds=k`` lays k ResNet-50s side by side as one network, the form XLA
+gives a vmap of the JAX model over stacked fold states (``--parallel-
+folds``): the k folds' activations are one ``(B, k*C, H, W)`` tensor,
+fold-major in the channels; each convolution is one convolution with
+``groups=k`` (weight ``(k*Cout, Cin, kh, kw)``), each BN a BN over the
+k*C channels, so that its statistics reduce within a fold; ``fc`` holds
+the folds' ``(k*classes, C)``. Each parameter and buffer is thus the k
+models' tensors concatenated on its first axis. ``forward`` takes
+``(k, B, H, W, 3)`` images and returns ``(k, B, classes)`` logits; the
+train-mode ``mask`` is ``(k, B)``, each fold's row weights.
 """
 from __future__ import annotations
 
@@ -46,14 +57,16 @@ WIDTHS = (64, 128, 256, 512)
 REMAT_SCOPES = ("block", "stage", "nested")
 
 
-def _conv(cin, cout, k, stride=1, padding=0, device=None):
-    return nn.Conv2d(cin, cout, k, stride, padding, bias=False, device=device)
+def _conv(cin, cout, k, stride=1, padding=0, device=None, folds=1):
+    """``folds`` convolutions cin -> cout as one with ``groups=folds``."""
+    return nn.Conv2d(folds * cin, folds * cout, k, stride, padding,
+                     bias=False, groups=folds, device=device)
 
 
 def conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """conv in ``x.dtype`` (f32 weights cast to it)."""
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
-                    conv.padding)
+                    conv.padding, 1, conv.groups)
 
 
 def conv_bn(conv_: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor, *,
@@ -79,19 +92,20 @@ def remat(fn, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
 
 class Bottleneck(nn.Module):
     def __init__(self, cin: int, width: int, stride: int, downsample: bool,
-                 device=None):
+                 device=None, folds: int = 1):
         super().__init__()
-        self.conv1 = _conv(cin, width, 1, device=device)
-        self.bn1 = nn.BatchNorm2d(width, device=device)
-        self.conv2 = _conv(width, width, 3, stride, 1, device=device)
-        self.bn2 = nn.BatchNorm2d(width, device=device)
-        self.conv3 = _conv(width, width * 4, 1, device=device)
-        self.bn3 = nn.BatchNorm2d(width * 4, device=device)
+        kw = {"device": device, "folds": folds}
+        self.conv1 = _conv(cin, width, 1, **kw)
+        self.bn1 = nn.BatchNorm2d(folds * width, device=device)
+        self.conv2 = _conv(width, width, 3, stride, 1, **kw)
+        self.bn2 = nn.BatchNorm2d(folds * width, device=device)
+        self.conv3 = _conv(width, width * 4, 1, **kw)
+        self.bn3 = nn.BatchNorm2d(folds * width * 4, device=device)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
-                _conv(cin, width * 4, 1, stride, device=device),
-                nn.BatchNorm2d(width * 4, device=device))
+                _conv(cin, width * 4, 1, stride, **kw),
+                nn.BatchNorm2d(folds * width * 4, device=device))
 
     def forward(self, x, *, train: bool, mask=None, tap: bool = False,
                 update_stats: bool = True):
@@ -117,12 +131,13 @@ class ResNet50(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None,
-                 remat: bool = False, remat_scope: str = "block"):
+                 remat: bool = False, remat_scope: str = "block",
+                 folds: int = 1):
         """``dtype``: compute dtype of the convolutions. ``generator``
         draws the init (it must live on ``device``): kaiming-normal
-        fan-out convolutions, BN scale 1 and bias 0, and torch's
-        U(+-1/sqrt(fan_in)) for ``fc``. ``remat``, ``remat_scope``: see
-        the module docstring."""
+        fan-out convolutions (each fold's), BN scale 1 and bias 0, and
+        torch's U(+-1/sqrt(fan_in)) for ``fc``. ``remat``,
+        ``remat_scope``, ``folds``: see the module docstring."""
         super().__init__()
         if remat_scope not in REMAT_SCOPES:
             raise ValueError(f"remat_scope must be one of {REMAT_SCOPES}, "
@@ -130,8 +145,9 @@ class ResNet50(nn.Module):
         self.dtype = dtype
         self.remat, self.remat_scope = remat, remat_scope
         self.stage_sizes = tuple(stage_sizes)
-        self.conv1 = _conv(3, 64, 7, 2, 3, device=device)
-        self.bn1 = nn.BatchNorm2d(64, device=device)
+        self.num_classes, self.folds = num_classes, folds
+        self.conv1 = _conv(3, 64, 7, 2, 3, device=device, folds=folds)
+        self.bn1 = nn.BatchNorm2d(folds * 64, device=device)
         cin = 64
         for stage, (blocks, width) in enumerate(zip(self.stage_sizes,
                                                     WIDTHS)):
@@ -139,19 +155,20 @@ class ResNet50(nn.Module):
             for b in range(blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 layer.append(Bottleneck(cin, width, stride, b == 0,
-                                        device=device))
+                                        device=device, folds=folds))
                 cin = width * 4
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
-        self.fc = nn.Linear(cin, num_classes, device=device)
+        self.fc = nn.Linear(cin, folds * num_classes, device=device)
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                nn.init.kaiming_normal_(m.weight, mode="fan_out",
-                                        nonlinearity="relu",
-                                        generator=generator)
+                for w in m.weight.chunk(self.folds):
+                    nn.init.kaiming_normal_(w, mode="fan_out",
+                                            nonlinearity="relu",
+                                            generator=generator)
             elif isinstance(m, nn.BatchNorm2d):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
@@ -169,8 +186,14 @@ class ResNet50(nn.Module):
         """x (B, H, W, 3) NHWC -> f32 logits (B, num_classes). ``mask``:
         (B,) validity weights for train-mode BN statistics. ``cam``:
         return (logits, the pre-BN output of ``layer4[-1].conv3``, the
-        layer4 output), both NCHW views in the compute dtype."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
+        layer4 output), both NCHW views in the compute dtype. With k
+        folds: x (k, B, H, W, 3), ``mask`` (k, B), logits (k, B,
+        num_classes)."""
+        x = x.to(self.dtype)
+        if self.folds > 1:  # fold-major channels: (B, H, W, k*3)
+            k, b, h, w, c = x.shape
+            x = x.permute(1, 2, 3, 0, 4).reshape(b, h, w, k * c)
+        x = x.permute(0, 3, 1, 2)  # channels_last NCHW view
         x = torch.relu(conv_bn(self.conv1, self.bn1, x, train=train,
                                mask=mask))
         x = F.max_pool2d(x, 3, 2, 1)
@@ -178,15 +201,24 @@ class ResNet50(nn.Module):
             for stage in range(len(self.stage_sizes)):
                 x = self._remat_stage(getattr(self, f"layer{stage + 1}"), x,
                                       train, mask)
-            return F.linear(x.float().mean(dim=(2, 3)), self.fc.weight,
-                            self.fc.bias)
+            return self._head(x)
         blocks = list(self.blocks())
         for block in blocks[:-1]:
             x = block(x, train=train, mask=mask)
         x, conv3 = blocks[-1](x, train=train, mask=mask, tap=True)
-        logits = F.linear(x.float().mean(dim=(2, 3)), self.fc.weight,
-                          self.fc.bias)
+        logits = self._head(x)
         return (logits, conv3, x) if cam else logits
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean-pool and ``fc`` in f32 (each fold's with k folds)."""
+        feats = x.float().mean(dim=(2, 3))
+        if self.folds == 1:
+            return F.linear(feats, self.fc.weight, self.fc.bias)
+        b, k = feats.shape[0], self.folds
+        w = self.fc.weight.view(k, self.num_classes, -1)
+        return torch.baddbmm(self.fc.bias.view(k, 1, -1),
+                             feats.view(b, k, -1).transpose(0, 1),
+                             w.transpose(1, 2))
 
     def _remat_stage(self, layer: nn.Sequential, x: torch.Tensor,
                      train: bool, mask) -> torch.Tensor:

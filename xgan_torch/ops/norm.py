@@ -6,7 +6,9 @@ running statistics with momentum 0.1, the running variance from the
 unbiased estimate. An optional ``(B,)`` validity mask makes the statistics
 those of the valid rows only: the reference DataLoader's smaller final
 batch, here a wrap-padded batch of static shape. Masked rows are still
-normalized (with the masked statistics); every loss masks them too.
+normalized (with the masked statistics); every loss masks them too. A
+``(k, B)`` mask is k folds' row weights over k*C fold-major channels
+(``ResNet50(folds=k)``): each fold's channels take its own rows.
 Statistics and the affine are computed in float32 even when activations
 are bf16; the result has the input's dtype.
 """
@@ -22,7 +24,9 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
     NCHW). Returns ``(y, new_running_mean, new_running_var)``.
 
     With ``mask``, ``n = sum(mask) * H * W`` valid elements per channel;
-    ``max(n, 1)`` keeps an all-zero mask from dividing by zero."""
+    ``max(n, 1)`` keeps an all-zero mask from dividing by zero. A
+    ``(k, B)`` mask weighs the rows of each fold's C = channels / k
+    channels with its own row."""
     x32 = x.float()
     dim = dim % x.dim()
     axes = [a for a in range(x.dim()) if a != dim]
@@ -33,8 +37,16 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
         var = x32.square().mean(dim=axes) - mean.square()
         n = torch.tensor(float(x.numel() // x.shape[dim]), device=x.device)
     else:
-        w = mask.float().reshape([-1] + [1] * (x.dim() - 1))
-        n = w.sum() * float(x.numel() // (x.shape[0] * x.shape[dim]))
+        w = mask.float()
+        if w.dim() == 2:  # (k, B) -> (B, k*C), fold-major channels
+            w = w.t().repeat_interleave(x.shape[dim] // w.shape[0], dim=1)
+        else:
+            w = w[:, None]
+        shape_w = [1] * x.dim()
+        shape_w[0], shape_w[dim] = w.shape
+        w = w.reshape(shape_w)
+        n = w.sum(dim=0).reshape(-1) \
+            * float(x.numel() // (x.shape[0] * x.shape[dim]))
         denom = torch.clamp(n, min=1.0)
         mean = (x32 * w).sum(dim=axes) / denom
         var = (x32.square() * w).sum(dim=axes) / denom - mean.square()

@@ -332,6 +332,7 @@ def load_stores(args, device):
               "first.")
         return None
     size, cache, workers = args.image_size, args.cache_dir, args.workers
+    compiled = device.type == "cuda"  # the compiled PNG unfilter
     ids, labels = rsna.load_train_metadata(
         os.path.join(args.data_dir, "stage2_train_metadata.csv"))
     print(f"Decoding/loading {len(ids)} training images at {size}px "
@@ -339,12 +340,14 @@ def load_stores(args, device):
     t0 = time.perf_counter()
     train_store = ImageStore.build(rsna.train_paths(args.data_dir, ids),
                                    labels, size, cache_dir=cache,
-                                   name=f"train{size}", workers=workers)
+                                   name=f"train{size}", workers=workers,
+                                   compiled=compiled)
     test_ids, test_labels = rsna.load_test_metadata(
         os.path.join(args.data_dir, "stage2_test_metadata.csv"))
     test_store = ImageStore.build(rsna.test_paths(args.data_dir, test_ids),
                                   test_labels, size, cache_dir=cache,
-                                  name=f"test{size}", workers=workers)
+                                  name=f"test{size}", workers=workers,
+                                  compiled=compiled)
 
     synth_fallback = False
     if args.use_synthetic:
@@ -361,7 +364,7 @@ def load_stores(args, device):
     if args.use_synthetic and not synth_fallback:
         synth_store = decode_folder_store(
             args.synthetic_dir, size, label=1, cache_dir=cache,
-            name=f"synth{size}", workers=workers)
+            name=f"synth{size}", workers=workers, compiled=compiled)
     else:  # a 1-image dummy keeps every mode's arguments the same
         synth_store = ImageStore(np.zeros((1, size, size, 3), np.uint8),
                                  np.ones((1,), np.int32), size)
@@ -404,6 +407,13 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
     if resume == "auto" and args.k_folds <= 1:
         print("Note: --resume-from auto has no effect on single (non-CV) "
               "classifier runs; training from scratch.")
+    parallel = args.k_folds > 1 and args.parallel_folds
+    if resume == "auto" and parallel:
+        # fold-level resume skips completed folds, which exist only on the
+        # sequential path
+        print("Note: --resume-from auto has no effect with "
+              "--parallel-folds (folds train in lockstep); "
+              "training all folds from scratch.")
     loaded = load_stores(args, device)
     if loaded is None:
         return None
@@ -417,6 +427,34 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
     def evaluate(state):
         eval_model.load_state_dict(state)
         return evaluate_model(eval_model, test, args.batch_size, dtype=dtype)
+
+    def finish_cv(fold_metrics, fold_histories, title):
+        """The folds' test metrics summarised: printed, written to
+        ``{strategy}_cv_summary.json`` and plotted with the histories."""
+        summary = cv_summary(fold_metrics)
+        print(f"\n===== {title} =====")
+        for k, v in summary["average"].items():
+            print(f"Average {k}: {v:.4f} +/- {summary['std_dev'][k]:.4f}")
+        write_json(os.path.join(args.results_dir,
+                                f"{run_prefix}cv_summary.json"), summary)
+        generate_plots(fold_histories, args.figures_dir, run_prefix,
+                       cv_results=summary)
+        return summary
+
+    if parallel:
+        from xgan_torch.train.parallel_cv import run_parallel_cv
+        result = run_parallel_cv(
+            args, device, dtype, stores, kfold_splits(len(real), args.k_folds),
+            strategy=strategy, schedule=schedule,
+            synth_fallback=synth_fallback)
+        if result is None:  # stopped: no summary of incomplete folds
+            return None
+        fold_metrics = []
+        for fold, state in enumerate(result[0]):
+            print(f"--- Evaluating Fold {fold + 1} Model on Test Set ---")
+            fold_metrics.append(evaluate(state))
+        return finish_cv(fold_metrics, result[1],
+                         "Cross-Validation Summary (parallel folds)")
 
     if args.k_folds > 1:
         fold_metrics, fold_histories = [], []
@@ -456,15 +494,8 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
                           f"{fold + 1}; re-run with --resume-from auto to "
                           "train the remaining folds (no summary written).")
                     return None
-        summary = cv_summary(fold_metrics)
-        print("\n===== Cross-Validation Summary =====")
-        for k, v in summary["average"].items():
-            print(f"Average {k}: {v:.4f} +/- {summary['std_dev'][k]:.4f}")
-        write_json(os.path.join(args.results_dir,
-                                f"{run_prefix}cv_summary.json"), summary)
-        generate_plots(fold_histories, args.figures_dir, run_prefix,
-                       cv_results=summary)
-        return summary
+        return finish_cv(fold_metrics, fold_histories,
+                         "Cross-Validation Summary")
 
     # single run: the test set doubles as validation (reference behavior)
     print("Warning: using test set as validation for non-CV run.")

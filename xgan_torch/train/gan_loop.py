@@ -52,8 +52,9 @@ HISTORY_KEYS = ("G_losses_iter", "D_losses_iter", "D_x_iter", "D_G_z1_iter",
                 "D_G_z2_iter", "G_losses_epoch", "D_losses_epoch")
 
 
-def load_train_store(args):
-    """The decode-once uint8 train store, or None after a printed error."""
+def load_train_store(args, device: torch.device):
+    """The decode-once uint8 train store, or None after a printed error;
+    a run on the card decodes with the compiled PNG unfilter."""
     if not rsna.check_dataset_availability(args.data_dir):
         print(f"Error: Dataset not available in {args.data_dir}. "
               "Run `python src/download_dataset.py` first.")
@@ -65,7 +66,8 @@ def load_train_store(args):
     return ImageStore.build(rsna.train_paths(args.data_dir, ids), labels,
                             args.image_size, cache_dir=args.cache_dir,
                             name=f"train{args.image_size}",
-                            workers=args.workers)
+                            workers=args.workers,
+                            compiled=device.type == "cuda")
 
 
 def train_dcgan(args, device: torch.device, dtype: torch.dtype):
@@ -79,7 +81,7 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     metrics_dir = check_create_dir(args.results_dir)
     figures_dir = check_create_dir(args.figures_dir)
 
-    store = load_train_store(args)
+    store = load_train_store(args, device)
     if store is None:
         return None
     print(f"Loaded training data with {len(store)} samples.")

@@ -54,7 +54,7 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
     metrics_dir = check_create_dir(args.results_dir)
     figures_dir = check_create_dir(args.figures_dir)
 
-    store = load_train_store(args)
+    store = load_train_store(args, device)
     if store is None:
         return None
     print(f"Loaded training data with {len(store)} samples.")
