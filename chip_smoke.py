@@ -168,16 +168,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
     steps at k = 5, frozen and ``--unfreeze``, timed beside 5 sequential
     steps with the idle share and the peak memory, and the fold-batched
     gather's device time;
-23. prints the kernel table line, the card line and, last, the result
+23. the inference surface, last: a G-224 (fg 64, latent 100) and a
+    ResNet-50 with seeded random weights written by the port's flax
+    msgpack writer and as ``.pth`` twins, sampled (128 PNGs, 5 ConvT
+    launches a batch) and predicted (the tree's test PNGs) bitwise alike
+    from both; ``export_model`` of both in bf16 and int8 (verified
+    against the live model) and f32 (sizes: int8 at most 0.35 of f32),
+    the G artifact's rows at batch 1, 2 and 4 against 8, its call time
+    in bf16 and int8, its 5 ConvT kernels counted by the profiler in a
+    fresh process, and a CPU-exported artifact refused; predict over the
+    tree's 512 train PNGs from the ``.pth`` and the bf16 ``.pt2``
+    (imgs/s, the host decode's share); the server
+    (``xgan_torch.cli.serve``, a process of its own on port 0) on the
+    bf16 and int8 G artifacts and the bf16 classifier artifact: 64
+    requests at concurrency 1 and 8 each (p50, p99, requests/s, the
+    dispatch occupancy), every batched ``/generate`` bitwise the
+    unbatched one, the SIGTERM drain; and ``data_loader`` in its five
+    modes (one ``mixed_gather`` launch a mixed batch, 3 in
+    ``phased_kfold``);
+24. prints the kernel table line, the card line and, last, the result
     line.
 
 A profiler window late in this long process has lost kernel records on
 the card (ROADMAP.md C6). So the phases that hold a kernel count read
-from a profiler window (5's profile, 12, 17 and 19) run each in a new
-process of this script (``--phase NAME TMP CARD``, on the train store
-saved under the temporary directory), and the ``--trace-dir`` runs of 15
-and 18 run their CLI in a process of its own: each such window is the
-first of its process.
+from a profiler window (5's profile, 12, 17, 19 and 23's artifact call)
+run each in a new process of this script (``--phase NAME TMP CARD``, on
+the train store saved under the temporary directory), and the
+``--trace-dir`` runs of 15 and 18 run their CLI in a process of its own:
+each such window is the first of its process.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
 prints no result.
@@ -2942,6 +2960,8 @@ def phase_child(phase: str, tmp: str, smi: str) -> None:
     train = ImageStore(np.load(os.path.join(tmp, "train_images.npy")),
                        np.load(os.path.join(tmp, "train_labels.npy")), SIZE)
     name, _, run = phase.partition("/")
+    global CHILD_TMP
+    CHILD_TMP = tmp
     result = FRESH_PHASES[name](train, smi, int(run or 0))
     print(json.dumps({"result": result}))
 
@@ -4188,6 +4208,417 @@ def phase_parallel_times(train, synth, smi: str) -> int:
     return launched
 
 
+# ---- the inference surface: msgpack, export, predict, serve, data_loader --
+
+SERVE_N = 64  # requests per concurrency level
+LOADER_MODES = ("basic", "kfold", "augmented", "kfold_augmented",
+                "phased_kfold")
+# mixed_gather launches of each data_loader mode: one per mixed batch
+LOADER_GATHERS = {"augmented": 1, "kfold_augmented": 1, "phased_kfold": 3}
+
+
+def random_flax(like, rng, path=()):
+    """Seeded random leaves for a flax template of
+    ``xgan_torch.io_.checkpoint.flax_like``: kernels N(0, 2/fan) (unit
+    gain; a k4s2 ConvT's fan is 4 Cin, the first ConvT's Cin), random BN
+    scale, bias and running statistics, biases N(0, 0.1²), embeddings
+    N(0, 1)."""
+    if isinstance(like, dict):
+        return {k: random_flax(v, rng, path + (k,)) for k, v in like.items()}
+    shape, name = like.shape, path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+    if name == "kernel":
+        fan = (shape[2] * (1 if parent == "ConvTranspose_0" else 4)
+               if parent.startswith("ConvTranspose")
+               else int(np.prod(shape[:-1])))
+        x = rng.normal(size=shape) * math.sqrt(2.0 / fan)
+    elif name == "scale":
+        x = 1 + 0.1 * rng.normal(size=shape)
+    elif name in ("bias", "mean"):
+        x = 0.1 * rng.normal(size=shape)
+    elif name == "var":
+        x = 0.5 + rng.random(shape)
+    else:
+        x = rng.normal(size=shape)
+    return x.astype(np.float32)
+
+
+def captured(fn, *args):
+    """``fn(*args)``'s result, its printed output (also echoed) and its
+    ``SystemExit`` code (None when it returned)."""
+    import io
+    buf, code, result = io.StringIO(), None, None
+    with contextlib.redirect_stdout(buf):
+        try:
+            result = fn(*args)
+        except SystemExit as e:
+            code = e.code
+    print(buf.getvalue(), end="")
+    return result, buf.getvalue(), code
+
+
+def phase_msgpack(tmp: str, root: str) -> tuple[dict, int]:
+    """A G-224 (fg 64, latent 100) and a ResNet-50 with seeded random
+    weights, each written by the port's flax-format writer and as a
+    ``.pth`` twin; the sampler CLI on both generators (128 PNGs, bf16)
+    and the predict CLI on both classifiers (the tree's test PNGs) must
+    give equal outputs bitwise. Returns the checkpoint paths and the
+    sampler runs' ConvT launches (5 a batch, tensor-core route)."""
+    from xgan_torch import kernels
+    from xgan_torch.cli import generate_synthetic, predict
+    from xgan_torch.io_.checkpoint import flax_like, state_dict_from_flax
+    from xgan_torch.io_.msgpack import msgpack_serialize
+    from xgan_torch.models.dcgan import Generator
+    from xgan_torch.models.resnet import ResNet50
+    from xgan_torch.native.png import decode_png
+    rng = np.random.default_rng(12)
+    paths = {}
+    for name, model in (("g", Generator(LATENT, 3, FG, SIZE)),
+                        ("r", ResNet50(2))):
+        tree = random_flax(flax_like(model), rng)
+        msg, pth = (os.path.join(tmp, f"{name}{ext}")
+                    for ext in (".msgpack", ".pth"))
+        with open(msg, "wb") as f:
+            f.write(msgpack_serialize(tree))
+        torch.save(state_dict_from_flax(model, tree), pth)
+        paths[name] = {"msgpack": msg, "pth": pth}
+    n = 2 * B
+    imgs = {}
+    kernels.reset_launch_counts()
+    for fmt, path in paths["g"].items():
+        out = os.path.join(tmp, f"sampled_{fmt}")
+        generate_synthetic.main([
+            "--model-path", path, "--output-dir", out,
+            "--num-images", str(n), "--latent-dim", str(LATENT),
+            "--feature-maps-g", str(FG), "--image-size", str(SIZE),
+            "--batch-size", str(B), "--compute-dtype", "bf16"])
+        imgs[fmt] = np.stack([decode_png(os.path.join(out, f))
+                              for f in sorted(os.listdir(out))])
+    launches = kernels.LAUNCHES["convt4x4s2_fused"]
+    print(f"msgpack: sampler launches {dict(kernels.LAUNCHES)}")
+    check(imgs["msgpack"].shape == (n, SIZE, SIZE, 3)
+          and np.array_equal(imgs["msgpack"], imgs["pth"])
+          and imgs["pth"].std() > 10,
+          "the .msgpack generator's PNGs differ from its .pth twin's")
+    want = 2 * 5 * math.ceil(n / B)
+    check(launches == want == kernels.LAUNCHES["convt4x4s2_mma"],
+          (dict(kernels.LAUNCHES), want))
+    preds = {}
+    for fmt, path in paths["r"].items():
+        out = os.path.join(tmp, f"predictions_{fmt}.json")
+        predict.main(["--model-path", path, "--input-dir",
+                      os.path.join(root, "Test"), "--output", out,
+                      "--image-size", str(SIZE), "--batch-size", str(B),
+                      "--compute-dtype", "bf16"])
+        with open(out) as f:
+            preds[fmt] = json.load(f)["predictions"]
+    check(len(preds["pth"]) == N_TEST and preds["msgpack"] == preds["pth"],
+          "the .msgpack classifier's predictions differ from its .pth's")
+    print(f"msgpack: {n} sampled PNGs and {N_TEST} predictions equal to "
+          "the .pth twins' bitwise")
+    return paths, launches
+
+
+EXPORTS = (("gan", "bf16", "none"), ("gan", "bf16", "int8"),
+           ("gan", "f32", "none"), ("classifier", "bf16", "none"),
+           ("classifier", "bf16", "int8"), ("classifier", "f32", "none"))
+
+
+def phase_export(tmp: str, paths: dict) -> tuple[dict, int]:
+    """``export_model`` of the G-224 and the ResNet-50 from their
+    ``.msgpack``: bf16 and int8 verified against the live model, f32 for
+    its size. Prints sizes and wall times; the int8 artifacts must be at
+    most 0.35 of the f32 ones. Measures what a served batch's size does
+    to a row (the G artifact at 1, 2 and 4 rows against 8) and what the
+    int8 G's per-call dequantize and repack costs (B = 64). A CPU-exported
+    artifact must be refused on the card. Returns the artifact paths and
+    the verifications' ConvT launches (5 a G verified)."""
+    from xgan_torch import kernels
+    from xgan_torch.cli import export_model, generate_synthetic
+    from xgan_torch.io_.export import load_exported
+    arts, sizes = {}, {}
+    kernels.reset_launch_counts()
+    for kind, dt, q in EXPORTS:
+        out = os.path.join(tmp, f"{kind}_{dt}_{q}.pt2")
+        src = paths["g" if kind == "gan" else "r"]["msgpack"]
+        argv = ["--kind", kind, "--model-path", src,
+                "--output", out, "--image-size", str(SIZE),
+                "--latent-dim", str(LATENT), "--feature-maps-g", str(FG),
+                "--compute-dtype", dt, "--quantize", q]
+        stats = export_model.main(argv + ["--skip-verify"] * (dt == "f32"))
+        check(stats["verified"] is (None if dt == "f32" else True), stats)
+        sizes[(kind, dt, q)] = os.path.getsize(out)
+        arts[(kind, dt, q)] = out
+        print(f"export {kind} {dt} quantize={q}: {sizes[(kind, dt, q)]} "
+              f"bytes, {stats['export_s']:.3f} s export (trace + save), "
+              f"verified {stats['verified']}")
+    launches = kernels.LAUNCHES["convt4x4s2_fused"]
+    check(launches == 10 == kernels.LAUNCHES["convt4x4s2_mma"],
+          dict(kernels.LAUNCHES))
+    for kind in ("gan", "classifier"):
+        ratio = sizes[(kind, "bf16", "int8")] / sizes[(kind, "f32", "none")]
+        bf16 = sizes[(kind, "bf16", "none")] / sizes[(kind, "f32", "none")]
+        print(f"export {kind}: int8 / f32 size {ratio:.3f}, bf16 / f32 "
+              f"{bf16:.3f}")
+        check(ratio <= 0.35, f"{kind}: int8 artifact not smaller")
+    art = load_exported(arts[("gan", "bf16", "none")], "cuda")
+    q8 = load_exported(arts[("gan", "bf16", "int8")], "cuda")
+    check(art.kernel_ops == ["xgan_torch.convt4x4s2_mma.default"],
+          art.kernel_ops)
+    z = torch.randn(B, LATENT, generator=torch.Generator().manual_seed(5))
+    z = z.to("cuda")
+    full = art.call(z[:8])
+    diffs = {b: (art.call(z[:b]).int() - full[:b].int()).abs().max().item()
+             for b in (1, 2, 4)}
+    print(f"export: G artifact rows at batch 1, 2, 4 against batch 8, max "
+          f"|diff| in u8 levels {diffs} (the server runs every generator "
+          "dispatch at --max-batch rows)")
+    ms = {name: time_ms(lambda a=a: a.call(z), reps=10)
+          for name, a in (("bf16", art), ("int8", q8))}
+    print(f"export: G artifact call at B = {B}: bf16 {ms['bf16']:.4f} ms, "
+          f"int8 {ms['int8']:.4f} ms (dequantize + repack each call: "
+          f"{ms['int8'] - ms['bf16']:.4f} ms)")
+    # an artifact exported on the CPU is refused here
+    cpu_pth = os.path.join(tmp, "g32.pth")
+    cpu_art = os.path.join(tmp, "g32_cpu.pt2")
+    from xgan_torch.models.dcgan import Generator
+    torch.save(Generator(16, 3, 8, 64).state_dict(), cpu_pth)
+    export_model.main(["--cpu", "--kind", "gan", "--model-path", cpu_pth,
+                       "--output", cpu_art, "--image-size", "64",
+                       "--latent-dim", "16", "--feature-maps-g", "8"])
+    _, out, code = captured(generate_synthetic.main, [
+        "--model-path", cpu_art, "--output-dir",
+        os.path.join(tmp, "refused"), "--num-images", "4"])
+    check(code == 1 and "Error loading generator artifact" in out
+          and "exported on cpu" in out, (code, out))
+    return arts, launches
+
+
+def phase_artifact_profile(train, smi: str, run: int):
+    """One call of the bf16 G-224 artifact at B = 64 under
+    ``torch.profiler``: its 5 ConvT kernels, which the Python counts do
+    not see inside a program. Returns their number."""
+    from torch.autograd import DeviceType
+    from xgan_torch.io_.export import load_exported
+    art = load_exported(os.path.join(CHILD_TMP, "gan_bf16_none.pt2"), "cuda")
+    z = torch.randn(B, LATENT, device="cuda")
+    events, _ = warm_profile(lambda: art.call(z), lambda: art.call(z))
+    ours = [e for e in events if e.device_type == DeviceType.CUDA
+            and "convt4x4s2" in e.name]
+    print(f"artifact profile: {len(ours)} convt4x4s2 kernels in one call "
+          f"({sum(e.device_time for e in ours) / 1e3:.3f} ms device)")
+    check(len(ours) == 5 and all(MMA_KERNEL in e.name for e in ours),
+          [e.name for e in ours])
+    return len(ours)
+
+
+def phase_predict(tmp: str, root: str, paths: dict, arts: dict) -> None:
+    """The predict CLI over the tree's 512 train PNGs (256 px, B = 64,
+    bf16) from the ``.pth`` and from the bf16 ``.pt2``: imgs/s (second of
+    two runs) and the host decode's share; their probabilities within
+    export_model's bf16 tolerance (2e-2)."""
+    from xgan_torch.cli import predict
+    preds = {}
+    for fmt, path in (("pth", paths["r"]["pth"]),
+                      ("pt2", arts[("classifier", "bf16", "none")])):
+        out = os.path.join(tmp, f"predict_{fmt}.json")
+        argv = ["--model-path", path, "--input-dir",
+                os.path.join(root, "Training", "Images"), "--output", out,
+                "--image-size", str(SIZE), "--batch-size", str(B),
+                "--compute-dtype", "bf16"]
+        runs = [predict.main(argv) for _ in range(2)]
+        st = runs[-1]
+        print(f"predict {fmt}: {st['num_images']} PNGs, "
+              f"{st['imgs_per_sec']:.1f} imgs/s (first run "
+              f"{runs[0]['imgs_per_sec']:.1f}), wall {st['wall_s']:.3f} s, "
+              f"host decode {st['decode_s']:.3f} s "
+              f"({st['decode_s'] / st['wall_s']:.3f} of the wall)")
+        with open(out) as f:
+            preds[fmt] = json.load(f)["predictions"]
+    check(len(preds["pt2"]) == N_TRAIN, len(preds["pt2"]))
+    d = max(abs(a["prob_positive"] - b["prob_positive"])
+            for a, b in zip(preds["pth"], preds["pt2"]))
+    print(f"predict: .pt2 against .pth, max |prob diff| {d:.3g}")
+    check(d <= 2e-2, d)
+
+
+def serve_process(model_path: str, *extra):
+    """The port's server in a process of its own on an ephemeral port;
+    returns (process, port) once it reports ready."""
+    import queue
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "xgan_torch.cli.serve", "--model-path",
+         model_path, "--port", "0", *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    seen, deadline = [], time.time() + 300
+    while time.time() < deadline:
+        try:
+            line = lines.get(timeout=5)
+        except queue.Empty:
+            check(proc.poll() is None, "server died:\n" + "".join(seen))
+            continue
+        seen.append(line)
+        if line.startswith("Serving"):
+            return proc, int(line.rsplit(":", 1)[-1])
+    proc.kill()
+    raise AssertionError("server not ready in 300 s:\n" + "".join(seen))
+
+
+def http(port: int, path: str, data: bytes | None = None):
+    """(status, body) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def load_run(port: int, path: str, bodies: list, concurrency: int):
+    """Send ``bodies`` at ``concurrency``; returns (bodies of the answers,
+    p50 and p99 latency in ms, requests/s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(body):
+        t0 = time.perf_counter()
+        status, out = http(port, path, body)
+        check(status == 200, (status, out[:200]))
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(concurrency) as pool:
+        res = list(pool.map(one, bodies))
+    wall = time.perf_counter() - t0
+    lat = sorted(ms for _, ms in res)
+    p = [lat[min(len(lat) - 1, int(q * len(lat)))] for q in (0.5, 0.99)]
+    return [out for out, _ in res], p[0], p[1], len(bodies) / wall
+
+
+def occupancy(port: int) -> dict:
+    """{rows: dispatches} from ``/metrics``."""
+    _, text = http(port, "/metrics")
+    return {int(m.group(1)): int(m.group(2)) for m in re.finditer(
+        r'xgan_batch_occupancy\{rows="(\d+)"\} (\d+)', text.decode())}
+
+
+def drain(proc, port: int) -> None:
+    """SIGTERM with one request in flight (its body held back): /healthz
+    turns 503 draining, a new POST gets 503, the held request still gets
+    its 200, and the server exits 0."""
+    import signal
+    import socket
+    body = json.dumps({"seed": 3}).encode()
+    s = socket.create_connection(("127.0.0.1", port), timeout=60)
+    s.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+              + f"Content-Length: {len(body)}\r\n\r\n".encode() + body[:1])
+    time.sleep(1.0)
+    proc.send_signal(signal.SIGTERM)
+    deadline = time.time() + 30
+    while time.time() < deadline and http(port, "/healthz")[0] != 503:
+        time.sleep(0.05)
+    status, out = http(port, "/healthz")
+    check(status == 503 and json.loads(out).get("draining"), out)
+    status, out = http(port, "/generate", json.dumps({"seed": 1}).encode())
+    check(status == 503 and b"draining" in out, (status, out))
+    s.sendall(body[1:])
+    reply = b""
+    while chunk := s.recv(65536):
+        reply += chunk
+    s.close()
+    head, _, payload = reply.partition(b"\r\n\r\n")
+    check(b" 200 " in head.split(b"\r\n", 1)[0]
+          and payload.startswith(PNG_SIG), head[:100])
+    check(proc.wait(timeout=60) == 0, "the drained server did not exit 0")
+
+
+def stop(proc) -> None:
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    check(proc.wait(timeout=60) == 0, "the server did not exit 0")
+
+
+def phase_serve(tmp: str, root: str, arts: dict, smi: str) -> None:
+    """The server on the bf16 and int8 G artifacts and on the bf16
+    classifier artifact: 64 requests at concurrency 1 and 8 each (p50,
+    p99, requests/s, the dispatch occupancy), every /generate answer at
+    concurrency 8 bitwise the one at concurrency 1, and the SIGTERM
+    drain."""
+    from xgan_torch.native.png import decode_png_bytes
+    seeds = [json.dumps({"seed": s}).encode() for s in range(SERVE_N)]
+    for q in ("none", "int8"):
+        proc, port = serve_process(arts[("gan", "bf16", q)])
+        try:
+            got = {}
+            for conc in (1, 8):
+                outs, p50, p99, rps = load_run(port, "/generate", seeds, conc)
+                got[conc] = [decode_png_bytes(o) for o in outs]
+                print(f"serve /generate bf16 quantize={q}, concurrency "
+                      f"{conc}: p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+                      f"{rps:.1f} requests/s; occupancy {occupancy(port)} "
+                      f"[{smi}]")
+            check(got[1][0].shape == (SIZE, SIZE, 3), got[1][0].shape)
+            check(all(np.array_equal(a, b) for a, b in zip(got[1], got[8])),
+                  "a batched /generate differs from the unbatched one")
+            if q == "none":
+                drain(proc, port)
+            else:
+                stop(proc)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    test = sorted(os.listdir(os.path.join(root, "Test")))[:SERVE_N]
+    bodies = []
+    for name in test:
+        with open(os.path.join(root, "Test", name), "rb") as f:
+            bodies.append(f.read())
+    proc, port = serve_process(arts[("classifier", "bf16", "none")])
+    try:
+        for conc in (1, 8):
+            outs, p50, p99, rps = load_run(port, "/predict", bodies, conc)
+            probs = [json.loads(o)["prob_positive"] for o in outs]
+            check(all(0 <= p <= 1 for p in probs), probs[:4])
+            print(f"serve /predict bf16, concurrency {conc}: p50 "
+                  f"{p50:.3f} ms, p99 {p99:.3f} ms, {rps:.1f} requests/s; "
+                  f"occupancy {occupancy(port)} [{smi}]")
+        stop(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def phase_data_loader(tmp: str, root: str, synth_dir: str) -> int:
+    """The data-layer self-test CLI in every mode on the tree and the
+    sampler's PNGs (224 px): the batch lines, the wall time of each mode
+    (the first builds the cached stores), and one ``mixed_gather`` launch
+    per mixed batch (3 in ``phased_kfold``). Returns the launches."""
+    from xgan_torch import kernels
+    from xgan_torch.cli import data_loader
+    total = 0
+    for mode in LOADER_MODES:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, out, code = captured(data_loader.main, [
+            "--data-dir", root, "--synthetic-dir", synth_dir,
+            "--cache-dir", os.path.join(tmp, "loader_cache"),
+            "--image-size", str(SIZE), "--test-mode", mode])
+        dt = time.perf_counter() - t0
+        n = kernels.LAUNCHES["mixed_gather"]
+        print(f"data_loader {mode}: {dt:.3f} s, mixed_gather launches {n}")
+        check(code is None and "Error" not in out
+              and out.rstrip().endswith("Data pipeline self-test finished.")
+              and f"images (4, {SIZE}, {SIZE}, 3) float32" in out, out)
+        check(n == LOADER_GATHERS.get(mode, 0), (mode, n))
+        total += n
+    return total
+
+
 # the phases that hold a kernel count read from a profiler window,
 # called with (the train store, the card's line, the run)
 FRESH_PHASES = {
@@ -4195,7 +4626,9 @@ FRESH_PHASES = {
     "loop_steps_per_call": phase_loop_steps_per_call,
     "loop_wgan": phase_loop_wgan,
     "profile": lambda train, smi, run: phase_profile(),
+    "artifact_profile": phase_artifact_profile,
 }
+CHILD_TMP = None  # a --phase process's temporary directory
 
 
 def fresh_runs(phase: str, runs, fields: str, tmp: str, smi: str) -> int:
@@ -4251,12 +4684,19 @@ def main():
         gather_entry["launches"] += phase_parallel_folds(
             tmp, root, synth_dir, train, synth, smi)
         gather_entry["launches"] += phase_parallel_times(train, synth, smi)
+        paths, inf_launches = phase_msgpack(tmp, root)
+        arts, verified = phase_export(tmp, paths)
+        inf_launches += verified + in_fresh_process("artifact_profile", tmp,
+                                                    smi)
+        phase_predict(tmp, root, paths, arts)
+        phase_serve(tmp, root, arts, smi)
+        gather_entry["launches"] += phase_data_loader(tmp, root, synth_dir)
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "
           f"(warm median) vs {busy_ms:.3f} ms profiled device time per "
           f"batch: device idle share ~{1 - busy_ms / loop_ms_per_batch:.3f}")
     entry["launches"] = (launches["convt4x4s2_fused"] + gan_launches
-                         + wgan_launches + loop_launches)
+                         + wgan_launches + loop_launches + inf_launches)
     print(json.dumps({"kernels": [entry, gather_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

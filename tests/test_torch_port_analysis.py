@@ -332,7 +332,8 @@ def test_jet_matches_matplotlib():
 # ---- the CLI ---------------------------------------------------------------
 
 def _models_dir(root: Path) -> Path:
-    """The port's checkpoints for two runs; a flax file for the third."""
+    """The port's checkpoints for two runs; a corrupt flax file for the
+    third."""
     d = root / "models"
     d.mkdir()
     for i, run in enumerate(("baseline", "augmented")):
@@ -355,7 +356,9 @@ def test_cli_writes_the_jax_file_names(fake_dataset, tmp_path, monkeypatch,
               "--num-gradcam-samples", "2", "--resnet-stages", "1,1,1,1"])
     text = capsys.readouterr().out
     assert text.count("Loaded model:") == 2
-    assert "curriculum_resnet50.msgpack is a flax checkpoint" in text
+    # a .msgpack that does not load is reported and skipped, as JAX does
+    assert "Warning: failed to load" in text
+    assert "curriculum_resnet50.msgpack" in text
 
     _stub_jax_cam(monkeypatch)
     theirs = tmp_path / "jax"
@@ -416,3 +419,28 @@ def test_flags_and_defaults_follow_the_jax_cli():
     theirs = {a.dest: a.default for a in mod.build_parser()._actions}
     assert set(ours) - set(theirs) == {"resnet_stages"}
     assert all(ours[k] == v for k, v in theirs.items())
+
+
+def test_cam_models_prefer_the_jax_msgpack(tmp_path, capsys):
+    """A run's ``{prefix}resnet50.msgpack`` (a JAX checkpoint) is loaded
+    before its ``.pth`` twin, as the JAX analyzer does, and gives the
+    JAX weights."""
+    import jax
+    import jax.numpy as jnp
+    from xgan.io_.checkpoint import save_variables
+    from xgan.models.resnet import ResNet50 as JaxResNet50
+    from xgan_torch.io_.checkpoint import state_dict_from_flax
+    v = JaxResNet50(num_classes=2, stage_sizes=STAGES).init(
+        jax.random.key(4), jnp.zeros((1, 32, 32, 3)), train=False)
+    v = {"params": v["params"], "batch_stats": v["batch_stats"]}
+    save_variables(str(tmp_path / "baseline_resnet50.msgpack"), v)
+    torch.save(ResNet50(2, stage_sizes=STAGES).state_dict(),
+               tmp_path / "baseline_resnet50.pth")
+    models = analysis.load_cam_models(str(tmp_path), device=torch.device(
+        "cpu"), stage_sizes=STAGES)
+    assert list(models) == ["baseline"]
+    assert "Loaded model: " + str(tmp_path / "baseline_resnet50.msgpack") \
+        in capsys.readouterr().out
+    want = state_dict_from_flax(models["baseline"], v)
+    for k, t in models["baseline"].state_dict().items():
+        assert torch.equal(t, want[k]), k

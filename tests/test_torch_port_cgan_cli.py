@@ -355,13 +355,30 @@ def test_sampler_draws_labels_from_the_seed(tmp_path):
     assert len(torch.unique(torch.cat([y for _, y in seen]))) == 3
 
 
-def test_sampler_cli_refuses_other_formats(tmp_path, capsys):
-    for ext in (".msgpack", ".stablehlo"):
+@pytest.mark.parametrize("ext", [".msgpack", ".stablehlo"])
+def test_sampler_cli_refuses_other_formats(tmp_path, capsys, ext):
+    """.stablehlo needs JAX and exits 1; a .msgpack of the JAX package
+    samples the images of its .pth twin."""
+    if ext == ".stablehlo":
         with pytest.raises(SystemExit) as e:
             sample_cli.main(["--cpu", "--model-path",
                              str(tmp_path / f"g{ext}"), *MODEL_FLAGS])
         assert e.value.code == 1
-        assert "not supported by xgan_torch yet" in capsys.readouterr().out
+        assert "not supported by xgan_torch" in capsys.readouterr().out
+        return
+    from xgan.io_.checkpoint import save_variables
+    _, _, (params, stats), _ = jax_cgan(LATENT, FM, SIZE, seed=4)
+    pth = str(tmp_path / "generator_final.pth")
+    save_torch_cgan_generator(pth, params, stats)
+    msgpack = str(tmp_path / "generator_final.msgpack")
+    save_variables(msgpack, {"params": params, "batch_stats": stats})
+    for path, out in ((msgpack, "out"), (pth, "twin")):
+        sample_cli.main(["--cpu", "--model-path", path, "--output-dir",
+                         str(tmp_path / out), "--num-images", "5",
+                         "--batch-size", "2", *MODEL_FLAGS])
+    names, imgs = _read_pngs(tmp_path / "out")
+    assert len(names) == 5 and imgs.std() > 20
+    assert np.array_equal(imgs, _read_pngs(tmp_path / "twin")[1])
 
 
 @pytest.mark.parametrize("missing", [None, "D_losses_epoch",

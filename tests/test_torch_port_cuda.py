@@ -1174,3 +1174,95 @@ def test_lockstep_step_on_card_matches_cpu(dev):
         for n, v in a.items():
             if n.startswith("fc.") or "running" in n:
                 assert (v - c[n]).abs().max() <= 1e-4, n
+
+
+# ---- serving artifacts on the card ------------------------------------------
+
+def _g_artifact(dev, tmp_path, dtype, quantize="none"):
+    """A bf16 G-64 (fg 64) exported on the card; (artifact, live model)."""
+    from xgan_torch.io_ import export
+    g = Generator(16, 3, 64, 64, dtype=dtype, device=dev,
+                  generator=torch.Generator(dev).manual_seed(0)).eval()
+    ep = export.export_program(
+        export.build_program("gan", g, quantize=quantize),
+        export.example_inputs("gan", image_size=64, latent_dim=16,
+                              device=dev))
+    path = str(tmp_path / "g.pt2")
+    export.save_exported(path, ep, {"kind": "gan"})
+    return export.load_exported(path, dev), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_artifact_runs_the_kernel_and_equals_the_live_model(
+        dev, tmp_path, dtype):
+    """An artifact exported on the card calls the ConvT op (the
+    tensor-core one in bf16), which torch.profiler sees 5 times a call
+    while the Python counts see none; its images equal the live model's
+    bitwise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from xgan_torch.data.pipeline import tanh_to_u8
+    art, g = _g_artifact(dev, tmp_path, dtype)
+    op = ("xgan_torch.convt4x4s2_mma.default" if dtype == torch.bfloat16
+          else "xgan_torch.convt4x4s2_fused.default")
+    assert art.kernel_ops == [op]
+    z = torch.randn(8, 16, device=dev)
+    want = tanh_to_u8(g(z))
+    kernels.reset_launch_counts()
+    got = art.call(z)
+    torch.cuda.synchronize()
+    assert not kernels.LAUNCHES  # inside the program: no Python wrapper
+    assert torch.equal(got, want)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        art.call(z)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "convt4x4s2" in e.name]
+    assert len(names) == 5, names
+
+
+def test_card_int8_artifact_matches_its_live_program(dev, tmp_path):
+    from xgan_torch.io_ import export
+    art, g = _g_artifact(dev, tmp_path, torch.bfloat16, "int8")
+    program = export.build_program("gan", g, quantize="int8")
+    z = torch.randn(4, 16, device=dev)
+    with torch.no_grad():
+        want = program(z)
+    assert (art.call(z).short() - want.short()).abs().max() <= 1
+
+
+def test_cpu_artifact_is_refused_on_the_card(dev, tmp_path, capsys):
+    """A program exported on the CPU holds the plain ConvT: the loader
+    refuses it on the card, and the sampler exits 1 with its error."""
+    from xgan_torch.cli import generate_synthetic
+    from xgan_torch.io_ import export
+    g = Generator(16, 3, 8, 64).eval()
+    path = str(tmp_path / "cpu.pt2")
+    export.save_exported(path, export.export_program(
+        export.build_program("gan", g), export.example_inputs(
+            "gan", image_size=64, latent_dim=16, device="cpu")))
+    with pytest.raises(ValueError, match="exported on cpu"):
+        export.load_exported(path, dev)
+    with pytest.raises(SystemExit) as e:
+        generate_synthetic.main(["--model-path", path, "--output-dir",
+                                 str(tmp_path / "out"), "--num-images", "2"])
+    assert e.value.code == 1
+    assert "exported on cpu" in capsys.readouterr().out
+
+
+def test_generate_is_bucket_invariant_on_the_card(dev, tmp_path):
+    """The server runs every generator dispatch at --max-batch rows, so
+    a request's image does not depend on how many shared its batch: each
+    row of an 8-row dispatch equals the same latent's in a dispatch that
+    pads one request to 8 rows."""
+    from xgan_torch.cli import serve
+    art, _ = _g_artifact(dev, tmp_path, torch.bfloat16)
+    desc = {"kind": "generator", "generate_batch": art.call,
+            "latent_dim": 16, "conditional": False, "num_classes": 2}
+    batcher = serve.make_batcher(desc, dev, 8, None, 0)
+    together = batcher.run_bucket([(serve.latent(s, 16), 0)
+                                   for s in range(8)], 8)
+    for s in range(8):
+        alone = batcher.run_bucket([(serve.latent(s, 16), 0)], 8)[0]
+        np.testing.assert_array_equal(alone, together[s])

@@ -1,7 +1,7 @@
 """xgan_torch and chip_smoke.py import nothing of JAX or of the JAX
 package, nor the host libraries the GPU host lacks (pandas, sklearn, PIL,
-matplotlib): the port must run on a host that has only torch, numpy and
-scipy. Tests may import all of them."""
+matplotlib, msgpack, ml_dtypes): the port must run on a host that has
+only torch, numpy and scipy. Tests may import all of them."""
 import ast
 import pathlib
 
@@ -9,7 +9,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "xgan"}
-HOST_ONLY = {"pandas", "sklearn", "PIL", "matplotlib"}
+HOST_ONLY = {"pandas", "sklearn", "PIL", "matplotlib", "msgpack",
+             "ml_dtypes"}
 FILES = sorted((ROOT / "xgan_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -46,6 +47,14 @@ def test_port_files_exist():
     assert "xgan_torch/train/multistep.py" in names
     assert "xgan_torch/train/parallel_folds.py" in names
     assert "xgan_torch/train/parallel_cv.py" in names
+    assert "xgan_torch/io_/msgpack.py" in names
+    assert "xgan_torch/io_/checkpoint.py" in names
+    assert "xgan_torch/io_/quant.py" in names
+    assert "xgan_torch/io_/export.py" in names
+    assert "xgan_torch/cli/export_model.py" in names
+    assert "xgan_torch/cli/predict.py" in names
+    assert "xgan_torch/cli/serve.py" in names
+    assert "xgan_torch/cli/data_loader.py" in names
     assert len(names) > 10
 
 

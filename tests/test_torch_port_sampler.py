@@ -128,13 +128,30 @@ def test_cli_flag_mismatch_exits_1(tmp_path, pth, capsys):
     assert "--latent-dim/--feature-maps-g/--image-size" in out
 
 
-def test_cli_unsupported_formats_exit_1(tmp_path, capsys):
-    for ext in (".msgpack", ".stablehlo"):
+@pytest.mark.parametrize("ext", [".msgpack", ".stablehlo"])
+def test_cli_unsupported_formats_exit_1(tmp_path, capsys, jax_gen, pth, ext):
+    """.stablehlo needs JAX and exits 1; a .msgpack of the JAX package
+    samples the images of its .pth twin."""
+    if ext == ".stablehlo":
         with pytest.raises(SystemExit) as e:
             generate_synthetic.main(_cli_args(
                 tmp_path, str(tmp_path / f"g{ext}"), "--cpu"))
         assert e.value.code == 1
-        assert "not supported by xgan_torch yet" in capsys.readouterr().out
+        assert "not supported by xgan_torch" in capsys.readouterr().out
+        return
+    from xgan.io_.checkpoint import save_variables
+    _, params, stats = jax_gen
+    msgpack = str(tmp_path / "generator_final.msgpack")
+    save_variables(msgpack, {"params": params, "batch_stats": stats})
+    for path, out in ((msgpack, "out"), (pth, "twin")):
+        generate_synthetic.main(["--model-path", path, "--output-dir",
+                                 str(tmp_path / out), "--latent-dim",
+                                 str(LATENT), "--feature-maps-g", str(FG),
+                                 "--image-size", str(SIZE), "--num-images",
+                                 "5", "--batch-size", "2", "--cpu"])
+    names, imgs = _read(tmp_path / "out")
+    assert len(names) == 5 and np.array_equal(imgs,
+                                              _read(tmp_path / "twin")[1])
 
 
 def test_cli_without_cpu_flag_refuses_to_run_on_cpu(tmp_path, pth, capsys):

@@ -259,13 +259,32 @@ def test_sampler_matches_the_jax_sampler(tmp_path):
     assert want.std() > 20  # the images span the u8 range
 
 
-def test_sampler_cli_refuses_other_formats(tmp_path, capsys):
-    for ext in (".msgpack", ".stablehlo"):
+@pytest.mark.parametrize("ext", [".msgpack", ".stablehlo"])
+def test_sampler_cli_refuses_other_formats(tmp_path, capsys, ext):
+    """.stablehlo needs JAX and exits 1; a .msgpack of the JAX package
+    samples the images of its .pth twin."""
+    if ext == ".stablehlo":
         with pytest.raises(SystemExit) as e:
             sample_cli.main(["--cpu", "--model-path",
                              str(tmp_path / f"g{ext}"), *MODEL_FLAGS])
         assert e.value.code == 1
-        assert "not supported by xgan_torch yet" in capsys.readouterr().out
+        assert "not supported by xgan_torch" in capsys.readouterr().out
+        return
+    from xgan.io_.checkpoint import save_variables
+    model, params, stats = jax_generator(LATENT, FM, SIZE, seed=4,
+                                         family=jax_wgan)
+    from xgan.models.pretrained import save_torch_gan_generator
+    pth = str(tmp_path / "generator_final.pth")
+    save_torch_gan_generator(pth, params, stats)
+    msgpack = str(tmp_path / "generator_final.msgpack")
+    save_variables(msgpack, {"params": params, "batch_stats": stats})
+    for path, out in ((msgpack, "out"), (pth, "twin")):
+        sample_cli.main(["--cpu", "--model-path", path, "--output-dir",
+                         str(tmp_path / out), "--num-images", "5",
+                         "--batch-size", "2", *MODEL_FLAGS])
+    names, imgs = _read_pngs(tmp_path / "out")
+    assert len(names) == 5 and imgs.std() > 20
+    assert np.array_equal(imgs, _read_pngs(tmp_path / "twin")[1])
 
 
 def test_loss_figure_matches_jax(tmp_path, monkeypatch):

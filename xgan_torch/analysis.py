@@ -9,7 +9,8 @@
   ``DataFrame.sample(n, random_state=s)`` is the rows at
   ``RandomState(s).permutation(len)[:n]``, in CSV order of the positives)
   and computes all pairs on the device (``xgan_torch.ops.ssim``).
-- Grad-CAM reads the port's ``{prefix}resnet50.pth`` checkpoints; its
+- Grad-CAM reads ``{prefix}resnet50.msgpack`` (a JAX checkpoint) or,
+  failing that, ``{prefix}resnet50.pth``, as the JAX analyzer does; its
   default target is the reference's, the pre-BN output of
   ``layer4[-1].conv3`` with GAP-of-gradient channel weights, and
   ``eigen_smooth_2d`` is the JAX package's power iteration, so the maps
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import random
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -455,32 +457,33 @@ def gradcam_samples(data_dir: str, synthetic_dir: str, n: int,
 
 def load_cam_models(model_dir: str, *, device: torch.device,
                     stage_sizes=(3, 4, 6, 3)) -> dict:
-    """{run: f32 ResNet50} for every ``{prefix}resnet50.pth`` in
-    ``model_dir`` that loads; a ``.msgpack`` alone is reported and
-    skipped (the port does not read flax checkpoints yet)."""
-    from xgan_torch.models.convert import load_resnet_pth
+    """{run: f32 ResNet50} for every run whose classifier loads, trying
+    ``{prefix}resnet50.msgpack`` (a JAX checkpoint) first and then its
+    ``.pth`` twin, as the JAX analyzer does: a file that fails to load is
+    reported and the next one tried."""
+    from xgan_torch.io_.checkpoint import load_classifier_variables
     from xgan_torch.models.resnet import ResNet50
 
     models = {}
     for prefix in PREFIXES:
         run = prefix[:-1]
-        pth = Path(model_dir) / f"{prefix}resnet50.pth"
-        msgpack = Path(model_dir) / f"{prefix}resnet50.msgpack"
-        if pth.exists():
+        stem = Path(model_dir) / f"{prefix}resnet50"
+        candidates = [p for p in (stem.with_suffix(".msgpack"),
+                                  stem.with_suffix(".pth")) if p.exists()]
+        for path in candidates:
             model = ResNet50(2, stage_sizes=stage_sizes, device=device)
             try:
-                load_resnet_pth(model, str(pth))
-            except (OSError, RuntimeError, ValueError) as e:
-                print(f"Warning: failed to load {pth}: {e}")
+                load_classifier_variables(str(path), model)
+            except (OSError, RuntimeError, ValueError,
+                    pickle.UnpicklingError) as e:
+                print(f"Warning: failed to load {path}: {e}")
                 continue
             models[run] = model.eval()
-            print(f"Loaded model: {pth}")
-        elif msgpack.exists():
-            print(f"Info: {msgpack} is a flax checkpoint, which xgan_torch "
-                  f"cannot read yet; skipping Grad-CAM for {run}")
-        else:
+            print(f"Loaded model: {path}")
+            break
+        if not candidates:
             print(f"Info: model file not found, skipping Grad-CAM for "
-                  f"{run}: {msgpack}")
+                  f"{run}: {stem.with_suffix('.msgpack')}")
     return models
 
 

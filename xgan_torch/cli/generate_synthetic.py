@@ -4,7 +4,11 @@
     python -m xgan_torch.cli.generate_synthetic --model-path G.pth \
         [--output-dir ./data/synthetic] [--num-images 5000] [--cpu] ...
 
-Reads reference-layout ``.pth``/``.pt`` generator checkpoints. Runs on
+Reads the JAX package's ``.msgpack`` generator checkpoints,
+reference-layout ``.pth``/``.pt`` ones and the port's ``.pt2`` generator
+artifacts (``xgan_torch.cli.export_model``; the latent size comes from the
+artifact, which must be of this sampler's conditionality). ``.stablehlo``
+artifacts need JAX and exit 1 with a structured ``Error:`` line. Runs on
 the CUDA device unless ``--cpu`` is given; without a CUDA device it exits
 1 with a structured ``Error:`` line instead of continuing on the CPU.
 """
@@ -15,7 +19,7 @@ import sys
 
 from xgan_torch import config
 
-UNSUPPORTED = (".msgpack", ".stablehlo")
+UNSUPPORTED = (".stablehlo",)
 
 
 def build_parser(description: str = "Generate synthetic images using a "
@@ -23,8 +27,9 @@ def build_parser(description: str = "Generate synthetic images using a "
                                     "(PyTorch/CUDA).", fm_default: int = 64):
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--model-path", type=str, required=True,
-                   help="Trained generator checkpoint in the reference "
-                        "torch layout (.pth/.pt)")
+                   help="Trained generator: a .msgpack checkpoint of the "
+                        "JAX package, a reference-layout torch .pth/.pt, or "
+                        "a .pt2 artifact of xgan_torch.cli.export_model")
     p.add_argument("--output-dir", type=str, default="./data/synthetic")
     p.add_argument("--num-images", type=int, default=5000)
     p.add_argument("--latent-dim", type=int, default=100)
@@ -54,24 +59,33 @@ def sample(args, generator_cls, conditional: bool = False) -> dict:
         print(f"Error: {e}")
         sys.exit(1)
     if args.model_path.endswith(UNSUPPORTED):
-        print(f"Error: {args.model_path}: .msgpack and .stablehlo "
-              "generators are not supported by xgan_torch yet; pass a "
-              "reference-layout .pth")
+        print(f"Error: {args.model_path}: .stablehlo artifacts are not "
+              "supported by xgan_torch (they need JAX); export a .pt2 "
+              "with python -m xgan_torch.cli.export_model, or pass a "
+              ".msgpack or .pth checkpoint")
         sys.exit(1)
     dtype = config.resolve_dtype(args.compute_dtype, device)
-    from xgan_torch.train.sample import generate_images, load_generator
+    from xgan_torch.io_.export import EXT
+    from xgan_torch.train.sample import (generate_images, load_generator,
+                                         load_generator_artifact)
 
-    model = generator_cls(latent_dim=args.latent_dim,
-                          feature_maps=args.feature_maps_g,
-                          image_size=args.image_size, dtype=dtype,
-                          device=device)
-    load_generator(model, args.model_path)
+    latent, num_classes = args.latent_dim, 2
+    if args.model_path.endswith(EXT):
+        model, latent, meta = load_generator_artifact(
+            args.model_path, conditional=conditional, device=device)
+        num_classes = meta.get("num_classes", num_classes)
+    else:
+        model = generator_cls(latent_dim=args.latent_dim,
+                              feature_maps=args.feature_maps_g,
+                              image_size=args.image_size, dtype=dtype,
+                              device=device)
+        load_generator(model, args.model_path)
     stats = {}
     stats["written"] = generate_images(
         model, output_dir=args.output_dir, num_images=args.num_images,
-        latent_dim=args.latent_dim, batch_size=args.batch_size,
+        latent_dim=latent, batch_size=args.batch_size,
         seed=args.seed, device=device, dtype=dtype,
-        conditional=conditional, stats=stats)
+        conditional=conditional, num_classes=num_classes, stats=stats)
     return stats
 
 

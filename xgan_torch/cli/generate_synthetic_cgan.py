@@ -8,9 +8,10 @@ The DCGAN sampler (``xgan_torch.cli.generate_synthetic``) on the CGAN
 generator (``xgan_torch.models.cgan.Generator``, 2 classes): each batch
 draws z and then its labels, uniform over the classes, from the seeded
 generator (the reference samples labels at random). The same
-reference-layout ``.pth`` checkpoints, PNG names and structured refusals
-(``.msgpack`` and ``.stablehlo`` exit 1, as does a missing CUDA device
-without ``--cpu``).
+checkpoint and artifact formats (``.msgpack``, ``.pth``, ``.pt2``; an
+artifact's classes come from its envelope), PNG names and structured
+refusals (``.stablehlo`` exits 1, as does a missing CUDA device without
+``--cpu``).
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@
         [--output-dir ./data/synthetic] [--num-images 5000] [--cpu] ...
 
 The DCGAN sampler (``xgan_torch.cli.generate_synthetic``) on the WGAN-GP
-generator (``xgan_torch.models.wgan.Generator``): the same reference-layout
-``.pth`` checkpoints, PNG names and structured refusals (``.msgpack`` and
-``.stablehlo`` exit 1, as does a missing CUDA device without ``--cpu``).
+generator (``xgan_torch.models.wgan.Generator``): the same checkpoint and
+artifact formats (``.msgpack``, ``.pth``, ``.pt2``), PNG names and
+structured refusals (``.stablehlo`` exits 1, as does a missing CUDA device
+without ``--cpu``).
 """
 from __future__ import annotations
 

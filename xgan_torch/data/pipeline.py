@@ -7,10 +7,10 @@ matrix crosses from the host, once per epoch.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from xgan_torch.utils.cache import per_device
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -35,11 +35,9 @@ def epoch_batches(n: int, batch_size: int, rng: np.random.Generator,
     return padded.reshape(num_batches, batch_size)
 
 
-@functools.lru_cache(maxsize=None)
+@per_device
 def _imagenet_stats(device: torch.device):
-    """The ImageNet mean and std on ``device``, copied there once: a
-    host-to-device copy inside a step could not be captured into a CUDA
-    graph."""
+    """The ImageNet mean and std on ``device``, copied there once."""
     return (torch.as_tensor(IMAGENET_MEAN, device=device),
             torch.as_tensor(IMAGENET_STD, device=device))
 

@@ -50,8 +50,8 @@ def _decode_resize(path: str, size: int, compiled: bool) -> np.ndarray:
     return resize_u8(img, size)
 
 
-def _decode_all(paths: list[str], size: int, workers: int,
-                compiled: bool) -> np.ndarray:
+def decode_all(paths: list[str], size: int, workers: int,
+               compiled: bool) -> np.ndarray:
     images = np.empty((len(paths), size, size, 3), np.uint8)
 
     def one(i):
@@ -102,7 +102,7 @@ class ImageStore:
             if os.path.exists(npy) and os.path.exists(meta):
                 return ImageStore(np.load(npy, mmap_mode="r"), labels, size)
 
-        images = _decode_all(paths, size, workers, compiled)
+        images = decode_all(paths, size, workers, compiled)
 
         if cache_dir:
             # temp file + atomic rename: another process must never map a

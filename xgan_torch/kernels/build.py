@@ -150,5 +150,7 @@ def load_ops(verbose: bool = False):
                 _failed.append(e)
                 raise
             torch.ops.load_library(str(so))
+            from xgan_torch.kernels.convt import register_fakes
+            register_fakes()
             _loaded.append(so)
     return torch.ops.xgan_torch

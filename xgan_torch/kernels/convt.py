@@ -30,7 +30,6 @@ generator calls: its forward is one :func:`convt4x4s2_fused` call.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
@@ -38,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from xgan_torch import kernels
+from xgan_torch.utils.cache import per_device
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 
@@ -45,10 +45,9 @@ ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 _TAP = torch.tensor([[3, 1], [2, 0]])
 
 
-@functools.lru_cache(maxsize=None)
+@per_device
 def _tap(device: torch.device) -> torch.Tensor:
-    """``_TAP`` on ``device``, copied there once: a host-to-device copy
-    inside a step could not be captured into a CUDA graph."""
+    """``_TAP`` on ``device``, copied there once."""
     return _TAP.to(device)
 
 
@@ -209,14 +208,31 @@ def convt4x4s2_fused_cuda(x, wp, scale, shift, act: str = "none"):
     from xgan_torch.kernels.build import load_ops
     ops = load_ops()
     cin = x.shape[-1]
+    # while torch.export traces the call it launches nothing: no count
+    count = not torch.compiler.is_compiling()
     if uses_mma(x.dtype, cin):
         block_n = mma_tiles(cin, wp.shape[-1]).block_n
         out = ops.convt4x4s2_mma(x, wp, scale, shift, code, block_n)
-        kernels.LAUNCHES["convt4x4s2_mma"] += 1
+        kernels.LAUNCHES["convt4x4s2_mma"] += count
     else:
         out = ops.convt4x4s2_fused(x, wp, scale, shift, code)
-    kernels.LAUNCHES["convt4x4s2_fused"] += 1
+    kernels.LAUNCHES["convt4x4s2_fused"] += count
     return out
+
+
+def register_fakes() -> None:
+    """Shape functions of the compiled ConvT ops, so that ``torch.export``
+    can trace a program that calls them (the ops are declared in C++,
+    ``csrc/convt_op.cpp``, without one). Called once, when the library is
+    loaded."""
+    def out_like(x, wp):
+        b, h, w, _ = x.shape
+        return x.new_empty((b, 2 * h, 2 * w, wp.shape[-1]))
+
+    torch.library.register_fake("xgan_torch::convt4x4s2_fused")(
+        lambda x, wp, scale, shift, act: out_like(x, wp))
+    torch.library.register_fake("xgan_torch::convt4x4s2_mma")(
+        lambda x, wp, scale, shift, act, block_n: out_like(x, wp))
 
 
 def convt4x4s2_fused(x, wp, scale, shift, act: str = "none"):

@@ -49,6 +49,9 @@ SEQ_CONVT = (0, 3, 6, 9, 12, 15)
 SEQ_BN = (1, 4, 7, 10, 13)
 SEQ_D_CONV = (0, 2, 5, 8, 11, 14)
 SEQ_D_BN = (3, 6, 9, 12)
+# the eval forward's tensors, which ``Generator.packed`` derives
+PACKED = ("w0_mat",) + tuple(f"{k}{i}" for i in range(5)
+                             for k in ("wp", "scale", "shift"))
 
 
 def _check_size(image_size: int) -> None:
@@ -94,35 +97,47 @@ class Generator(nn.Module):
 
     @torch.no_grad()
     def repack(self) -> None:
-        """Derive the eval forward's tensors from the parameters: the first
-        ConvT as a (latent, S0*S0*C0) matrix whose product is already NHWC,
-        the k4s2 weights packed for the kernel (in ``self.dtype``), and
-        each eval BN folded into an f32 scale/shift. Runs after init and
+        """Derive the eval forward's tensors from the parameters
+        (:meth:`packed`) and keep them as buffers. Runs after init and
         every :meth:`load_state_dict`; a trainer calls it before each eval
         render."""
+        for name, t in self.packed().items():
+            self.register_buffer(name, t, persistent=False)
+
+    def packed(self, p=None) -> dict:
+        """The eval forward's tensors from ``p`` ({state-dict name:
+        tensor}, default the module's own): the first ConvT as a (latent,
+        S0*S0*C0) matrix whose product is already NHWC, the k4s2 weights
+        packed for the kernel (in ``self.dtype``), and each eval BN folded
+        into an f32 scale/shift. An exported int8 program calls it on its
+        dequantized weights on every call."""
+        if p is None:
+            p = dict(self.named_parameters())
+            p.update(self.named_buffers())
         # a copy: at S0 = 1 the reshape is a view of the parameter
-        self.register_buffer("w0_mat", self._w0_mat().clone(),
-                             persistent=False)
+        out = {"w0_mat": self._w0_mat(p["main.0.weight"]).clone()}
         for i, seq in enumerate(SEQ_CONVT[1:]):
-            w = self.main[seq].weight
+            w = p[f"main.{seq}.weight"]
             if i < 4:
-                bn = self.main[SEQ_BN[i + 1]]
-                scale, shift = fold_bn(bn.weight, bn.bias, bn.running_mean,
-                                       bn.running_var, eps=bn.eps)
+                bn = f"main.{SEQ_BN[i + 1]}"
+                scale, shift = fold_bn(
+                    p[f"{bn}.weight"], p[f"{bn}.bias"],
+                    p[f"{bn}.running_mean"], p[f"{bn}.running_var"],
+                    eps=self.main[SEQ_BN[i + 1]].eps)
             else:
                 scale = torch.ones(w.shape[1], device=w.device)
                 shift = torch.zeros(w.shape[1], device=w.device)
-            self.register_buffer(f"wp{i}", pack_convt_weight(w, self.dtype),
-                                 persistent=False)
-            self.register_buffer(f"scale{i}", scale.contiguous(),
-                                 persistent=False)
-            self.register_buffer(f"shift{i}", shift.contiguous(),
-                                 persistent=False)
+            out[f"wp{i}"] = pack_convt_weight(w, self.dtype)
+            out[f"scale{i}"] = scale.contiguous()
+            out[f"shift{i}"] = shift.contiguous()
+        return out
 
-    def _w0_mat(self) -> torch.Tensor:
-        """The first ConvT on the 1x1 input as a (latent, S0*S0*C0) matrix
-        in ``self.dtype``, differentiable in the parameter."""
-        w0 = self.main[0].weight
+    def _w0_mat(self, w0: torch.Tensor | None = None) -> torch.Tensor:
+        """The first ConvT (``w0``, default the parameter) on the 1x1
+        input as a (latent, S0*S0*C0) matrix in ``self.dtype``,
+        differentiable in the weight."""
+        if w0 is None:
+            w0 = self.main[0].weight
         return w0.permute(0, 2, 3, 1).reshape(w0.shape[0], -1) \
             .to(self.dtype).contiguous()
 
@@ -141,26 +156,29 @@ class Generator(nn.Module):
 
     @torch.no_grad()
     def forward(self, z: torch.Tensor, *, train: bool = False,
-                convt=convt4x4s2_fused) -> torch.Tensor:
+                convt=convt4x4s2_fused, packed: dict | None = None
+                ) -> torch.Tensor:
         """z (B, latent) -> images (B, S, S, C) in [-1, 1], float32.
 
         ``convt``: the function each k4s2 layer calls; the default picks the
         CUDA kernel or, for CPU tensors, its plain version. A check of the
         kernel passes ``convt4x4s2_fused_ref`` to run the plain version on
-        the same device."""
+        the same device. ``packed``: :meth:`packed`'s tensors in place of
+        the buffers :meth:`repack` keeps."""
         if train:
             raise NotImplementedError(
                 "Generator.forward is the eval path (no autograd); train "
                 "mode is Generator.forward_train (ROADMAP A2)")
+        t = packed if packed is not None else {
+            name: getattr(self, name) for name in PACKED}
         b = z.shape[0]
-        x = (z.to(self.dtype) @ self.w0_mat).reshape(b, self.s0, self.s0, -1)
+        x = (z.to(self.dtype) @ t["w0_mat"]).reshape(b, self.s0, self.s0, -1)
         bn = self.main[SEQ_BN[0]]
         x = torch.relu(batch_norm_infer(x, bn.weight, bn.bias,
                                         bn.running_mean, bn.running_var,
                                         eps=bn.eps))
         for i in range(5):
-            x = convt(x, getattr(self, f"wp{i}"), getattr(self, f"scale{i}"),
-                      getattr(self, f"shift{i}"),
+            x = convt(x, t[f"wp{i}"], t[f"scale{i}"], t[f"shift{i}"],
                       act="relu" if i < 4 else "none")
         return torch.tanh(x.float())
 

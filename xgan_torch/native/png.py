@@ -190,11 +190,18 @@ def decode_png(path: str, *, grey16: str = "high",
     the compiled op (see :func:`unfilter`).
 
     Raises ``ValueError`` for a file that is not a PNG or is corrupt."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return decode_png_bytes(data, path, grey16=grey16, compiled=compiled)
+
+
+def decode_png_bytes(data: bytes, path: str = "<bytes>", *,
+                     grey16: str = "high",
+                     compiled: bool = False) -> np.ndarray:
+    """:func:`decode_png` of PNG bytes (``path`` names them in errors)."""
     if grey16 not in GREY16_RULES:
         raise ValueError(f"grey16 must be one of {GREY16_RULES}, got "
                          f"{grey16!r}")
-    with open(path, "rb") as f:
-        data = f.read()
     if not data.startswith(_SIG):
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr, palette = len(_SIG), [], None, None
