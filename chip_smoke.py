@@ -186,16 +186,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
     unbatched one, the SIGTERM drain; and ``data_loader`` in its five
     modes (one ``mixed_gather`` launch a mixed batch, 3 in
     ``phased_kfold``);
-24. prints the kernel table line, the card line and, last, the result
+24. data parallelism across ranks (A14, part 1), last: (a) the DCGAN
+    CLI (224 px, B = 128, 2 epochs of 2 steps) and the classifier CLI
+    (augmented, ResNet-50, B = 32, 2 steps) each in a process of its own
+    under a ``torchrun`` environment of one rank on NCCL with
+    ``--shard-store``, against the same CLI with no group (f32, TF32 off,
+    deterministic cuDNN): the DCGAN's first step within 1e-4 * (1 +
+    |ref|) and every step within 5e-2, the classifier's history and
+    metrics within 1e-4 * (1 + |ref|), the same files and launches; then
+    a world-1 NCCL rank (``--phase dist1``) holds an f32 DCGAN step (B =
+    128) and classifier step (mix, B = 32) against no group and times
+    bf16 steps with the group against none (the DP path's cost on one
+    card); (b) two ranks sharing the card over gloo's CUDA all-reduce
+    (``--phase dist/0``, ``dist/1``; NCCL refuses two ranks on one
+    device) hold the same steps against one rank, ``--shard-store``'s
+    take and step bitwise against the replicated ones, each rank's
+    gathered rows bitwise against the plain version, count the
+    all-reduces a step, time bf16 steps (two ranks on one card, not a
+    scaling figure), and must end with bitwise equal parameters;
+25. prints the kernel table line, the card line and, last, the result
     line.
 
-A profiler window late in this long process has lost kernel records on
-the card (ROADMAP.md C6). So the phases that hold a kernel count read
-from a profiler window (5's profile, 12, 17, 19 and 23's artifact call)
-run each in a new process of this script (``--phase NAME TMP CARD``, on
-the train store saved under the temporary directory), and the
-``--trace-dir`` runs of 15 and 18 run their CLI in a process of its own:
-each such window is the first of its process.
+Profiler windows on the card have lost kernel records (ROADMAP.md C6):
+the profiler drops a kernel whose time, mapped from the card's clock,
+falls outside the window, and that mapping can be off by milliseconds.
+So a window that holds a kernel count (5's profile, 12, 17, 19 and 23's
+artifact call) keeps half a second of idle host time on each side of
+its work and prints how far its first and last kernels lie from its
+edges; each such phase also runs in a new process of this script
+(``--phase NAME TMP CARD``, on the train store saved under the temporary
+directory), and the ``--trace-dir`` runs of 15 and 18 run their CLI in a
+process of its own. Every phase prints its seconds as it ends.
 
 Without a CUDA device, or run away from the repo, it exits non-zero and
 prints no result.
@@ -204,6 +225,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -230,6 +252,23 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # bf16: both sum in f32 from the same bf16 inputs, but may round the f32
 # result to neighbouring bf16 values: two bf16 steps at O(1) is 2**-7.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+
+
+START = time.perf_counter()
+
+
+def timed(fn):
+    """``fn``, printing its seconds and the script's seconds so far."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            now = time.perf_counter()
+            print(f"[{now - START:.1f} s] {fn.__name__}: {now - t0:.1f} s",
+                  flush=True)
+    return run
 
 
 def check(ok: bool, what) -> None:
@@ -577,14 +616,49 @@ def phase_sampler(tmp: str):
     return launches, statistics.median(rates)
 
 
+# idle host time on each side of a counted profiler window's work: the
+# profiler keeps only the kernels whose start and end, mapped from the
+# card's clock onto the host's, fall inside the window, and that mapping
+# can be off by milliseconds either way, by one amount for the whole
+# window (C6, ROADMAP.md)
+WINDOW_PAD_S = 0.5
+
+
+def padded(fn) -> None:
+    """``fn()`` and a synchronise, with :data:`WINDOW_PAD_S` of idle host
+    time before and after."""
+    time.sleep(WINDOW_PAD_S)
+    fn()
+    torch.cuda.synchronize()
+    time.sleep(WINDOW_PAD_S)
+
+
+def window_edges(events) -> str:
+    """How far the first kernel of a profiled window starts after the
+    window opened and the last ends before it closed; each should be about
+    :data:`WINDOW_PAD_S`, and the difference is the clocks' disagreement."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")]
+    host_end = max(e.time_range.end for e in events
+                   if e.device_type == DeviceType.CPU)
+    if not kernels:
+        return "profiled window: no kernel"
+    head = min(e.time_range.start for e in kernels) / 1e3
+    tail = (host_end - max(e.time_range.end for e in kernels)) / 1e3
+    return (f"profiled window: the first kernel starts {head:.3f} ms after "
+            f"it opened, the last ends {tail:.3f} ms before its last host "
+            f"event ({WINDOW_PAD_S * 1e3:.0f} ms idle on each side)")
+
+
 def warm_profile(warm, active):
     """torch.profiler (CPU and CUDA) over ``active()``, after a call of
-    ``warm()`` with the profiler already on and its events dropped: late
-    in a process that has opened many profiler windows, a window that
-    starts cold can miss its first kernels. Returns (the events of
-    ``active``, their key averages), without the step's own annotation,
-    which the trace also lays on the device's timeline across the whole
-    window."""
+    ``warm()`` with the profiler already on and its events dropped, each
+    :func:`padded`. Returns (the events of ``active``, their key
+    averages), without the step's own annotation, which the trace also
+    lays on the device's timeline across the whole window; prints
+    :func:`window_edges`."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     def ours(e, name):
@@ -592,15 +666,18 @@ def warm_profile(warm, active):
                     or name.startswith("ProfilerStep"))
 
     got = {}
+
+    def ready(p):
+        events = p.events()
+        print(window_edges(events))
+        got.update(events=[e for e in events if ours(e, e.name)],
+                   averages=[a for a in p.key_averages() if ours(a, a.key)])
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: got.update(
-                     events=[e for e in p.events() if ours(e, e.name)],
-                     averages=[a for a in p.key_averages()
-                               if ours(a, a.key)])) as prof:
+                 on_trace_ready=ready) as prof:
         for fn in (warm, active):
-            fn()
-            torch.cuda.synchronize()
+            padded(fn)
             prof.step()
     return got["events"], got["averages"]
 
@@ -1595,9 +1672,9 @@ def phase_gan_profile(train_store):
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(23)
-        torch.cuda.synchronize()
+        padded(lambda: step(23))
     check(kernels.LAUNCHES["convt4x4s2_mma"] == 5, dict(kernels.LAUNCHES))
+    print(window_edges(prof.events()))
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ours = [e for e in events if "convt4x4s2" in e.name]
     busy_ms = sum(e.device_time for e in events) / 1e3
@@ -4442,30 +4519,46 @@ def phase_predict(tmp: str, root: str, paths: dict, arts: dict) -> None:
     check(d <= 2e-2, d)
 
 
-def serve_process(model_path: str, *extra):
-    """The port's server in a process of its own on an ephemeral port;
-    returns (process, port) once it reports ready."""
+def serve_processes(*model_paths):
+    """The port's server on each of ``model_paths``, each in a process of
+    its own on an ephemeral port, all started at once; returns [(process,
+    port)] once every one reports ready (a server that fails kills
+    them all)."""
     import queue
-    proc = subprocess.Popen(
-        [sys.executable, "-u", "-m", "xgan_torch.cli.serve", "--model-path",
-         model_path, "--port", "0", *extra],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=HERE)
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
-                     daemon=True).start()
-    seen, deadline = [], time.time() + 300
-    while time.time() < deadline:
-        try:
-            line = lines.get(timeout=5)
-        except queue.Empty:
-            check(proc.poll() is None, "server died:\n" + "".join(seen))
-            continue
-        seen.append(line)
-        if line.startswith("Serving"):
-            return proc, int(line.rsplit(":", 1)[-1])
-    proc.kill()
-    raise AssertionError("server not ready in 300 s:\n" + "".join(seen))
+    procs, ready = [], []
+    try:
+        for path in model_paths:
+            proc = subprocess.Popen(
+                [sys.executable, "-u", "-m", "xgan_torch.cli.serve",
+                 "--model-path", path, "--port", "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=HERE)
+            lines = queue.Queue()
+            threading.Thread(target=lambda p=proc, q=lines:
+                             [q.put(ln) for ln in p.stdout],
+                             daemon=True).start()
+            procs.append((proc, lines))
+        deadline = time.time() + 300
+        for proc, lines in procs:
+            seen = []
+            while True:
+                check(time.time() < deadline,
+                      "server not ready in 300 s:\n" + "".join(seen))
+                try:
+                    line = lines.get(timeout=5)
+                except queue.Empty:
+                    check(proc.poll() is None,
+                          "server died:\n" + "".join(seen))
+                    continue
+                seen.append(line)
+                if line.startswith("Serving"):
+                    ready.append((proc, int(line.rsplit(":", 1)[-1])))
+                    break
+        return ready
+    finally:
+        if len(ready) < len(procs):
+            for proc, _ in procs:
+                proc.kill()
 
 
 def http(port: int, path: str, data: bytes | None = None):
@@ -4546,15 +4639,17 @@ def stop(proc) -> None:
 
 def phase_serve(tmp: str, root: str, arts: dict, smi: str) -> None:
     """The server on the bf16 and int8 G artifacts and on the bf16
-    classifier artifact: 64 requests at concurrency 1 and 8 each (p50,
-    p99, requests/s, the dispatch occupancy), every /generate answer at
-    concurrency 8 bitwise the one at concurrency 1, and the SIGTERM
-    drain."""
+    classifier artifact, the three started at once and measured in turn:
+    64 requests at concurrency 1 and 8 each (p50, p99, requests/s, the
+    dispatch occupancy), every /generate answer at concurrency 8 bitwise
+    the one at concurrency 1, and the SIGTERM drain."""
     from xgan_torch.native.png import decode_png_bytes
     seeds = [json.dumps({"seed": s}).encode() for s in range(SERVE_N)]
-    for q in ("none", "int8"):
-        proc, port = serve_process(arts[("gan", "bf16", q)])
-        try:
+    servers = serve_processes(arts[("gan", "bf16", "none")],
+                              arts[("gan", "bf16", "int8")],
+                              arts[("classifier", "bf16", "none")])
+    try:
+        for q, (proc, port) in zip(("none", "int8"), servers):
             got = {}
             for conc in (1, 8):
                 outs, p50, p99, rps = load_run(port, "/generate", seeds, conc)
@@ -4570,16 +4665,12 @@ def phase_serve(tmp: str, root: str, arts: dict, smi: str) -> None:
                 drain(proc, port)
             else:
                 stop(proc)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-    test = sorted(os.listdir(os.path.join(root, "Test")))[:SERVE_N]
-    bodies = []
-    for name in test:
-        with open(os.path.join(root, "Test", name), "rb") as f:
-            bodies.append(f.read())
-    proc, port = serve_process(arts[("classifier", "bf16", "none")])
-    try:
+        test = sorted(os.listdir(os.path.join(root, "Test")))[:SERVE_N]
+        bodies = []
+        for name in test:
+            with open(os.path.join(root, "Test", name), "rb") as f:
+                bodies.append(f.read())
+        proc, port = servers[2]
         for conc in (1, 8):
             outs, p50, p99, rps = load_run(port, "/predict", bodies, conc)
             probs = [json.loads(o)["prob_positive"] for o in outs]
@@ -4589,8 +4680,9 @@ def phase_serve(tmp: str, root: str, arts: dict, smi: str) -> None:
                   f"occupancy {occupancy(port)} [{smi}]")
         stop(proc)
     finally:
-        if proc.poll() is None:
-            proc.kill()
+        for proc, _ in servers:
+            if proc.poll() is None:
+                proc.kill()
 
 
 def phase_data_loader(tmp: str, root: str, synth_dir: str) -> int:
@@ -4619,6 +4711,625 @@ def phase_data_loader(tmp: str, root: str, synth_dir: str) -> int:
     return total
 
 
+# ---- data parallelism across ranks (A14, part 1) --------------------------
+
+LAUNCH_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+               "MASTER_PORT")
+# a CLI's main in a process of its own, with deterministic cuDNN (the CLIs
+# turn TF32 off for f32), printing its kernel launches as its last line
+CLI_LAUNCHER = (
+    "import importlib, json, sys, torch\n"
+    "torch.backends.cudnn.deterministic = True\n"
+    "from xgan_torch import kernels\n"
+    "importlib.import_module('xgan_torch.cli.' + sys.argv[1])"
+    ".main(sys.argv[2:])\n"
+    "print('LAUNCHES ' + json.dumps(dict(kernels.LAUNCHES)))\n")
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free local ports (their sockets held together)."""
+    import socket
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(n)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+
+
+def free_port() -> int:
+    return free_ports(1)[0]
+
+
+def launch_env(rank: int, world: int, local_rank: int, port: int) -> dict:
+    """The environment ``torchrun`` gives a rank on one host."""
+    return {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(local_rank), "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def dp_cli(module: str, argv: list, port: int | None):
+    """Starts ``xgan_torch.cli.<module>`` in a process of its own, under a
+    ``torchrun`` environment of one rank (``port``: the NCCL group at
+    world 1 on that port) or none; :func:`dp_cli_result` reads it."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCH_KEYS}
+    if port is not None:
+        env = launch_env(0, 1, 0, port)
+    return subprocess.Popen([sys.executable, "-u", "-c", CLI_LAUNCHER,
+                             module, *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=HERE,
+                            env=env)
+
+
+def dp_cli_result(module: str, proc):
+    """The output and the kernel launches of a :func:`dp_cli` process."""
+    try:
+        out = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    check(proc.returncode == 0, f"{module}: exit {proc.returncode}\n"
+          + out[-3000:])
+    last = out.strip().splitlines()[-1]
+    check(last.startswith("LAUNCHES "), last)
+    return out, json.loads(last[len("LAUNCHES "):])
+
+
+def f32_close(got, want) -> float:
+    """Worst |got - want| / (1 + |want|) over two equal-length number
+    lists (the f32 step limit, 1e-4, is checked by the caller)."""
+    check(len(got) == len(want), (len(got), len(want)))
+    return max((abs(a - b) / (1 + abs(b)) for a, b in zip(got, want)),
+               default=0.0)
+
+
+GAN_ITER_KEYS = ("G_losses_iter", "D_losses_iter", "D_x_iter",
+                 "D_G_z1_iter", "D_G_z2_iter")
+
+
+def phase_dp_cli(tmp: str, root: str, synth_dir: str, smi: str):
+    """(a) The DCGAN and classifier CLIs under a ``torchrun`` environment
+    of one rank on NCCL, with ``--shard-store`` (a no-op at world 1),
+    against the same CLI with no process group, f32 with TF32 off and
+    deterministic cuDNN, the four processes at once: the DCGAN at full
+    width (B = 128, 2 epochs of 2 steps), the classifier in the augmented
+    mode (ResNet-50, B = 32, one run of 2 steps). The DCGAN's first step within 1e-4 * (1 + |ref|)
+    and every step within 5e-2; the classifier's history and metrics
+    within 1e-4 * (1 + |ref|); the same files, the same launches. Returns
+    the launched runs' (ConvT, mixed_gather) launches."""
+    out, procs = {}, {}
+    ports = iter(free_ports(2))
+    for name, launched in (("plain", False), ("nccl", True)):
+        extra = ["--shard-store"] if launched else []
+        gdir = os.path.join(tmp, "dp", f"gan_{name}")
+        procs[name, "train_gan"] = dp_cli("train_gan", gan_cli_argv(
+            tmp, root, gdir, "--epochs", "2", "--limit-batches", "2",
+            "--compute-dtype", "f32", *extra),
+            next(ports) if launched else None)
+        cdir = os.path.join(tmp, "dp", f"clf_{name}")
+        procs[name, "train_classifier"] = dp_cli("train_classifier", [
+            "--data-dir", root, "--synthetic-dir", synth_dir,
+            "--use-synthetic", "--k-folds", "1", "--epochs", "1",
+            "--limit-batches", "2", "--model-dir", os.path.join(cdir, "m"),
+            "--results-dir", os.path.join(cdir, "metrics"),
+            "--figures-dir", os.path.join(cdir, "figures"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--batch-size", str(CLS_B),
+            "--compute-dtype", "f32", *extra],
+            next(ports) if launched else None)
+    # the four runs share the card at once: each is f32 with TF32 off and
+    # deterministic cuDNN, and none is timed
+    try:
+        results = {key: dp_cli_result(key[1], proc)
+                   for key, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    for name, launched in (("plain", False), ("nccl", True)):
+        gdir = os.path.join(tmp, "dp", f"gan_{name}")
+        cdir = os.path.join(tmp, "dp", f"clf_{name}")
+        text, gl = results[name, "train_gan"]
+        ctext, cl = results[name, "train_classifier"]
+        check(("rank 0 of 1" in text and "rank 0 of 1" in ctext)
+              or not launched, "the launched runs did not join a group")
+        with open(os.path.join(gdir, "metrics",
+                               "gan_training_history.json")) as f:
+            hist = json.load(f)
+        with open(os.path.join(cdir, "metrics",
+                               "augmented_final_metrics.json")) as f:
+            metrics = json.load(f)["metrics"]
+        with open(os.path.join(cdir, "metrics",
+                               "augmented_training_history.json")) as f:
+            chist = json.load(f)
+        sheets = len(os.listdir(os.path.join(gdir, "results",
+                                             "gan_images")))
+        check(gl.get("convt4x4s2_fused", 0) == 5 * (4 + sheets)
+              and cl.get("mixed_gather", 0) == 2, (name, gl, cl, sheets))
+        out[name] = (hist, metrics, chist, gl, cl,
+                     sorted(os.listdir(os.path.join(gdir, "models", "gan"))))
+    (h0, m0, c0, g0, l0, f0), (h1, m1, c1, g1, l1, f1) = \
+        out["plain"], out["nccl"]
+    check(f0 == f1 and g0 == g1 and l0 == l1, (f0, f1, g0, g1, l0, l1))
+    per_step = [f32_close([h1[k][t] for k in GAN_ITER_KEYS],
+                          [h0[k][t] for k in GAN_ITER_KEYS])
+                for t in range(len(h0["G_losses_iter"]))]
+    # the first step is the f32 step limit's like-for-like; later steps
+    # start from parameters that Adam moved by up to lr where a gradient
+    # is rounding noise (tests/test_torch_port_gan_step.py's envelope)
+    check(per_step[0] <= 1e-4 and max(per_step) <= 5e-2, per_step)
+    print("dp CLIs: DCGAN history per step, worst |a-b|/(1+|b|) of the 5 "
+          "metrics: " + ", ".join(f"{v:.3g}" for v in per_step)
+          + " (limits: step 1 1e-4, all 5e-2)")
+    worst = {
+        "classifier metrics": f32_close([m1[k] for k in sorted(m0)],
+                                        [m0[k] for k in sorted(m0)]),
+        "classifier history": max(f32_close(c1[k], c0[k]) for k in c0)}
+    check(all(v <= 1e-4 for v in worst.values()), worst)
+    print(f"dp CLIs, world-1 NCCL with --shard-store against no group (f32, "
+          f"TF32 off, deterministic cuDNN): worst |a-b|/(1+|b|) "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (limit 1e-4); launches {g1} (DCGAN) {l1} (classifier) "
+          f"[{smi}]")
+    return g1["convt4x4s2_fused"], l1["mixed_gather"]
+
+
+def in_fresh_ranks(phase: str, world: int, tmp: str, smi: str) -> list:
+    """``world`` new processes of this script, ``--phase phase/RANK``,
+    each under a ``torchrun`` environment of its rank with LOCAL_RANK 0
+    (every rank on the one card); prints their output and returns each
+    rank's result."""
+    port = free_port()
+    logs = [os.path.join(tmp, f"{phase}_rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", os.path.abspath(__file__), "--phase",
+                 f"{phase}/{r}", tmp, smi], stdout=f,
+                stderr=subprocess.STDOUT, text=True, cwd=HERE,
+                env=launch_env(r, world, 0, port)))
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            lines = f.read().splitlines()
+        res = [ln for ln in lines if ln.startswith('{"result": ')]
+        print("\n".join(f"[rank {r}] {ln}" for ln in lines if ln not in res))
+        check(rcs[r] == 0 and len(res) == 1,
+              f"phase {phase} rank {r}: exit {rcs[r]}; the end of its "
+              f"output:\n" + "\n".join(lines[-40:]))
+        results.append(json.loads(res[0])["result"])
+    return results
+
+
+def timed_steps(step, n: int, mesh=None) -> float:
+    """ms per call of ``step`` over ``n`` calls after 3 warm ones, by the
+    host clock around work that ends in a synchronise (and, with
+    ``mesh``, starts and ends at a barrier of its ranks)."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    if mesh is not None:
+        mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    if mesh is not None:
+        mesh.barrier()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def dist_classifier(dev, mesh, dtype, seed: int):
+    """A seeded ResNet-50 (frozen base, as the CLI's default) tied to
+    ``mesh``, its optimizer, and a seeded 256-image synthetic store."""
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.data.store import ImageStore
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.models.resnet import ResNet50
+    from xgan_torch.train.classifier import classifier_optimizer
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = ResNet50(2, dtype=dtype, device=dev, generator=g)
+    sync_batch_norm(model, mesh)
+    rng = np.random.default_rng(seed)
+    synth = DeviceStore(ImageStore(
+        rng.integers(0, 256, (256, SIZE, SIZE, 3), np.uint8),
+        np.ones(256, np.int32), SIZE), dev)
+    return model, classifier_optimizer(model, 1e-3, True), synth
+
+
+def dist_draws(dev, b: int, seed: int):
+    """A seeded (B,) batch of the train store with the mixer's and the
+    flip's draws."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(0, N_TRAIN, (b,), generator=g, device=dev),
+            torch.rand(b, generator=g, device=dev) < 0.5,
+            torch.randint(0, 256, (b,), generator=g, device=dev),
+            torch.rand(b, generator=g, device=dev) < 0.5)
+
+
+def params_close(a: dict, b: dict, steps: int, lr: float) -> tuple:
+    """(max |a - b|, elements outside rtol 2e-3 / atol 2e-5, elements)
+    over two state dicts' float tensors after ``steps`` Adam steps from
+    fresh moments. Adam's first steps move a coordinate by up to lr
+    whatever its gradient, so one whose gradient is rounding noise may
+    move lr either way: only 2 * lr a step (and f32 rounding) is held;
+    the gradients are held by :func:`grad_norms_close`."""
+    worst, outside, total = 0.0, 0, 0
+    for k, v in b.items():
+        if not v.is_floating_point():
+            continue
+        d = (a[k].double() - v.double()).abs()
+        worst = max(worst, d.max().item())
+        outside += int((d > 2e-5 + 2e-3 * v.double().abs()).sum())
+        total += v.numel()
+    check(worst <= 2 * lr * steps + 1e-6, (worst, outside, total))
+    return worst, outside, total
+
+
+def grad_norms(*nets) -> dict:
+    """Each parameter's gradient norm, by name, over ``nets``."""
+    return {f"{i}.{n}": p.grad.norm().item() for i, net in enumerate(nets)
+            for n, p in net.named_parameters() if p.grad is not None}
+
+
+def grad_norms_close(a: dict, b: dict, floor: dict | None = None) -> float:
+    """Worst ratio of two runs' per-tensor relative gradient-norm
+    difference to its limit, held at 1 or under: 1e-3 (the f32 step limit
+    of ``phase_gan_step_check``) plus twice ``floor``'s relative
+    difference from ``b`` where given (a run whose difference from ``b``
+    is rounding alone, as ``hold_f32_kernel_step`` measures one)."""
+    check(a.keys() == b.keys() and a, (sorted(a), sorted(b)))
+
+    def rel(x, k):
+        return abs(x[k] - b[k]) / max(b[k], 1e-30)
+
+    worst = max(rel(a, k) / (1e-3 + (2 * rel(floor, k) if floor else 0.0))
+                for k in b)
+    check(worst <= 1.0, worst)
+    return worst
+
+
+@contextlib.contextmanager
+def counted_all_reduce():
+    """Counts the calls of ``torch.distributed.all_reduce`` made inside
+    and the bytes they reduce (``calls``, ``bytes``)."""
+    import torch.distributed as dist
+    seen = collections.Counter()
+    orig = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        seen["calls"] += 1
+        seen["bytes"] += t.numel() * t.element_size()
+        return orig(t, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield seen
+    finally:
+        dist.all_reduce = orig
+
+
+def dp_step_checks(mesh, store, sharded=None) -> dict:
+    """f32 steps through ``mesh`` against one rank's step on the same
+    inputs and state (TF32 off, deterministic cuDNN): a DCGAN-224 step at
+    B = 128 after 3 shared warm-up steps from the seeded reference init
+    (from fresh weights rounding alone moves gradient norms past 1e-3, as
+    ``hold_f32_kernel_step`` found), and a classifier step (ResNet-50,
+    mix, frozen base, B = 32). The one-rank reference passes an all-ones
+    mask, which takes the BN sums path the DP path takes: metrics within
+    1e-4 * (1 + |ref|), per-tensor gradient norms within 1e-3 (plus twice
+    the floor of the same DCGAN reference step over its rows in another
+    order), parameters by :func:`params_close`. The same against the plain one-rank step
+    (``F.batch_norm``'s two-pass variance) is printed, not held. With
+    ``sharded`` (the train store split over the ranks) also the
+    classifier step over it, bitwise the replicated one. Returns the
+    deviations, the all-reduces a step, the DP steps' launches and their
+    parameters."""
+    import copy
+    from xgan_torch import kernels
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.train.classifier import train_step
+    from xgan_torch.train.gan import dcgan_step
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(61)
+    draws = [(torch.randint(0, N_TRAIN, (GAN_B,), generator=g, device=dev),
+              torch.rand(GAN_B, generator=g, device=dev) < 0.5,
+              torch.randn(GAN_B, LATENT, generator=g, device=dev))
+             for _ in range(4)]
+    out = {"launches": [0, 0], "all_reduce": {}}
+    gn, dn, og, od = gan_models(torch.float32, seed=60)
+    for idx, flip, noise in draws[:3]:
+        dcgan_step(gn, dn, og, od, store.images, idx, latent_dim=LATENT,
+                   flip=flip, noise=noise)
+    warm = copy.deepcopy([x.state_dict() for x in (gn, dn, og, od)])
+    idx, flip, noise = draws[3]
+    ones = torch.ones(GAN_B, device=dev)
+    # the floor: the reference on the same rows in another order (the
+    # second half first, as the ranks split them), rounding alone
+    swap = torch.arange(GAN_B, device=dev).roll(GAN_B // 2)
+    nets = {}
+    for name, m, mask in (("dp", mesh, None), ("ref", None, ones),
+                          ("floor", None, ones), ("plain", None, None)):
+        rows = swap if name == "floor" else slice(None)
+        for x, sd in zip((gn, dn, og, od), copy.deepcopy(warm)):
+            x.load_state_dict(sd)
+        sync_batch_norm(gn, m)
+        sync_batch_norm(dn, m)
+        kernels.reset_launch_counts()
+        with counted_all_reduce() as seen:
+            metrics = dcgan_step(gn, dn, og, od, store.images, idx[rows],
+                                 latent_dim=LATENT, flip=flip[rows],
+                                 noise=noise[rows], mask=mask,
+                                 take=store.take, mesh=m)
+            torch.cuda.synchronize()
+        check(kernels.LAUNCHES["convt4x4s2_fused"] == 5,
+              dict(kernels.LAUNCHES))
+        if name == "dp":
+            out["launches"][0] += 5
+            out["all_reduce"]["DCGAN"] = dict(seen)
+        nets[name] = (metrics.tolist(), {
+            **{f"g.{k}": v.clone() for k, v in gn.state_dict().items()},
+            **{f"d.{k}": v.clone() for k, v in dn.state_dict().items()}},
+            grad_norms(gn, dn))
+    out["gan"] = f32_close(nets["dp"][0], nets["ref"][0])
+    check(out["gan"] <= 1e-4, out["gan"])
+    out["gan_grads"] = grad_norms_close(nets["dp"][2], nets["ref"][2],
+                                        nets["floor"][2])
+    out["gan_floor"] = max(abs(nets["floor"][2][k] - v) / max(v, 1e-30)
+                           for k, v in nets["ref"][2].items())
+    out["gan_params"] = params_close(nets["dp"][1], nets["ref"][1], 1, 2e-4)
+    plain = nets["plain"]
+    out["gan_plain"] = (f32_close(nets["dp"][0], plain[0]), max(
+        abs(nets["dp"][2][k] - v) / max(v, 1e-30)
+        for k, v in plain[2].items()))
+
+    idx, use, pick, cflip = dist_draws(dev, CLS_B, 62)
+    kw = dict(mode="mix", ratio=0.5, flip=cflip, use_synth=use,
+              synth_pick=pick)
+    runs = [("dp", store, mesh, None),
+            ("ref", store, None, torch.ones(CLS_B, device=dev))]
+    if sharded is not None:
+        runs.append(("sharded", sharded, mesh, None))
+    steps = {}
+    for name, real, m, mask in runs:
+        model, opt, synth = dist_classifier(dev, m, torch.float32, 63)
+        kernels.reset_launch_counts()
+        with counted_all_reduce() as seen:
+            got = train_step(model, opt, real, synth, idx, mesh=m,
+                             mask=mask, **kw)
+            torch.cuda.synchronize()
+        n = kernels.LAUNCHES["mixed_gather"]
+        check(n == (0 if name == "sharded" else 1), (name, n))
+        if m is not None:
+            out["all_reduce"][f"classifier {name}"] = dict(seen)
+        if name == "dp":
+            out["launches"][1] += n
+            out["unfrozen_grad_bytes"] = 4 * sum(
+                p.numel() for p in model.parameters())
+        steps[name] = ([t.float() for t in got], model.state_dict(),
+                       grad_norms(model))
+    out["clf"] = f32_close(steps["dp"][0][0].tolist(),
+                           steps["ref"][0][0].tolist())
+    check(out["clf"] <= 1e-4, out["clf"])
+    out["clf_grads"] = grad_norms_close(steps["dp"][2], steps["ref"][2])
+    out["clf_params"] = params_close(steps["dp"][1], steps["ref"][1], 1,
+                                     1e-3)
+    if sharded is not None:
+        check(all(torch.equal(a, b) for a, b in zip(steps["dp"][0],
+                                                    steps["sharded"][0]))
+              and all(torch.equal(v, steps["sharded"][1][k])
+                      for k, v in steps["dp"][1].items()),
+              "the sharded store's step differs from the replicated one")
+    out["states"] = {"gan": nets["dp"][1], "clf": steps["dp"][1],
+                     "metrics": nets["dp"][0]}
+    out["synth"], out["draws"] = synth, (idx, use, pick, cflip)
+    return out
+
+
+def dp_summary(label: str, c: dict, smi: str) -> None:
+    print(f"{label}: f32 DCGAN-224 B={GAN_B} step against no group: metrics "
+          f"{c['gan']:.3g} (limit 1e-4), gradient norms at "
+          f"{c['gan_grads']:.3g} of their limit (1e-3 + 2 floor; the floor, "
+          f"the reference over its rows in another order, up to "
+          f"{c['gan_floor']:.3g}), parameters max |diff| "
+          f"{c['gan_params'][0]:.3g} "
+          f"(limit 2 lr), {c['gan_params'][1]} of {c['gan_params'][2]} "
+          f"outside rtol 2e-3/atol 2e-5; f32 classifier B={CLS_B} mix "
+          f"step: losses {c['clf']:.3g}, gradient norms at "
+          f"{c['clf_grads']:.3g} of 1e-3, parameters max |diff| "
+          f"{c['clf_params'][0]:.3g}, {c['clf_params'][1]} of "
+          f"{c['clf_params'][2]} outside (against one rank's sums-path "
+          f"BN); against the plain one-rank DCGAN step (not held): metrics "
+          f"{c['gan_plain'][0]:.3g}, gradient norms {c['gan_plain'][1]:.3g}; "
+          "all-reduces a step (calls, bytes): "
+          + "; ".join(f"{k} {v['calls']}, {v['bytes']}"
+                      for k, v in c["all_reduce"].items())
+          + f"; ResNet-50's gradients under --unfreeze would add "
+          f"{c['unfrozen_grad_bytes']} bytes [{smi}]")
+
+
+def phase_dist(train, smi: str, rank: int) -> list:
+    """(b) One rank of two sharing the card over gloo's CUDA all-reduce
+    (``--phase dist/RANK``): :func:`dp_step_checks` with ``--shard-store``'s
+    store; this rank's gathered rows bitwise against the plain version and
+    against its rows of the 1-rank gather, and the sharded take bitwise
+    against the replicated rows; bf16 steps timed. Saves its parameters
+    for the parent's bitwise check of the ranks; returns its (ConvT,
+    mixed_gather) launches."""
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.gather import (mixed_gather, mixed_gather_ranks,
+                                           mixed_gather_ref, new_error_flag,
+                                           raise_if_flagged)
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.parallel.mesh import init_from_env, shutdown
+    from xgan_torch.train.classifier import assemble, train_step
+    from xgan_torch.train.gan import dcgan_step
+    mesh = init_from_env(cpu=False, backend="gloo")
+    dev = mesh.device
+    check(mesh.world == 2 and mesh.rank == rank and dev.index == 0,
+          (mesh, dev))
+    torch.backends.cudnn.deterministic = True
+    rows = mesh.local_rows(CLS_B)
+    try:
+        store = DeviceStore(train, dev)
+        sharded = DeviceStore(train, dev, mesh, shard=True)
+        nbytes = [s.images.numel() for s in (store, sharded)]
+        check(nbytes[1] * 2 == nbytes[0], nbytes)
+        c = dp_step_checks(mesh, store, sharded)
+        launched = c["launches"]
+
+        # this rank's rows of the gather, and the sharded take
+        synth, (idx, use, pick, flip) = c["synth"], c["draws"]
+        mine, _ = assemble("mix", store, synth, idx, use_synth=use,
+                           synth_pick=pick, rows=rows)
+        full = mixed_gather(store.images, synth.images, idx, pick, use)
+        plain = mixed_gather_ref(store.images, synth.images, idx[rows],
+                                 pick[rows], use[rows])
+        taken = sharded.take(sharded.images, idx, rows)
+        check(torch.equal(mine, plain) and torch.equal(mine, full[rows])
+              and torch.equal(taken, store.images[idx[rows]]),
+              "rank rows differ")
+        b = rows.stop - rows.start
+        nbytes_g = 2 * b * SIZE * SIZE * 3 + 2 * b * 8 + b  # as phase_gather
+        err = new_error_flag(dev)  # read once, after the timed calls
+        gather_ms = [time_ms(lambda: mixed_gather_ranks(
+            store.images, synth.images, idx, pick, use, rows, err),
+            reps=64),
+            time_ms(lambda: mixed_gather_ref(
+                store.images, synth.images, idx[rows], pick[rows],
+                use[rows]), reps=64),
+            time_ms(lambda: torch.where(
+                use[rows][:, None, None, None], synth.images[pick[rows]],
+                store.images[idx[rows]]), reps=64)]
+        raise_if_flagged(err)
+
+        # bf16 timings of two ranks sharing the card
+        gn, dn, og, od = gan_models(torch.bfloat16, seed=64)
+        sync_batch_norm(gn, mesh)
+        sync_batch_norm(dn, mesh)
+        gen = torch.Generator(device=dev).manual_seed(65)
+        gidx = torch.randint(0, N_TRAIN, (GAN_B,), generator=gen, device=dev)
+        kernels.reset_launch_counts()
+        gan_ms = timed_steps(lambda: dcgan_step(
+            gn, dn, og, od, store.images, gidx, latent_dim=LATENT,
+            generator=gen, mesh=mesh), 5, mesh)
+        launched[0] += kernels.LAUNCHES["convt4x4s2_fused"]
+        model, opt, synth = dist_classifier(dev, mesh, torch.bfloat16, 66)
+        kernels.reset_launch_counts()
+        clf_ms = timed_steps(lambda: train_step(
+            model, opt, store, synth, idx, mode="mix", ratio=0.5,
+            flip=flip, use_synth=use, synth_pick=pick, mesh=mesh), 10, mesh)
+        launched[1] += kernels.LAUNCHES["mixed_gather"]
+        torch.save(c["states"], os.path.join(CHILD_TMP,
+                                             f"dist_rank{rank}.pt"))
+    finally:
+        shutdown(mesh)
+    dp_summary(f"rank {rank} of 2 (gloo, one card)", c, smi)
+    print(f"rank {rank}: the sharded store's step bitwise the replicated "
+          f"one; its {CLS_B // 2} gathered rows bitwise the plain "
+          f"version's and the 1-rank gather's; the per-rank gather "
+          f"(mixed_gather_ranks, {b} rows) {gather_ms[0]:.4f} ms, plain "
+          f"{gather_ms[1]:.4f} ms, torch.where {gather_ms[2]:.4f} ms, "
+          f"bound {_bytes_ms(nbytes_g):.4f} ms ({nbytes_g} bytes; both "
+          f"ranks time at once); store bytes per rank: "
+          f"replicated {nbytes[0]}, sharded {nbytes[1]}; bf16 ms per step, "
+          f"two ranks sharing one card over host-staged gloo (not a "
+          f"scaling figure): DCGAN B={GAN_B} {gan_ms:.3f}, classifier "
+          f"B={CLS_B} mix {clf_ms:.3f} [{smi}]")
+    return launched
+
+
+def phase_dist1(train, smi: str, run: int) -> list:
+    """The DP path on one card: one rank of a world-1 NCCL group
+    (``--phase dist1``) holds :func:`dp_step_checks`, then times bf16
+    DCGAN-224 steps (B = 128) and classifier steps (ResNet-50, mix, B =
+    32) with the group (every all-reduce of the DP path) against the same
+    steps with none, in turns (none, group, group, none). Returns the
+    group steps' (ConvT, mixed_gather) launches."""
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.parallel.mesh import init_from_env, shutdown
+    from xgan_torch.train.classifier import train_step
+    from xgan_torch.train.gan import dcgan_step
+    mesh = init_from_env(cpu=False)
+    dev = mesh.device
+    check(mesh.distributed and mesh.world == 1, mesh)
+    times = collections.defaultdict(list)
+    torch.backends.cudnn.deterministic = True
+    try:
+        store = DeviceStore(train, dev)
+        c = dp_step_checks(mesh, store)
+        launched = c["launches"]
+        torch.backends.cudnn.deterministic = False
+        idx, use, pick, flip = dist_draws(dev, CLS_B, 70)
+        gan, clf = {}, {}
+        for name, m in (("none", None), ("group", mesh)):
+            gn, dn, og, od = gan_models(torch.bfloat16, seed=71)
+            sync_batch_norm(gn, m)
+            sync_batch_norm(dn, m)
+            gen = torch.Generator(device=dev).manual_seed(72)
+            gidx = torch.randint(0, N_TRAIN, (GAN_B,), generator=gen,
+                                 device=dev)
+            gan[name] = (lambda gn=gn, dn=dn, og=og, od=od, gen=gen,
+                         gidx=gidx, m=m: dcgan_step(
+                             gn, dn, og, od, store.images, gidx,
+                             latent_dim=LATENT, generator=gen, mesh=m))
+            model, opt, synth = dist_classifier(dev, m, torch.bfloat16, 73)
+            clf[name] = (lambda model=model, opt=opt, synth=synth, m=m:
+                         train_step(model, opt, store, synth, idx,
+                                    mode="mix", ratio=0.5, flip=flip,
+                                    use_synth=use, synth_pick=pick, mesh=m))
+        timed = [0, 0]
+        for name in ("none", "group", "group", "none"):
+            kernels.reset_launch_counts()
+            times[f"gan {name}"].append(timed_steps(gan[name], 10))
+            times[f"clf {name}"].append(timed_steps(clf[name], 10))
+            if name == "group":
+                timed[0] += kernels.LAUNCHES["convt4x4s2_fused"]
+                timed[1] += kernels.LAUNCHES["mixed_gather"]
+    finally:
+        shutdown(mesh)
+    check(timed == [2 * 13 * 5, 2 * 13], timed)
+    dp_summary("world-1 NCCL group", c, smi)
+    print(f"world-1 NCCL DP path against no group, bf16 ms per step (turns "
+          f"none, group, group, none): DCGAN-224 B={GAN_B} none "
+          f"{times['gan none']} group {times['gan group']}; classifier "
+          f"B={CLS_B} mix none {times['clf none']} group "
+          f"{times['clf group']} [{smi}]")
+    return [a + b for a, b in zip(launched, timed)]
+
+
+def phase_dp(tmp: str, root: str, synth_dir: str, smi: str) -> list:
+    """(a) and (b), after every earlier phase: the CLIs on NCCL at world 1,
+    the cost of the DP path on one card, then two ranks on the card over
+    gloo, whose parameters must be bitwise equal. Returns the DP paths'
+    (ConvT, mixed_gather) launches."""
+    launched = list(phase_dp_cli(tmp, root, synth_dir, smi))
+    for phase, world in (("dist1", 1), ("dist", 2)):
+        for got in in_fresh_ranks(phase, world, tmp, smi):
+            launched = [a + b for a, b in zip(launched, got)]
+    ranks = [torch.load(os.path.join(tmp, f"dist_rank{r}.pt"),
+                        weights_only=True) for r in range(2)]
+    check(ranks[0]["metrics"] == ranks[1]["metrics"]
+          and all(torch.equal(v, ranks[1][net][k])
+                  for net in ("gan", "clf") for k, v in ranks[0][net].items()),
+          "the two ranks' parameters differ")
+    print(f"dp: both ranks' parameters bitwise equal after their steps; "
+          f"launches on the DP paths: ConvT {launched[0]}, mixed_gather "
+          f"{launched[1]}")
+    check(all(launched), launched)
+    return launched
+
+
 # the phases that hold a kernel count read from a profiler window,
 # called with (the train store, the card's line, the run)
 FRESH_PHASES = {
@@ -4627,6 +5338,8 @@ FRESH_PHASES = {
     "loop_wgan": phase_loop_wgan,
     "profile": lambda train, smi, run: phase_profile(),
     "artifact_profile": phase_artifact_profile,
+    "dist": phase_dist,
+    "dist1": phase_dist1,
 }
 CHILD_TMP = None  # a --phase process's temporary directory
 
@@ -4691,18 +5404,25 @@ def main():
         phase_predict(tmp, root, paths, arts)
         phase_serve(tmp, root, arts, smi)
         gather_entry["launches"] += phase_data_loader(tmp, root, synth_dir)
+        dp_convt, dp_gather = phase_dp(tmp, root, synth_dir, smi)
+        gather_entry["launches"] += dp_gather
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "
           f"(warm median) vs {busy_ms:.3f} ms profiled device time per "
           f"batch: device idle share ~{1 - busy_ms / loop_ms_per_batch:.3f}")
     entry["launches"] = (launches["convt4x4s2_fused"] + gan_launches
-                         + wgan_launches + loop_launches + inf_launches)
+                         + wgan_launches + loop_launches + inf_launches
+                         + dp_convt)
     print(json.dumps({"kernels": [entry, gather_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
+
+for _name in [n for n in globals() if n.startswith("phase_")] + [
+        "cli_process", "dp_cli", "in_fresh_process", "in_fresh_ranks"]:
+    globals()[_name] = timed(globals()[_name])
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:

@@ -312,7 +312,7 @@ def test_cli_errors(tmp_path, fake_dataset, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the no-GPU error")
     for argv in (["--data-dir", fake_dataset["data_dir"]],
-                 ["--cpu", "--shard-store"]):
+                 ["--cpu", "--shard-opt-state"]):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
         assert e.value.code == 1

@@ -1,0 +1,242 @@
+"""The port's DCGAN and classifier CLIs under a ``torchrun``-style launch
+environment with ``--cpu`` (gloo), against the same CLI in one process.
+
+- The DCGAN CLI (2 epochs of a full batch of 16 and a masked tail of 8
+  valid rows, so rank 1's tail rows are all padding) on 2 ranks, with
+  and without ``--shard-store``, and on 1 launched rank with it: the
+  history JSON within tests/test_sharding.py's metric tolerances (rtol
+  2e-4, atol 2e-5) of the one-process run, the same files written, and
+  only rank 0 saying it wrote them.
+- The classifier CLI (augmented strategy, 2 folds x 1 epoch) on 2 ranks,
+  with and without ``--shard-store``: every history, the CV summary and
+  the best checkpoints within 1e-4 of the one-process run, the same
+  files, only rank 0 writing.
+- A 2-rank DCGAN run whose rank 1 gets SIGTERM after its first epoch:
+  both ranks stop at the same boundary (exit 0, the notice), and
+  ``--resume-from auto`` ends bitwise equal to a straight 2-rank run.
+- The loop flags that do not run across ranks yet, and the WGAN-GP and
+  CGAN trainers, exit 1 with "not supported by xgan_torch yet" under a
+  launch environment.
+"""
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_port_dist_worker import RANK_TIMEOUT, start_ranks, \
+    wait_ranks
+from xgan_torch.cli import train_cgan, train_classifier, train_gan, \
+    train_wggan
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LAUNCH = {"RANK": "0", "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+          "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1"}
+
+
+def _gan_argv(data_dir, out, epochs, *extra):
+    return [sys.executable, "-u", "-m", "xgan_torch.cli.train_gan", "--cpu",
+            "--data-dir", data_dir, "--model-dir", f"{out}/models",
+            "--output-dir", f"{out}/results",
+            "--results-dir", f"{out}/metrics",
+            "--figures-dir", f"{out}/figures", "--cache-dir", f"{out}/cache",
+            "--image-size", "32", "--feature-maps-g", "8",
+            "--feature-maps-d", "8", "--latent-dim", "16",
+            "--epochs", str(epochs), "--batch-size", "16",
+            "--vis-batch-size", "8", "--save-interval", "2",
+            "--checkpoint-interval", "1", *extra]
+
+
+def _clf_argv(ds, out, *extra):
+    return [sys.executable, "-u", "-m", "xgan_torch.cli.train_classifier",
+            "--cpu", "--data-dir", ds["data_dir"],
+            "--synthetic-dir", ds["synthetic_dir"], "--use-synthetic",
+            "--model-dir", f"{out}/models", "--results-dir", f"{out}/metrics",
+            "--figures-dir", f"{out}/figures", "--cache-dir", f"{out}/cache",
+            "--image-size", "32", "--batch-size", "8", "--epochs", "1",
+            "--k-folds", "2", "--resnet-stages", "1,1,1,1", *extra]
+
+
+def _one(argv):
+    """The CLI in one process without a launch environment."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCH}
+    env["OMP_NUM_THREADS"] = "1"
+    p = subprocess.run(argv, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=RANK_TIMEOUT)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+    return p.stdout
+
+
+def _ranks(argv, world=2):
+    outs = wait_ranks(start_ranks(argv, world))
+    for rc, text in outs:
+        assert rc == 0, text[-4000:]
+    return [text for _, text in outs]
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs
+                  if "/cache" not in d and not d.endswith("cache"))
+
+
+@pytest.fixture(scope="module")
+def gan_runs(fake_dataset, tmp_path_factory):
+    root = tmp_path_factory.mktemp("dist_gan_cli")
+    data = fake_dataset["data_dir"]
+    runs = {"one": _one(_gan_argv(data, root / "one", 2))}
+    for name, world, extra in (("two", 2, []),
+                               ("two_sharded", 2, ["--shard-store"]),
+                               ("launched_one", 1, ["--shard-store"])):
+        runs[name] = _ranks(_gan_argv(data, root / name, 2, *extra), world)
+    return root, runs
+
+
+def _history(root, name):
+    return json.loads((root / name / "metrics"
+                       / "gan_training_history.json").read_text())
+
+
+@pytest.mark.parametrize("name", ["two", "two_sharded", "launched_one"])
+def test_gan_cli_ranks_match_one_process(gan_runs, name):
+    root, runs = gan_runs
+    want, got = _history(root, "one"), _history(root, name)
+    assert got.keys() == want.keys()
+    assert len(got["G_losses_iter"]) == 4
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-5,
+                                   err_msg=k)
+    assert _files(root / name) == _files(root / "one")
+    ranks = runs[name]
+    assert "Saved final models" in ranks[0]
+    assert "Epoch 2/2 Summary" in ranks[-1]
+    for text in ranks[1:]:
+        assert "Saved" not in text, text[-2000:]
+    if name != "launched_one":
+        assert "rank 1 of 2" in ranks[1]
+
+
+@pytest.fixture(scope="module")
+def clf_runs(fake_dataset, tmp_path_factory):
+    root = tmp_path_factory.mktemp("dist_clf_cli")
+    runs = {"one": _one(_clf_argv(fake_dataset, root / "one"))}
+    for name, extra in (("two", []), ("two_sharded", ["--shard-store"])):
+        runs[name] = _ranks(_clf_argv(fake_dataset, root / name, *extra))
+    return root, runs
+
+
+@pytest.mark.parametrize("name", ["two", "two_sharded"])
+def test_classifier_cli_ranks_match_one_process(clf_runs, name):
+    root, runs = clf_runs
+    files = _files(root / "one")
+    assert _files(root / name) == files
+    for f in files:
+        if f.endswith(".json"):
+            want = json.loads((root / "one" / f).read_text())
+            got = json.loads((root / name / f).read_text())
+            assert got.keys() == want.keys(), f
+            for k in want:
+                np.testing.assert_allclose(_flat(got[k]), _flat(want[k]),
+                                           rtol=0, atol=1e-4,
+                                           err_msg=f"{f}:{k}")
+        elif f.endswith(".pth"):
+            want = torch.load(root / "one" / f, weights_only=True)
+            got = torch.load(root / name / f, weights_only=True)
+            for k, v in want.items():
+                torch.testing.assert_close(got[k].double(), v.double(),
+                                           rtol=0, atol=1e-4)
+    assert "===== Cross-Validation Summary =====" in runs[name][0]
+    assert "Saved best model" in runs[name][0]
+    assert "Saved best model" not in runs[name][1]
+
+
+def _flat(v):
+    """The numbers of a JSON value, in order."""
+    if isinstance(v, dict):
+        return [x for k in sorted(v) for x in _flat(v[k])]
+    if isinstance(v, list):
+        return [x for e in v for x in _flat(e)]
+    return [float(v)]
+
+
+def test_sigterm_to_one_rank_stops_both_and_resumes(fake_dataset, tmp_path):
+    data, epochs = fake_dataset["data_dir"], 12
+    straight = _ranks(_gan_argv(data, tmp_path / "straight", epochs))
+    assert "Training finished" in straight[0]
+    argv = _gan_argv(data, tmp_path / "stopped", epochs)
+    paths = [tmp_path / f"rank{r}.log" for r in range(2)]
+    logs = [open(p, "w") for p in paths]
+    procs = start_ranks(argv, 2, logs)
+    try:
+        deadline = time.time() + RANK_TIMEOUT
+        while f"Epoch 1/{epochs} Summary" not in paths[1].read_text():
+            if time.time() > deadline or procs[1].poll() is not None:
+                pytest.fail("rank 1 never finished its first epoch")
+            time.sleep(0.05)
+        procs[1].send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    texts = [p.read_text() for p in paths]
+    assert rcs == [0, 0], texts
+    assert "Received signal" in texts[1], texts[1]
+    stops = [ln for t in texts for ln in t.splitlines()
+             if ln.startswith("Preempted: training stopped after epoch")]
+    assert len(stops) == 2 and stops[0] == stops[1], stops
+    stopped = int(stops[0].split("epoch ")[1].split()[0])
+    assert 1 <= stopped < epochs
+    out = tmp_path / "stopped"
+    assert (out / "models/gan/snapshot_last.pth").exists()
+    assert not (out / "models/gan/generator_final.pth").exists()
+
+    resumed = _ranks(argv + ["--resume-from", "auto"])
+    for text in resumed:
+        assert f"at epoch {stopped}, iter {2 * stopped}" in text, text
+    a = json.loads((tmp_path / "straight/metrics/gan_training_history.json")
+                   .read_text())
+    b = json.loads((out / "metrics/gan_training_history.json").read_text())
+    assert a == b
+    for f in ("generator_final.pth", "discriminator_final.pth"):
+        want = torch.load(tmp_path / "straight/models/gan" / f,
+                          weights_only=True)
+        got = torch.load(out / "models/gan" / f, weights_only=True)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (f, k)
+
+
+REFUSED = [
+    (train_gan, ["--grad-accum", "2"], "--grad-accum"),
+    (train_gan, ["--steps-per-call", "2"], "--steps-per-call"),
+    (train_classifier, ["--grad-accum", "2"], "--grad-accum"),
+    (train_classifier, ["--remat"], "--remat"),
+    (train_classifier, ["--parallel-folds"], "--parallel-folds"),
+    (train_wggan, [], "this trainer"),
+    (train_cgan, [], "this trainer"),
+]
+
+
+@pytest.mark.parametrize("cli,flags,what", REFUSED,
+                         ids=[f"{c.__name__.rsplit('.', 1)[-1]}{f}"
+                              for c, f, _ in REFUSED])
+def test_flags_refused_under_a_launch(cli, flags, what, monkeypatch,
+                                      capsys):
+    for k, v in LAUNCH.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--cpu", *flags])
+    assert e.value.code == 1
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith(f"Error: {what}"), last
+    assert "not supported by xgan_torch yet under a torchrun launch" in last

@@ -11,7 +11,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "xgan"}
 HOST_ONLY = {"pandas", "sklearn", "PIL", "matplotlib", "msgpack",
              "ml_dtypes"}
-FILES = sorted((ROOT / "xgan_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "xgan_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_dist_worker.py"]
 
 
 def _imported_roots(path):
@@ -55,6 +56,8 @@ def test_port_files_exist():
     assert "xgan_torch/cli/predict.py" in names
     assert "xgan_torch/cli/serve.py" in names
     assert "xgan_torch/cli/data_loader.py" in names
+    assert "xgan_torch/parallel/mesh.py" in names
+    assert "tests/torch_port_dist_worker.py" in names
     assert len(names) > 10
 
 

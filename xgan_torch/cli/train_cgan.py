@@ -43,7 +43,8 @@ def build_parser():
 def main(argv=None):
     """Train; returns the history (None after a printed error)."""
     args = build_parser().parse_args(argv)
-    device, dtype = train_gan.start(args)
+    mesh, dtype = train_gan.start(args)
+    device = mesh.device
     from xgan_torch.train.cgan_loop import train_cgan
     return train_cgan(args, device, dtype)
 

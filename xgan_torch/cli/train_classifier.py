@@ -16,6 +16,17 @@ SIGTERM or SIGINT stops the run at the end of its epoch), while
 ``--parallel-folds`` trains the k folds in lockstep, one step advancing
 all of them (``xgan_torch.train.parallel_cv``). Flags of the JAX CLI that
 this port does not support yet exit 1 when set away from their default.
+
+Data parallelism (the JAX CLI's default over every local device) is a
+``torchrun`` launch here, one process a card::
+
+    torchrun --nproc-per-node 8 -m xgan_torch.cli.train_classifier ...
+
+``--batch-size`` is then the global batch (rounded up to a multiple of
+the ranks); every fold trains on all ranks, rank 0 writes every file, and
+``--shard-store`` splits the real and test stores over the ranks.
+``--grad-accum``, ``--remat`` and ``--parallel-folds`` exit 1 under a
+launch.
 """
 from __future__ import annotations
 
@@ -27,8 +38,9 @@ import torch
 from xgan_torch import config
 
 # flag -> its default: other values are not supported by the port yet
-UNSUPPORTED = {"shard_store": False, "shard_opt_state": False,
-               "model_parallel": 1}
+UNSUPPORTED = {"shard_opt_state": False, "model_parallel": 1}
+# the loop flags that do not run across ranks yet
+DP_REFUSED = {"grad_accum": 1, "remat": False, "parallel_folds": False}
 
 
 def build_parser():
@@ -100,7 +112,8 @@ def build_parser():
                         "path")
     # flags of the JAX CLI that the port does not support yet
     p.add_argument("--shard-store", action="store_true",
-                   help="(not supported by xgan_torch yet)")
+                   help="Split the real and test stores over the "
+                        "data-parallel ranks (a no-op on one rank)")
     p.add_argument("--shard-opt-state", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--model-parallel", type=int, default=1,
@@ -116,11 +129,8 @@ def main(argv=None):
         print("Error: k-folds must be at least 1.")
         sys.exit(1)
     config.refuse_unsupported(args, UNSUPPORTED)
-    try:
-        device = config.resolve_device(args.cpu)
-    except RuntimeError as e:
-        print(f"Error: {e}")
-        sys.exit(1)
+    mesh = config.join_ranks(args, DP_REFUSED)
+    device = mesh.device
     if args.use_curriculum and not args.use_synthetic:
         print("Warning: --use-curriculum requires --use-synthetic. "
               "Ignoring curriculum schedule.")
@@ -137,8 +147,12 @@ def main(argv=None):
     for k, v in sorted(vars(args).items()):
         print(f"  {k}: {v}")
     print("-------------------------")
+    from xgan_torch.parallel.mesh import shutdown
     from xgan_torch.train.classifier_loop import train_classifier
-    return train_classifier(args, device, dtype)
+    try:
+        return train_classifier(args, device, dtype, mesh)
+    finally:
+        shutdown(mesh)
 
 
 if __name__ == "__main__":

@@ -18,19 +18,34 @@ microbatches, ``--steps-per-call K`` replays K steps as one CUDA graph,
 device unless ``--cpu`` is given; without a CUDA device it exits 1 with a
 structured ``Error:`` line. Flags of the JAX CLI that this port does not
 support yet exit 1 when set away from their default.
+
+Data parallelism (the JAX CLI's default over every local device) is a
+``torchrun`` launch here, one process a card::
+
+    torchrun --nproc-per-node 8 -m xgan_torch.cli.train_gan --data-dir DIR
+
+``--batch-size`` is then the global batch (rounded up to a multiple of
+the ranks), each rank trains on its rows with BN statistics, losses and
+gradients reduced over all of them (NCCL; gloo with ``--cpu``), rank 0
+writes every file, and ``--shard-store`` splits the image store over the
+ranks. ``--grad-accum`` and ``--steps-per-call`` exit 1 under a launch.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 
 import torch
 
 from xgan_torch import config
 
 # flag -> its default: other values are not supported by the port yet
+# (the WGAN-GP and CGAN trainers do not run across ranks, so they take
+# no --shard-store either)
 UNSUPPORTED = {"shard_store": False, "shard_opt_state": False,
                "model_parallel": 1}
+DCGAN_UNSUPPORTED = {"shard_opt_state": False, "model_parallel": 1}
+# the DCGAN loop flags that do not run across ranks yet
+DP_REFUSED = {"grad_accum": 1, "steps_per_call": 1}
 
 
 def build_parser():
@@ -70,25 +85,25 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
                         "up the run's own last snapshot)")
     # flags of the JAX CLI that the port does not support yet
     p.add_argument("--shard-store", action="store_true",
-                   help="(not supported by xgan_torch yet)")
+                   help="Split the image store over the data-parallel "
+                        "ranks (DCGAN trainer; a no-op on one rank)")
     p.add_argument("--shard-opt-state", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="(not supported by xgan_torch yet)")
 
 
-def start(args, unsupported: dict = UNSUPPORTED
-          ) -> tuple[torch.device, torch.dtype]:
+def start(args, unsupported: dict = UNSUPPORTED,
+          dp_refused: dict | None = None):
     """Refuse the ``unsupported`` flags (dest -> the one value the port
-    takes), resolve the device (exit 1 with an ``Error:`` line without
-    CUDA and ``--cpu``) and the compute dtype, and print the
-    arguments."""
+    takes), join the ranks of a launch (``config.join_ranks``: refuses
+    ``dp_refused`` there, or the launch itself when None), resolve the
+    device (exit 1 with an ``Error:`` line without CUDA and ``--cpu``) and
+    the compute dtype, and print the arguments. Returns ``(mesh,
+    dtype)``; ``mesh.device`` is the run's device."""
     config.refuse_unsupported(args, unsupported)
-    try:
-        device = config.resolve_device(args.cpu)
-    except RuntimeError as e:
-        print(f"Error: {e}")
-        sys.exit(1)
+    mesh = config.join_ranks(args, dp_refused)
+    device = mesh.device
     dtype = config.resolve_dtype(args.compute_dtype, device)
     if device.type == "cuda" and dtype == torch.float32:
         # f32 means f32: cuDNN would otherwise run the convolutions in TF32
@@ -98,15 +113,19 @@ def start(args, unsupported: dict = UNSUPPORTED
     for k, v in sorted(vars(args).items()):
         print(f"  {k}: {v}")
     print("-------------------------")
-    return device, dtype
+    return mesh, dtype
 
 
 def main(argv=None):
     """Train; returns the history (None after a printed error)."""
     args = build_parser().parse_args(argv)
-    device, dtype = start(args)
+    mesh, dtype = start(args, DCGAN_UNSUPPORTED, DP_REFUSED)
+    from xgan_torch.parallel.mesh import shutdown
     from xgan_torch.train.gan_loop import train_dcgan
-    return train_dcgan(args, device, dtype)
+    try:
+        return train_dcgan(args, mesh.device, dtype, mesh)
+    finally:
+        shutdown(mesh)
 
 
 if __name__ == "__main__":

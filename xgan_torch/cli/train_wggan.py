@@ -42,7 +42,8 @@ def build_parser():
 def main(argv=None):
     """Train; returns the history (None after a printed error)."""
     args = build_parser().parse_args(argv)
-    device, dtype = train_gan.start(args)
+    mesh, dtype = train_gan.start(args)
+    device = mesh.device
     from xgan_torch.train.wgan_loop import train_wgan
     return train_wgan(args, device, dtype)
 

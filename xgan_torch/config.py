@@ -89,17 +89,41 @@ def ema_decay(value: str) -> float:
     return f
 
 
-def refuse_unsupported(args, defaults: dict) -> None:
+def refuse_unsupported(args, defaults: dict, where: str = "") -> None:
     """Exit 1 with an ``Error:`` line when a flag the port does not
     support yet is set away from its default (``defaults``: dest ->
-    default)."""
+    default); ``where`` names the setting it is refused in."""
     for name, default in defaults.items():
         if getattr(args, name) != default:
             flag = "--" + name.replace("_", "-")
             print(f"Error: {flag} {getattr(args, name)!r} is not supported "
-                  "by xgan_torch yet; leave it at its default "
+                  f"by xgan_torch yet{where}; leave it at its default "
                   f"({default!r})")
             sys.exit(1)
+
+
+UNDER_LAUNCH = " under a torchrun launch (RANK, WORLD_SIZE, LOCAL_RANK set)"
+
+
+def join_ranks(args, refused: dict | None):
+    """The run's :class:`~xgan_torch.parallel.MeshContext`
+    (``init_from_env``). Under a launch, first refuse the ``refused`` flags
+    (dest -> the one value a launch takes: the loop flags that do not run
+    across ranks yet, ROADMAP A14), or the launch itself when ``refused``
+    is None (a trainer that does not run across ranks). Exits 1 with an
+    ``Error:`` line when the device or the process group is not there."""
+    from xgan_torch.parallel.mesh import init_from_env, launched
+    if launched():
+        if refused is None:
+            print(f"Error: this trainer is not supported by xgan_torch "
+                  f"yet{UNDER_LAUNCH}; run it as one process")
+            sys.exit(1)
+        refuse_unsupported(args, refused, UNDER_LAUNCH)
+    try:
+        return init_from_env(args.cpu)
+    except (RuntimeError, ValueError) as e:
+        print(f"Error: {e}")
+        sys.exit(1)
 
 
 def add_resnet_stages_arg(p: argparse.ArgumentParser):

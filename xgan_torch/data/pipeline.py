@@ -4,6 +4,13 @@ The uint8 image store lives on the device (:class:`DeviceStore`); each
 step gathers its batch there, flips it, normalizes it with the ImageNet
 statistics and casts it to the compute dtype. Only the epoch's index
 matrix crosses from the host, once per epoch.
+
+Across data-parallel ranks every rank holds the epoch's global index
+matrix and draws the global batch's randomness from the same seed; a
+step then gathers its own rows (``rows``, :meth:`MeshContext.local_rows
+<xgan_torch.parallel.MeshContext.local_rows>`). A store is replicated on
+every rank, or, with ``--shard-store``, split over the ranks; its
+``take`` then assembles rows by one all-reduce (:func:`sharded_take`).
 """
 from __future__ import annotations
 
@@ -62,24 +69,57 @@ def random_flip(u8: torch.Tensor, flip: torch.Tensor | None = None, *,
     return torch.where(flip[..., None, None, None], u8.flip(-2), u8)
 
 
-def take_rows(images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def take_rows(images: torch.Tensor, idx: torch.Tensor,
+              rows: slice = slice(None)) -> torch.Tensor:
     """Rows ``idx`` of a store (the single-source gather); (B,) or (k,B)
-    indices give (B, ...) or (k, B, ...)."""
+    indices give (B, ...) or (k, B, ...). ``rows``: the part of the batch
+    to gather (a rank's rows), sliced along its last axis."""
+    idx = idx[..., rows]
     if idx.dim() == 1:
         return images.index_select(0, idx)
     return images.index_select(0, idx.reshape(-1)).reshape(
         *idx.shape, *images.shape[1:])
 
 
+def sharded_take(mesh, shard_rows: int):
+    """The row gather of a store split over ``mesh``'s ranks, rank r
+    holding rows ``[r*shard_rows, (r+1)*shard_rows)`` (counterpart of
+    ``make_sharded_take``). ``take(images, idx, rows)`` takes the same
+    (B,) global ``idx`` on every rank (it is a collective): each rank
+    gathers its own hits in bf16, where every u8 value is exact, zeroes
+    the misses, and one SUM all-reduce assembles the batch, exactly one
+    rank contributing to each row; then ``rows`` of it, as u8."""
+
+    def take(images: torch.Tensor, idx: torch.Tensor,
+             rows: slice = slice(None)) -> torch.Tensor:
+        rel = idx - mesh.rank * shard_rows
+        hit = (rel >= 0) & (rel < shard_rows)
+        got = images.index_select(0, rel.clamp(0, shard_rows - 1))
+        got = torch.where(hit[:, None, None, None], got.to(torch.bfloat16),
+                          0.0)
+        return mesh.all_reduce_(got)[rows].to(torch.uint8)
+
+    return take
+
+
 def gather_preprocess(images_u8: torch.Tensor, idx: torch.Tensor, *,
                       flip: torch.Tensor | None = None,
                       generator: torch.Generator | None = None,
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      dtype: torch.dtype = torch.float32,
+                      take=take_rows,
+                      rows: slice = slice(None)) -> torch.Tensor:
     """The GAN's real batch: rows ``idx`` of the device store, flipped per
     sample (``flip``, else drawn from ``generator``), ImageNet-normalized,
     in ``dtype``. The reference trains its GAN on ImageNet-normalized
-    reals though G's tanh spans [-1, 1]; the port keeps that quirk."""
-    batch = random_flip(take_rows(images_u8, idx), flip, generator=generator)
+    reals though G's tanh spans [-1, 1]; the port keeps that quirk.
+
+    ``take``: the store's gather (a :class:`DeviceStore`'s ``take``);
+    ``rows``: the part of the batch this rank keeps. The flip is drawn for
+    the whole batch ``idx``, then sliced."""
+    if flip is None:
+        flip = torch.rand(idx.shape, generator=generator,
+                          device=images_u8.device) < 0.5
+    batch = random_flip(take(images_u8, idx, rows), flip[..., rows])
     return normalize_images(batch, dtype=dtype)
 
 
@@ -103,18 +143,41 @@ def tanh_to_u8(x: torch.Tensor) -> torch.Tensor:
 
 class DeviceStore:
     """An ImageStore copied to the device: ``images`` (N,S,S,3) uint8 and
-    ``labels`` (N,) int64 there, ``labels_host`` (N,) int32 on the host.
+    ``labels`` (N,) int64 there, ``labels_host`` (N,) int32 on the host;
+    ``take(images, idx, rows)`` gathers rows of a batch (:func:`take_rows`).
 
     The 26,684-image RSNA train store is 4.0 GB at 224 px, well inside
-    one H100's 80 GB. (The JAX package's sharded and multi-host
-    placements are not ported.)"""
+    one H100's 80 GB, so by default every rank holds all of it.
+    ``shard=True`` with a ``mesh`` of several ranks (``--shard-store``):
+    the images are padded to P, a multiple of the ranks, and rank r holds
+    rows ``[r*P/N, (r+1)*P/N)``; ``take`` becomes :func:`sharded_take`.
+    ``len()`` stays the logical count (no index reaches a pad row), and
+    the labels stay replicated (8 bytes a row). One process per rank
+    holds the whole decoded store on the host and copies its own block to
+    its device (the JAX package's multi-host placement does the same)."""
 
-    def __init__(self, store, device: torch.device | str):
+    def __init__(self, store, device: torch.device | str, mesh=None,
+                 shard: bool = False):
         self.labels_host = np.asarray(store.labels, np.int32)
+        self._n = int(store.images.shape[0])
+        self.take = take_rows
+        imgs = store.images
+        if shard and mesh is not None and mesh.world > 1:
+            block = -(-self._n // mesh.world)
+            lo = min(mesh.rank * block, self._n)
+            hi = min(lo + block, self._n)
+            local = np.zeros((block,) + imgs.shape[1:], np.uint8)
+            local[:hi - lo] = imgs[lo:hi]
+            imgs = local
+            self.take = sharded_take(mesh, block)
         # np.array copies: a cached store is a read-only memory map
-        self.images = torch.from_numpy(np.array(store.images)).to(device)
+        self.images = torch.from_numpy(np.array(imgs)).to(device)
         self.labels = torch.from_numpy(
             self.labels_host.astype(np.int64)).to(device)
 
+    @property
+    def sharded(self) -> bool:
+        return self.take is not take_rows
+
     def __len__(self) -> int:
-        return self.images.shape[0]
+        return self._n

@@ -21,6 +21,10 @@ tensors. Both reject an index out of range (negative ones included) with
 copy and sets a device flag, read by :func:`raise_if_flagged`, so that a
 train step need not wait for the device. A caller that passes no flag
 gets a fresh one, checked before the call returns.
+
+Across data-parallel ranks (:func:`mixed_gather_ranks`, the counterpart of
+``mixed_gather_spmd``) the stores are replicated on every rank and each
+rank launches the kernel on its own rows of the global index vectors.
 """
 from __future__ import annotations
 
@@ -95,3 +99,17 @@ def mixed_gather(real, synth, real_idx, synth_idx, use_synth,
         return mixed_gather_ref(real, synth, real_idx, synth_idx, use_synth)
     return mixed_gather_cuda(real, synth, real_idx, synth_idx, use_synth,
                              err)
+
+
+def mixed_gather_ranks(real, synth, real_idx, synth_idx, use_synth,
+                       rows: slice, err: torch.Tensor | None = None, *,
+                       gather=mixed_gather):
+    """``mixed_gather`` of this rank's ``rows`` of the global (B,) index
+    vectors and mask, against stores replicated on every rank: the
+    counterpart of ``mixed_gather_spmd`` (the kernel on CUDA tensors, one
+    launch a rank; the plain version on CPU tensors). A slice of a 1-D
+    contiguous tensor is contiguous, as the op requires: it reads the
+    slice in place. ``gather``: the single-rank call, which a check may
+    replace with its plain version."""
+    return gather(real, synth, real_idx[rows], synth_idx[rows],
+                  use_synth[rows], err)

@@ -11,7 +11,10 @@ statistics and writes the new running statistics back into the module's
 buffers (momentum 0.1, unbiased variance); a (B,) validity ``mask``
 restricts the statistics to the valid rows of a padded tail batch
 (``xgan_torch.ops.norm.batch_norm_train``). Without a mask, train BN is
-``F.batch_norm``, which has the same semantics.
+``F.batch_norm``, which has the same semantics. :func:`sync_batch_norm`
+makes a model's train-mode statistics those of the batch its data-parallel
+ranks share; such a BN always takes the sums path (``F.batch_norm`` sees
+this rank's rows only).
 """
 from __future__ import annotations
 
@@ -36,6 +39,17 @@ def gan_init_(modules, generator: torch.Generator | None = None) -> None:
             nn.init.zeros_(m.bias)
 
 
+def sync_batch_norm(model: nn.Module, mesh) -> None:
+    """Tie every ``nn.BatchNorm2d`` of ``model`` to ``mesh`` (a
+    :class:`~xgan_torch.parallel.MeshContext`, or None to untie them):
+    :func:`batch_norm` then reduces its train-mode statistics over the
+    ranks. The counterpart of ``nn.SyncBatchNorm.convert_sync_batchnorm``
+    for the port's functional BN."""
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.mesh = mesh
+
+
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, *, train: bool,
                mask=None, dim: int = 1,
                update_stats: bool = True) -> torch.Tensor:
@@ -43,10 +57,12 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, *, train: bool,
     parameters and running statistics of ``bn``; see the module
     docstring. ``update_stats=False``: train mode that leaves the running
     statistics as they are (the same arithmetic, its update discarded)."""
-    if train and mask is not None:
+    mesh = getattr(bn, "mesh", None)
+    if train and (mask is not None
+                  or (mesh is not None and mesh.distributed)):
         y, new_mean, new_var = batch_norm_train(
             x, bn.weight, bn.bias, bn.running_mean, bn.running_var, dim=dim,
-            momentum=bn.momentum, eps=bn.eps, mask=mask)
+            momentum=bn.momentum, eps=bn.eps, mask=mask, mesh=mesh)
         if update_stats:
             with torch.no_grad():
                 bn.running_mean.copy_(new_mean)

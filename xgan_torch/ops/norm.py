@@ -11,33 +11,45 @@ normalized (with the masked statistics); every loss masks them too. A
 (``ResNet50(folds=k)``): each fold's channels take its own rows.
 Statistics and the affine are computed in float32 even when activations
 are bf16; the result has the input's dtype.
+
+Across data-parallel ranks (``mesh``, a joined process group) the
+statistics are those of the global batch, as GSPMD makes them in the JAX
+package: each rank's per-channel ``sum(w*x)``, ``sum(w*x^2)`` and ``n``
+are summed over the ranks by one differentiable all-reduce, so the
+gradient reaches every rank's rows, and every rank derives the same
+running statistics from them.
 """
 from __future__ import annotations
 
 import torch
 
+from xgan_torch.parallel.mesh import all_reduce_sum
+
 
 def batch_norm_train(x, scale, bias, running_mean, running_var, *,
                      dim: int = -1, momentum: float = 0.1,
-                     eps: float = 1e-5, mask=None):
+                     eps: float = 1e-5, mask=None, mesh=None):
     """Train-mode BN over channel axis ``dim`` (the last for NHWC, 1 for
     NCHW). Returns ``(y, new_running_mean, new_running_var)``.
 
     With ``mask``, ``n = sum(mask) * H * W`` valid elements per channel;
     ``max(n, 1)`` keeps an all-zero mask from dividing by zero. A
     ``(k, B)`` mask weighs the rows of each fold's C = channels / k
-    channels with its own row."""
+    channels with its own row. ``mesh``: the
+    :class:`~xgan_torch.parallel.MeshContext` whose ranks share the batch
+    (the sums path, with or without a mask)."""
     x32 = x.float()
     dim = dim % x.dim()
     axes = [a for a in range(x.dim()) if a != dim]
     shape = [1] * x.dim()
     shape[dim] = -1
-    if mask is None:
+    if mask is None and (mesh is None or not mesh.distributed):
         mean = x32.mean(dim=axes)
         var = x32.square().mean(dim=axes) - mean.square()
         n = torch.tensor(float(x.numel() // x.shape[dim]), device=x.device)
     else:
-        w = mask.float()
+        w = (torch.ones(x.shape[0], device=x.device) if mask is None
+             else mask.float())
         if w.dim() == 2:  # (k, B) -> (B, k*C), fold-major channels
             w = w.t().repeat_interleave(x.shape[dim] // w.shape[0], dim=1)
         else:
@@ -47,9 +59,14 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
         w = w.reshape(shape_w)
         n = w.sum(dim=0).reshape(-1) \
             * float(x.numel() // (x.shape[0] * x.shape[dim]))
+        s1 = (x32 * w).sum(dim=axes)
+        s2 = (x32.square() * w).sum(dim=axes)
+        if mesh is not None and mesh.distributed:
+            s1, s2, n = all_reduce_sum(
+                torch.stack([s1, s2, n.expand_as(s1)]), mesh)
         denom = torch.clamp(n, min=1.0)
-        mean = (x32 * w).sum(dim=axes) / denom
-        var = (x32.square() * w).sum(dim=axes) / denom - mean.square()
+        mean = s1 / denom
+        var = s2 / denom - mean.square()
     var = torch.clamp(var, min=0.0)
     unbiased = var * (n / torch.clamp(n - 1, min=1.0))
     new_mean = (1.0 - momentum) * running_mean + momentum * mean

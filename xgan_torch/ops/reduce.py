@@ -10,13 +10,28 @@ from __future__ import annotations
 import torch
 
 
-def weighted_mean(values: torch.Tensor, weights=None) -> torch.Tensor:
+def weighted_mean(values: torch.Tensor, weights=None,
+                  mesh=None) -> torch.Tensor:
     """Mean of ``values`` in f32, or its ``weights``-weighted mean.
 
     ``max(sum(w), 1e-9)`` keeps an all-zero mask from dividing 0 by 0;
     NaN values in masked rows still propagate through ``sum(values * w)``,
-    as in the JAX package."""
+    as in the JAX package.
+
+    ``mesh`` (a joined process group): ``values`` are this rank's rows of
+    the global batch, and the result is this rank's share of the global
+    mean, its (weighted) sum over the global weight: the shares sum to the
+    global mean over the ranks, and so do their gradients."""
     values = values.float()
+    if mesh is not None and mesh.distributed:
+        if weights is None:
+            num = values.sum()
+            den = torch.full((), float(values.numel()), device=values.device)
+        else:
+            w = weights.float()
+            num, den = (values * w).sum(), w.sum()
+        return num / torch.clamp(mesh.all_reduce_(den.detach().clone()),
+                                 min=1e-9)
     if weights is None:
         return values.mean()
     w = weights.float()

@@ -1,0 +1,196 @@
+"""Data-parallel ranks over a ``torch.distributed`` process group (role of
+xgan/parallel/mesh.py).
+
+The JAX package builds a ``("data", "model")`` mesh over every local
+device and lets GSPMD insert the collectives: batches are row-sharded over
+``data``, parameters, optimizer state and BN running statistics are
+replicated, and every train-mode BN statistic and every loss mean is a
+global reduction, so N-way data parallelism computes the function one
+device computes, up to reduction order. The port launches one process a
+rank, as PyTorch users do (``torchrun --nproc-per-node N -m
+xgan_torch.cli.train_gan ...``), and writes those collectives by hand:
+
+- :class:`MeshContext`: the rank, the world (the data axis; the model axis
+  stays 1), the device, ``pad_batch`` and each rank's ``local_rows``;
+- :func:`all_reduce_sum`: a SUM all-reduce whose backward is one too, so
+  a statistic summed across ranks (BN's sums, a loss's denominator) passes
+  its gradient back to every rank's rows;
+- :func:`all_reduce_grads`: the gradients of one update summed in one
+  flattened buffer, so that every rank's Adam sees the same numbers and
+  the parameters stay bitwise equal across ranks.
+
+The only collective is ``all_reduce``: gloo's CUDA path offers it and
+``broadcast`` and no other, and gloo runs two ranks on one card, where
+NCCL refuses to.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+
+import torch
+import torch.distributed as dist
+
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """One rank of a data-parallel run. ``distributed``: a process group
+    was joined, so the steps take their collective path (also at world
+    1, where each all-reduce returns its input)."""
+    device: torch.device
+    rank: int = 0
+    world: int = 1
+    distributed: bool = False
+
+    @property
+    def n_data(self) -> int:
+        return self.world
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0: the one rank that writes files."""
+        return self.rank == 0
+
+    def pad_batch(self, n: int) -> int:
+        """Smallest multiple of the world size >= n (the global batch)."""
+        return -(-n // self.world) * self.world
+
+    def local_rows(self, b: int) -> slice:
+        """This rank's rows of a global batch of ``b`` (a multiple of the
+        world size): the contiguous block ``[r*b/N, (r+1)*b/N)``."""
+        if b % self.world:
+            raise ValueError(f"batch {b} is not a multiple of the "
+                             f"{self.world} data ranks")
+        n = b // self.world
+        return slice(self.rank * n, (self.rank + 1) * n)
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks in place (no autograd)."""
+        if self.distributed:
+            dist.all_reduce(t)
+        return t
+
+    def gather_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        """This rank's rows ``t`` of a global batch of ``b``, assembled
+        into the whole batch on every rank: a zero buffer holding ``t`` at
+        :meth:`local_rows`, summed over the ranks (the all-gather that
+        gloo's CUDA path lacks). ``t`` is a float tensor."""
+        if not self.distributed:
+            return t
+        out = t.new_zeros((b, *t.shape[1:]))
+        out[self.local_rows(b)] = t
+        return self.all_reduce_(out)
+
+    def any(self, flag: bool) -> bool:
+        """True on every rank when ``flag`` is true on any: the ranks'
+        shared decision (and a barrier) at world > 1."""
+        if self.world == 1:
+            return bool(flag)
+        t = torch.tensor([float(bool(flag))], device=self.device)
+        return bool(self.all_reduce_(t).item() > 0)
+
+    def barrier(self) -> None:
+        """Wait for every rank (nothing at world 1)."""
+        self.any(False)
+
+    @contextlib.contextmanager
+    def main_first(self):
+        """Rank 0 runs the block first (it builds the store caches the
+        others then read); the other ranks wait for it at a barrier."""
+        if not self.is_main:
+            self.barrier()
+        try:
+            yield
+        finally:
+            if self.is_main:
+                self.barrier()
+
+
+def launched() -> bool:
+    """The process runs under a launcher's environment (``torchrun``)."""
+    return all(k in os.environ for k in LAUNCH_ENV)
+
+
+def init_from_env(cpu: bool, backend: str | None = None) -> MeshContext:
+    """The run's context. Under a launcher's environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, as
+    ``torchrun`` sets them) join the process group on ``cuda:LOCAL_RANK``
+    with NCCL, or on the CPU with gloo under ``cpu``; ``backend``
+    overrides that choice. Without it, the single-rank context on the
+    CUDA device (the CPU with ``cpu``) and no process group.
+
+    Raises RuntimeError when CUDA is missing without ``cpu``, or when
+    ``LOCAL_RANK`` names a card this host lacks."""
+    if not launched():
+        from xgan_torch.config import resolve_device
+        return MeshContext(resolve_device(cpu))
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ["LOCAL_RANK"])
+    if cpu:
+        device = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --cpu to "
+                               "run on the CPU")
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"LOCAL_RANK {local} names a card this host lacks "
+                f"({torch.cuda.device_count()} visible)")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend or ("gloo" if cpu else "nccl"),
+                            init_method="env://", rank=rank,
+                            world_size=world)
+    return MeshContext(device, rank, world, True)
+
+
+def shutdown(ctx: MeshContext) -> None:
+    """Leave the process group ``ctx`` joined, if any."""
+    if ctx.distributed and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g)
+        return g
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: MeshContext | None
+                   ) -> torch.Tensor:
+    """``x`` summed over the ranks, differentiably: the gradient of a
+    loss summed over the ranks reaches each rank's ``x`` through one more
+    SUM all-reduce. ``x`` itself without a process group."""
+    if mesh is None or not mesh.distributed:
+        return x
+    return _AllReduceSum.apply(x)
+
+
+@torch.no_grad()
+def all_reduce_grads(params, mesh: MeshContext | None) -> None:
+    """Sum the ``.grad`` of ``params`` over the ranks in one flattened
+    buffer, in place (a parameter without a gradient is left out, as on
+    every rank). Each rank's loss is its share of the global loss, so the
+    sum is the global gradient, the same on every rank."""
+    if mesh is None or not mesh.distributed:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()

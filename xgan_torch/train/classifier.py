@@ -25,6 +25,16 @@ step. A microbatch whose rows are all padding is skipped: its statistics
 stay frozen, it adds no gradient, and its rows' outputs are zeros (the
 loop drops padded rows).
 
+Across data-parallel ranks (``mesh``, a joined process group; the model's
+BN tied to it by ``sync_batch_norm``) the index batch and the draws are
+the global batch's on every rank (the mixer's ``use_synth`` and
+``synth_pick``, then ``flip``), and each rank trains on its rows
+(``MeshContext.local_rows``): its loss is its valid-row sum over the
+all-reduced valid count, the gradients are summed over the ranks in one
+buffer before Adam, and the per-sample outputs come back for the whole
+batch on every rank (``MeshContext.gather_rows``), as from the JAX
+package's sharded step.
+
 The metrics replace sklearn's with numpy and scipy:
 :func:`weighted_prf` (support-weighted precision, recall and F1 with
 ``zero_division=0``), :func:`accuracy` and :func:`auroc` (the rank
@@ -40,8 +50,9 @@ from scipy.stats import rankdata
 from xgan_torch.data.mixer import mix_batch
 from xgan_torch.data.pipeline import normalize_images, random_flip, \
     take_rows
-from xgan_torch.kernels.gather import mixed_gather
+from xgan_torch.kernels.gather import mixed_gather_ranks
 from xgan_torch.ops.reduce import weighted_mean
+from xgan_torch.parallel.mesh import all_reduce_grads
 from xgan_torch.train.common import guarded_sum, microbatches, zeroed_grads
 
 MODES = ("real", "concat", "mix")
@@ -62,38 +73,62 @@ def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def gather_concat(real_images, real_labels, synth_images, synth_labels,
-                  idx, *, n_real: int, err=None):
+                  idx, *, n_real: int, err=None, rows: slice = slice(None),
+                  real_take=None, synth_take=None):
     """Virtual concat of the real and synthetic stores: an index below
     ``n_real`` is a real row, the others synthetic row ``idx - n_real``
-    (ConcatDataset order, without building the combined array)."""
+    (ConcatDataset order, without building the combined array).
+    ``rows``, ``real_take`` and ``synth_take`` as for ``mix_batch``."""
     is_real = idx < n_real
     r_idx = torch.where(is_real, idx, 0)
     s_idx = torch.where(is_real, 0, idx - n_real)
-    images = mixed_gather(real_images, synth_images, r_idx, s_idx,
-                          ~is_real, err)
+    if real_take is None and synth_take is None:
+        images = mixed_gather_ranks(real_images, synth_images, r_idx, s_idx,
+                                    ~is_real, rows, err)
+    else:
+        images = torch.where(
+            is_real[rows][:, None, None, None],
+            (real_take or take_rows)(real_images, r_idx, rows),
+            (synth_take or take_rows)(synth_images, s_idx, rows))
+    is_real, r_idx, s_idx = is_real[rows], r_idx[rows], s_idx[rows]
     labels = torch.where(is_real, real_labels[r_idx], synth_labels[s_idx])
     return images, labels
 
 
 def assemble(mode: str, real, synth, idx, *, ratio: float = 0.0,
              n_real: int | None = None, synth_pool=None, generator=None,
-             use_synth=None, synth_pick=None, err=None):
+             use_synth=None, synth_pick=None, err=None,
+             rows: slice = slice(None)):
     """The u8 batch and its labels from the mode's source. ``real`` and
     ``synth`` are DeviceStores; ``idx`` is the (B,) int64 batch on their
-    device."""
+    device, of which ``rows`` are built (a rank's rows). A store split
+    over the ranks turns the ``mixed_gather`` kernel off for its own
+    gathers and a select."""
+    takes = {}
+    if real.sharded or synth.sharded:
+        takes = {"real_take": real.take, "synth_take": synth.take}
     if mode == "real":
-        return take_rows(real.images, idx), real.labels[idx]
+        return (real.take(real.images, idx, rows),
+                real.labels[idx[rows]])
     if mode == "concat":
         return gather_concat(real.images, real.labels, synth.images,
                              synth.labels, idx,
                              n_real=len(real) if n_real is None else n_real,
-                             err=err)
+                             err=err, rows=rows, **takes)
     if mode == "mix":
         return mix_batch(real.images, real.labels, idx, synth.images,
                          synth.labels, ratio, synth_pool=synth_pool,
                          generator=generator, use_synth=use_synth,
-                         synth_pick=synth_pick, err=err)
+                         synth_pick=synth_pick, err=err, rows=rows, **takes)
     raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
+def _dp(mesh) -> bool:
+    return mesh is not None and mesh.distributed
+
+
+def _rows(mesh, b: int) -> slice:
+    return mesh.local_rows(b) if _dp(mesh) else slice(None)
 
 
 def train_step(model, opt, real, synth, idx, *, mode: str,
@@ -101,7 +136,7 @@ def train_step(model, opt, real, synth, idx, *, mode: str,
                n_real: int | None = None, synth_pool=None, mask=None,
                generator: torch.Generator | None = None, flip=None,
                use_synth=None, synth_pick=None, err=None,
-               grad_accum: int = 1):
+               grad_accum: int = 1, mesh=None):
     """One optimizer step; returns per-sample (losses, preds, labels) as
     device tensors (no host sync unless ``grad_accum > 1`` and a ``mask``
     is given: it then reads which microbatches hold valid rows).
@@ -111,22 +146,39 @@ def train_step(model, opt, real, synth, idx, *, mode: str,
     are still returned; the loop drops them). Random draws come from
     ``generator`` on the device unless injected: the mixer's ``use_synth``
     and ``synth_pick`` first, then the ``flip`` mask. ``grad_accum``:
-    microbatches per step (it must divide B)."""
+    microbatches per step (it must divide B). ``mesh``: the step of one
+    data-parallel rank (see the module docstring; ``grad_accum`` 1)."""
+    b = idx.shape[0]
+    rows = _rows(mesh, b)
+    if _dp(mesh) and grad_accum > 1:
+        raise ValueError("grad_accum > 1 does not run across ranks yet")
     images, labels = assemble(mode, real, synth, idx, ratio=ratio,
                               n_real=n_real, synth_pool=synth_pool,
                               generator=generator, use_synth=use_synth,
-                              synth_pick=synth_pick, err=err)
-    images = random_flip(images, flip, generator=generator)
+                              synth_pick=synth_pick, err=err, rows=rows)
+    if flip is None:
+        flip = torch.rand((b,), generator=generator,
+                          device=images.device) < 0.5
+    images = random_flip(images, flip[rows])
     x = normalize_images(images, dtype=dtype)
+    if mask is not None:
+        mask = mask[rows]
     opt.zero_grad(set_to_none=True)
     if grad_accum > 1:
         losses, logits = microbatch_grads(model, x, labels, mask, grad_accum)
     else:
         logits = model(x, train=True, mask=mask)
         losses = softmax_ce(logits, labels)
-        weighted_mean(losses, mask).backward()
+        weighted_mean(losses, mask, mesh).backward()
+    all_reduce_grads([p for p in model.parameters() if p.requires_grad],
+                     mesh)
     opt.step()
-    return losses.detach(), logits.detach().argmax(-1), labels
+    preds = logits.detach().argmax(-1)
+    if not _dp(mesh):
+        return losses.detach(), preds, labels
+    out = mesh.gather_rows(torch.stack(
+        [losses.detach(), preds.float(), labels.float()], 1), b)
+    return out[:, 0], out[:, 1].long(), out[:, 2].long()
 
 
 def microbatch_grads(model, x, labels, mask, accum: int):
@@ -150,14 +202,24 @@ def microbatch_grads(model, x, labels, mask, accum: int):
 
 
 @torch.no_grad()
-def eval_step(model, store, idx, *, dtype: torch.dtype = torch.float32):
+def eval_step(model, store, idx, *, dtype: torch.dtype = torch.float32,
+              mesh=None):
     """Running-statistics BN, no flip. Returns per-sample (losses, preds,
-    labels, prob1), where prob1 is the positive-class probability."""
-    labels = store.labels[idx]
-    x = normalize_images(take_rows(store.images, idx), dtype=dtype)
+    labels, prob1), where prob1 is the positive-class probability.
+    ``mesh``: each rank evaluates its rows, and every rank gets the whole
+    batch's outputs."""
+    b = idx.shape[0]
+    rows = _rows(mesh, b)
+    labels = store.labels[idx[rows]]
+    x = normalize_images(store.take(store.images, idx, rows), dtype=dtype)
     logits = model(x, train=False)
     prob1 = torch.softmax(logits, dim=-1)[:, 1]
-    return softmax_ce(logits, labels), logits.argmax(-1), labels, prob1
+    losses, preds = softmax_ce(logits, labels), logits.argmax(-1)
+    if not _dp(mesh):
+        return losses, preds, labels, prob1
+    out = mesh.gather_rows(torch.stack(
+        [losses, preds.float(), labels.float(), prob1.float()], 1), b)
+    return out[:, 0], out[:, 1].long(), out[:, 2].long(), out[:, 3]
 
 
 def accuracy(labels, preds) -> float:

@@ -33,6 +33,18 @@ or SIGINT stops the run at the end of its epoch (``GracefulShutdown``):
 a stopped fold writes no history (so a resume retrains it), and a CV run
 stopped before its last fold writes no summary. A single (non-CV) run
 has no resume: it keeps its history and notes the stop.
+
+Across data-parallel ranks (``mesh``; ``torchrun``, A14): the global
+batch is ``--batch-size`` rounded up to a multiple of the ranks, as the
+JAX loop pads it; every rank seeds alike and each trains and evaluates
+its rows of every batch (``train_step``/``eval_step`` with ``mesh``);
+each fold trains on all ranks. ``--shard-store`` splits the real and test
+stores over the ranks (the synthetic store stays replicated) and turns
+the ``mixed_gather`` kernel off for them. Rank 0 alone writes the
+checkpoints, histories, summaries and figures, and traces; a stop is
+agreed by all ranks at each boundary. ``--grad-accum``, ``--remat`` and
+``--parallel-folds`` do not run across ranks yet (the CLI refuses them
+under a launch).
 """
 from __future__ import annotations
 
@@ -50,7 +62,9 @@ from xgan_torch.io_.figures_classifier import generate_plots
 from xgan_torch.io_.metrics import cv_summary, write_json
 from xgan_torch.kernels.gather import new_error_flag, raise_if_flagged
 from xgan_torch.models.convert import load_resnet_pth
+from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.resnet import ResNet50
+from xgan_torch.parallel.mesh import MeshContext
 from xgan_torch.train.classifier import (accuracy, auroc,
                                          classifier_optimizer, eval_step,
                                          train_step, weighted_prf)
@@ -90,7 +104,7 @@ def resnet_stages(args) -> tuple:
     return tuple(getattr(args, "resnet_stages", ()) or (3, 4, 6, 3))
 
 
-def init_resnet(args, dtype, device, seed: int):
+def init_resnet(args, dtype, device, seed: int, mesh=None):
     if args.remat and args.remat_scope == "block":
         print("Note: --remat (block scope) recomputes each block's "
               "activations in the backward, about one more forward a step; "
@@ -100,6 +114,7 @@ def init_resnet(args, dtype, device, seed: int):
                      device=device,
                      generator=torch.Generator(device).manual_seed(seed),
                      remat=args.remat, remat_scope=args.remat_scope)
+    sync_batch_norm(model, mesh)
     if args.pretrained_path:
         load_resnet_pth(model, args.pretrained_path)
         print(f"Loaded ImageNet weights from {args.pretrained_path}")
@@ -118,7 +133,7 @@ def _fetch(outputs, n: int):
 
 def epoch_pass(model, opt, stores, batches, n_samples, *, mode, dtype,
                ratio, generator, err, synth_pool=None, label="Train",
-               grad_accum: int = 1):
+               grad_accum: int = 1, mesh=None):
     """One train epoch over the (num_batches, B) index matrix; returns
     (loss, acc) over the first ``n_samples`` rows (the wrap-around padding
     dropped) and raises ``IndexError`` if the gather met a bad index."""
@@ -137,7 +152,7 @@ def epoch_pass(model, opt, stores, batches, n_samples, *, mode, dtype,
                 model, opt, real, synth, idx_all[i], mode=mode, dtype=dtype,
                 ratio=ratio, n_real=len(real), synth_pool=synth_pool,
                 mask=t_mask if is_tail else None, generator=generator,
-                err=err, grad_accum=grad_accum))
+                err=err, grad_accum=grad_accum, mesh=mesh))
             progress.update(i + 1)
     losses, preds, labels = _fetch(outputs, n_samples)
     raise_if_flagged(err)
@@ -145,24 +160,26 @@ def epoch_pass(model, opt, stores, batches, n_samples, *, mode, dtype,
 
 
 def eval_pass(model, store, batches, n_samples, *, dtype,
-              label="Evaluating"):
+              label="Evaluating", mesh=None):
     device = store.images.device
     idx_all = torch.from_numpy(batches.astype(np.int64)).to(device)
     outputs = []
     with EpochProgress(label, batches.shape[0]) as progress:
         for i in range(batches.shape[0]):
-            outputs.append(eval_step(model, store, idx_all[i], dtype=dtype))
+            outputs.append(eval_step(model, store, idx_all[i], dtype=dtype,
+                                     mesh=mesh))
             progress.update(i + 1)
     return _fetch(outputs, n_samples)
 
 
-def evaluate_model(model, store: DeviceStore, batch_size: int, *, dtype):
+def evaluate_model(model, store: DeviceStore, batch_size: int, *, dtype,
+                   mesh=None):
     """Test-set metrics: the reference's keys plus ``auroc``."""
     n = len(store)
     batches = epoch_batches(n, batch_size, np.random.default_rng(0),
                             shuffle=False)
     losses, preds, labels, probs = eval_pass(model, store, batches, n,
-                                             dtype=dtype)
+                                             dtype=dtype, mesh=mesh)
     p, r, f = weighted_prf(labels, preds)
     metrics = {
         "loss": float(losses.mean()),
@@ -195,12 +212,14 @@ def fallback_pool(real: DeviceStore, train_indices) -> torch.Tensor:
 
 def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
                   fold, strategy, schedule, seed_offset=0,
-                  synth_fallback=False, shutdown=None):
+                  synth_fallback=False, shutdown=None, mesh=None):
     """Train one model (a fold or the single run). ``val_spec``:
     (DeviceStore, indices or None). Returns (best state dict on the host,
     history). ``shutdown``: a :class:`GracefulShutdown` read at each epoch
     boundary; a fold it stops writes no history (a resume then retrains
-    it), the single run keeps its history."""
+    it), the single run keeps its history. ``mesh``: this process's rank
+    of a data-parallel run (None: the only one)."""
+    mesh = mesh if mesh is not None else MeshContext(device)
     real, synth, _ = stores
     mode = STRATEGY_MODES[strategy]
     synth_pool = None
@@ -208,11 +227,12 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
         synth_pool = fallback_pool(real, train_indices)
         synth = real  # the pool's values index the real store
     seed = args.seed + seed_offset
-    model = init_resnet(args, dtype, device, seed)
+    model = init_resnet(args, dtype, device, seed, mesh)
     opt = classifier_optimizer(model, args.lr, freeze_base=not args.unfreeze)
     generator = torch.Generator(device).manual_seed(seed + 1)
     err = new_error_flag(device)
-    ga = resolve_grad_accum(args.grad_accum, args.batch_size)
+    batch_size = mesh.pad_batch(args.batch_size)
+    ga = resolve_grad_accum(args.grad_accum, batch_size)
 
     n_real = len(real)
     if strategy == "augmented" and not synth_fallback:
@@ -241,22 +261,22 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
         history["epoch"].append(epoch + 1)
         history["synthetic_ratio"].append(ratio)
 
-        batches = epoch_batches(len(epoch_space), args.batch_size, data_rng,
+        batches = epoch_batches(len(epoch_space), batch_size, data_rng,
                                 indices=epoch_space)
         if args.limit_batches:
             batches = batches[:args.limit_batches]
         n_seen = min(len(epoch_space), batches.size)
-        traced = epoch == trace_epoch(0, args.epochs)
+        traced = mesh.is_main and epoch == trace_epoch(0, args.epochs)
         with maybe_trace(args.trace_dir if traced else None):
             tr_loss, tr_acc = epoch_pass(
                 model, opt, (real, synth), batches, n_seen, mode=mode,
                 dtype=dtype, ratio=ratio, generator=generator, err=err,
                 synth_pool=synth_pool, label=f"Train Epoch {epoch + 1}",
-                grad_accum=ga)
+                grad_accum=ga, mesh=mesh)
         history["train_loss"].append(tr_loss)
         history["train_acc"].append(tr_acc)
 
-        val_batches = epoch_batches(n_val, args.batch_size, data_rng,
+        val_batches = epoch_batches(n_val, batch_size, data_rng,
                                     shuffle=False, indices=val_indices)
         n_val_seen = n_val
         if args.limit_batches:
@@ -264,7 +284,7 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
             n_val_seen = min(n_val, val_batches.size)
         v_losses, v_preds, v_labels, _ = eval_pass(
             model, val_store, val_batches, n_val_seen, dtype=dtype,
-            label=f"Val Epoch {epoch + 1}")
+            label=f"Val Epoch {epoch + 1}", mesh=mesh)
         val_loss, val_acc = float(v_losses.mean()), accuracy(v_labels,
                                                              v_preds)
         history["val_loss"].append(val_loss)
@@ -276,14 +296,18 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
 
         if val_acc > best_acc:
             best_acc, best_state = val_acc, host_state(model)
-            ckpt = os.path.join(args.model_dir, f"{run_prefix}resnet50.pth")
-            torch.save(best_state, ckpt)
-            print(f"Saved best model checkpoint to {ckpt}")
+            if mesh.is_main:
+                ckpt = os.path.join(args.model_dir,
+                                    f"{run_prefix}resnet50.pth")
+                torch.save(best_state, ckpt)
+                print(f"Saved best model checkpoint to {ckpt}")
 
-        if stopped(shutdown, history, args.epochs):
+        if stopped(shutdown, history, args.epochs, mesh):
             break
 
-    if not (fold is not None and stopped(shutdown, history, args.epochs)):
+    complete = not (fold is not None
+                    and stopped(shutdown, history, args.epochs, mesh))
+    if complete and mesh.is_main:
         write_json(os.path.join(args.results_dir,
                                 f"{run_prefix}training_history.json"),
                    history)
@@ -291,10 +315,19 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
     return best_state, history
 
 
-def stopped(shutdown, history: dict, epochs: int) -> bool:
+def stop_asked(shutdown, mesh=None) -> bool:
+    """A stop was asked for: on any rank, agreed by all (``mesh``; a
+    collective at world > 1, so every rank asks at the same points)."""
+    if shutdown is None:
+        return False
+    return (shutdown.requested if mesh is None
+            else mesh.any(shutdown.requested))
+
+
+def stopped(shutdown, history: dict, epochs: int, mesh=None) -> bool:
     """A stop was asked for and the run has epochs left."""
-    return (shutdown is not None and shutdown.requested
-            and len(history["epoch"]) < epochs)
+    return (len(history["epoch"]) < epochs
+            and stop_asked(shutdown, mesh))
 
 
 def load_completed_fold(args, fold: int, strategy: str):
@@ -323,9 +356,10 @@ def load_completed_fold(args, fold: int, strategy: str):
     return state, history
 
 
-def load_stores(args, device):
+def load_stores(args, device, mesh=None):
     """(real, synth, test) DeviceStores and the synthetic-fallback flag,
-    or None after a printed error."""
+    or None after a printed error. ``--shard-store`` splits the real and
+    test stores over ``mesh``'s ranks."""
     if not rsna.check_dataset_availability(args.data_dir):
         print(f"Error loading data: Dataset not available in "
               f"{args.data_dir}. Run `python src/download_dataset.py` "
@@ -370,15 +404,20 @@ def load_stores(args, device):
                                  np.ones((1,), np.int32), size)
     print(f"Stores ready in {time.perf_counter() - t0:.1f} s "
           f"(decode + resize, or the cache)")
-    stores = tuple(DeviceStore(s, device)
-                   for s in (train_store, synth_store, test_store))
+    shard = getattr(args, "shard_store", False)
+    stores = (DeviceStore(train_store, device, mesh, shard=shard),
+              DeviceStore(synth_store, device),
+              DeviceStore(test_store, device, mesh, shard=shard))
     return stores, synth_fallback
 
 
-def train_classifier(args, device: torch.device, dtype: torch.dtype):
+def train_classifier(args, device: torch.device, dtype: torch.dtype,
+                     mesh: MeshContext | None = None):
     """Top-level flow (reference train_classifier.py:515-694). Returns the
     CV summary or the single run's metrics, or None after a printed
-    error."""
+    error. ``mesh``: this process's rank of a data-parallel run (None:
+    the only one)."""
+    mesh = mesh if mesh is not None else MeshContext(device)
     check_create_dir(args.model_dir)
     check_create_dir(args.results_dir)
     check_create_dir(args.figures_dir)
@@ -414,19 +453,25 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
         print("Note: --resume-from auto has no effect with "
               "--parallel-folds (folds train in lockstep); "
               "training all folds from scratch.")
-    loaded = load_stores(args, device)
+    with mesh.main_first():
+        loaded = load_stores(args, device, mesh)
     if loaded is None:
         return None
     stores, synth_fallback = loaded
     real, _, test = stores
+    batch_size = mesh.pad_batch(args.batch_size)
+    if batch_size != args.batch_size:
+        print(f"Note: batch size {args.batch_size} -> {batch_size} "
+              f"(multiple of {mesh.n_data} devices)")
     print(f"Device: {device}; compute dtype {dtype}; strategy {strategy}; "
-          f"k_folds {args.k_folds}")
+          f"k_folds {args.k_folds}; rank {mesh.rank} of {mesh.world}")
     eval_model = ResNet50(2, stage_sizes=resnet_stages(args), dtype=dtype,
                           device=device)
 
     def evaluate(state):
         eval_model.load_state_dict(state)
-        return evaluate_model(eval_model, test, args.batch_size, dtype=dtype)
+        return evaluate_model(eval_model, test, batch_size, dtype=dtype,
+                              mesh=mesh)
 
     def finish_cv(fold_metrics, fold_histories, title):
         """The folds' test metrics summarised: printed, written to
@@ -435,10 +480,11 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
         print(f"\n===== {title} =====")
         for k, v in summary["average"].items():
             print(f"Average {k}: {v:.4f} +/- {summary['std_dev'][k]:.4f}")
-        write_json(os.path.join(args.results_dir,
-                                f"{run_prefix}cv_summary.json"), summary)
-        generate_plots(fold_histories, args.figures_dir, run_prefix,
-                       cv_results=summary)
+        if mesh.is_main:
+            write_json(os.path.join(args.results_dir,
+                                    f"{run_prefix}cv_summary.json"), summary)
+            generate_plots(fold_histories, args.figures_dir, run_prefix,
+                           cv_results=summary)
         return summary
 
     if parallel:
@@ -479,8 +525,9 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
                         args, device, dtype, stores, tr_idx,
                         (real, val_idx), fold=fold + 1, strategy=strategy,
                         schedule=schedule, seed_offset=fold,
-                        synth_fallback=synth_fallback, shutdown=shutdown)
-                if stopped(shutdown, history, args.epochs):
+                        synth_fallback=synth_fallback, shutdown=shutdown,
+                        mesh=mesh)
+                if stopped(shutdown, history, args.epochs, mesh):
                     print(f"Preempted: fold {fold + 1} is incomplete and "
                           "will retrain on --resume-from auto; no summary "
                           "written.")
@@ -489,7 +536,7 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
                 print(f"--- Evaluating Fold {fold + 1} Model on Test Set "
                       "---")
                 fold_metrics.append(evaluate(best_state))
-                if shutdown.requested and fold + 1 < args.k_folds:
+                if fold + 1 < args.k_folds and stop_asked(shutdown, mesh):
                     print(f"Preempted: stopping after completed fold "
                           f"{fold + 1}; re-run with --resume-from auto to "
                           "train the remaining folds (no summary written).")
@@ -503,15 +550,16 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype):
         best_state, history = train_one_run(
             args, device, dtype, stores, np.arange(len(real)), (test, None),
             fold=None, strategy=strategy, schedule=schedule,
-            synth_fallback=synth_fallback, shutdown=shutdown)
-    if stopped(shutdown, history, args.epochs):
+            synth_fallback=synth_fallback, shutdown=shutdown, mesh=mesh)
+    if stopped(shutdown, history, args.epochs, mesh):
         # no resume path for single runs: keep the partial artifacts
         print(f"Note: run preempted after epoch {len(history['epoch'])}"
               f"/{args.epochs}; metrics below reflect the best checkpoint "
               "reached so far.")
     metrics = evaluate(best_state)
-    write_json(os.path.join(args.results_dir,
-                            f"{run_prefix}final_metrics.json"),
-               {"config": vars(args), "metrics": metrics})
-    generate_plots([history], args.figures_dir, run_prefix)
+    if mesh.is_main:
+        write_json(os.path.join(args.results_dir,
+                                f"{run_prefix}final_metrics.json"),
+                   {"config": vars(args), "metrics": metrics})
+        generate_plots([history], args.figures_dir, run_prefix)
     return metrics

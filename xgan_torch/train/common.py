@@ -9,17 +9,18 @@ from xgan_torch.ops.reduce import weighted_mean
 
 
 def bce_with_logits(logits: torch.Tensor, target: float | torch.Tensor,
-                    mask=None) -> torch.Tensor:
+                    mask=None, mesh=None) -> torch.Tensor:
     """Mean binary cross-entropy on logits in f32, a (B,) ``mask`` making
     it the mean over the valid rows: the stable form of the reference's
     Sigmoid + BCELoss. ``target``: one label for every row, or (B,)
-    per-sample targets (the CGAN's noisy smoothing)."""
+    per-sample targets (the CGAN's noisy smoothing). ``mesh``: this
+    rank's share of the global mean (``weighted_mean``)."""
     logits = logits.float()
     if not torch.is_tensor(target):
         target = torch.full_like(logits, target)
     per_sample = F.binary_cross_entropy_with_logits(
         logits, target.float(), reduction="none")
-    return weighted_mean(per_sample, mask)
+    return weighted_mean(per_sample, mask, mesh)
 
 
 def adam(params, lr: float, beta1: float, beta2: float = 0.999, *,

@@ -35,14 +35,24 @@ Only one microbatch's activations are alive at a time: the D phase's
 fakes are not kept for the G phase. A microbatch whose rows are all
 padding (a tail batch) is skipped: its BN statistics stay frozen and it
 adds a zero gradient, as the JAX package's select does.
+
+Across data-parallel ranks (``mesh``, a joined process group; G's and
+D's BN tied to it by ``sync_batch_norm``) every rank draws the global
+batch's flip and (B, latent) noise from the same seed and takes its rows
+(``MeshContext.local_rows``); D on the real rows and D on the fake rows
+each form their global BN batch, both BCE means take global
+denominators, the gradients are summed over the ranks before each Adam
+step, and the (5,) metrics are global. Every rank's Adam so sees the
+same gradients, and the parameters stay bitwise equal across ranks.
 """
 from __future__ import annotations
 
 import torch
 
-from xgan_torch.data.pipeline import gather_preprocess
+from xgan_torch.data.pipeline import gather_preprocess, take_rows
 from xgan_torch.kernels.convt import convt4x4s2_fused
 from xgan_torch.ops.reduce import weighted_mean
+from xgan_torch.parallel.mesh import all_reduce_grads
 from xgan_torch.train.common import bce_sum, bce_with_logits, \
     guarded_sum, microbatches, zeroed_grads
 
@@ -53,7 +63,8 @@ FAKE_LABEL = 0.0
 def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
                dtype: torch.dtype = torch.float32, mask=None, noise=None,
                flip=None, generator: torch.Generator | None = None,
-               convt=convt4x4s2_fused, grad_accum: int = 1) -> torch.Tensor:
+               convt=convt4x4s2_fused, grad_accum: int = 1,
+               take=take_rows, mesh=None) -> torch.Tensor:
     """One iteration; returns the (5,) device tensor ``[loss_G, loss_D,
     D_x, D_G_z1, D_G_z2]``, without a host sync unless ``grad_accum > 1``
     and a ``mask`` is given (it then reads which microbatches hold valid
@@ -64,13 +75,23 @@ def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
     ``generator`` on the device (flip first) unless injected. ``convt``:
     the forward of G's k4s2 layers (the kernel; a check passes its plain
     version). ``grad_accum``: microbatches per update (it must divide
-    B)."""
+    B). ``take``: the store's gather (``DeviceStore.take``); ``mesh``:
+    the step of one data-parallel rank (see the module docstring;
+    ``grad_accum`` 1)."""
+    dp = mesh is not None and mesh.distributed
+    b = idx.shape[0]
+    rows = mesh.local_rows(b) if dp else slice(None)
     real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
-                             dtype=dtype)
+                             dtype=dtype, take=take, rows=rows)
     if noise is None:
-        noise = torch.randn((idx.shape[0], latent_dim), generator=generator,
+        noise = torch.randn((b, latent_dim), generator=generator,
                             device=store_u8.device)
+    noise = noise[rows]
+    if mask is not None:
+        mask = mask[rows]
     if grad_accum > 1:
+        if dp:
+            raise ValueError("grad_accum > 1 does not run across ranks yet")
         return _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
                            grad_accum)
     fake = g.forward_train(noise, mask, convt=convt)
@@ -78,21 +99,24 @@ def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
     opt_d.zero_grad(set_to_none=True)
     logits_real = d(real, train=True, mask=mask)
     logits_fake = d(fake.detach(), train=True, mask=mask)
-    loss_d = (bce_with_logits(logits_real, REAL_LABEL, mask)
-              + bce_with_logits(logits_fake, FAKE_LABEL, mask))
+    loss_d = (bce_with_logits(logits_real, REAL_LABEL, mask, mesh)
+              + bce_with_logits(logits_fake, FAKE_LABEL, mask, mesh))
     loss_d.backward()
+    all_reduce_grads(d.parameters(), mesh)
     opt_d.step()
 
     opt_g.zero_grad(set_to_none=True)
     logits_g = d(fake, train=True, mask=mask)
-    loss_g = bce_with_logits(logits_g, REAL_LABEL, mask)
+    loss_g = bce_with_logits(logits_g, REAL_LABEL, mask, mesh)
     loss_g.backward(inputs=list(g.parameters()))
+    all_reduce_grads(g.parameters(), mesh)
     opt_g.step()
 
     with torch.no_grad():
-        probs = [weighted_mean(torch.sigmoid(lg), mask)
+        probs = [weighted_mean(torch.sigmoid(lg), mask, mesh)
                  for lg in (logits_real, logits_fake, logits_g)]
-        return torch.stack([loss_g, loss_d, *probs]).detach()
+        metrics = torch.stack([loss_g, loss_d, *probs]).detach()
+        return mesh.all_reduce_(metrics) if dp else metrics
 
 
 def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,

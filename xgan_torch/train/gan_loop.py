@@ -23,8 +23,17 @@ parameters after each G step (``generator_ema_final.pth``);
 ``--grad-accum A`` runs each update as A microbatches;
 ``--steps-per-call K`` dispatches K full batches per call through
 :class:`~xgan_torch.train.multistep.StepsPerCall` (one CUDA graph
-replay), the masked tail batch as one eager step. Not ported yet:
-several devices (ROADMAP A14).
+replay), the masked tail batch as one eager step.
+
+Across data-parallel ranks (``mesh``; ``torchrun``, A14): the global
+batch is ``--batch-size`` rounded up to a multiple of the ranks, as the
+JAX loop pads it; every rank seeds alike, so all draw the same batch order
+and step randomness, and each trains on its rows of every batch
+(:func:`~xgan_torch.train.gan.dcgan_step`); ``--shard-store`` splits the
+store over the ranks. Rank 0 alone writes the sheets, checkpoints,
+snapshot, history and figures, and traces; the ranks agree at each epoch
+boundary. ``--grad-accum`` and ``--steps-per-call`` do not run across
+ranks yet (the CLI refuses them under a launch).
 """
 from __future__ import annotations
 
@@ -39,6 +48,8 @@ from xgan_torch.data.pipeline import DeviceStore, minmax_to_u8
 from xgan_torch.data.store import ImageStore
 from xgan_torch.io_.figures import plot_gan_losses, save_image_grid
 from xgan_torch.models.dcgan import Discriminator, Generator
+from xgan_torch.models.layers import sync_batch_norm
+from xgan_torch.parallel.mesh import MeshContext
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan import dcgan_step
@@ -70,9 +81,12 @@ def load_train_store(args, device: torch.device):
                             compiled=device.type == "cuda")
 
 
-def train_dcgan(args, device: torch.device, dtype: torch.dtype):
+def train_dcgan(args, device: torch.device, dtype: torch.dtype,
+                mesh: MeshContext | None = None):
     """args: the namespace of ``xgan_torch.cli.train_gan``. Returns the
-    history, or None after a printed error."""
+    history, or None after a printed error. ``mesh``: this process's rank
+    of a data-parallel run (None: the only one)."""
+    mesh = mesh if mesh is not None else MeshContext(device)
     if not resume_preflight(args):
         return None
     gan_model_dir = check_create_dir(os.path.join(args.model_dir, "gan"))
@@ -81,13 +95,19 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     metrics_dir = check_create_dir(args.results_dir)
     figures_dir = check_create_dir(args.figures_dir)
 
-    store = load_train_store(args, device)
+    with mesh.main_first():
+        store = load_train_store(args, device)
     if store is None:
         return None
     print(f"Loaded training data with {len(store)} samples.")
-    device_store = DeviceStore(store, device)
-    print(f"Device: {device}; compute dtype {dtype}")
-    batch_size = args.batch_size
+    device_store = DeviceStore(store, device, mesh,
+                               shard=getattr(args, "shard_store", False))
+    batch_size = mesh.pad_batch(args.batch_size)
+    if batch_size != args.batch_size:
+        print(f"Note: batch size {args.batch_size} -> {batch_size} "
+              f"(multiple of {mesh.n_data} devices)")
+    print(f"Device: {device}; compute dtype {dtype}; rank {mesh.rank} of "
+          f"{mesh.world}")
 
     seeds = [torch.Generator(device).manual_seed(args.seed + i)
              for i in range(4)]
@@ -97,6 +117,8 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     d = Discriminator(args.num_channels, args.feature_maps_d,
                       args.image_size, dtype=dtype, device=device,
                       generator=seeds[1])
+    sync_batch_norm(g, mesh)
+    sync_batch_norm(d, mesh)
     k_steps = max(1, args.steps_per_call)
     # on the card, Adam's update stays on the device for every K: a step
     # inside a CUDA graph needs it, and K = 1 then trains as K > 1 does
@@ -117,7 +139,8 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
         metrics = dcgan_step(g, d, opt_g, opt_d, device_store.images, idx,
                              latent_dim=args.latent_dim, dtype=dtype,
                              mask=mask, generator=step_draws,
-                             grad_accum=ga)
+                             grad_accum=ga, take=device_store.take,
+                             mesh=mesh)
         if ema is not None:
             ema_update(ema, g, args.ema_decay)
         return metrics
@@ -126,6 +149,8 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
         if k_steps > 1 else None
 
     def sample_grid(path):
+        if not mesh.is_main:
+            return
         g.repack()  # the eval forward reads tensors derived at repack
         imgs = minmax_to_u8(g(fixed_noise))
         save_image_grid(imgs.cpu().numpy(), path, nrow=8)
@@ -134,7 +159,7 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
     run = EpochRun(args, gan_model_dir,
                    os.path.join(metrics_dir, "gan_training_history.json"),
                    {k: [] for k in HISTORY_KEYS}, {"g": g, "d": d},
-                   {"g": opt_g, "d": opt_d}, ema, step_draws)
+                   {"g": opt_g, "d": opt_d}, ema, step_draws, mesh)
     if not run.resume(len(store), batch_size, data_rng):
         return None
     history, iters = run.history, run.iters
@@ -190,5 +215,7 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype):
         return history
     print(f"Training finished in {time.time() - start_time:.2f} seconds.")
     run.save_final()
-    plot_gan_losses(history, os.path.join(figures_dir, "gan_loss_curve.png"))
+    if mesh.is_main:
+        plot_gan_losses(history,
+                        os.path.join(figures_dir, "gan_loss_curve.png"))
     return history

@@ -9,6 +9,7 @@ import os
 import signal
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -240,12 +241,19 @@ class EpochRun:
     - :meth:`boundary` saves the epoch's checkpoints, snapshot and history
       through the async writer and says whether to stop (``preempted``);
     - :meth:`save_final` writes the final checkpoints, the EMA generator
-      and the history."""
+      and the history.
+
+    ``mesh``: the data-parallel ranks of the run (None: one). Every rank
+    resumes from the snapshot, only rank 0 writes and traces, and the
+    ranks agree at each boundary (an all-reduced flag, also their
+    barrier): a signal to any rank stops them all there."""
 
     def __init__(self, args, model_dir: str, history_path: str,
                  history: dict, models: dict, opts: dict, ema,
-                 rng: torch.Generator):
+                 rng: torch.Generator, mesh=None):
         self.args = args
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.model_dir, self.history_path = model_dir, history_path
         self.history = history
         self.models, self.opts, self.ema, self.rng = models, opts, ema, rng
@@ -276,19 +284,26 @@ class EpochRun:
     def traced(self, epoch: int):
         """``maybe_trace`` of ``--trace-dir`` at :func:`trace_epoch`, a
         no-op at every other epoch."""
-        on = (self.args.trace_dir and epoch ==
+        on = (self.args.trace_dir and self.is_main and epoch ==
               trace_epoch(self.start_epoch, self.args.epochs))
         return maybe_trace(self.args.trace_dir if on else None)
 
     def boundary(self, epoch: int, iters: int) -> bool:
         """:func:`checkpoint_boundary` with the epoch's writes; True (and
         ``preempted`` set) when the loop should stop."""
-        stop = checkpoint_boundary(
-            self.shutdown, epoch, self.args.epochs,
-            self.args.checkpoint_interval,
-            lambda: save_epoch(self.snapshots, self.model_dir, epoch + 1,
-                               iters, self.models, self.opts, self.ema,
-                               self.rng, self.history_path, self.history))
+        shutdown = self.shutdown
+        if self.mesh is not None:  # one value, agreed by every rank
+            shutdown = types.SimpleNamespace(
+                requested=self.mesh.any(shutdown.requested))
+
+        def save():
+            if self.is_main:
+                save_epoch(self.snapshots, self.model_dir, epoch + 1, iters,
+                           self.models, self.opts, self.ema, self.rng,
+                           self.history_path, self.history)
+
+        stop = checkpoint_boundary(shutdown, epoch, self.args.epochs,
+                                   self.args.checkpoint_interval, save)
         if stop:
             self.preempted = epoch + 1  # its snapshot is queued
         return stop
@@ -308,7 +323,9 @@ class EpochRun:
 
     def save_final(self) -> None:
         """``{generator,discriminator}_final.pth``, the EMA generator and
-        the history JSON."""
+        the history JSON (rank 0)."""
+        if not self.is_main:
+            return
         g, second = self.models.values()
         save_gan_checkpoints(self.model_dir, "final", g, second)
         save_ema_final(self.model_dir, g, self.ema)

@@ -39,8 +39,10 @@ class StepTimer:
         self.total = 0.0
 
 
-# tiny kernels that open a trace window on a CUDA device; see maybe_trace
+# tiny kernels that open a trace window on a CUDA device, and the idle
+# host seconds after them and before the window closes; see maybe_trace
 _TRACE_LEAD_KERNELS = 64
+_TRACE_PAD_S = 0.5
 
 
 @contextlib.contextmanager
@@ -52,10 +54,13 @@ def maybe_trace(trace_dir: str | None):
     ``trace_dir`` is empty.
 
     On a CUDA device the window opens with ``_TRACE_LEAD_KERNELS`` tiny
-    kernels under a ``trace_lead`` annotation, synchronised before the
-    traced work. The profiler can drop the kernels of the first few
-    launches of a window, which were the head of the traced epoch (its
-    first gather among them) before the lead took that loss."""
+    kernels under a ``trace_lead`` annotation, synchronised and followed
+    by ``_TRACE_PAD_S`` of idle host time before the traced work, and
+    closes ``_TRACE_PAD_S`` after the work has finished. The profiler
+    keeps a kernel only if its time, mapped from the device's clock onto
+    the host's, lies inside the window, and that mapping can be off by
+    milliseconds: without the margins it dropped the head of the traced
+    epoch (its first gather among them)."""
     if not trace_dir:
         yield
         return
@@ -74,6 +79,8 @@ def maybe_trace(trace_dir: str | None):
                 for _ in range(_TRACE_LEAD_KERNELS):
                     lead.add_(1)
                 torch.cuda.synchronize()
+                time.sleep(_TRACE_PAD_S)
         yield
         if cuda:
             torch.cuda.synchronize()
+            time.sleep(_TRACE_PAD_S)
