@@ -7,16 +7,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit; compute capability 9.0;
 2. builds the CUDA kernels from ``xgan_torch/kernels/csrc``; prints what
-   ``ptxas -v`` says of each instantiation of the tensor-core ConvT kernel
-   (``convt4x4s2_mma``) and checks that none spills, and that its SASS
-   (``cuobjdump -sass``) holds ``HMMA`` tensor-core instructions;
+   ``ptxas -v`` says of each instantiation of the tensor-core ConvT
+   kernels (the warpgroup designs ``convt4x4s2_wgmma`` and
+   ``convt4x4s2_band``, and the ``mma.sync`` kernel ``convt4x4s2_mma``)
+   and checks that none spills or has its wgmma products serialised, that
+   the warpgroup kernels' SASS (``cuobjdump -sass``) holds ``HGMMA`` and
+   the ``mma.sync`` kernel's ``HMMA`` tensor-core instructions;
 3. holds each ConvT route against its plain PyTorch version on the card at
    the shapes the sampler gives it (DCGAN G-224, fg 64, batch 64): f32
-   with TF32 off on the CUDA-core kernel, bf16 on the tensor-core kernel,
-   plus bf16 cases the ladder lacks (ragged M, H != W, Cout = 40, leaky
-   ReLU); times per bf16 layer the kernel, the CUDA-core kernel on the
-   same bf16 inputs, the plain version and a PyTorch library yardstick
-   with CUDA events;
+   with TF32 off on the CUDA-core kernel, bf16 on the design the tile table
+   names (``convt_route``: wgmma or band), plus bf16 cases the ladder
+   lacks (ragged M, H != W, Cout 8, 40 and 3 at a wide Cin, leaky ReLU,
+   the ladder at B = 1 and B = 128); times per bf16 layer the design, the
+   ``mma.sync`` kernel and the CUDA-core kernel on the same bf16 inputs,
+   the plain version and a PyTorch library yardstick with CUDA events,
+   against the bound;
 4. runs the sampler through its CLI (``xgan_torch.cli.generate_synthetic``)
    at full width (latent 100, fg 64, 224 px, batch 64, bf16) from a seeded
    random-weight reference-layout ``.pth``: 512 PNGs, each decoded back;
@@ -73,9 +78,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
     version and cuDNN;
 13. WGAN-GP: right after phase 3, the five k4s2 layers of its generator
     (the DCGAN ladder one width up: 1024 -> 512 at 7x7 ... 64 -> 3 at
-    112x112) at B = 64 on the tensor-core kernel against the plain
+    112x112) at B = 64 on the tile table's design against the plain
     version, with the sampler's epilogue and the train forward's, each
-    timed against its bound, the plain version and cuDNN; after the
+    timed against its bound, the ``mma.sync`` kernel on the same inputs,
+    the plain version and cuDNN; after the
     analyzer, its sampler CLI (``xgan_torch.cli.generate_synthetic_wgan``:
     512 PNGs at full width, 5 launches a batch, an f32 batch of the kernel
     path within 1 u8 level of the plain path) and its trainer CLI
@@ -347,6 +353,18 @@ def phase_card():
 
 
 MMA_KERNEL = "convt4x4s2_mma_kernel"
+WGMMA_KERNEL = "convt4x4s2_wgmma_kernel"
+BAND_KERNEL = "convt4x4s2_band_kernel"
+# the warpgroup designs' counters: the tile table routes every bf16 layer
+# of both G-224 ladders to one of them
+NEW_DESIGNS = ("convt4x4s2_wgmma", "convt4x4s2_band")
+
+
+def on_new_designs(launches, want: int) -> bool:
+    """``want`` ConvT launches, each counted as a tensor-core launch and
+    as a launch of a warpgroup design (wgmma or band)."""
+    return (launches.get("convt4x4s2_mma", 0) == want
+            and sum(launches.get(k, 0) for k in NEW_DESIGNS) == want)
 
 
 def ptxas_report(log: str) -> dict:
@@ -368,8 +386,8 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def sass_hmma_counts(so) -> dict:
-    """HMMA instructions per function of the library's SASS."""
+def sass_counts(so, opcodes=("HMMA", "HGMMA")) -> dict:
+    """Instructions of each opcode per function of the library's SASS."""
     from torch.utils.cpp_extension import CUDA_HOME
     sass = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(so)],
@@ -377,39 +395,58 @@ def sass_hmma_counts(so) -> dict:
     counts = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        counts[name] = len(re.findall(r"\bHMMA\b", part))
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", part))
+                        for op in opcodes}
     return counts
 
 
 def phase_build():
     from xgan_torch.kernels import build
-    from xgan_torch.kernels.convt import MMA_BLOCK_NS, mma_tiles
+    from xgan_torch.kernels.convt import (BAND_CINS, MMA_BLOCK_NS,
+                                          WGMMA_BLOCK_NS, band_np,
+                                          convt_route)
     t0 = time.perf_counter()
     so = build.build(verbose=True)
     build.load_ops()
     print(f"build: {so.name} ready in {time.perf_counter() - t0:.1f} s")
-    report = {k: v for k, v in ptxas_report(build.build_log()).items()
-              if MMA_KERNEL in k}
-    for name, r in sorted(report.items()):
-        print(f"ptxas {name}: {r}")
-    check(len(report) == len(MMA_BLOCK_NS),
-          f"expected {len(MMA_BLOCK_NS)} {MMA_KERNEL} instantiations in the "
-          f"ptxas log, got {sorted(report)}")
-    check(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
-              for r in report.values()), f"{MMA_KERNEL} spills: {report}")
-    # the block_n of every layer of both ladders is one of those checked
-    block_ns = sorted({mma_tiles(cin, cout).block_n
-                       for widths in (None, WGAN_WIDTHS)
-                       for _, cin, cout, _ in layer_shapes(widths)})
-    for n in block_ns:
-        check(any(f"ILi{n}E" in name for name in report),
-              f"no {MMA_KERNEL}<{n}> in the ptxas log: {sorted(report)}")
-    print(f"block_n of the DCGAN and WGAN-GP ladders {block_ns}: each "
-          "instantiation built without spills")
-    hmma = {k: v for k, v in sass_hmma_counts(so).items() if MMA_KERNEL in k}
-    print(f"SASS HMMA instructions per {MMA_KERNEL} instantiation: {hmma}")
-    check(len(hmma) == len(MMA_BLOCK_NS) and all(hmma.values()),
-          f"{MMA_KERNEL} SASS without HMMA: {hmma}")
+    log = build.build_log()
+    ptxas = ptxas_report(log)
+    sass = sass_counts(so)
+    # (kernel, instantiations, the SASS opcode of its products)
+    for kernel, n, op in ((MMA_KERNEL, len(MMA_BLOCK_NS), "HMMA"),
+                          (WGMMA_KERNEL, len(WGMMA_BLOCK_NS), "HGMMA"),
+                          (BAND_KERNEL, 3 * len(BAND_CINS), "HGMMA")):
+        report = {k: v for k, v in ptxas.items() if kernel in k}
+        for name, r in sorted(report.items()):
+            print(f"ptxas {name}: {r}")
+        check(len(report) == n, f"expected {n} {kernel} instantiations in "
+              f"the ptxas log, got {sorted(report)}")
+        check(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                  for r in report.values()), f"{kernel} spills: {report}")
+        ops = {k: v[op] for k, v in sass.items() if kernel in k}
+        print(f"SASS {op} instructions per {kernel} instantiation: {ops}")
+        check(len(ops) == n and all(ops.values()),
+              f"{kernel} SASS without {op}: {ops}")
+    # ptxas serialises a function's wgmma products when another
+    # instruction may touch their registers in flight, or a product sits
+    # on a path it must treat as divergent (warnings C7515, C7520)
+    serial = [line for line in log.splitlines()
+              if "instructions are serialized" in line
+              and "convt4x4s2" in line]
+    check(not serial, "wgmma products serialised:\n" + "\n".join(serial))
+    # every layer of both ladders is routed to a warpgroup design, on a
+    # tile of those built
+    for h, cin, cout, _ in layer_shapes() + layer_shapes(WGAN_WIDTHS):
+        route = convt_route(torch.bfloat16, h, h, cin, cout)
+        check(route.design in ("wgmma", "band"),
+              f"{(h, cin, cout)} is routed to {route}")
+        kernel = WGMMA_KERNEL if route.design == "wgmma" else BAND_KERNEL
+        tag = (f"ILi{route.block_n}E" if route.design == "wgmma"
+               else f"ILi{cin}ELi{band_np(cout)}E")
+        check(any(kernel in k and tag in k for k in ptxas),
+              f"no {kernel} {tag} for {(h, cin, cout)} in the ptxas log")
+    print("tiles of the DCGAN and WGAN-GP ladders: each instantiation "
+          "built without spills or serialised products")
 
 
 def phase_kernels():
@@ -419,24 +456,34 @@ def phase_kernels():
     from xgan_torch import kernels
     from xgan_torch.kernels.build import load_ops
     from xgan_torch.kernels.convt import (ACTS, convt4x4s2_fused_cuda,
-                                          convt4x4s2_fused_ref,
-                                          pack_convt_weight, uses_mma)
+                                          convt4x4s2_fused_ref, convt_route,
+                                          mma_tiles, pack_convt_weight,
+                                          uses_mma)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     # (B, H, W, Cin, Cout, act, dtype, on the main path)
+    ladder = layer_shapes()
     cases = [(B, h, h, cin, cout, act, dt, dt == torch.bfloat16)
-             for (h, cin, cout, act) in layer_shapes()
+             for (h, cin, cout, act) in ladder
              for dt in (torch.float32, torch.bfloat16)]
+    bf = torch.bfloat16
     cases += [(B, 28, 28, 128, 64, "leaky_relu", torch.float32, False),
-              (B, 28, 28, 128, 64, "leaky_relu", torch.bfloat16, False),
-              (3, 5, 5, 32, 32, "relu", torch.bfloat16, False),  # ragged M
-              (B, 6, 10, 64, 64, "relu", torch.bfloat16, False),  # H != W
-              (B, 9, 9, 64, 40, "relu", torch.bfloat16, False)]  # Cout 40
-    total = {"ms": 0.0, "core_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-             "ops_ms": 0.0, "bytes_ms": 0.0, "bound_ms": 0.0,
-             "max_abs_err": 0.0}
+              (B, 28, 28, 128, 64, "leaky_relu", bf, False),
+              (3, 5, 5, 32, 64, "relu", bf, False),  # ragged M
+              (B, 6, 10, 64, 64, "relu", bf, False),  # H != W
+              (B, 9, 9, 64, 40, "relu", bf, False),  # Cout 40
+              (B, 7, 7, 512, 8, "relu", bf, False),  # Cout 8, wide Cin
+              (B, 7, 7, 512, 40, "leaky_relu", bf, False),  # Cout 40
+              (B, 7, 7, 512, 3, "none", bf, False),  # Cout 3, wide Cin
+              (B, 13, 6, 64, 32, "relu", bf, False),  # a short last band
+              (B, 9, 17, 64, 3, "leaky_relu", bf, False)]
+    cases += [(b, h, h, cin, cout, act, bf, False)
+              for b in (1, 2 * B) for (h, cin, cout, act) in ladder]
+    total = {"ms": 0.0, "mma_ms": 0.0, "core_ms": 0.0, "plain_ms": 0.0,
+             "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+             "bound_ms": 0.0, "max_abs_err": 0.0}
     for b, h, w, cin, cout, act, dt, main_path in cases:
         x = torch.randn(b, h, w, cin, generator=g, device=dev).to(dt)
         wt = torch.randn(cin, cout, 4, 4, generator=g, device=dev) \
@@ -446,21 +493,27 @@ def phase_kernels():
         wp = pack_convt_weight(wt, dt)
         mma = uses_mma(dt, cin)
         check(mma == (dt == torch.bfloat16), (cin, dt))
-        before = kernels.LAUNCHES["convt4x4s2_mma"]
+        route = convt_route(dt, h, w, cin, cout)
+        kernels.reset_launch_counts()
         got = convt4x4s2_fused_cuda(x, wp, scale, shift, act)
-        check(kernels.LAUNCHES["convt4x4s2_mma"] - before == int(mma),
-              "the route is not the one uses_mma names")
+        check(kernels.LAUNCHES["convt4x4s2_mma"] == int(mma)
+              and all(kernels.LAUNCHES[f"convt4x4s2_{d}"]
+                      == (route.design == d) for d in ("wgmma", "band")),
+              f"the route is not the one convt_route names: {route}, "
+              f"{dict(kernels.LAUNCHES)}")
         ref = convt4x4s2_fused_ref(x, wp, scale, shift, act)
         torch.cuda.synchronize()
         check(got.shape == (b, 2 * h, 2 * w, cout) and got.dtype == dt,
               (got.shape, got.dtype))
         err = (got.float() - ref.float()).abs().max().item()
         tol = TOL[dt] * (1 + ref.float().abs().max().item())
-        route = "tensor-core" if mma else "CUDA-core"
         name = (f"{b}x{h}x{w}x{cin}->{2 * h}x{2 * w}x{cout} {act} {dt} "
-                f"({route})")
+                f"({route.design}, block_n {route.block_n}"
+                + (f", rows {route.rows}" if route.rows else "") + ")")
         check(err <= tol, f"{name}: max |kernel - plain| {err} > {tol}")
-        if not main_path:
+        if main_path:
+            check(route.design in ("wgmma", "band"), name)
+        else:
             print(f"check {name}: max_abs_err {err:.3g} (tol {tol:.3g})")
             continue
         wl = wt.to(dt)
@@ -474,7 +527,9 @@ def phase_kernels():
 
         ops = load_ops()
         ms = time_ms(lambda: convt4x4s2_fused_cuda(x, wp, scale, shift, act))
-        # the CUDA-core kernel on the same bf16 inputs: the earlier design
+        # the earlier designs on the same bf16 inputs: mma.sync, CUDA cores
+        mma_ms = time_ms(lambda: ops.convt4x4s2_mma(
+            x, wp, scale, shift, ACTS[act], mma_tiles(cin, cout).block_n))
         core_ms = time_ms(lambda: ops.convt4x4s2_fused(x, wp, scale, shift,
                                                        ACTS[act]))
         plain_ms = time_ms(
@@ -487,26 +542,32 @@ def phase_kernels():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         print(f"layer {name}: max_abs_err {err:.3g} (tol {tol:.3g}); "
-              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-              f"CUDA-core kernel {core_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"conv_transpose2d+affine+act {library_ms:.4f} ms, kernel / "
-              f"yardstick {ms / library_ms:.3f}; {flops / 1e9:.3f} GFLOP, "
+              f"{route.design} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s),"
+              f" mma.sync {mma_ms:.4f} ms, CUDA-core kernel {core_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, conv_transpose2d+affine+act "
+              f"{library_ms:.4f} ms, kernel / yardstick "
+              f"{ms / library_ms:.3f}; {flops / 1e9:.3f} GFLOP, "
               f"{nbytes / 1e6:.3f} MB, bound {bound_ms:.4f} ms "
-              f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
-        for k, v in (("ms", ms), ("core_ms", core_ms),
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
+              f"kernel / bound {ms / bound_ms:.2f}")
+        for k, v in (("ms", ms), ("mma_ms", mma_ms), ("core_ms", core_ms),
                      ("plain_ms", plain_ms), ("library_ms", library_ms),
                      ("ops_ms", ops_ms), ("bytes_ms", bytes_ms),
                      ("bound_ms", bound_ms)):
             total[k] += v
         total["max_abs_err"] = max(total["max_abs_err"], err)
-    print(f"5 bf16 layers: kernel {total['ms']:.4f} ms, CUDA-core kernel "
+    print(f"5 bf16 layers: kernel {total['ms']:.4f} ms, mma.sync "
+          f"{total['mma_ms']:.4f} ms, CUDA-core kernel "
           f"{total['core_ms']:.4f} ms, conv_transpose2d+affine+act "
           f"{total['library_ms']:.4f} ms, kernel / yardstick "
           f"{total['ms'] / total['library_ms']:.3f}, bound "
-          f"{total['bound_ms']:.4f} ms")
+          f"{total['bound_ms']:.4f} ms, kernel / bound "
+          f"{total['ms'] / total['bound_ms']:.2f}")
     return {
         "name": "convt4x4s2_fused", "route": "cuda",
-        "source": "xgan_torch/kernels/csrc/convt4x4s2_mma.cu,"
+        "source": "xgan_torch/kernels/csrc/convt4x4s2_wgmma.cu,"
+                  "xgan_torch/kernels/csrc/convt4x4s2_band.cu,"
+                  "xgan_torch/kernels/csrc/convt4x4s2_mma.cu,"
                   "xgan_torch/kernels/csrc/convt4x4s2.cu",
         "replaces": "xgan/ops/pallas/convt.py:101",
         "launches": 0, "max_abs_err": total["max_abs_err"],
@@ -576,8 +637,9 @@ def phase_sampler(tmp: str):
     print(f"sampler launches: {launches}")
     want = 5 * math.ceil(NUM_IMAGES / B)
     check(launches.get("convt4x4s2_fused", 0) == want, (launches, want))
-    check(launches.get("convt4x4s2_mma", 0) == want,
-          f"{launches}: expected all {want} launches on the tensor-core route")
+    check(on_new_designs(launches, want),
+          f"{launches}: expected all {want} launches on the warpgroup "
+          "designs")
     rates = [run(os.path.join(tmp, "synthetic_warm"))["imgs_per_sec"]
              for _ in range(3)]
     print(f"sampler warm runs: {', '.join(f'{r:.1f}' for r in rates)} "
@@ -1383,8 +1445,9 @@ def phase_gan(tmp: str, root: str):
           f"{history['D_losses_iter'][-1]:.4f} D(x) "
           f"{history['D_x_iter'][-1]:.4f}")
     check(launches.get("convt4x4s2_fused", 0) == want, (launches, want))
-    check(launches.get("convt4x4s2_mma", 0) == want,
-          f"{launches}: expected all {want} launches on the tensor-core route")
+    check(on_new_designs(launches, want),
+          f"{launches}: expected all {want} launches on the warpgroup "
+          "designs")
     with open(os.path.join(out, "metrics", "gan_training_history.json")) \
             as f:
         saved = json.load(f)
@@ -1423,7 +1486,7 @@ def phase_gan(tmp: str, root: str):
         "--batch-size", str(B), "--compute-dtype", "bf16"])
     torch.cuda.synchronize()
     chain = dict(kernels.LAUNCHES)
-    check(stats["written"] == B and chain.get("convt4x4s2_mma", 0) == 5,
+    check(stats["written"] == B and on_new_designs(chain, 5),
           (stats, chain))
     img = decode_png(os.path.join(out, "synthetic", f"synthetic_{B:05d}.png"))
     check(img.shape == (SIZE, SIZE, 3), img.shape)
@@ -1673,7 +1736,7 @@ def phase_gan_profile(train_store):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         padded(lambda: step(23))
-    check(kernels.LAUNCHES["convt4x4s2_mma"] == 5, dict(kernels.LAUNCHES))
+    check(on_new_designs(kernels.LAUNCHES, 5), dict(kernels.LAUNCHES))
     print(window_edges(prof.events()))
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ours = [e for e in events if "convt4x4s2" in e.name]
@@ -1693,23 +1756,20 @@ def phase_gan_profile(train_store):
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<3d} {e.key[:90]}")
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    total = {"ms": 0.0, "mma_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bound_ms": 0.0}
     for i, (x, w, _) in enumerate(gan_layer_inputs(GAN_B, torch.bfloat16,
                                                    seed=12)):
         b, h, _, cin = x.shape
         cout = w.shape[1]
         t = convt_layer_times(x, w, torch.ones(cout, device=dev),
                               torch.zeros(cout, device=dev), "none")
-        print(f"train layer {i + 1} {b}x{h}x{h}x{cin}->{2 * h}x{2 * h}x"
-              f"{cout} none bf16: kernel {t['ms']:.4f} ms "
-              f"({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), plain "
-              f"{t['plain_ms']:.4f} ms, F.conv_transpose2d "
-              f"{t['library_ms']:.4f} ms, kernel / cuDNN "
-              f"{t['ms'] / t['library_ms']:.3f}; bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}); max_abs_err {t['err']:.3g}")
+        print(layer_line(f"train layer {i + 1} {b}x{h}x{h}x{cin}->{2 * h}x"
+                         f"{2 * h}x{cout} none bf16", t, "cuDNN"))
         for k in total:
             total[k] += t[k]
-    print(f"5 train layers (B={GAN_B}): kernel {total['ms']:.4f} ms, plain "
+    print(f"5 train layers (B={GAN_B}): kernel {total['ms']:.4f} ms, "
+          f"mma.sync {total['mma_ms']:.4f} ms, plain "
           f"{total['plain_ms']:.4f} ms, F.conv_transpose2d "
           f"{total['library_ms']:.4f} ms, kernel / cuDNN "
           f"{total['ms'] / total['library_ms']:.3f}, bound "
@@ -1723,24 +1783,30 @@ WGAN_HISTORY_KEYS = {"D_losses", "G_losses", "D_losses_epoch",
 
 
 def convt_layer_times(x, w, scale, shift, act: str) -> dict:
-    """One k4s2 layer on the kernel (bf16: the tensor-core route), held
+    """One k4s2 layer on the kernel (bf16: the tile table's design), held
     against its plain version within ``TOL``, then timed by CUDA events:
-    the kernel, the plain version and the library call (cuDNN's
-    ``F.conv_transpose2d``, plus the affine and the ReLU where the
-    epilogue has them); the bound from the bytes (x, the packed weight,
-    the output, scale and shift) and the FLOPs."""
+    the kernel, the ``mma.sync`` kernel on the same inputs (bf16), the
+    plain version and the library call (cuDNN's ``F.conv_transpose2d``,
+    plus the affine and the ReLU where the epilogue has them); the bound
+    from the bytes (x, the packed weight, the output, scale and shift) and
+    the FLOPs."""
     import torch.nn.functional as F
     from xgan_torch import kernels
-    from xgan_torch.kernels.convt import (convt4x4s2_fused,
-                                          convt4x4s2_fused_ref,
-                                          pack_convt_weight, uses_mma)
+    from xgan_torch.kernels.build import load_ops
+    from xgan_torch.kernels.convt import (ACTS, convt4x4s2_fused,
+                                          convt4x4s2_fused_ref, convt_route,
+                                          mma_tiles, pack_convt_weight,
+                                          uses_mma)
     b, h, _, cin = x.shape
     cout = w.shape[1]
     wp = pack_convt_weight(w, x.dtype)
-    before = kernels.LAUNCHES["convt4x4s2_mma"]
+    route = convt_route(x.dtype, h, h, cin, cout)
+    kernels.reset_launch_counts()
     got = convt4x4s2_fused(x, wp, scale, shift, act)
-    check(kernels.LAUNCHES["convt4x4s2_mma"] - before
-          == int(uses_mma(x.dtype, cin)), "the route is not uses_mma's")
+    check(kernels.LAUNCHES["convt4x4s2_mma"] == int(uses_mma(x.dtype, cin))
+          and (x.dtype != torch.bfloat16 or on_new_designs(
+              kernels.LAUNCHES, 1)), ("the route is not the table's", route,
+                                      dict(kernels.LAUNCHES)))
     ref = convt4x4s2_fused_ref(x, wp, scale, shift, act)
     err = (got.float() - ref.float()).abs().max().item()
     tol = TOL[x.dtype] * (1 + ref.float().abs().max().item())
@@ -1757,11 +1823,16 @@ def convt_layer_times(x, w, scale, shift, act: str) -> dict:
         y = y.float() * sc4 + sh4
         return (torch.relu(y) if act == "relu" else y).to(x.dtype)
 
-    out = {"err": err, "tol": tol,
+    out = {"err": err, "tol": tol, "design": route.design,
+           "block_n": route.block_n, "rows": route.rows,
            "ms": time_ms(lambda: convt4x4s2_fused(x, wp, scale, shift, act)),
            "plain_ms": time_ms(lambda: convt4x4s2_fused_ref(
                x, wp, scale, shift, act), reps=3),
            "library_ms": time_ms(library)}
+    if x.dtype == torch.bfloat16:
+        ops = load_ops()
+        out["mma_ms"] = time_ms(lambda: ops.convt4x4s2_mma(
+            x, wp, scale, shift, ACTS[act], mma_tiles(cin, cout).block_n))
     flops = 2 * b * (2 * h) ** 2 * cout * 4 * cin
     nbytes = (x.numel() + wp.numel() + b * (2 * h) ** 2 * cout) \
         * x.element_size() + 2 * 4 * cout
@@ -1769,6 +1840,22 @@ def convt_layer_times(x, w, scale, shift, act: str) -> dict:
     out.update(flops=flops, bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
     return out
+
+
+def layer_line(label: str, t: dict, library: str) -> str:
+    """One timed layer of :func:`convt_layer_times`: the design's time and
+    rate beside mma.sync, the plain version, the library call and the
+    bound."""
+    tile = (f"rows {t['rows']}" if t["design"] == "band"
+            else f"block_n {t['block_n']}")
+    return (f"{label} ({t['design']}, {tile}): max_abs_err {t['err']:.3g} "
+            f"(tol {t['tol']:.3g}); kernel {t['ms']:.4f} ms "
+            f"({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), mma.sync "
+            f"{t['mma_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, {library} "
+            f"{t['library_ms']:.4f} ms, kernel / {library} "
+            f"{t['ms'] / t['library_ms']:.3f}; bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), kernel / bound "
+            f"{t['ms'] / t['bound_ms']:.2f}")
 
 
 def phase_wgan_kernels(smi: str):
@@ -1781,14 +1868,14 @@ def phase_wgan_kernels(smi: str):
     kernel against the plain version."""
     from xgan_torch.kernels.convt import (convt4x4s2_fused,
                                           convt4x4s2_fused_ref,
-                                          mma_tiles, pack_convt_weight)
+                                          pack_convt_weight)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(15)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for form in ("sampler", "train"):
-        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                 "bound_ms": 0.0}
+        total = {"ms": 0.0, "mma_ms": 0.0, "plain_ms": 0.0,
+                 "library_ms": 0.0, "bound_ms": 0.0}
         for i, (x, w, _) in enumerate(gan_layer_inputs(
                 WGAN_B, torch.bfloat16, seed=16, widths=WGAN_WIDTHS)):
             b, h, _, cin = x.shape
@@ -1806,20 +1893,14 @@ def phase_wgan_kernels(smi: str):
                 shift = torch.zeros(cout, device=dev)
             t = convt_layer_times(x, w, scale, shift, act)
             library = "cuDNN" if form == "train" else "cuDNN+affine+act"
-            print(f"wgan {form} layer {i + 1} {b}x{h}x{h}x{cin}->{2 * h}x"
-                  f"{2 * h}x{cout} {act} bf16 (block_n "
-                  f"{mma_tiles(cin, cout).block_n}): max_abs_err "
-                  f"{t['err']:.3g} (tol {t['tol']:.3g}); kernel "
-                  f"{t['ms']:.4f} ms ({t['flops'] / t['ms'] / 1e9:.1f} "
-                  f"TFLOP/s), plain {t['plain_ms']:.4f} ms, {library} "
-                  f"{t['library_ms']:.4f} ms, kernel / cuDNN "
-                  f"{t['ms'] / t['library_ms']:.3f}; bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), kernel / "
-                  f"bound {t['ms'] / t['bound_ms']:.2f}")
+            print(layer_line(f"wgan {form} layer {i + 1} {b}x{h}x{h}x{cin}->"
+                             f"{2 * h}x{2 * h}x{cout} {act} bf16", t,
+                             library))
             for k in total:
                 total[k] += t[k]
         print(f"wgan {form} form, 5 layers (B={WGAN_B}): kernel "
-              f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+              f"{total['ms']:.4f} ms, mma.sync {total['mma_ms']:.4f} ms, "
+              f"plain {total['plain_ms']:.4f} ms, "
               f"cuDNN {total['library_ms']:.4f} ms, kernel / cuDNN "
               f"{total['ms'] / total['library_ms']:.3f}, bound "
               f"{total['bound_ms']:.4f} ms; {smi}")
@@ -1867,8 +1948,9 @@ def phase_wgan_sampler(tmp: str):
           f"{stats['device_plus_transfer_imgs_per_sec']:.1f} imgs/s "
           f"device+transfer; launches {launches}")
     check(launches.get("convt4x4s2_fused", 0) == want
-          and launches.get("convt4x4s2_mma", 0) == want,
-          f"{launches}: expected all {want} launches on the tensor-core route")
+          and on_new_designs(launches, want),
+          f"{launches}: expected all {want} launches on the warpgroup "
+          "designs")
     files = sorted(os.listdir(out_dir))
     check(files == [f"synthetic_{i:05d}.png"
                     for i in range(1, NUM_IMAGES + 1)], files[:3])
@@ -1933,8 +2015,9 @@ def phase_wgan_train(tmp: str, root: str):
           f"launches {launches}; last losses D "
           f"{history['D_losses'][-1]:.4f} G {history['G_losses'][-1]:.4f}")
     check(launches.get("convt4x4s2_fused", 0) == want
-          and launches.get("convt4x4s2_mma", 0) == want,
-          f"{launches}: expected all {want} launches on the tensor-core route")
+          and on_new_designs(launches, want),
+          f"{launches}: expected all {want} launches on the warpgroup "
+          "designs")
     with open(os.path.join(out, "metrics", "wgan_training_history.json")) \
             as f:
         saved = json.load(f)
@@ -1980,7 +2063,7 @@ def phase_wgan_train(tmp: str, root: str):
         "--batch-size", str(B), "--compute-dtype", "bf16"])
     torch.cuda.synchronize()
     chain = dict(kernels.LAUNCHES)
-    check(stats["written"] == B and chain.get("convt4x4s2_mma", 0) == 5,
+    check(stats["written"] == B and on_new_designs(chain, 5),
           (stats, chain))
     img = decode_png(os.path.join(out, "synthetic", f"synthetic_{B:05d}.png"))
     check(img.shape == (SIZE, SIZE, 3), img.shape)
@@ -2168,7 +2251,7 @@ def phase_wgan_profile(train_store, smi: str):
         torch.cuda.synchronize()
     # the wrapper's count, not the trace's: a trace can miss a kernel
     want = 5 * (WGAN_CRITIC + 1)
-    check(kernels.LAUNCHES["convt4x4s2_mma"] == want, dict(kernels.LAUNCHES))
+    check(on_new_designs(kernels.LAUNCHES, want), dict(kernels.LAUNCHES))
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ours = [e for e in events if "convt4x4s2" in e.name]
     busy_ms = sum(e.device_time for e in events) / 1e3
@@ -2685,7 +2768,7 @@ def phase_loop_grad_accum(train_store, smi: str) -> int:
         launches = dict(kernels.LAUNCHES)
         launched += launches.get("convt4x4s2_fused", 0)
         want = 10 * accum if accum > 1 else 5  # 2 * A * 5 with microbatches
-        check(launches.get("convt4x4s2_mma", 0) == want
+        check(on_new_designs(launches, want)
               and launches.get("convt4x4s2_fused", 0) == want,
               (accum, launches))
         t0 = time.perf_counter()
@@ -2931,7 +3014,7 @@ def phase_loop_steps_per_call(train_store, smi: str, run: int) -> list:
     kernels.reset_launch_counts()
     ms = time_calls(calls[warm:], k, n_timed)
     timed = dict(kernels.LAUNCHES)
-    check(timed.get("convt4x4s2_mma", 0) == 5 * n_timed * k, (k, timed))
+    check(on_new_designs(timed, 5 * n_timed * k), (k, timed))
     launched = timed["convt4x4s2_fused"]
     rest = calls[warm + n_timed:]
     events, _ = warm_profile(
@@ -2941,11 +3024,12 @@ def phase_loop_steps_per_call(train_store, smi: str, run: int) -> list:
           "profiled window of 4 steps, expected 20")
     if multi is not None:
         per = dict(multi.launches_per_replay)
-        check(per.get("convt4x4s2_mma", 0) == 5 * k
+        check(on_new_designs(per, 5 * k)
               and per.get("convt4x4s2_fused", 0) == 5 * k, per)
         names = {e.name for e in events if "convt4x4s2" in e.name
                  and e.device_type == DeviceType.CUDA}
-        check(any(MMA_KERNEL in n for n in names), names)
+        check(all(any(kn in n for n in names)
+                  for kn in (WGMMA_KERNEL, BAND_KERNEL)), names)
         print(f"K={k}: the dispatcher counts {per} ConvT launches per "
               f"replay ({multi.replays} replays); the profiler sees "
               f"{n_convt} ConvT kernels in one replay: "
@@ -3233,7 +3317,7 @@ def phase_loop_cli(tmp: str, root: str, train_store, smi: str) -> int:
     torch.cuda.synchronize()
     ema_launches = dict(kernels.LAUNCHES)
     launched += ema_launches.get("convt4x4s2_fused", 0)
-    check(stats["written"] == B and ema_launches.get("convt4x4s2_mma") == 5,
+    check(stats["written"] == B and on_new_designs(ema_launches, 5),
           (stats, ema_launches))
     img = decode_png(os.path.join(tmp, "loop", "ema_synth",
                                   f"synthetic_{B:05d}.png"))
@@ -3253,7 +3337,9 @@ def phase_loop_cli(tmp: str, root: str, train_store, smi: str) -> int:
     ours = [e for e in events if e.get("cat") == "kernel"
             and "convt4x4s2" in e.get("name", "")]
     # epoch 2: 2 train steps and the final sheet, 5 ConvT kernels each
-    check(len(ours) == 15 and any(MMA_KERNEL in e["name"] for e in ours),
+    check(len(ours) == 15
+          and all(any(kn in e["name"] for e in ours)
+                  for kn in (WGMMA_KERNEL, BAND_KERNEL)),
           (len(ours), [e.get("name") for e in ours][:4]))
     print(f"--trace-dir: one trace ({name}, "
           f"{os.path.getsize(os.path.join(trace_dir, name)) / 1e6:.1f} MB) "
@@ -3487,7 +3573,7 @@ def phase_loop_wgan(train_store, smi: str, run: int) -> list:
     peak = torch.cuda.max_memory_allocated()
     timed = dict(kernels.LAUNCHES)
     want = per_step * accum * n_timed * k
-    check(timed.get("convt4x4s2_mma", 0) == want
+    check(on_new_designs(timed, want)
           and timed.get("convt4x4s2_fused", 0) == want,
           (k, accum, timed, want))
     launched = timed["convt4x4s2_fused"]
@@ -3499,11 +3585,12 @@ def phase_loop_wgan(train_store, smi: str, run: int) -> list:
           f"window of {k} steps, expected {per_step * accum * k}")
     if multi is not None:
         per = dict(multi.launches_per_replay)
-        check(per.get("convt4x4s2_mma", 0) == per_step * k
+        check(on_new_designs(per, per_step * k)
               and per.get("convt4x4s2_fused", 0) == per_step * k, per)
         names = {e.name for e in events if "convt4x4s2" in e.name
                  and e.device_type == DeviceType.CUDA}
-        check(any(MMA_KERNEL in nm for nm in names), names)
+        check(all(any(kn in nm for nm in names)
+                  for kn in (WGMMA_KERNEL, BAND_KERNEL)), names)
         print(f"WGAN-GP K={k}: the dispatcher counts {per} ConvT "
               f"launches per replay ({multi.replays} replays); the "
               f"profiler sees {n_convt} ConvT kernels in one replay: "
@@ -4378,7 +4465,7 @@ def phase_msgpack(tmp: str, root: str) -> tuple[dict, int]:
           and imgs["pth"].std() > 10,
           "the .msgpack generator's PNGs differ from its .pth twin's")
     want = 2 * 5 * math.ceil(n / B)
-    check(launches == want == kernels.LAUNCHES["convt4x4s2_mma"],
+    check(launches == want and on_new_designs(kernels.LAUNCHES, want),
           (dict(kernels.LAUNCHES), want))
     preds = {}
     for fmt, path in paths["r"].items():
@@ -4430,7 +4517,7 @@ def phase_export(tmp: str, paths: dict) -> tuple[dict, int]:
               f"bytes, {stats['export_s']:.3f} s export (trace + save), "
               f"verified {stats['verified']}")
     launches = kernels.LAUNCHES["convt4x4s2_fused"]
-    check(launches == 10 == kernels.LAUNCHES["convt4x4s2_mma"],
+    check(launches == 10 and on_new_designs(kernels.LAUNCHES, 10),
           dict(kernels.LAUNCHES))
     for kind in ("gan", "classifier"):
         ratio = sizes[(kind, "bf16", "int8")] / sizes[(kind, "f32", "none")]
@@ -4440,7 +4527,8 @@ def phase_export(tmp: str, paths: dict) -> tuple[dict, int]:
         check(ratio <= 0.35, f"{kind}: int8 artifact not smaller")
     art = load_exported(arts[("gan", "bf16", "none")], "cuda")
     q8 = load_exported(arts[("gan", "bf16", "int8")], "cuda")
-    check(art.kernel_ops == ["xgan_torch.convt4x4s2_mma.default"],
+    check(art.kernel_ops == ["xgan_torch.convt4x4s2_band.default",
+                             "xgan_torch.convt4x4s2_wgmma.default"],
           art.kernel_ops)
     z = torch.randn(B, LATENT, generator=torch.Generator().manual_seed(5))
     z = z.to("cuda")
@@ -4484,7 +4572,8 @@ def phase_artifact_profile(train, smi: str, run: int):
             and "convt4x4s2" in e.name]
     print(f"artifact profile: {len(ours)} convt4x4s2 kernels in one call "
           f"({sum(e.device_time for e in ours) / 1e3:.3f} ms device)")
-    check(len(ours) == 5 and all(MMA_KERNEL in e.name for e in ours),
+    check(len(ours) == 5 and all(WGMMA_KERNEL in e.name
+                                 or BAND_KERNEL in e.name for e in ours),
           [e.name for e in ours])
     return len(ours)
 
@@ -5221,6 +5310,9 @@ def phase_dist(train, smi: str, rank: int) -> list:
         gan_ms = timed_steps(lambda: dcgan_step(
             gn, dn, og, od, store.images, gidx, latent_dim=LATENT,
             generator=gen, mesh=mesh), 5, mesh)
+        check(on_new_designs(kernels.LAUNCHES,
+                             kernels.LAUNCHES["convt4x4s2_fused"]),
+              dict(kernels.LAUNCHES))
         launched[0] += kernels.LAUNCHES["convt4x4s2_fused"]
         model, opt, synth = dist_classifier(dev, mesh, torch.bfloat16, 66)
         kernels.reset_launch_counts()
@@ -5293,6 +5385,9 @@ def phase_dist1(train, smi: str, run: int) -> list:
             kernels.reset_launch_counts()
             times[f"gan {name}"].append(timed_steps(gan[name], 10))
             times[f"clf {name}"].append(timed_steps(clf[name], 10))
+            check(on_new_designs(kernels.LAUNCHES,
+                                 kernels.LAUNCHES["convt4x4s2_fused"]),
+                  dict(kernels.LAUNCHES))
             if name == "group":
                 timed[0] += kernels.LAUNCHES["convt4x4s2_fused"]
                 timed[1] += kernels.LAUNCHES["mixed_gather"]

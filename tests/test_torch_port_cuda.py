@@ -133,6 +133,176 @@ def test_convt_mma_op_checks_its_arguments(dev):
     assert (got - want).abs().max().item() <= tol
 
 
+# (B, H, W, Cin, Cout): both G-224 ladders at B = 2 (the DCGAN one also
+# at B = 1), then the edges: ragged M, H != W, Cout 8, 40 and 3 at a wide
+# Cin (the route sends 8 and 3 there to mma.sync), Cin 32 at Cout 32 (a
+# one-row band) and at Cout 64 (wgmma, two taps a K-chunk, ragged M), a
+# band of rows that does not divide H
+WGMMA_LADDER = [(7, 512, 256), (14, 256, 128), (28, 128, 64), (56, 64, 32),
+                (112, 32, 3), (7, 1024, 512), (14, 512, 256),
+                (28, 256, 128), (56, 128, 64), (112, 64, 3)]
+WGMMA_SHAPES = ([(2, h, h, cin, cout) for h, cin, cout in WGMMA_LADDER]
+                + [(1, h, h, cin, cout) for h, cin, cout in WGMMA_LADDER[:5]]
+                + [(3, 5, 5, 64, 64), (2, 6, 10, 256, 128), (1, 9, 17, 64, 3),
+                   (2, 7, 7, 512, 8), (1, 5, 9, 512, 40), (2, 7, 7, 512, 3),
+                   (3, 5, 5, 32, 32), (1, 11, 13, 32, 17), (2, 13, 6, 64, 32),
+                   (3, 5, 5, 32, 64)])
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_convt_route_matches_plain(dev, shape, act):
+    """bf16 through ``convt4x4s2_fused``: the design ``convt_route`` names
+    launches once (and counts as a tensor-core launch)."""
+    from xgan_torch.kernels.convt import convt_route
+    b, h, w, cin, cout = shape
+    args = _inputs(shape, torch.bfloat16, dev)
+    route = convt_route(torch.bfloat16, h, w, cin, cout)
+    kernels.reset_launch_counts()
+    got = convt4x4s2_fused(*args, act=act)
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == 1
+    assert kernels.LAUNCHES["convt4x4s2_fused"] == 1
+    assert kernels.LAUNCHES["convt4x4s2_wgmma"] == (route.design == "wgmma")
+    assert kernels.LAUNCHES["convt4x4s2_band"] == (route.design == "band")
+    want = convt4x4s2_fused_ref(*args, act=act)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    tol = TOL[torch.bfloat16] * (1 + want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _plant_non_finite(x):
+    """NaN, +inf and -inf in one channel of three pixels of ``x`` (B, H, W,
+    Cin), apart: the first image's top right and bottom left, the last
+    image's row min(H - 1, 12) (at H = 20 and 12-row bands the first row
+    of a band and the halo of the one before)."""
+    b, h, w, cin = x.shape
+    x[0, 0, w - 1, 1 % cin] = float("nan")
+    x[0, h - 1, 0, 3 % cin] = float("inf")
+    x[b - 1, min(h - 1, 12), w // 2, 7 % cin] = float("-inf")
+
+
+# (B, H, W, Cin, Cout): wgmma; the band kernel with the four phases in one
+# product (Cout 3 over two bands, Cout 8) and a product a phase (Cout 32);
+# mma.sync (Cout 3 at Cin 512)
+NONFINITE_SHAPES = [(2, 7, 7, 128, 64), (1, 20, 40, 32, 3), (2, 9, 17, 64, 8),
+                    (2, 13, 6, 64, 32), (2, 7, 7, 512, 3)]
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+@pytest.mark.parametrize("shape", NONFINITE_SHAPES)
+def test_convt_routes_keep_non_finite_values(dev, shape, act):
+    """NaN and +-inf planted in x come out of each bf16 route as the plain
+    version has them: NaN stays NaN under every act, relu(-inf) is 0, and
+    the band kernel's shared products do not spread NaN."""
+    x, wp, scale, shift = _inputs(shape, torch.bfloat16, dev, seed=3)
+    _plant_non_finite(x)
+    got = convt4x4s2_fused(x, wp, scale, shift, act=act).float()
+    want = convt4x4s2_fused_ref(x, wp, scale, shift, act=act).float()
+    torch.cuda.synchronize()
+    nan, inf, fin = want.isnan(), want.isinf(), want.isfinite()
+    assert nan.any() and inf.any() and fin.any()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.isinf(), inf) and torch.equal(got[inf], want[inf])
+    tol = TOL[torch.bfloat16] * (1 + want[fin].abs().max().item())
+    assert (got[fin] - want[fin]).abs().max().item() <= tol
+
+
+def test_non_finite_shapes_cover_every_bf16_route():
+    from xgan_torch.kernels.convt import band_np, convt_route
+    routes = [convt_route(torch.bfloat16, h, w, cin, cout)
+              for _, h, w, cin, cout in NONFINITE_SHAPES]
+    assert {r.design for r in routes} == {"wgmma", "band", "mma"}
+    assert {band_np(s[-1]) for s, r in zip(NONFINITE_SHAPES, routes)
+            if r.design == "band"} == {4, 8, 32}
+
+
+def _on_a_new_design(shape):
+    from xgan_torch.kernels.convt import band_rows
+    _, h, w, cin, cout = shape
+    return (cin % 32 == 0 and cout % 8 == 0 and cout >= 32) \
+        or band_rows(h, w, cin, cout) > 0
+
+
+# the shapes either warpgroup kernel takes (not the mma.sync ones)
+@pytest.mark.parametrize("shape", [s for s in WGMMA_SHAPES[:10]
+                                   + WGMMA_SHAPES[15:] if _on_a_new_design(s)])
+def test_convt_wgmma_and_band_ops_at_every_tile(dev, shape):
+    """Each op called directly at every tile it takes for the shape: the
+    wgmma kernel at each block_n, the band kernel at the table's rows, at
+    one row and at a row count that does not divide H."""
+    from xgan_torch.kernels.build import load_ops
+    from xgan_torch.kernels.convt import WGMMA_BLOCK_NS, band_rows
+    ops = load_ops()
+    b, h, w, cin, cout = shape
+    x, wp, scale, shift = _inputs(shape, torch.bfloat16, dev, seed=1)
+    want = convt4x4s2_fused_ref(x, wp, scale, shift, act="relu").float()
+    tol = TOL[torch.bfloat16] * (1 + want.abs().max().item())
+    runs = []
+    if cin % 32 == 0 and cout % 8 == 0 and cout >= 32:
+        runs += [lambda n=n: ops.convt4x4s2_wgmma(x, wp, scale, shift, 1, n)
+                 for n in WGMMA_BLOCK_NS]
+    rows = band_rows(h, w, cin, cout)
+    if rows:
+        runs += [lambda r=r: ops.convt4x4s2_band(x, wp, scale, shift, 1, r)
+                 for r in sorted({rows, 1, max(1, (rows + 1) // 2)})]
+    assert runs
+    kernels.reset_launch_counts()
+    for run in runs:
+        got = run().float()
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= tol
+    assert not kernels.LAUNCHES  # the ops count nothing
+
+
+def test_convt_wgmma_op_checks_its_arguments(dev):
+    from xgan_torch.kernels.build import load_ops
+    ops = load_ops()
+    x, wp, scale, shift = _inputs((2, 4, 64, 64), torch.bfloat16, dev)
+    x48, wp48, _, _ = _inputs((2, 4, 48, 64), torch.bfloat16, dev)
+    _, wp24, s24, h24 = _inputs((2, 4, 64, 24), torch.bfloat16, dev)
+    _, wp36, s36, h36 = _inputs((2, 4, 64, 36), torch.bfloat16, dev)
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = base[1:].view(x.shape)
+    shifted.copy_(x)
+    bad = [
+        ((x.float(), wp.float(), scale, shift, 1, 64), "bfloat16"),
+        ((x48, wp48, scale, shift, 1, 64), "multiple of 32"),
+        ((x, wp24, s24, h24, 1, 32), "at least 32"),
+        ((x, wp36, s36, h36, 1, 64), "multiple of 8"),
+        ((shifted, wp, scale, shift, 1, 64), "16-byte"),
+        ((x, wp, scale, shift, 1, 16), "block_n"),
+        ((x, wp, scale, shift, 3, 64), "act"),
+    ]
+    for args, what in bad:
+        with pytest.raises(RuntimeError, match=what):
+            ops.convt4x4s2_wgmma(*args)
+
+
+def test_convt_band_op_checks_its_arguments(dev):
+    from xgan_torch.kernels.build import load_ops
+    ops = load_ops()
+    x, wp, scale, shift = _inputs((2, 8, 64, 3), torch.bfloat16, dev)
+    x128, wp128, _, _ = _inputs((2, 8, 128, 3), torch.bfloat16, dev)
+    _, wp40, s40, h40 = _inputs((2, 8, 64, 40), torch.bfloat16, dev)
+    wide, wpw, sw_, hw_ = _inputs((1, 2, 70, 64, 32), torch.bfloat16, dev)
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = base[1:].view(x.shape)
+    shifted.copy_(x)
+    bad = [
+        ((x.float(), wp.float(), scale, shift, 1, 2), "bfloat16"),
+        ((x128, wp128, scale, shift, 1, 2), "Cin must be 32 or 64"),
+        ((x, wp40, s40, h40, 1, 2), "Cout must be 1 to 32"),
+        ((x, wp, scale, shift, 1, 0), "rows must be at least 1"),
+        ((wide, wpw, sw_, hw_, 1, 2), "rows \\* W"),
+        ((shifted, wp, scale, shift, 1, 2), "16-byte"),
+        ((x, wp, scale, shift, 3, 2), "act"),
+    ]
+    for args, what in bad:
+        with pytest.raises(RuntimeError, match=what):
+            ops.convt4x4s2_band(*args)
+
+
 def test_op_checks_its_arguments(dev):
     x, wp, scale, shift = _inputs((2, 4, 8, 5), torch.float32, dev)
     bad = [
@@ -293,6 +463,10 @@ GAN_CONVT_CASES = [(2, 7, 64, 32, torch.float32), (3, 5, 6, 4, torch.float32),
                    (2, 7, 512, 256, torch.bfloat16),
                    (2, 28, 128, 64, torch.bfloat16),
                    (2, 112, 32, 3, torch.bfloat16)]
+# bf16 through each design of the table: wgmma (DCGAN 1 and 4 wide, WGAN-GP
+# 1), band (DCGAN 4 and 5, WGAN-GP 5)
+GAN_CONVT_ROUTES = [(2, 7, 512, 256), (2, 56, 64, 32), (2, 112, 32, 3),
+                    (2, 7, 1024, 512), (2, 56, 128, 64), (2, 112, 64, 3)]
 
 
 @pytest.mark.parametrize("case", GAN_CONVT_CASES)
@@ -324,6 +498,37 @@ def test_gan_convt_train_matches_conv_transpose2d(dev, case):
     for got, want in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
         want = want.float()
         tol = TOL[dtype] * (1 + want.abs().max().item())
+        assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("case", GAN_CONVT_ROUTES)
+def test_gan_convt_train_through_the_table_routes(dev, case):
+    """``convt4x4s2_train`` (the kernel forward, act none, cuDNN backward)
+    through the wgmma and band kernels against ``F.conv_transpose2d``
+    under autograd: forward and both gradients."""
+    import torch.nn.functional as F
+    from xgan_torch.kernels.convt import convt4x4s2_train, convt_route
+    b, h, cin, cout = case
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(b, h, h, cin, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(cin, cout, 4, 4, generator=g, device=dev) \
+        / (4 * cin) ** 0.5
+    up = torch.randn(b, 2 * h, 2 * h, cout, generator=g, device=dev) \
+        .to(torch.bfloat16)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    design = convt_route(torch.bfloat16, h, h, cin, cout).design
+    kernels.reset_launch_counts()
+    y = convt4x4s2_train(xa, wa)
+    assert kernels.LAUNCHES[f"convt4x4s2_{design}"] == 1
+    dx, dw = torch.autograd.grad(y, (xa, wa), up)
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y_ref = F.conv_transpose2d(xb.permute(0, 3, 1, 2), wb.to(torch.bfloat16),
+                               stride=2, padding=1).permute(0, 2, 3, 1)
+    dx_ref, dw_ref = torch.autograd.grad(y_ref, (xb, wb), up)
+    torch.cuda.synchronize()
+    for got, want in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
+        want = want.float()
+        tol = TOL[torch.bfloat16] * (1 + want.abs().max().item())
         assert (got.float() - want).abs().max().item() <= tol
 
 
@@ -1195,8 +1400,8 @@ def _g_artifact(dev, tmp_path, dtype, quantize="none"):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_card_artifact_runs_the_kernel_and_equals_the_live_model(
         dev, tmp_path, dtype):
-    """An artifact exported on the card calls the ConvT op (the
-    tensor-core one in bf16), which torch.profiler sees 5 times a call
+    """An artifact exported on the card calls the ConvT ops (in bf16 the
+    wgmma and band ones the route picks), which torch.profiler sees 5 times a call
     while the Python counts see none; its images equal the live model's
     bitwise."""
     from torch.autograd import DeviceType
@@ -1204,9 +1409,11 @@ def test_card_artifact_runs_the_kernel_and_equals_the_live_model(
 
     from xgan_torch.data.pipeline import tanh_to_u8
     art, g = _g_artifact(dev, tmp_path, dtype)
-    op = ("xgan_torch.convt4x4s2_mma.default" if dtype == torch.bfloat16
-          else "xgan_torch.convt4x4s2_fused.default")
-    assert art.kernel_ops == [op]
+    ops = (["xgan_torch.convt4x4s2_band.default",
+            "xgan_torch.convt4x4s2_wgmma.default"]
+           if dtype == torch.bfloat16
+           else ["xgan_torch.convt4x4s2_fused.default"])
+    assert art.kernel_ops == ops
     z = torch.randn(8, 16, device=dev)
     want = tanh_to_u8(g(z))
     kernels.reset_launch_counts()

@@ -35,7 +35,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-CUDA_SOURCES = ("convt4x4s2.cu", "convt4x4s2_mma.cu", "mixed_gather.cu")
+CUDA_SOURCES = ("convt4x4s2.cu", "convt4x4s2_mma.cu", "convt4x4s2_wgmma.cu",
+                "convt4x4s2_band.cu", "mixed_gather.cu")
+HEADERS = ("tensor_core.cuh",)  # included by the sources: part of the hash
 HOST_SOURCES = ("convt_op.cpp", "gather_op.cpp", "png_unfilter.cpp")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -64,7 +66,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for name in CUDA_SOURCES + HOST_SOURCES:
+    for name in CUDA_SOURCES + HOST_SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     for part in CUDA_FLAGS + HOST_FLAGS + LINK_FLAGS + LIBS + (

@@ -1,20 +1,31 @@
 // Fused ConvTranspose2d(k=4, s=2, p=1) + per-channel affine + activation,
-// NHWC, bf16, on Hopper's tensor cores (sm_90a).
+// NHWC, bf16, on the tensor cores through mma.sync (the Ampere-style
+// path, sm_90a).
 //
 // Replaces the Pallas TPU kernel xgan/ops/pallas/convt.py:convt4x4s2_fused
-// (body _kernel, pallas_call at convt.py:101) on the bf16 route; f32 and
-// shapes with Cin % 32 != 0 stay on the CUDA-core kernel of convt4x4s2.cu
-// (the route is chosen in xgan_torch/kernels/convt.py, before the launch).
-// It computes the same function: output pixel (2t+py, 2s+px) is the sum
-// over j0, j1 in {0, 1} of x[b, t-1+py+j0, s-1+px+j1, :] @ wp[py,px,j0,j1]
-// (zero outside the image), taken in f32, then act(acc * scale + shift) in
-// f32, rounded once to bf16. Weights arrive phase-major, wp[py][px][j0][j1]
-// [Cin][Cout] (xgan_torch/kernels/convt.py:pack_convt_weight).
+// (body _kernel, pallas_call at convt.py:101) on the bf16 route for the
+// shapes that neither warpgroup design takes (xgan_torch/kernels/convt.py:
+// convt_route): Cin % 32 == 0 with Cout < 32 where no band fits (Cin above
+// 64, e.g. 512 -> 3 or 512 -> 8) or Cout >= 32 not a multiple of 8 (e.g.
+// 36). No layer of either G-224 ladder runs here any more: their wide
+// layers run on convt4x4s2_wgmma.cu and their narrow ones on
+// convt4x4s2_band.cu. chip_smoke.py still times this kernel on
+// every ladder layer beside the design that replaced it, and the card
+// tests call it at its own shapes. f32 and Cin % 32 != 0 stay on the
+// CUDA-core kernel of convt4x4s2.cu. It computes the same function:
+// output pixel (2t+py, 2s+px) is the sum over j0, j1 in {0, 1} of
+// x[b, t-1+py+j0, s-1+px+j1, :] @ wp[py,px,j0,j1] (zero outside the image),
+// taken in f32, then act(acc * scale + shift) in f32, rounded once to
+// bf16. Weights arrive phase-major, wp[py][px][j0][j1][Cin][Cout]
+// (xgan_torch/kernels/convt.py:pack_convt_weight).
 //
 // What bounds it on this card (G-224 ladder, batch 64, bf16, H100 SXM at
 // 989 TFLOP/s and 3.35 TB/s): layers 1-3 (7->14, 14->28, 28->56) are bound
 // by operations, 13.15 GFLOP each (0.0133 ms); layer 4 (56->112, 64->32)
-// and layer 5 (112->224, 32->3) are bound by bytes (77 and 71 MB).
+// and layer 5 (112->224, 32->3) are bound by bytes (77 and 71 MB). It
+// reached 187-226 TFLOP/s on the wide layers and 7-14x the byte bound on
+// the narrow ones (PERF.md): mma.sync is not the card's full tensor-core
+// rate, and x is read again for each of the four phases and taps.
 //
 // Design: an implicit GEMM per output phase (py, px). M = B*H*W output
 // pixels of that phase, N = Cout, K = 4*Cin with the taps (j0, j1)
@@ -40,17 +51,16 @@
 //   directly (bf16x2 stores where Cout is even). Each output element
 //   belongs to one phase and one tile, so it is written exactly once and
 //   the phase interleave costs no pass.
-//
-// Left for later (ROADMAP B1): wgmma with TMA and mbarrier pipelines, warp
-// specialisation and persistent blocks; the four phases of a tile sharing
-// one input tile in shared memory (x is read once per phase, which is what
-// layer 5 pays for); a backward; a TF32 route for f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
+
+using namespace xgan_tc;
 
 constexpr int BM = 128, BK = 32, STAGES = 3, THREADS = 128;
 constexpr int A_LD = BK + 8;  // bf16 per A row in shared memory (80 B)
@@ -67,36 +77,6 @@ struct Tile {
 };
 
 constexpr int A_ROWS = BM * BK / 8 / THREADS;  // 16-byte A copies a thread
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with ok false, 16 zero bytes (src unread).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  static_assert(STAGES == 3, "wait_group count assumes a 3-stage ring");
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
                                               uint32_t& r1, uint32_t& r2,
@@ -124,18 +104,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// act: 0 = none, 1 = relu, 2 = leaky_relu(0.2)
-__device__ __forceinline__ float epilogue(float acc, float sc, float sh,
-                                          int act) {
-  float v = fmaf(acc, sc, sh);
-  if (act == 1) {
-    v = fmaxf(v, 0.f);
-  } else if (act == 2) {
-    v = v >= 0.f ? v : 0.2f * v;
-  }
-  return v;
 }
 
 template <int BN>
@@ -236,7 +204,7 @@ convt4x4s2_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int ld_r = (lane & 7) + ((lane >> 3) & 1) * 8;  // 0..15
   const int ld_hi = lane >> 4;                          // 0 or 1
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait_one();
+    cp_async_wait<STAGES - 2>();
     // chunk kt is visible to all; every warp is done with chunk kt-1,
     // whose slot the prefetch below refills
     __syncthreads();
@@ -253,8 +221,7 @@ convt4x4s2_mma_kernel(const __nv_bfloat16* __restrict__ x,
       for (int mi = 0; mi < T::MI; ++mi) {
         // matrices: rows 0-7 | 8-15 of k 0-7, then of k 8-15
         const int row = wm * T::WM + mi * 16 + ld_r;
-        ldsm_x4(smem_addr(sa + row * A_LD + ks + ld_hi * 8), a[mi][0],
-                a[mi][1], a[mi][2], a[mi][3]);
+        ldsm_x4(smem_addr(sa + row * A_LD + ks + ld_hi * 8), a[mi]);
       }
       if constexpr (T::NI == 1) {
         ldsm_x2_trans(smem_addr(sb + (ks + ld_r) * T::B_LD + wn * T::WN),
@@ -280,6 +247,7 @@ convt4x4s2_mma_kernel(const __nv_bfloat16* __restrict__ x,
   // column c2 + (q & 1) of that 16x8 tile.
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const bool even = Cout % 2 == 0;
+  const float neg = act_slope(act);
   int o_pix[T::MI][2];  // output element offset of each row, -1 past M
 #pragma unroll
   for (int mi = 0; mi < T::MI; ++mi)
@@ -305,8 +273,8 @@ convt4x4s2_mma_kernel(const __nv_bfloat16* __restrict__ x,
       for (int h = 0; h < 2; ++h) {
         if (o_pix[mi][h] < 0) continue;
         __nv_bfloat16* o = out + o_pix[mi][h] + col;
-        const float v0 = epilogue(acc[mi][nj][2 * h], sc0, sh0, act);
-        const float v1 = epilogue(acc[mi][nj][2 * h + 1], sc1, sh1, act);
+        const float v0 = epilogue(acc[mi][nj][2 * h], sc0, sh0, neg);
+        const float v1 = epilogue(acc[mi][nj][2 * h + 1], sc1, sh1, neg);
         if (even) {
           *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
         } else {
