@@ -556,6 +556,39 @@ def phase_kernels():
                      ("bound_ms", bound_ms)):
             total[k] += v
         total["max_abs_err"] = max(total["max_abs_err"], err)
+    # NaN and +-inf through the f32 CUDA-core route, as the plain version
+    # has them (ROADMAP C7: its relu once mapped a NaN sum to 0)
+    for b, h, w, cin, cout in ((B, 7, 7, 1024, 512), (2, 13, 6, 64, 32),
+                               (1, 9, 17, 33, 3)):
+        for act in ACTS:
+            x = torch.randn(b, h, w, cin, generator=g, device=dev)
+            x[0, 0, w - 1, 1] = float("nan")
+            x[0, h - 1, 0, 3] = float("inf")
+            x[b - 1, h // 2, w // 2, 7] = float("-inf")
+            wp = pack_convt_weight(torch.randn(
+                cin, cout, 4, 4, generator=g, device=dev)
+                / math.sqrt(4 * cin), torch.float32)
+            scale = torch.rand(cout, generator=g, device=dev) + 0.5
+            shift = 0.1 * torch.randn(cout, generator=g, device=dev)
+            check(convt_route(torch.float32, h, w, cin, cout).design
+                  == "core", (h, w, cin, cout))
+            got = convt4x4s2_fused_cuda(x, wp, scale, shift, act)
+            ref = convt4x4s2_fused_ref(x, wp, scale, shift, act)
+            torch.cuda.synchronize()
+            nan, inf, fin = ref.isnan(), ref.isinf(), ref.isfinite()
+            err = (got[fin] - ref[fin]).abs().max().item()
+            tol = TOL[torch.float32] * (1 + ref[fin].abs().max().item())
+            check(nan.any() and inf.any() and fin.any()
+                  and torch.equal(got.isnan(), nan)
+                  and torch.equal(got.isinf(), inf)
+                  and torch.equal(got[inf], ref[inf]) and err <= tol,
+                  f"f32 {b}x{h}x{w}x{cin}->{cout} {act} non-finite: NaN "
+                  f"{int(got.isnan().sum())} vs {int(nan.sum())}, inf "
+                  f"{int(got.isinf().sum())} vs {int(inf.sum())}, finite "
+                  f"err {err:.3g} (tol {tol:.3g})")
+    print("f32 CUDA-core route with NaN and +-inf planted in x: NaN where "
+          "the plain version has NaN, +-inf where it has them, every act "
+          "(3 shapes)")
     print(f"5 bf16 layers: kernel {total['ms']:.4f} ms, mma.sync "
           f"{total['mma_ms']:.4f} ms, CUDA-core kernel "
           f"{total['core_ms']:.4f} ms, conv_transpose2d+affine+act "
@@ -4875,18 +4908,14 @@ GAN_ITER_KEYS = ("G_losses_iter", "D_losses_iter", "D_x_iter",
                  "D_G_z1_iter", "D_G_z2_iter")
 
 
-def phase_dp_cli(tmp: str, root: str, synth_dir: str, smi: str):
-    """(a) The DCGAN and classifier CLIs under a ``torchrun`` environment
-    of one rank on NCCL, with ``--shard-store`` (a no-op at world 1),
-    against the same CLI with no process group, f32 with TF32 off and
-    deterministic cuDNN, the four processes at once: the DCGAN at full
-    width (B = 128, 2 epochs of 2 steps), the classifier in the augmented
-    mode (ResNet-50, B = 32, one run of 2 steps). The DCGAN's first step within 1e-4 * (1 + |ref|)
-    and every step within 5e-2; the classifier's history and metrics
-    within 1e-4 * (1 + |ref|); the same files, the same launches. Returns
-    the launched runs' (ConvT, mixed_gather) launches."""
-    out, procs = {}, {}
-    ports = iter(free_ports(2))
+def dp_cli_processes(tmp: str, root: str, synth_dir: str) -> dict:
+    """(a)'s CLI processes, all started at once (``phase_dp_cli``'s four
+    and ``phase_dp_cli_loops``' ten): (run, module) -> process, the runs
+    ``plain`` and ``nccl`` (the DCGAN and classifier) and ``plain2`` and
+    ``nccl2`` (A14 part 2). They share the card: each is f32 with TF32
+    off and deterministic cuDNN, and none is timed."""
+    procs = {}
+    ports = iter(free_ports(2 + len(DP_LOOP_RUNS)))
     for name, launched in (("plain", False), ("nccl", True)):
         extra = ["--shard-store"] if launched else []
         gdir = os.path.join(tmp, "dp", f"gan_{name}")
@@ -4905,15 +4934,27 @@ def phase_dp_cli(tmp: str, root: str, synth_dir: str, smi: str):
             "--image-size", str(SIZE), "--batch-size", str(CLS_B),
             "--compute-dtype", "f32", *extra],
             next(ports) if launched else None)
-    # the four runs share the card at once: each is f32 with TF32 off and
-    # deterministic cuDNN, and none is timed
-    try:
-        results = {key: dp_cli_result(key[1], proc)
-                   for key, proc in procs.items()}
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
+        argv = dp_loop_argv(tmp, root, synth_dir, name, launched)
+        for module in DP_LOOP_RUNS:
+            procs[f"{name}2", module] = dp_cli(
+                module, argv[module], next(ports) if launched else None)
+    return procs
+
+
+def phase_dp_cli(tmp: str, root: str, synth_dir: str, smi: str,
+                 procs: dict):
+    """(a) The DCGAN and classifier CLIs under a ``torchrun`` environment
+    of one rank on NCCL, with ``--shard-store`` (a no-op at world 1),
+    against the same CLI with no process group, f32 with TF32 off and
+    deterministic cuDNN (``procs``, :func:`dp_cli_processes`): the DCGAN at full
+    width (B = 128, 2 epochs of 2 steps), the classifier in the augmented
+    mode (ResNet-50, B = 32, one run of 2 steps). The DCGAN's first step within 1e-4 * (1 + |ref|)
+    and every step within 5e-2; the classifier's history and metrics
+    within 1e-4 * (1 + |ref|); the same files, the same launches. Returns
+    the launched runs' (ConvT, mixed_gather) launches."""
+    out = {}
+    results = {key: dp_cli_result(key[1], procs.pop(key))
+               for key in [k for k in procs if k[0] in ("plain", "nccl")]}
     for name, launched in (("plain", False), ("nccl", True)):
         gdir = os.path.join(tmp, "dp", f"gan_{name}")
         cdir = os.path.join(tmp, "dp", f"clf_{name}")
@@ -4960,6 +5001,155 @@ def phase_dp_cli(tmp: str, root: str, synth_dir: str, smi: str):
           + f" (limit 1e-4); launches {g1} (DCGAN) {l1} (classifier) "
           f"[{smi}]")
     return g1["convt4x4s2_fused"], l1["mixed_gather"]
+
+
+def family_cli_argv(tmp: str, root: str, out: str, b: int, fm: int,
+                    *extra) -> list:
+    """The WGAN-GP or CGAN CLI at full width on the RSNA tree, f32, 1
+    epoch of 2 steps, one sample sheet."""
+    return ["--data-dir", root, "--model-dir", os.path.join(out, "models"),
+            "--output-dir", os.path.join(out, "results"),
+            "--results-dir", os.path.join(out, "metrics"),
+            "--figures-dir", os.path.join(out, "figures"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--feature-maps-g", str(fm),
+            "--feature-maps-d", str(fm), "--latent-dim", str(LATENT),
+            "--batch-size", str(b), "--epochs", "1", "--limit-batches", "2",
+            "--save-interval", "1000", "--compute-dtype", "f32", *extra]
+
+
+DP_LOOP_RUNS = ("train_wggan", "train_cgan", "train_gan", "train_classifier",
+                "generate_synthetic")
+
+
+def dp_loop_argv(tmp: str, root: str, synth_dir: str, name: str,
+                 launched: bool) -> dict:
+    """``phase_dp_cli_loops``' runs: module -> its argv, into
+    ``dp2/<name>``; the sampler on ``phase_gan``'s generator."""
+    extra = ["--shard-store"] if launched else []
+    d = os.path.join(tmp, "dp2", name)
+    pth = os.path.join(tmp, "gan", "models", "gan", "generator_final.pth")
+    return {
+        "train_wggan": family_cli_argv(
+            tmp, root, os.path.join(d, "wgan"), WGAN_B, FG,
+            "--critic-iters", str(WGAN_CRITIC), *extra),
+        "train_cgan": family_cli_argv(
+            tmp, root, os.path.join(d, "cgan"), CGAN_B, CGAN_FM, *extra),
+        "train_gan": gan_cli_argv(
+            tmp, root, os.path.join(d, "gan"), "--epochs", "1",
+            "--limit-batches", "2", "--compute-dtype", "f32",
+            "--grad-accum", "2", *extra),
+        "train_classifier": [
+            "--data-dir", root, "--synthetic-dir", synth_dir,
+            "--use-synthetic", "--k-folds", "1", "--epochs", "1",
+            "--limit-batches", "2",
+            "--model-dir", os.path.join(d, "clf", "m"),
+            "--results-dir", os.path.join(d, "clf", "metrics"),
+            "--figures-dir", os.path.join(d, "clf", "figures"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--batch-size", str(CLS_B),
+            "--compute-dtype", "f32", "--grad-accum", "2", "--remat",
+            *extra],
+        "generate_synthetic": [
+            "--model-path", pth, "--output-dir",
+            os.path.join(d, "synthetic"), "--num-images", "100",
+            "--latent-dim", str(LATENT), "--feature-maps-g", str(FG),
+            "--image-size", str(SIZE), "--batch-size", str(B),
+            "--compute-dtype", "f32"]}
+
+
+def phase_dp_cli_loops(tmp: str, root: str, synth_dir: str, smi: str,
+                       procs: dict):
+    """(a), A14 part 2: under a world-1 NCCL ``torchrun`` environment with
+    ``--shard-store`` against no group, f32 with TF32 off and
+    deterministic cuDNN, ten processes: the WGAN-GP CLI (224
+    px, B = 64, fg = fd = 64, 5 critic updates, 2 steps), the CGAN CLI
+    (224 px, B = 32, fg = fd = 32, random VGG16, 2 steps), the DCGAN CLI
+    with ``--grad-accum 2`` (B = 128, 2 steps), the classifier CLI with
+    ``--grad-accum 2 --remat`` (ResNet-50, augmented, B = 32, 2 steps),
+    and the DCGAN sampler CLI on ``phase_gan``'s generator (100 PNGs,
+    batch 64), started with ``phase_dp_cli``'s (``procs``). The histories: the first step within 1e-4 * (1 + |ref|)
+    (the CGAN's within 1e-3, ROADMAP C10: the launched run's BN takes the
+    one-pass variance of the sums path, the plain run's ``F.batch_norm``
+    two passes, and the reference init's conv biases give D's channels a
+    mean far above their spread, 2.5e-4 apart at the first step on the
+    card; its f32 step is held at 1e-4 against the sums path in
+    ``dp_family_checks``), every step within 5e-2 (the classifier's
+    within 1e-4); the sampler's files byte-equal; the same files and
+    launches. Returns the launched runs' (ConvT, mixed_gather)
+    launches."""
+    res = {(key[0][:-1], key[1]): dp_cli_result(key[1], procs.pop(key))
+           for key in [k for k in procs if k[0] in ("plain2", "nccl2")]}
+    dirs = {n: os.path.join(tmp, "dp2", n) for n in ("plain", "nccl")}
+
+    def load(name, *path):
+        with open(os.path.join(dirs[name], *path)) as f:
+            return json.load(f)
+
+    def files(name, sub):
+        top = os.path.join(dirs[name], sub)
+        return sorted(os.path.relpath(os.path.join(p, f), top)
+                      for p, _, fs in os.walk(top) for f in fs)
+
+    worst = {}
+    for module, sub, hist, keys in (
+            ("train_wggan", "wgan", "wgan_training_history.json",
+             ("D_losses", "G_losses")),
+            ("train_cgan", "cgan", "cgan_training_history.json",
+             GAN_ITER_KEYS),
+            ("train_gan", "gan", "gan_training_history.json",
+             GAN_ITER_KEYS)):
+        h0, h1 = (load(n, sub, "metrics", hist) for n in ("plain", "nccl"))
+        check(files("plain", sub) == files("nccl", sub)
+              and res["plain", module][1] == res["nccl", module][1],
+              (module, res["plain", module][1], res["nccl", module][1]))
+        check("rank 0 of 1" in res["nccl", module][0], module)
+        steps = len(h0[keys[-1]])
+        check(steps == 2, (module, steps))
+        per = [f32_close([h1[k][t] for k in keys
+                          for t in range(len(h0[k])) if t * steps
+                          // len(h0[k]) == s],
+                         [h0[k][t] for k in keys
+                          for t in range(len(h0[k])) if t * steps
+                          // len(h0[k]) == s]) for s in range(steps)]
+        first = 1e-3 if module == "train_cgan" else 1e-4
+        check(per[0] <= first and max(per) <= 5e-2, (module, per))
+        worst[module] = per
+    launches = {m: res["nccl", m][1] for m in DP_LOOP_RUNS}
+    sheets = {m: len(os.listdir(os.path.join(
+        dirs["nccl"], sub, "results", f"{sub}_images")))
+        for m, sub in (("train_wggan", "wgan"), ("train_gan", "gan"))}
+    want = {"train_wggan": 5 * ((WGAN_CRITIC + 1) * 2 + sheets["train_wggan"]),
+            "train_gan": 5 * (2 * 2 * 2 + sheets["train_gan"]),
+            "train_cgan": 0, "train_classifier": 0,
+            "generate_synthetic": 5 * 2}
+    for m, n in want.items():
+        check(launches[m].get("convt4x4s2_fused", 0) == n, (m, launches[m]))
+    check(launches["train_classifier"].get("mixed_gather", 0) == 2,
+          launches["train_classifier"])
+    c0, c1 = (load(n, "clf", "metrics", "augmented_training_history.json")
+              for n in ("plain", "nccl"))
+    worst["train_classifier"] = max(f32_close(c1[k], c0[k]) for k in c0)
+    check(worst["train_classifier"] <= 1e-4, worst["train_classifier"])
+    syn = [os.path.join(dirs[n], "synthetic") for n in ("plain", "nccl")]
+    names = sorted(os.listdir(syn[0]))
+    check(len(names) == 100 and names == sorted(os.listdir(syn[1]))
+          and all(open(os.path.join(syn[0], f), "rb").read()
+                  == open(os.path.join(syn[1], f), "rb").read()
+                  for f in names), "the launched sampler's PNGs differ")
+    print("dp CLIs (A14 part 2), world-1 NCCL with --shard-store against no "
+          "group (f32, TF32 off, deterministic cuDNN), worst |a-b|/(1+|b|) "
+          "per step: " + "; ".join(
+              f"{m} {[float(f'{v:.3g}') for v in w]}"
+              if isinstance(w, list) else f"{m} {w:.3g}"
+              for m, w in worst.items())
+          + f" (limits: step 1 1e-4, the CGAN's 1e-3 (C10), all 5e-2; "
+          f"classifier 1e-4); the "
+          f"sampler's 100 PNGs byte-equal; launches "
+          + "; ".join(f"{m} {launches[m]}" for m in DP_LOOP_RUNS)
+          + f" [{smi}]")
+    return (sum(v.get("convt4x4s2_fused", 0) for v in launches.values()),
+            launches["train_classifier"]["mixed_gather"])
 
 
 def in_fresh_ranks(phase: str, world: int, tmp: str, smi: str) -> list:
@@ -5068,19 +5258,27 @@ def grad_norms(*nets) -> dict:
             for n, p in net.named_parameters() if p.grad is not None}
 
 
-def grad_norms_close(a: dict, b: dict, floor: dict | None = None) -> float:
+def grad_norms_ratio(a: dict, b: dict, floor: dict | None = None,
+                     skip=()) -> float:
     """Worst ratio of two runs' per-tensor relative gradient-norm
-    difference to its limit, held at 1 or under: 1e-3 (the f32 step limit
-    of ``phase_gan_step_check``) plus twice ``floor``'s relative
-    difference from ``b`` where given (a run whose difference from ``b``
-    is rounding alone, as ``hold_f32_kernel_step`` measures one)."""
+    difference to its limit: 1e-3 (the f32 step limit of
+    ``phase_gan_step_check``) plus twice ``floor``'s relative difference
+    from ``b`` where given (a run whose difference from ``b`` is rounding
+    alone, as ``hold_f32_kernel_step`` measures one). ``skip``: tensors
+    not held (a gradient that is 0 in exact arithmetic)."""
     check(a.keys() == b.keys() and a, (sorted(a), sorted(b)))
 
     def rel(x, k):
         return abs(x[k] - b[k]) / max(b[k], 1e-30)
 
-    worst = max(rel(a, k) / (1e-3 + (2 * rel(floor, k) if floor else 0.0))
-                for k in b)
+    return max(rel(a, k) / (1e-3 + (2 * rel(floor, k) if floor else 0.0))
+               for k in b if k not in skip)
+
+
+def grad_norms_close(a: dict, b: dict, floor: dict | None = None,
+                     skip=()) -> float:
+    """:func:`grad_norms_ratio`, held at 1 or under."""
+    worst = grad_norms_ratio(a, b, floor, skip)
     check(worst <= 1.0, worst)
     return worst
 
@@ -5222,6 +5420,247 @@ def dp_step_checks(mesh, store, sharded=None) -> dict:
     return out
 
 
+def dp_family_checks(mesh, store) -> dict:
+    """f32 WGAN-GP (B = 16, 2 critic updates, fg = fd = 64) and CGAN
+    (B = 16, fg = fd = 32, random VGG16; at epoch 0, the gate open, and at
+    epoch 5 with the gate held closed as in ``phase_cgan_profile``) steps
+    through ``mesh`` against one rank's step on the same inputs and state,
+    after 3 warm-up steps of one rank (TF32 off, deterministic cuDNN; the
+    one-rank steps pass an all-ones mask, which takes the BN sums path
+    the ranks take):
+    the losses or metrics within 1e-4 * (1 + |ref|); each tensor's
+    gradient norm within 1e-3 plus twice its floor, the larger move of
+    the reference over its rows in two other orders (the second half
+    first, as the ranks split them, and reversed); the CGAN's biases
+    right before a BN not held (their
+    gradient is 0 in exact arithmetic). The control: the same DP step
+    with TF32 on must fall outside these limits. Returns the deviations,
+    the DP steps' ConvT launches and their parameters."""
+    import copy
+    from xgan_torch import kernels
+    from xgan_torch.models.cgan import SEQ_D_BN
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.train.cgan import GATE_EPOCHS, cgan_step
+    from xgan_torch.train.wgan import wgan_step
+    dev = mesh.device
+    b, n = 16, 2
+    ones = torch.ones(b, device=dev)
+    orders = {"floor": torch.arange(b, device=dev).roll(b // 2),
+              "floor2": torch.arange(b - 1, -1, -1, device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(81)
+    out = {"launches": 0, "states": {}}
+
+    def draw(*shape, normal=True):
+        return (torch.randn if normal else torch.rand)(
+            shape, generator=gen, device=dev)
+
+    def hold(label, runs, skip=()):
+        """runs: name -> (metrics list, grad norms); returns the record."""
+        dp, ref, tf = (runs[k] for k in ("dp", "ref", "tf32"))
+        # per tensor, the run of the two reorderings further from ref
+        floor = {k: max((runs[f][1][k] for f in orders),
+                        key=lambda x: abs(x - v))
+                 for k, v in ref[1].items()}
+        rec = {"metrics": f32_close(dp[0], ref[0]),
+               "norms": grad_norms_ratio(dp[1], ref[1], floor, skip),
+               "floor": max(abs(floor[k] - v) / max(v, 1e-30)
+                            for k, v in ref[1].items() if k not in skip),
+               "tf32": (f32_close(tf[0], ref[0]),
+                        grad_norms_ratio(tf[1], ref[1], floor, skip))}
+        check(rec["metrics"] <= 1e-4 and rec["norms"] <= 1.0, (label, rec))
+        check(rec["tf32"][0] > 1e-4 or rec["tf32"][1] > 1.0,
+              f"{label}: a TF32 step passes the f32 limits too ({rec})")
+        return rec
+
+    def with_tf32(on: bool):
+        torch.backends.cuda.matmul.allow_tf32 = on
+        torch.backends.cudnn.allow_tf32 = on
+
+    # -- WGAN-GP
+    nets = wgan_models(torch.float32, seed=80)
+    for _ in range(3):
+        wgan_step(*nets, store.images,
+                  torch.randint(0, N_TRAIN, (b,), generator=gen, device=dev),
+                  latent_dim=LATENT, critic_iters=n, lambda_gp=10.0,
+                  generator=gen)
+    warm = copy.deepcopy([x.state_dict() for x in nets])
+    idx = torch.randint(0, N_TRAIN, (b,), generator=gen, device=dev)
+    draws = {"flip": draw(b, normal=False) < 0.5,
+             "noises": [draw(b, LATENT) for _ in range(n)],
+             "alphas": [draw(b, 1, 1, 1, normal=False) for _ in range(n)],
+             "g_noise": draw(b, LATENT)}
+    runs = {}
+    for name, m, rows in (("dp", mesh, slice(None)),
+                          ("ref", None, slice(None)),
+                          *((f, None, o) for f, o in orders.items()),
+                          ("tf32", mesh, slice(None))):
+        for x, sd in zip(nets, copy.deepcopy(warm)):
+            x.load_state_dict(sd)
+        sync_batch_norm(nets[0], m)
+        sync_batch_norm(nets[1], m)
+        with_tf32(name == "tf32")
+        kernels.reset_launch_counts()
+        try:
+            losses = wgan_step(
+                *nets, store.images, idx[rows], latent_dim=LATENT,
+                critic_iters=n, lambda_gp=10.0, flip=draws["flip"][rows],
+                noises=[t[rows] for t in draws["noises"]],
+                alphas=[t[rows] for t in draws["alphas"]],
+                g_noise=draws["g_noise"][rows], take=store.take, mesh=m,
+                mask=None if m is not None else ones)
+            torch.cuda.synchronize()
+        finally:
+            with_tf32(False)
+        check(kernels.LAUNCHES["convt4x4s2_fused"] == 5 * (n + 1),
+              dict(kernels.LAUNCHES))
+        if name == "dp":
+            out["launches"] += 5 * (n + 1)
+            out["states"]["wgan"] = {
+                **{f"g.{k}": v.clone() for k, v in nets[0].state_dict().items()},
+                **{f"c.{k}": v.clone() for k, v in nets[1].state_dict().items()}}
+        runs[name] = (losses.tolist(), {
+            f"{net}.{k}": p.grad.norm().item()
+            for net, x in (("G", nets[0]), ("C", nets[1]))
+            for k, p in x.named_parameters()})
+    out["wgan"] = hold("f32 WGAN-GP DP step", runs)
+
+    # -- CGAN, the gate open (epoch 0) and held closed (epoch 5)
+    nets = cgan_models(dev, torch.float32, seed=82)
+    for _ in range(3):
+        cgan_step(*nets, store.images, store.labels,
+                  torch.randint(0, N_TRAIN, (b,), generator=gen, device=dev),
+                  0, latent_dim=LATENT, generator=gen)
+    warm = copy.deepcopy([x.state_dict() for x in nets[:2] + nets[3:]])
+    idx = torch.randint(0, N_TRAIN, (b,), generator=gen, device=dev)
+    base = {"flip": draw(b, normal=False) < 0.5, "noise": draw(b, LATENT),
+            "fake_labels": torch.randint(0, 2, (b,), generator=gen,
+                                         device=dev),
+            "real_targets": 0.9 - 0.1 * draw(b, normal=False),
+            "fake_targets": 0.1 + 0.1 * draw(b, normal=False)}
+    g, d, vgg, opt_g, opt_d = nets
+    for gate in ("open", "closed"):
+        closed = gate == "closed"
+        draws = dict(base)
+        labels = store.labels
+        if closed:
+            labels = torch.zeros_like(store.labels)
+            draws["fake_labels"] = torch.ones(b, dtype=torch.int64,
+                                              device=dev)
+        runs = {}
+        for name, m, rows in (("dp", mesh, slice(None)),
+                              ("ref", None, slice(None)),
+                              *((f, None, o) for f, o in orders.items()),
+                              ("tf32", mesh, slice(None))):
+            for x, sd in zip((g, d, opt_g, opt_d), copy.deepcopy(warm)):
+                x.load_state_dict(sd)
+            if closed:  # D's projection pins the gate shut
+                emb, bn = d.label_emb.weight, d.main[SEQ_D_BN[-1]]
+                c = 500.0 / emb.shape[1]
+                with torch.no_grad():
+                    emb[0], emb[1] = c, -c
+                    bn.weight.zero_()
+                    bn.bias.fill_(1.0)
+            before = [p.detach().clone() for p in d.parameters()]
+            sync_batch_norm(g, m)
+            sync_batch_norm(d, m)
+            with_tf32(name == "tf32")
+            try:
+                metrics = cgan_step(
+                    g, d, vgg, opt_g, opt_d, store.images, labels, idx[rows],
+                    GATE_EPOCHS if closed else 0, latent_dim=LATENT,
+                    take=store.take, mesh=m,
+                    mask=None if m is not None else ones,
+                    **{k: v[rows] for k, v in draws.items()})
+                torch.cuda.synchronize()
+            finally:
+                with_tf32(False)
+            mt = metrics.tolist()
+            stood = all(torch.equal(p, q) for p, q in zip(d.parameters(),
+                                                          before))
+            check(stood == closed
+                  and ((mt[2] >= 0.8 and mt[3] <= 0.2) == closed),
+                  (gate, name, mt[2:4], stood))
+            if name == "dp":
+                out["states"][f"cgan_{gate}"] = {
+                    **{f"g.{k}": v.clone() for k, v in g.state_dict().items()},
+                    **{f"d.{k}": v.clone() for k, v in d.state_dict().items()}}
+            runs[name] = (mt, {f"{net}.{k}": p.grad.norm().item()
+                               for net, x in (("G", g), ("D", d))
+                               for k, p in x.named_parameters()})
+        out[f"cgan_{gate}"] = hold(f"f32 CGAN DP step, gate {gate}", runs,
+                                   pre_bn_biases())
+    return out
+
+
+def dp_family_line(out: dict) -> str:
+    return "; ".join(
+        f"{k}: metrics {r['metrics']:.3g} (limit 1e-4), gradient norms at "
+        f"{r['norms']:.3g} of their limit (1e-3 + 2 floor; floor up to "
+        f"{r['floor']:.3g}); TF32 control {r['tf32'][0]:.3g} and "
+        f"{r['tf32'][1]:.3g}"
+        for k, r in out.items() if k in ("wgan", "cgan_open", "cgan_closed"))
+
+
+def dp_sampler_rows(mesh, smi: str) -> int:
+    """The three samplers at full width (DCGAN and WGAN-GP G-224 with
+    fg = 64, CGAN with fg = 32, seeded weights) on the ranks' rows: 50
+    images in global batches of 32, each rank rendering and writing its
+    16 rows of a batch; then rank 0 renders them as one rank. f32: the
+    files byte-equal; bf16 (the DCGAN G): every pixel within 3 u8 levels
+    (a smaller batch may take another ConvT tile). Returns this rank's
+    ConvT launches."""
+    from xgan_torch import kernels
+    from xgan_torch.models import cgan, dcgan, wgan
+    from xgan_torch.native.png import decode_png
+    from xgan_torch.train.sample import generate_images
+    runs = {"dcgan": (dcgan.Generator, FG, torch.float32),
+            "wgan": (wgan.Generator, FG, torch.float32),
+            "cgan": (cgan.Generator, CGAN_FM, torch.float32),
+            "dcgan_bf16": (dcgan.Generator, FG, torch.bfloat16)}
+    root = os.path.join(CHILD_TMP, "dist_sampler")
+    launched, worst = 0, {}
+    for i, (name, (cls, fm, dtype)) in enumerate(runs.items()):
+        g = cls(latent_dim=LATENT, feature_maps=fm, image_size=SIZE,
+                device=mesh.device,
+                generator=torch.Generator(mesh.device).manual_seed(90 + i))
+        kw = dict(num_images=50, latent_dim=LATENT, batch_size=32, seed=7,
+                  device=mesh.device, dtype=dtype,
+                  conditional=name == "cgan")
+        kernels.reset_launch_counts()
+        generate_images(g, output_dir=os.path.join(root, name, "two"),
+                        mesh=mesh, **kw)
+        check(kernels.LAUNCHES["convt4x4s2_fused"]
+              == (0 if name == "cgan" else 2 * 5), dict(kernels.LAUNCHES))
+        launched += kernels.LAUNCHES["convt4x4s2_fused"]
+        mesh.barrier()
+        if not mesh.is_main:
+            continue
+        generate_images(g, output_dir=os.path.join(root, name, "one"), **kw)
+        dirs = [os.path.join(root, name, s) for s in ("one", "two")]
+        files = [sorted(os.listdir(x)) for x in dirs]
+        check(files[0] == files[1] and len(files[0]) == 50,
+              (name, len(files[0]), len(files[1])))
+        if dtype == torch.float32:
+            same = sum(open(os.path.join(dirs[0], f), "rb").read()
+                       == open(os.path.join(dirs[1], f), "rb").read()
+                       for f in files[0])
+            worst[name] = f"{same} of 50 files byte-equal"
+            check(same == 50, (name, worst[name]))
+        else:
+            lv = max(int(np.abs(decode_png(os.path.join(dirs[0], f))
+                                .astype(np.int16)
+                                - decode_png(os.path.join(dirs[1], f))
+                                .astype(np.int16)).max())
+                     for f in files[0])
+            worst[name] = f"max {lv} u8 levels"
+            check(lv <= 3, (name, lv))
+    if mesh.is_main:
+        print("dist samplers, 2 ranks' rows against one rank (50 PNGs, "
+              "batch 32, 224 px): " + "; ".join(
+                  f"{k} {v}" for k, v in worst.items()) + f" [{smi}]")
+    return launched
+
+
 def dp_summary(label: str, c: dict, smi: str) -> None:
     print(f"{label}: f32 DCGAN-224 B={GAN_B} step against no group: metrics "
           f"{c['gan']:.3g} (limit 1e-4), gradient norms at "
@@ -5274,6 +5713,8 @@ def phase_dist(train, smi: str, rank: int) -> list:
         check(nbytes[1] * 2 == nbytes[0], nbytes)
         c = dp_step_checks(mesh, store, sharded)
         launched = c["launches"]
+        fam = dp_family_checks(mesh, store)
+        launched[0] += fam["launches"] + dp_sampler_rows(mesh, smi)
 
         # this rank's rows of the gather, and the sharded take
         synth, (idx, use, pick, flip) = c["synth"], c["draws"]
@@ -5320,11 +5761,14 @@ def phase_dist(train, smi: str, rank: int) -> list:
             model, opt, store, synth, idx, mode="mix", ratio=0.5,
             flip=flip, use_synth=use, synth_pick=pick, mesh=mesh), 10, mesh)
         launched[1] += kernels.LAUNCHES["mixed_gather"]
-        torch.save(c["states"], os.path.join(CHILD_TMP,
-                                             f"dist_rank{rank}.pt"))
+        torch.save({**c["states"], **fam["states"]},
+                   os.path.join(CHILD_TMP, f"dist_rank{rank}.pt"))
     finally:
         shutdown(mesh)
     dp_summary(f"rank {rank} of 2 (gloo, one card)", c, smi)
+    print(f"rank {rank} of 2, f32 steps through the group against one "
+          f"rank (B = 16, 224 px, after 3 warm-up steps): "
+          f"{dp_family_line(fam)} [{smi}]")
     print(f"rank {rank}: the sharded store's step bitwise the replicated "
           f"one; its {CLS_B // 2} gathered rows bitwise the plain "
           f"version's and the 1-rank gather's; the per-rank gather "
@@ -5342,16 +5786,20 @@ def phase_dist(train, smi: str, rank: int) -> list:
 def phase_dist1(train, smi: str, run: int) -> list:
     """The DP path on one card: one rank of a world-1 NCCL group
     (``--phase dist1``) holds :func:`dp_step_checks`, then times bf16
-    DCGAN-224 steps (B = 128) and classifier steps (ResNet-50, mix, B =
-    32) with the group (every all-reduce of the DP path) against the same
-    steps with none, in turns (none, group, group, none). Returns the
-    group steps' (ConvT, mixed_gather) launches."""
+    DCGAN-224 steps (B = 128), classifier steps (ResNet-50, mix, B = 32),
+    WGAN-GP steps (B = 64, 5 critic updates), CGAN steps (B = 32) and
+    accumulated DCGAN-224 steps (B = 128, A = 2) with the group (every
+    all-reduce of the DP path) against the same steps with none, in turns
+    (none, group, group, none). Returns the group steps' (ConvT,
+    mixed_gather) launches."""
     from xgan_torch import kernels
     from xgan_torch.data.pipeline import DeviceStore
     from xgan_torch.models.layers import sync_batch_norm
     from xgan_torch.parallel.mesh import init_from_env, shutdown
+    from xgan_torch.train.cgan import cgan_step
     from xgan_torch.train.classifier import train_step
     from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.wgan import wgan_step
     mesh = init_from_env(cpu=False)
     dev = mesh.device
     check(mesh.distributed and mesh.world == 1, mesh)
@@ -5363,7 +5811,7 @@ def phase_dist1(train, smi: str, run: int) -> list:
         launched = c["launches"]
         torch.backends.cudnn.deterministic = False
         idx, use, pick, flip = dist_draws(dev, CLS_B, 70)
-        gan, clf = {}, {}
+        gan, clf, fam = {}, {}, {}
         for name, m in (("none", None), ("group", mesh)):
             gn, dn, og, od = gan_models(torch.bfloat16, seed=71)
             sync_batch_norm(gn, m)
@@ -5380,11 +5828,41 @@ def phase_dist1(train, smi: str, run: int) -> list:
                          train_step(model, opt, store, synth, idx,
                                     mode="mix", ratio=0.5, flip=flip,
                                     use_synth=use, synth_pick=pick, mesh=m))
+            # A14 part 2: WGAN-GP, CGAN and the accumulated DCGAN step
+            gw, cw, ogw, ocw = wgan_models(torch.bfloat16, seed=74)
+            cg = cgan_models(dev, torch.bfloat16, seed=75)
+            ga, da, oga, oda = gan_models(torch.bfloat16, seed=76)
+            for net in (gw, cw, cg[0], cg[1], ga, da):
+                sync_batch_norm(net, m)
+            widx = torch.randint(0, N_TRAIN, (WGAN_B,), generator=gen,
+                                 device=dev)
+            cidx = torch.randint(0, N_TRAIN, (CGAN_B,), generator=gen,
+                                 device=dev)
+            fam[name] = {
+                "wgan": lambda nets=(gw, cw, ogw, ocw), m=m, gen=gen,
+                widx=widx: wgan_step(
+                    *nets, store.images, widx, latent_dim=LATENT,
+                    critic_iters=WGAN_CRITIC, lambda_gp=10.0, generator=gen,
+                    mesh=m),
+                "cgan": lambda cg=cg, m=m, gen=gen, cidx=cidx: cgan_step(
+                    *cg, store.images, store.labels, cidx, 0,
+                    latent_dim=LATENT, dtype=torch.bfloat16, generator=gen,
+                    mesh=m),
+                "accum": lambda nets=(ga, da, oga, oda), m=m, gen=gen,
+                gidx=gidx: dcgan_step(
+                    *nets, store.images, gidx, latent_dim=LATENT,
+                    generator=gen, grad_accum=2, mesh=m)}
         timed = [0, 0]
+        # timed calls of each step a turn (3 warm ones first), its ConvT
+        # launches a call
+        calls = {"gan": (10, 5), "clf": (10, 0), "wgan": (5, 5 * (
+            WGAN_CRITIC + 1)), "cgan": (5, 0), "accum": (5, 2 * 2 * 5)}
         for name in ("none", "group", "group", "none"):
             kernels.reset_launch_counts()
             times[f"gan {name}"].append(timed_steps(gan[name], 10))
             times[f"clf {name}"].append(timed_steps(clf[name], 10))
+            for k, fn in fam[name].items():
+                times[f"{k} {name}"].append(timed_steps(fn, calls[k][0]))
             check(on_new_designs(kernels.LAUNCHES,
                                  kernels.LAUNCHES["convt4x4s2_fused"]),
                   dict(kernels.LAUNCHES))
@@ -5393,32 +5871,48 @@ def phase_dist1(train, smi: str, run: int) -> list:
                 timed[1] += kernels.LAUNCHES["mixed_gather"]
     finally:
         shutdown(mesh)
-    check(timed == [2 * 13 * 5, 2 * 13], timed)
+    check(timed == [2 * sum((n + 3) * k for n, k in calls.values()),
+                    2 * 13], timed)
     dp_summary("world-1 NCCL group", c, smi)
     print(f"world-1 NCCL DP path against no group, bf16 ms per step (turns "
           f"none, group, group, none): DCGAN-224 B={GAN_B} none "
           f"{times['gan none']} group {times['gan group']}; classifier "
           f"B={CLS_B} mix none {times['clf none']} group "
-          f"{times['clf group']} [{smi}]")
+          f"{times['clf group']}; WGAN-GP B={WGAN_B} ({WGAN_CRITIC} critic "
+          f"updates) none {times['wgan none']} group {times['wgan group']}; "
+          f"CGAN B={CGAN_B} none {times['cgan none']} group "
+          f"{times['cgan group']}; DCGAN-224 B={GAN_B} --grad-accum 2 none "
+          f"{times['accum none']} group {times['accum group']} [{smi}]")
     return [a + b for a, b in zip(launched, timed)]
 
 
 def phase_dp(tmp: str, root: str, synth_dir: str, smi: str) -> list:
-    """(a) and (b), after every earlier phase: the CLIs on NCCL at world 1,
-    the cost of the DP path on one card, then two ranks on the card over
-    gloo, whose parameters must be bitwise equal. Returns the DP paths'
-    (ConvT, mixed_gather) launches."""
-    launched = list(phase_dp_cli(tmp, root, synth_dir, smi))
+    """(a) and (b), after every earlier phase: the CLIs on NCCL at world 1
+    (A14 parts 1 and 2), the cost of the DP path on one card, then two
+    ranks on the card over gloo, whose parameters must be bitwise equal
+    (DCGAN, classifier, WGAN-GP, CGAN with the gate open and closed).
+    Returns the DP paths' (ConvT, mixed_gather) launches."""
+    procs = dp_cli_processes(tmp, root, synth_dir)
+    try:
+        launched = list(phase_dp_cli(tmp, root, synth_dir, smi, procs))
+        launched = [a + b for a, b in zip(
+            launched, phase_dp_cli_loops(tmp, root, synth_dir, smi, procs))]
+    finally:
+        for proc in procs.values():  # those a failed check left running
+            if proc.poll() is None:
+                proc.kill()
     for phase, world in (("dist1", 1), ("dist", 2)):
         for got in in_fresh_ranks(phase, world, tmp, smi):
             launched = [a + b for a, b in zip(launched, got)]
     ranks = [torch.load(os.path.join(tmp, f"dist_rank{r}.pt"),
                         weights_only=True) for r in range(2)]
+    nets = ("gan", "clf", "wgan", "cgan_open", "cgan_closed")
     check(ranks[0]["metrics"] == ranks[1]["metrics"]
           and all(torch.equal(v, ranks[1][net][k])
-                  for net in ("gan", "clf") for k, v in ranks[0][net].items()),
+                  for net in nets for k, v in ranks[0][net].items()),
           "the two ranks' parameters differ")
-    print(f"dp: both ranks' parameters bitwise equal after their steps; "
+    print(f"dp: both ranks' parameters bitwise equal after their steps "
+          f"({', '.join(nets)}); "
           f"launches on the DP paths: ConvT {launched[0]}, mixed_gather "
           f"{launched[1]}")
     check(all(launched), launched)

@@ -208,6 +208,35 @@ def test_convt_routes_keep_non_finite_values(dev, shape, act):
     assert (got[fin] - want[fin]).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+@pytest.mark.parametrize("shape", NONFINITE_SHAPES)
+def test_f32_convt_route_keeps_non_finite_values(dev, shape, act):
+    """The same planted NaN and +-inf through the f32 CUDA-core kernel
+    (csrc/convt4x4s2.cu): NaN stays NaN under every act (an fmaxf relu
+    made it 0), relu(-inf) is 0, +-inf where the plain version has it."""
+    x, wp, scale, shift = _inputs(shape, torch.float32, dev, seed=3)
+    _plant_non_finite(x)
+    kernels.reset_launch_counts()
+    got = convt4x4s2_fused(x, wp, scale, shift, act=act)
+    want = convt4x4s2_fused_ref(x, wp, scale, shift, act=act)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["convt4x4s2_fused"] == 1
+    assert kernels.LAUNCHES["convt4x4s2_mma"] == 0
+    nan, inf, fin = want.isnan(), want.isinf(), want.isfinite()
+    assert nan.any() and inf.any() and fin.any()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.isinf(), inf) and torch.equal(got[inf], want[inf])
+    tol = TOL[torch.float32] * (1 + want[fin].abs().max().item())
+    assert (got[fin] - want[fin]).abs().max().item() <= tol
+
+
+def test_non_finite_shapes_cover_the_f32_route():
+    from xgan_torch.kernels.convt import convt_route, uses_mma
+    for _, h, w, cin, cout in NONFINITE_SHAPES:
+        assert not uses_mma(torch.float32, cin)
+        assert convt_route(torch.float32, h, w, cin, cout).design == "core"
+
+
 def test_non_finite_shapes_cover_every_bf16_route():
     from xgan_torch.kernels.convt import band_np, convt_route
     routes = [convt_route(torch.bfloat16, h, w, cin, cout)

@@ -6,6 +6,7 @@ they skip on a host without a CUDA device. Run on the card with
 - ``mixed_gather_ranks``: each of 2 and 4 ranks' rows of a batch through
   the kernel (one launch a rank, index slices read in place) bitwise equal
   to the plain version's and to those rows of the whole batch's gather;
+  the same for a rank's share of every microbatch (``--grad-accum``);
 - a world-1 NCCL group from a ``torchrun`` environment (a process of its
   own): joined on ``cuda:0``, an all-reduce and the differentiable one,
   then left; a ``LOCAL_RANK`` beyond the host's cards raises.
@@ -54,6 +55,35 @@ def test_mixed_gather_ranks_matches_plain(dev, world):
         want = mixed_gather_ref(real, synth, ridx[rows], sidx[rows],
                                 use[rows])
         assert torch.equal(got, want) and torch.equal(got, full[rows])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mixed_gather_ranks_of_every_microbatch_matches_plain(dev, world):
+    """A rank's share of each of 2 microbatches (``--grad-accum 2``), an
+    int64 index of strided rows: still one launch, its rows copied
+    contiguous, bitwise the plain version's and those rows of the whole
+    batch's gather; microbatches of 6 rows split unevenly over 4 ranks."""
+    g = torch.Generator(device=dev).manual_seed(10 + world)
+    real = torch.randint(0, 256, (40, 32, 32, 3), generator=g, device=dev,
+                         dtype=torch.uint8)
+    synth = torch.randint(0, 256, (9, 32, 32, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    b = 12
+    ridx = torch.randint(0, 40, (b,), generator=g, device=dev)
+    sidx = torch.randint(0, 9, (b,), generator=g, device=dev)
+    use = torch.rand(b, generator=g, device=dev) < 0.5
+    full = mixed_gather(real, synth, ridx, sidx, use)
+    seen = []
+    for rank in range(world):
+        rows = MeshContext(dev, rank, world).local_rows(b, 2)
+        seen += rows.tolist()
+        kernels.reset_launch_counts()
+        got = mixed_gather_ranks(real, synth, ridx, sidx, use, rows)
+        assert kernels.LAUNCHES["mixed_gather"] == (1 if len(rows) else 0)
+        want = mixed_gather_ref(real, synth, ridx[rows], sidx[rows],
+                                use[rows])
+        assert torch.equal(got, want) and torch.equal(got, full[rows])
+    assert sorted(seen) == list(range(b))
 
 
 WORLD1 = """

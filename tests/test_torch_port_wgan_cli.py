@@ -170,7 +170,8 @@ def test_flags_and_defaults_follow_the_jax_cli(script, parser):
                 ours["lambda_gp"]) == (30, 64, 5, 10.0)
 
 
-@pytest.mark.parametrize("flag", [["--shard-store"], ["--shard-opt-state"],
+@pytest.mark.parametrize("flag", [["--model-parallel", "4"],
+                                  ["--shard-opt-state"],
                                   ["--model-parallel", "2"]])
 def test_unported_flags_exit_1(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -183,7 +184,8 @@ def test_unported_flags_exit_1(flag, capsys):
                                   ["--ema-decay", "0.999"],
                                   ["--trace-dir", "t"],
                                   ["--grad-accum", "2"],
-                                  ["--steps-per-call", "2"]])
+                                  ["--steps-per-call", "2"],
+                                  ["--shard-store"]])
 def test_ported_loop_flags_are_accepted(flag, tmp_path, capsys):
     """The loop flags the port now supports parse and pass the refusal:
     the run goes on to the dataset check."""

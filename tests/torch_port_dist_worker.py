@@ -30,6 +30,42 @@ def _store(images, labels=None):
                                  labels=np.asarray(labels, np.int32))
 
 
+def penalty(x, w, v, n: int, reduce_sum):
+    """``sum_i (||d s/d x_i|| - 1)^2 / n`` over the rows ``x`` (float64)
+    of a batch of ``n``, where ``s`` sums the scores ``tanh(bn(x @ w)) @ v``
+    and ``bn`` normalizes each column by the batch's mean and variance,
+    their sums taken by ``reduce_sum`` (identity on one process, the
+    cross-rank ``all_reduce_sum`` on a rank). The input gradient keeps
+    its graph, so the result is differentiable in ``w``: the double
+    backward of WGAN-GP's penalty through cross-rank BN."""
+    x = x.clone().requires_grad_(True)
+    h = x @ w
+    sums = reduce_sum(torch.stack([h.sum(0), h.square().sum(0)]))
+    mean = sums[0] / n
+    var = sums[1] / n - mean.square()
+    scores = torch.tanh((h - mean) / torch.sqrt(var + 1e-5)) @ v
+    grads, = torch.autograd.grad(scores.sum(), x, create_graph=True)
+    return (grads.norm(dim=1) - 1.0).square().sum() / n
+
+
+def cue_probe_class():
+    """The CGAN discriminator plus an input-magnitude cue on its logits
+    (the closed-gate probe of tests/test_cgan.py:78-106): constant-255
+    reals normalize to ~|2.2| while tanh fakes stay within 1, so
+    ``20 mean(relu(|x| - 1.5)) - 5`` makes D(x) ~ 1 and D(G(z)) < 0.1."""
+    from xgan_torch.models.cgan import Discriminator
+
+    class CueProbe(Discriminator):
+        def forward(self, x, labels, *, train, features=False, mask=None):
+            out = super().forward(x, labels, train=train,
+                                  features=features, mask=mask)
+            cue = 20.0 * torch.relu(x.float().abs() - 1.5).mean(
+                dim=(1, 2, 3)) - 5.0
+            return (out[0] + cue, out[1]) if features else out + cue
+
+    return CueProbe
+
+
 def case_gan(inp, mesh):
     """DCGAN steps of one rank: each run of ``inp["runs"]`` (name ->
     shard) from the same weights over the same steps; per run the (steps,
@@ -53,7 +89,8 @@ def case_gan(inp, mesh):
         metrics = [dcgan_step(g, d, opt_g, opt_d, store.images, s["idx"],
                               latent_dim=latent, mask=s["mask"],
                               noise=s["noise"], flip=s["flip"],
-                              take=store.take, mesh=mesh)
+                              take=store.take, mesh=mesh,
+                              grad_accum=s.get("grad_accum", 1))
                    for s in inp["steps"]]
         out[name] = {"metrics": torch.stack(metrics),
                      "g": g.state_dict(), "d": d.state_dict(),
@@ -89,9 +126,11 @@ def case_bn(inp, mesh):
 
 def case_classifier(inp, mesh):
     """One classifier step (``--unfreeze``) of this rank for each run of
-    ``inp["runs"]`` (name -> (mode, shard, masked)): the global
-    per-sample (losses, preds, labels), the rank's u8 rows of the batch,
-    and the model's state dict."""
+    ``inp["runs"]`` (name -> (mode, shard, masked), or (mode, shard,
+    masked, grad_accum, remat scope or None)): the global per-sample
+    (losses, preds, labels), the rank's u8 rows of the batch, the model's
+    state dict and the step's ``mixed_gather`` calls."""
+    from xgan_torch.kernels import gather as gather_mod
     from xgan_torch.data.pipeline import DeviceStore
     from xgan_torch.models.resnet import ResNet50
     from xgan_torch.models.layers import sync_batch_norm
@@ -99,11 +138,13 @@ def case_classifier(inp, mesh):
         train_step
     out = {}
     b = inp["idx"].shape[0]
-    for name, (mode, shard, masked) in inp["runs"].items():
+    for name, run in inp["runs"].items():
+        mode, shard, masked, accum, remat = (*run, 1, None)[:5]
         real = DeviceStore(_store(inp["real"], inp["real_labels"]), "cpu",
                            mesh, shard=shard)
         synth = DeviceStore(_store(inp["synth"], inp["synth_labels"]), "cpu")
-        model = ResNet50(2, stage_sizes=inp["stages"])
+        model = ResNet50(2, stage_sizes=inp["stages"], remat=bool(remat),
+                         remat_scope=remat or "block")
         model.load_state_dict(inp["model"])
         sync_batch_norm(model, mesh)
         opt = classifier_optimizer(model, inp["lr"], freeze_base=False)
@@ -111,13 +152,133 @@ def case_classifier(inp, mesh):
                               ratio=inp["ratio"], use_synth=inp["use_synth"],
                               synth_pick=inp["pick"],
                               rows=mesh.local_rows(b))
-        losses, preds, labels = train_step(
-            model, opt, real, synth, inp["idx"], mode=mode,
-            ratio=inp["ratio"], mask=inp["mask"] if masked else None,
-            flip=inp["flip"],
-            use_synth=inp["use_synth"], synth_pick=inp["pick"], mesh=mesh)
+        calls = [0]
+        ref = gather_mod.mixed_gather_ref  # the CPU tensors' gather
+
+        def counted(*args, **kwargs):
+            calls[0] += 1
+            return ref(*args, **kwargs)
+
+        gather_mod.mixed_gather_ref = counted
+        try:
+            losses, preds, labels = train_step(
+                model, opt, real, synth, inp["idx"], mode=mode,
+                ratio=inp["ratio"], mask=inp["mask"] if masked else None,
+                flip=inp["flip"], use_synth=inp["use_synth"],
+                synth_pick=inp["pick"], grad_accum=accum, mesh=mesh)
+        finally:
+            gather_mod.mixed_gather_ref = ref
         out[name] = {"losses": losses, "preds": preds, "labels": labels,
-                     "rows_u8": rows_u8, "model": model.state_dict()}
+                     "rows_u8": rows_u8, "model": model.state_dict(),
+                     "gathers": calls[0]}
+    return out
+
+
+def case_wgan(inp, mesh):
+    """WGAN-GP steps of one rank: each run of ``inp["runs"]`` (name ->
+    (shard, grad_accum)) from the same weights over the same steps (the
+    JAX step's draws injected); per run the (steps, critic_iters + 1)
+    losses and G's and the critic's state dicts."""
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.models.wgan import Critic, Generator
+    from xgan_torch.train.common import adam
+    from xgan_torch.train.wgan import wgan_step
+    latent, fm, size, lr = inp["latent"], inp["fm"], inp["size"], inp["lr"]
+    out = {}
+    for name, (shard, accum) in inp["runs"].items():
+        g, c = Generator(latent, 3, fm, size), Critic(3, fm, size)
+        g.load_state_dict(inp["g"])
+        c.load_state_dict(inp["c"])
+        sync_batch_norm(g, mesh)
+        sync_batch_norm(c, mesh)
+        opt_g = adam(g.parameters(), lr, 0.5, 0.9)
+        opt_c = adam(c.parameters(), lr, 0.5, 0.9)
+        store = DeviceStore(_store(inp["images"]), "cpu", mesh, shard=shard)
+        losses = [wgan_step(g, c, opt_g, opt_c, store.images, s["idx"],
+                            latent_dim=latent,
+                            critic_iters=inp["critic_iters"],
+                            lambda_gp=inp["lambda_gp"], mask=s["mask"],
+                            grad_accum=accum, take=store.take, mesh=mesh,
+                            **s["draws"])
+                  for s in inp["steps"][:inp["n_steps"][name]]]
+        out[name] = {"losses": torch.stack(losses), "g": g.state_dict(),
+                     "c": c.state_dict()}
+    return out
+
+
+def case_penalty(inp, mesh):
+    """The gradient of a penalty on per-row input-gradient norms through a
+    BN-like function of this rank's rows of ``inp["x"]`` (float64): the
+    global mean and variance through ``all_reduce_sum``, so the penalty's
+    double backward differentiates the all-reduce's backward. Returns
+    this rank's part of the weight's gradient and its penalty share."""
+    from xgan_torch.parallel.mesh import all_reduce_sum
+    x = inp["x"][mesh.local_rows(inp["x"].shape[0])]
+    w = inp["w"].clone().requires_grad_(True)
+    pen = penalty(x, w, inp["v"], inp["x"].shape[0],
+                  lambda t: all_reduce_sum(t, mesh))
+    pen.backward()
+    return {"dw": w.grad, "pen": pen.detach()}
+
+
+def case_cgan(inp, mesh):
+    """CGAN steps of one rank: each run of ``inp["runs"]`` (name ->
+    (cue probe, grad_accum)) from the same weights over its steps (the
+    JAX step's draws injected); per run the (steps, 7) metrics, G's and
+    D's state dicts and D's after each step."""
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.models.cgan import Discriminator, Generator
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.models.vgg import VGG16Features
+    from xgan_torch.train.cgan import cgan_step
+    from xgan_torch.train.common import adam
+    latent, fm, size, lr = inp["latent"], inp["fm"], inp["size"], inp["lr"]
+    out = {}
+    for name, (probe, accum) in inp["runs"].items():
+        run = inp["data"][name]
+        g = Generator(latent, 2, 3, fm, size)
+        d = (cue_probe_class() if probe else Discriminator)(2, 3, fm, size)
+        vgg = VGG16Features()
+        g.load_state_dict(inp["g"])
+        d.load_state_dict(inp["d"])
+        vgg.load_state_dict(inp["vgg"])
+        sync_batch_norm(g, mesh)
+        sync_batch_norm(d, mesh)
+        opt_g, opt_d = adam(g.parameters(), lr, 0.5), adam(d.parameters(),
+                                                           lr, 0.5)
+        store = DeviceStore(_store(run["images"], run["labels"]), "cpu",
+                            mesh)
+        metrics, d_steps = [], []
+        for s in run["steps"]:
+            metrics.append(cgan_step(
+                g, d, vgg, opt_g, opt_d, store.images, store.labels,
+                s["idx"], s["epoch"], latent_dim=latent, mask=s["mask"],
+                grad_accum=accum, take=store.take, mesh=mesh, **s["draws"]))
+            d_steps.append({k: v.clone() for k, v in d.state_dict().items()})
+        out[name] = {"metrics": torch.stack(metrics), "g": g.state_dict(),
+                     "d": d.state_dict(), "d_steps": d_steps}
+    return out
+
+
+def case_sampler(inp, mesh):
+    """``generate_images`` of each generator of ``inp["runs"]`` (name ->
+    (kind, state dict, compute dtype)) on this rank's rows, into
+    ``inp["out"]/name``; returns each run's count."""
+    from xgan_torch.models import cgan, dcgan, wgan
+    from xgan_torch.train.sample import generate_images
+    classes = {"dcgan": dcgan.Generator, "wgan": wgan.Generator,
+               "cgan": cgan.Generator}
+    out = {}
+    for name, (kind, sd, dtype) in inp["runs"].items():
+        g = classes[kind](latent_dim=inp["latent"],
+                          feature_maps=inp["fm"], image_size=inp["size"])
+        g.load_state_dict(sd)
+        out[name] = generate_images(
+            g, output_dir=os.path.join(inp["out"], name),
+            num_images=inp["num_images"], latent_dim=inp["latent"],
+            batch_size=inp["batch_size"], seed=inp["seed"], device="cpu",
+            dtype=dtype, conditional=kind == "cgan", mesh=mesh)
     return out
 
 
@@ -138,7 +299,8 @@ def case_take(inp, mesh):
 
 
 CASES = {"gan": case_gan, "bn": case_bn, "classifier": case_classifier,
-         "take": case_take}
+         "take": case_take, "wgan": case_wgan, "penalty": case_penalty,
+         "cgan": case_cgan, "sampler": case_sampler}
 
 
 def main(in_path: str, out_dir: str) -> None:

@@ -11,6 +11,16 @@ artifact, which must be of this sampler's conditionality). ``.stablehlo``
 artifacts need JAX and exit 1 with a structured ``Error:`` line. Runs on
 the CUDA device unless ``--cpu`` is given; without a CUDA device it exits
 1 with a structured ``Error:`` line instead of continuing on the CPU.
+
+Under a ``torchrun`` launch (as the trainers take one) the ranks share
+the work: the batch is ``--batch-size`` rounded up to a multiple of the
+ranks, every rank draws the same ``z`` (and labels) from ``--seed`` and
+renders and writes its rows of each batch under their global names::
+
+    torchrun --nproc-per-node 8 -m xgan_torch.cli.generate_synthetic \
+        --model-path G.pth --num-images 5000
+
+A ``.pt2`` artifact exits 1 under a launch.
 """
 from __future__ import annotations
 
@@ -53,11 +63,22 @@ def sample(args, generator_cls, conditional: bool = False) -> dict:
     """The sampler on a ``generator_cls`` generator (the DCGAN, WGAN-GP or,
     with ``conditional``, the 2-class CGAN one) with the parsed flags;
     returns its stats as :func:`main`."""
-    try:
-        device = config.resolve_device(args.cpu)
-    except RuntimeError as e:
-        print(f"Error: {e}")
+    from xgan_torch.io_.export import EXT
+    from xgan_torch.parallel.mesh import launched, shutdown
+    if args.model_path.endswith(EXT) and launched():
+        print(f"Error: a {EXT} generator artifact is not supported by "
+              f"xgan_torch yet{config.UNDER_LAUNCH}; sample it as one "
+              "process, or pass its .pth or .msgpack checkpoint")
         sys.exit(1)
+    mesh = config.join_ranks(args, {})
+    try:
+        return _sample(args, generator_cls, conditional, mesh)
+    finally:
+        shutdown(mesh)
+
+
+def _sample(args, generator_cls, conditional: bool, mesh) -> dict:
+    device = mesh.device
     if args.model_path.endswith(UNSUPPORTED):
         print(f"Error: {args.model_path}: .stablehlo artifacts are not "
               "supported by xgan_torch (they need JAX); export a .pt2 "
@@ -85,7 +106,8 @@ def sample(args, generator_cls, conditional: bool = False) -> dict:
         model, output_dir=args.output_dir, num_images=args.num_images,
         latent_dim=latent, batch_size=args.batch_size,
         seed=args.seed, device=device, dtype=dtype,
-        conditional=conditional, num_classes=num_classes, stats=stats)
+        conditional=conditional, num_classes=num_classes, stats=stats,
+        mesh=mesh)
     return stats
 
 

@@ -25,8 +25,8 @@ Data parallelism (the JAX CLI's default over every local device) is a
 ``--batch-size`` is then the global batch (rounded up to a multiple of
 the ranks); every fold trains on all ranks, rank 0 writes every file, and
 ``--shard-store`` splits the real and test stores over the ranks.
-``--grad-accum``, ``--remat`` and ``--parallel-folds`` exit 1 under a
-launch.
+``--grad-accum`` and ``--remat`` run there too; ``--parallel-folds``
+exits 1 under a launch.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ from xgan_torch import config
 # flag -> its default: other values are not supported by the port yet
 UNSUPPORTED = {"shard_opt_state": False, "model_parallel": 1}
 # the loop flags that do not run across ranks yet
-DP_REFUSED = {"grad_accum": 1, "remat": False, "parallel_folds": False}
+DP_REFUSED = {"parallel_folds": False}
 
 
 def build_parser():

@@ -28,7 +28,8 @@ Data parallelism (the JAX CLI's default over every local device) is a
 the ranks), each rank trains on its rows with BN statistics, losses and
 gradients reduced over all of them (NCCL; gloo with ``--cpu``), rank 0
 writes every file, and ``--shard-store`` splits the image store over the
-ranks. ``--grad-accum`` and ``--steps-per-call`` exit 1 under a launch.
+ranks. ``--grad-accum`` runs there too; ``--steps-per-call`` exits 1
+under a launch. The WGAN-GP and CGAN trainers take the same launch.
 """
 from __future__ import annotations
 
@@ -39,13 +40,10 @@ import torch
 from xgan_torch import config
 
 # flag -> its default: other values are not supported by the port yet
-# (the WGAN-GP and CGAN trainers do not run across ranks, so they take
-# no --shard-store either)
-UNSUPPORTED = {"shard_store": False, "shard_opt_state": False,
-               "model_parallel": 1}
-DCGAN_UNSUPPORTED = {"shard_opt_state": False, "model_parallel": 1}
-# the DCGAN loop flags that do not run across ranks yet
-DP_REFUSED = {"grad_accum": 1, "steps_per_call": 1}
+UNSUPPORTED = {"shard_opt_state": False, "model_parallel": 1}
+# the loop flags of the three GAN trainers that do not run across ranks
+# yet
+DP_REFUSED = {"steps_per_call": 1}
 
 
 def build_parser():
@@ -86,7 +84,7 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
     # flags of the JAX CLI that the port does not support yet
     p.add_argument("--shard-store", action="store_true",
                    help="Split the image store over the data-parallel "
-                        "ranks (DCGAN trainer; a no-op on one rank)")
+                        "ranks (a no-op on one rank)")
     p.add_argument("--shard-opt-state", action="store_true",
                    help="(not supported by xgan_torch yet)")
     p.add_argument("--model-parallel", type=int, default=1,
@@ -94,7 +92,7 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
 
 
 def start(args, unsupported: dict = UNSUPPORTED,
-          dp_refused: dict | None = None):
+          dp_refused: dict | None = DP_REFUSED):
     """Refuse the ``unsupported`` flags (dest -> the one value the port
     takes), join the ranks of a launch (``config.join_ranks``: refuses
     ``dp_refused`` there, or the launch itself when None), resolve the
@@ -119,7 +117,7 @@ def start(args, unsupported: dict = UNSUPPORTED,
 def main(argv=None):
     """Train; returns the history (None after a printed error)."""
     args = build_parser().parse_args(argv)
-    mesh, dtype = start(args, DCGAN_UNSUPPORTED, DP_REFUSED)
+    mesh, dtype = start(args)
     from xgan_torch.parallel.mesh import shutdown
     from xgan_torch.train.gan_loop import train_dcgan
     try:

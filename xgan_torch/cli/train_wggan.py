@@ -13,7 +13,13 @@ sheets, ``{model_dir}/wgan/{generator,discriminator}_epoch_EEE.pth`` and
 ``Error:`` line. ``--resume-from``, ``--ema-decay``, ``--trace-dir``,
 ``--grad-accum`` and ``--steps-per-call`` work as in the DCGAN trainer
 (the snapshot is ``{model_dir}/wgan/snapshot_last.pth``); the flags the
-DCGAN trainer does not support exit 1.
+DCGAN trainer does not support exit 1. A ``torchrun`` launch trains
+across ranks as the DCGAN trainer does::
+
+    torchrun --nproc-per-node 8 -m xgan_torch.cli.train_wggan --data-dir DIR
+
+(``--batch-size`` the global batch, ``--shard-store`` splitting the store,
+rank 0 writing every file; ``--steps-per-call`` exits 1 there).
 """
 from __future__ import annotations
 
@@ -43,9 +49,12 @@ def main(argv=None):
     """Train; returns the history (None after a printed error)."""
     args = build_parser().parse_args(argv)
     mesh, dtype = train_gan.start(args)
-    device = mesh.device
+    from xgan_torch.parallel.mesh import shutdown
     from xgan_torch.train.wgan_loop import train_wgan
-    return train_wgan(args, device, dtype)
+    try:
+        return train_wgan(args, mesh.device, dtype, mesh)
+    finally:
+        shutdown(mesh)
 
 
 if __name__ == "__main__":

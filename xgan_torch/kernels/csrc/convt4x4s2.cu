@@ -86,10 +86,12 @@ convt4x4s2_kernel(const T* __restrict__ x, const T* __restrict__ wp,
       }
     }
     float v = fmaf(acc, scale[co], shift[co]);
+    // selects, as tensor_core.cuh's epilogue: NaN stays NaN under every
+    // act (fmaxf would map it to 0), and relu(-inf) = 0
     if (act == 1) {
-      v = fmaxf(v, 0.f);
+      v = v < 0.f ? 0.f : v;
     } else if (act == 2) {
-      v = v >= 0.f ? v : 0.2f * v;
+      v = v < 0.f ? 0.2f * v : v;
     }
     out[idx] = from_f32<T>(v);
   }

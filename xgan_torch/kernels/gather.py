@@ -102,14 +102,16 @@ def mixed_gather(real, synth, real_idx, synth_idx, use_synth,
 
 
 def mixed_gather_ranks(real, synth, real_idx, synth_idx, use_synth,
-                       rows: slice, err: torch.Tensor | None = None, *,
+                       rows, err: torch.Tensor | None = None, *,
                        gather=mixed_gather):
     """``mixed_gather`` of this rank's ``rows`` of the global (B,) index
     vectors and mask, against stores replicated on every rank: the
     counterpart of ``mixed_gather_spmd`` (the kernel on CUDA tensors, one
-    launch a rank; the plain version on CPU tensors). A slice of a 1-D
-    contiguous tensor is contiguous, as the op requires: it reads the
-    slice in place. ``gather``: the single-rank call, which a check may
+    launch a rank; the plain version on CPU tensors). ``rows``: a slice
+    (a slice of a 1-D contiguous tensor is contiguous, as the op
+    requires: it reads the slice in place) or an int64 index (a rank's
+    share of every microbatch, ``MeshContext.local_rows(b, accum)``: the
+    selected rows come out copied, contiguous). ``gather``: the single-rank call, which a check may
     replace with its plain version."""
     return gather(real, synth, real_idx[rows], synth_idx[rows],
                   use_synth[rows], err)

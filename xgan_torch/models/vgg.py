@@ -82,15 +82,17 @@ class VGG16Features(nn.Module):
 
 
 def perceptual_loss(vgg: VGG16Features, x: torch.Tensor, y: torch.Tensor,
-                    weights=None) -> torch.Tensor:
+                    weights=None, mesh=None) -> torch.Tensor:
     """Sum of per-block MSEs between the features of ``x`` and ``y``
     (reference train_cgan.py:66-73). ``y``'s side runs under ``no_grad``
     (the JAX package stops its gradient). ``weights``: (B,) validity
-    weights; each block's mean then covers the valid rows only."""
+    weights; each block's mean then covers the valid rows only.
+    ``mesh``: this rank's share of the global loss (``layerwise_mse``;
+    the VGG features are frozen and the same on every rank)."""
     fx = vgg(x)
     with torch.no_grad():
         fy = vgg(y)
-    return layerwise_mse(fx, fy, weights)
+    return layerwise_mse(fx, fy, weights, mesh)
 
 
 def validate_vgg16_state_dict(sd: dict) -> None:

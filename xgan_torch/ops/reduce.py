@@ -44,11 +44,14 @@ def per_sample_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d.square().reshape(d.shape[0], -1).mean(dim=1)
 
 
-def layerwise_mse(feats_a, feats_b, weights=None) -> torch.Tensor:
+def layerwise_mse(feats_a, feats_b, weights=None,
+                  mesh=None) -> torch.Tensor:
     """Sum over layers of the (``weights``-weighted) per-layer MSE, in
     layer order: the CGAN feature-matching loss and the VGG perceptual
-    loss, torch's ``F.mse_loss`` per layer, summed."""
+    loss, torch's ``F.mse_loss`` per layer, summed. ``mesh``: the rows are
+    this rank's, and each layer's mean is this rank's share of the global
+    one (:func:`weighted_mean`)."""
     total = 0.0
     for a, b in zip(feats_a, feats_b):
-        total = total + weighted_mean(per_sample_mse(a, b), weights)
+        total = total + weighted_mean(per_sample_mse(a, b), weights, mesh)
     return total

@@ -58,14 +58,45 @@ class MeshContext:
         """Smallest multiple of the world size >= n (the global batch)."""
         return -(-n // self.world) * self.world
 
-    def local_rows(self, b: int) -> slice:
+    def local_rows(self, b: int, accum: int = 1):
         """This rank's rows of a global batch of ``b`` (a multiple of the
-        world size): the contiguous block ``[r*b/N, (r+1)*b/N)``."""
+        world size): the contiguous block ``[r*b/N, (r+1)*b/N)``.
+
+        ``accum > 1`` (``--grad-accum``): the batch is ``accum``
+        microbatches of ``mb = b/accum`` rows, each split over the ranks,
+        as the JAX package row-shards every microbatch over ``data``:
+        rank r holds rows ``[k*mb + lo, k*mb + hi)`` of microbatch k, with
+        ``lo = r*mb//N`` and ``hi = (r+1)*mb//N`` (``mb`` need not be a
+        multiple of N; a rank may hold none). Returned as an int64 index
+        on the device, in microbatch order, so that this rank's rows of
+        microbatch k are the k-th of ``accum`` equal blocks of what it
+        selects (:meth:`micro_rows` of them). BN statistics are per
+        microbatch, so a rank's contiguous block of the whole batch would
+        give other numbers."""
+        if accum > 1:
+            if b % accum:
+                raise ValueError(f"grad_accum={accum} must divide batch "
+                                 f"size {b}")
+            mb = b // accum
+            return (torch.arange(accum, device=self.device)[:, None] * mb
+                    + torch.arange(*self._share(mb), device=self.device)
+                    ).reshape(-1)
         if b % self.world:
             raise ValueError(f"batch {b} is not a multiple of the "
                              f"{self.world} data ranks")
         n = b // self.world
         return slice(self.rank * n, (self.rank + 1) * n)
+
+    def _share(self, mb: int) -> tuple[int, int]:
+        """``[lo, hi)``: this rank's rows of a microbatch of ``mb``."""
+        return (self.rank * mb // self.world,
+                (self.rank + 1) * mb // self.world)
+
+    def micro_rows(self, mb: int) -> int:
+        """This rank's rows of one microbatch of ``mb`` rows
+        (:meth:`local_rows` with ``accum > 1``)."""
+        lo, hi = self._share(mb)
+        return hi - lo
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks in place (no autograd)."""
@@ -73,15 +104,17 @@ class MeshContext:
             dist.all_reduce(t)
         return t
 
-    def gather_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+    def gather_rows(self, t: torch.Tensor, b: int,
+                    rows=None) -> torch.Tensor:
         """This rank's rows ``t`` of a global batch of ``b``, assembled
         into the whole batch on every rank: a zero buffer holding ``t`` at
-        :meth:`local_rows`, summed over the ranks (the all-gather that
-        gloo's CUDA path lacks). ``t`` is a float tensor."""
+        ``rows`` (default :meth:`local_rows`), summed over the ranks (the
+        all-gather that gloo's CUDA path lacks). ``t`` is a float
+        tensor."""
         if not self.distributed:
             return t
         out = t.new_zeros((b, *t.shape[1:]))
-        out[self.local_rows(b)] = t
+        out[self.local_rows(b) if rows is None else rows] = t
         return self.all_reduce_(out)
 
     def any(self, flag: bool) -> bool:
@@ -154,6 +187,13 @@ def shutdown(ctx: MeshContext) -> None:
 
 
 class _AllReduceSum(torch.autograd.Function):
+    """SUM over the ranks whose backward is this function again, so that
+    autograd records it: a double backward (WGAN-GP's penalty through
+    cross-rank BN) differentiates the backward's all-reduce as one more
+    SUM all-reduce, issued by every rank in the same order. An in-place
+    ``dist.all_reduce`` in the backward would be invisible to autograd,
+    and the second derivative silently wrong."""
+
     @staticmethod
     def forward(ctx, x):
         y = x.clone(memory_format=torch.contiguous_format)
@@ -162,9 +202,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        return _AllReduceSum.apply(g.contiguous())
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: MeshContext | None

@@ -44,15 +44,29 @@ advancing its statistics again; D on the fake rows with features, then
 on the real rows; the adversarial, perceptual and FM losses as valid-row
 sums) and one G Adam step. A microbatch whose rows are all padding is
 skipped: its statistics stay frozen and it adds a zero gradient.
+
+Across data-parallel ranks (``mesh``, a joined process group; G's and
+D's BN tied to it by ``sync_batch_norm``; the frozen VGG16 the same on
+every rank) every rank draws the global batch's flip, noise, fake labels
+and targets from the same seed and takes its rows
+(``MeshContext.local_rows``). Every BN batch is global, every loss mean
+(the BCEs, each VGG block's and each of D's 14 feature MSEs) takes a
+global denominator and is this rank's share, and the gradients are
+summed over the ranks before each Adam step. The gate reads the
+all-reduced global D(x) and D(G(z)), not this rank's shares: every rank
+then takes the same decision and the parameters stay bitwise equal.
+With ``grad_accum`` a rank holds its share of each microbatch, as in
+:mod:`xgan_torch.train.gan`.
 """
 from __future__ import annotations
 
 import torch
 
-from xgan_torch.data.pipeline import gather_preprocess
+from xgan_torch.data.pipeline import gather_preprocess, take_rows
 from xgan_torch.models.vgg import perceptual_loss
 from xgan_torch.ops.reduce import layerwise_mse, per_sample_mse, \
     weighted_mean
+from xgan_torch.parallel.mesh import all_reduce_grads
 from xgan_torch.train.common import bce_sum, bce_with_logits, guarded_sum, \
     microbatches, zeroed_grads
 
@@ -61,10 +75,11 @@ FM_WEIGHT = 5.0
 GATE_EPOCHS = 5  # the D update always runs in the first epochs
 
 
-def feature_matching_loss(real_feats, fake_feats, weights=None):
+def feature_matching_loss(real_feats, fake_feats, weights=None, mesh=None):
     """Sum of per-layer MSEs (reference train_cgan.py:75-76); ``weights``
-    (B,) restricts each layer's mean to the valid rows."""
-    return layerwise_mse(real_feats, fake_feats, weights)
+    (B,) restricts each layer's mean to the valid rows; ``mesh``: this
+    rank's share of the global loss."""
+    return layerwise_mse(real_feats, fake_feats, weights, mesh)
 
 
 def gate_open(epoch, d_x: torch.Tensor, d_g_z1: torch.Tensor
@@ -106,7 +121,8 @@ def cgan_step(g, d, vgg, opt_g, opt_d, store_u8, labels_all, idx,
               dtype: torch.dtype = torch.float32, mask=None, flip=None,
               noise=None, fake_labels=None, real_targets=None,
               fake_targets=None, generator: torch.Generator | None = None,
-              grad_accum: int = 1) -> torch.Tensor:
+              grad_accum: int = 1, take=take_rows,
+              mesh=None) -> torch.Tensor:
     """One iteration; returns the (7,) device tensor ``[loss_G, loss_D,
     D_x, D_G_z1, D_G_z2, perceptual, fm]``, without a host sync unless
     ``grad_accum > 1`` and a ``mask`` is given (it then reads which
@@ -118,12 +134,16 @@ def cgan_step(g, d, vgg, opt_g, opt_d, store_u8, labels_all, idx,
     ``generator`` on the device in this order: the flip mask, the (B,
     latent) noise, the fake labels (uniform over G's ``num_classes``), the
     real targets ``0.9 - 0.1 U`` and the fake targets ``0.1 + 0.1 U``.
-    ``grad_accum``: microbatches per update (it must divide B)."""
+    ``grad_accum``: microbatches per update (it must divide B).
+    ``take``: the store's gather (``DeviceStore.take``); ``mesh``: the
+    step of one data-parallel rank (see the module docstring)."""
     dev = store_u8.device
+    dp = mesh is not None and mesh.distributed
     b = idx.shape[0]
+    rows = mesh.local_rows(b, grad_accum) if dp else slice(None)
     real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
-                             dtype=dtype)
-    real_labels = labels_all.index_select(0, idx)
+                             dtype=dtype, take=take, rows=rows)
+    real_labels = labels_all.index_select(0, idx[rows])
     if noise is None:
         noise = torch.randn((b, latent_dim), generator=generator, device=dev)
     if fake_labels is None:
@@ -135,40 +155,54 @@ def cgan_step(g, d, vgg, opt_g, opt_d, store_u8, labels_all, idx,
     if fake_targets is None:
         fake_targets = 0.1 + 0.1 * torch.rand(b, generator=generator,
                                               device=dev)
+    noise, fake_labels, real_targets, fake_targets = (
+        t[rows] for t in (noise, fake_labels, real_targets, fake_targets))
+    if mask is not None:
+        mask = mask[rows]
     if grad_accum > 1:
-        return _step_accum(g, d, vgg, opt_g, opt_d, epoch, real,
-                           real_labels, noise, fake_labels, real_targets,
-                           fake_targets, mask, grad_accum)
+        metrics = _step_accum(g, d, vgg, opt_g, opt_d, epoch, real,
+                              real_labels, noise, fake_labels, real_targets,
+                              fake_targets, mask, b, grad_accum, mesh)
+        return mesh.all_reduce_(metrics) if dp else metrics
     fake = g.forward_train(noise, fake_labels, mask)
 
     opt_d.zero_grad(set_to_none=True)
+    d_params = list(d.parameters())
     logits_real = d(real, real_labels, train=True, mask=mask)
     logits_fake = d(fake.detach(), fake_labels, train=True, mask=mask)
-    loss_d = (bce_with_logits(logits_real, real_targets, mask)
-              + bce_with_logits(logits_fake, fake_targets, mask))
+    loss_d = (bce_with_logits(logits_real, real_targets, mask, mesh)
+              + bce_with_logits(logits_fake, fake_targets, mask, mesh))
     with torch.no_grad():
-        d_x = weighted_mean(torch.sigmoid(logits_real), mask)
-        d_g_z1 = weighted_mean(torch.sigmoid(logits_fake), mask)
+        # this rank's shares of D(x) and D(G(z)); the gate reads the
+        # global values, so that every rank takes the same decision
+        d_probs = torch.stack([
+            weighted_mean(torch.sigmoid(logits_real), mask, mesh),
+            weighted_mean(torch.sigmoid(logits_fake), mask, mesh)])
+        gate_in = mesh.all_reduce_(d_probs.clone()) if dp else d_probs
     loss_d.backward()
-    gated_step(opt_d, gate_open(epoch, d_x, d_g_z1))
+    all_reduce_grads(d_params, mesh)
+    gated_step(opt_d, gate_open(epoch, gate_in[0], gate_in[1]))
 
     opt_g.zero_grad(set_to_none=True)
+    g_params = list(g.parameters())
     logits, fake_feats = d(fake, fake_labels, train=True, features=True,
                            mask=mask)
     with torch.no_grad():
         _, real_feats = d(real, real_labels, train=True, features=True,
                           mask=mask)
-    adv = bce_with_logits(logits, real_targets, mask)
-    perc = perceptual_loss(vgg, fake, real, mask)
-    fm = feature_matching_loss(real_feats, fake_feats, mask)
+    adv = bce_with_logits(logits, real_targets, mask, mesh)
+    perc = perceptual_loss(vgg, fake, real, mask, mesh)
+    fm = feature_matching_loss(real_feats, fake_feats, mask, mesh)
     loss_g = adv + PERCEPTUAL_WEIGHT * perc + FM_WEIGHT * fm
-    loss_g.backward(inputs=list(g.parameters()))
+    loss_g.backward(inputs=g_params)
+    all_reduce_grads(g_params, mesh)
     opt_g.step()
 
     with torch.no_grad():
-        d_g_z2 = weighted_mean(torch.sigmoid(logits), mask)
-        return torch.stack([loss_g, loss_d, d_x, d_g_z1, d_g_z2, perc,
-                            fm]).detach()
+        d_g_z2 = weighted_mean(torch.sigmoid(logits), mask, mesh)
+        metrics = torch.stack([loss_g, loss_d, *d_probs, d_g_z2, perc,
+                               fm]).detach()
+        return mesh.all_reduce_(metrics) if dp else metrics
 
 
 def _feats_mse_sum(feats_a, feats_b, mask_mb) -> torch.Tensor:
@@ -182,14 +216,16 @@ def _feats_mse_sum(feats_a, feats_b, mask_mb) -> torch.Tensor:
 
 
 def _step_accum(g, d, vgg, opt_g, opt_d, epoch, real, real_labels, noise,
-                fake_labels, real_targets, fake_targets, mask,
-                accum: int) -> torch.Tensor:
-    """``cgan_step`` with ``grad_accum=accum``; see the module
-    docstring."""
-    w_total, micro = microbatches(mask, real.shape[0], accum)
+                fake_labels, real_targets, fake_targets, mask, b: int,
+                accum: int, mesh) -> torch.Tensor:
+    """``cgan_step`` with ``grad_accum=accum`` over this rank's rows of
+    the global batch of ``b``; see the module docstring. Returns this
+    rank's share of the metrics."""
+    w_total, micro = microbatches(mask, b, accum, mesh)
     zero = real.new_zeros((), dtype=torch.float32)
     ds = dxs = dgz1s = zero
-    d_grads = zeroed_grads(list(d.parameters()))
+    d_params = list(d.parameters())
+    d_grads = zeroed_grads(d_params)
     for rows, mask_mb in micro:
         flab = rows(fake_labels)
         with torch.no_grad():
@@ -207,7 +243,12 @@ def _step_accum(g, d, vgg, opt_g, opt_d, epoch, real, real_labels, noise,
             dgz1s = dgz1s + guarded_sum(torch.sigmoid(logits_fake.float()),
                                         mask_mb)
     torch._foreach_div_(d_grads, w_total)
-    gated_step(opt_d, gate_open(epoch, dxs / w_total, dgz1s / w_total))
+    all_reduce_grads(d_params, mesh)
+    # the gate on the global D(x) and D(G(z)), the same on every rank
+    gate_in = torch.stack([dxs, dgz1s]) / w_total
+    if mesh is not None and mesh.distributed:
+        gate_in = mesh.all_reduce_(gate_in)
+    gated_step(opt_d, gate_open(epoch, gate_in[0], gate_in[1]))
 
     gs = dgz2s = percs = fms = zero
     g_params = list(g.parameters())
@@ -234,6 +275,7 @@ def _step_accum(g, d, vgg, opt_g, opt_d, epoch, real, real_labels, noise,
             percs = percs + perc
             fms = fms + fm
     torch._foreach_div_(g_grads, w_total)
+    all_reduce_grads(g_params, mesh)
     opt_g.step()
     return torch.stack([gs, ds, dxs, dgz1s, dgz2s, percs,
                         fms]).detach() / w_total

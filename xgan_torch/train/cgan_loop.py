@@ -23,7 +23,12 @@ A`` (the D and G updates as A microbatches) and ``--steps-per-call K``
 Adam capturable on the card for every K). The adaptive gate reads the
 run's epoch as a device scalar, which a graph captured at one epoch reads
 anew at every replay, so after a resume it opens from epoch 5 of the
-run, not of the process. Not ported yet: several devices.
+run, not of the process. A ``torchrun`` launch (``mesh``) runs as in the
+DCGAN loop: the global batch padded to a multiple of the ranks, each
+rank's rows of every step (:func:`~xgan_torch.train.cgan.cgan_step`, the
+gate on the global D(x) and D(G(z))), ``--shard-store``, rank 0 alone
+writing, every rank loading the same ``--vgg-path`` or drawing the same
+random VGG16 from the seed; ``--steps-per-call`` is refused there.
 """
 from __future__ import annotations
 
@@ -37,8 +42,10 @@ import torch
 from xgan_torch.data.pipeline import DeviceStore, minmax_to_u8
 from xgan_torch.io_.figures import plot_cgan_losses, save_image_grid
 from xgan_torch.models.cgan import Discriminator, Generator
+from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.vgg import VGG16Features, load_vgg16_pth, \
     read_vgg16_pth
+from xgan_torch.parallel.mesh import MeshContext
 from xgan_torch.train.cgan import cgan_step
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
@@ -71,9 +78,12 @@ def check_vgg_path(vgg_path: str) -> bool:
     return True
 
 
-def train_cgan(args, device: torch.device, dtype: torch.dtype):
+def train_cgan(args, device: torch.device, dtype: torch.dtype,
+               mesh: MeshContext | None = None):
     """args: the namespace of ``xgan_torch.cli.train_cgan``. Returns the
-    history, or None after a printed error."""
+    history, or None after a printed error. ``mesh``: this process's rank
+    of a data-parallel run (None: the only one)."""
+    mesh = mesh if mesh is not None else MeshContext(device)
     if not resume_preflight(args) or not check_vgg_path(args.vgg_path):
         return None
     model_dir = check_create_dir(os.path.join(args.model_dir, "cgan"))
@@ -82,12 +92,19 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
     metrics_dir = check_create_dir(args.results_dir)
     figures_dir = check_create_dir(args.figures_dir)
 
-    store = load_train_store(args, device)
+    with mesh.main_first():
+        store = load_train_store(args, device)
     if store is None:
         return None
     print(f"Loaded training data with {len(store)} samples.")
-    device_store = DeviceStore(store, device)
-    print(f"Device: {device}; compute dtype {dtype}")
+    device_store = DeviceStore(store, device, mesh,
+                               shard=getattr(args, "shard_store", False))
+    batch_size = mesh.pad_batch(args.batch_size)
+    if batch_size != args.batch_size:
+        print(f"Note: batch size {args.batch_size} -> {batch_size} "
+              f"(multiple of {mesh.n_data} devices)")
+    print(f"Device: {device}; compute dtype {dtype}; rank {mesh.rank} of "
+          f"{mesh.world}")
 
     seeds = [torch.Generator(device).manual_seed(args.seed + i)
              for i in range(5)]
@@ -97,6 +114,8 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
     d = Discriminator(NUM_CLASSES, args.num_channels, args.feature_maps_d,
                       args.image_size, dtype=dtype, device=device,
                       generator=seeds[1])
+    sync_batch_norm(g, mesh)
+    sync_batch_norm(d, mesh)
     vgg = VGG16Features(dtype=dtype, device=device, generator=seeds[2])
     if args.vgg_path:
         load_vgg16_pth(vgg, args.vgg_path)
@@ -119,7 +138,6 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
         [:args.vis_batch_size]).to(device)
     step_draws = seeds[4]
     ema = init_ema(g) if args.ema_decay > 0 else None
-    batch_size = args.batch_size
     ga = resolve_grad_accum(args.grad_accum, batch_size)
     k_steps = max(1, args.steps_per_call)
 
@@ -127,7 +145,8 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
         metrics = cgan_step(g, d, vgg, opt_g, opt_d, device_store.images,
                             device_store.labels, idx, epoch,
                             latent_dim=args.latent_dim, dtype=dtype,
-                            mask=mask, generator=step_draws, grad_accum=ga)
+                            mask=mask, generator=step_draws, grad_accum=ga,
+                            take=device_store.take, mesh=mesh)
         if ema is not None:
             ema_update(ema, g, args.ema_decay)
         return metrics
@@ -136,6 +155,8 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
         if k_steps > 1 else None
 
     def sample_grid(path):
+        if not mesh.is_main:
+            return
         imgs = minmax_to_u8(g(fixed_noise, fixed_labels))
         save_image_grid(imgs.cpu().numpy(), path, nrow=8)
 
@@ -144,7 +165,7 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
     data_rng = np.random.default_rng(args.seed)
     run = EpochRun(args, model_dir, history_path, history,
                    {"g": g, "d": d}, {"g": opt_g, "d": opt_d}, ema,
-                   step_draws)
+                   step_draws, mesh)
     if not run.resume(len(store), batch_size, data_rng):
         return None
     history, iters = run.history, run.iters
@@ -205,6 +226,7 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype):
         return history
     print(f"Training finished in {time.time() - start_time:.2f} seconds.")
     run.save_final()
-    plot_cgan_losses(history, os.path.join(figures_dir,
-                                           "cgan_loss_curve.png"))
+    if mesh.is_main:
+        plot_cgan_losses(history, os.path.join(figures_dir,
+                                               "cgan_loss_curve.png"))
     return history

@@ -17,7 +17,9 @@ moves a parameter), and skips a backward that would update nothing.
 
 ``grad_accum=A > 1`` (``--grad-accum``; ``_microbatch_grads`` of the
 JAX package) assembles, flips and normalizes the batch once, on the full
-batch (one ``mixed_gather`` launch), then runs A microbatches of B/A rows
+batch (one ``mixed_gather`` launch; across ranks each rank's share of
+every microbatch, its rows copied into one contiguous index for that one
+launch), then runs A microbatches of B/A rows
 through the forward and the backward of their valid-row loss *sum*, BN
 statistics per microbatch (torch gradient accumulation); the summed
 gradient is divided by the batch's valid rows before the one optimizer
@@ -127,8 +129,8 @@ def _dp(mesh) -> bool:
     return mesh is not None and mesh.distributed
 
 
-def _rows(mesh, b: int) -> slice:
-    return mesh.local_rows(b) if _dp(mesh) else slice(None)
+def _rows(mesh, b: int, accum: int = 1):
+    return mesh.local_rows(b, accum) if _dp(mesh) else slice(None)
 
 
 def train_step(model, opt, real, synth, idx, *, mode: str,
@@ -147,11 +149,9 @@ def train_step(model, opt, real, synth, idx, *, mode: str,
     ``generator`` on the device unless injected: the mixer's ``use_synth``
     and ``synth_pick`` first, then the ``flip`` mask. ``grad_accum``:
     microbatches per step (it must divide B). ``mesh``: the step of one
-    data-parallel rank (see the module docstring; ``grad_accum`` 1)."""
+    data-parallel rank (see the module docstring)."""
     b = idx.shape[0]
-    rows = _rows(mesh, b)
-    if _dp(mesh) and grad_accum > 1:
-        raise ValueError("grad_accum > 1 does not run across ranks yet")
+    rows = _rows(mesh, b, grad_accum)
     images, labels = assemble(mode, real, synth, idx, ratio=ratio,
                               n_real=n_real, synth_pool=synth_pool,
                               generator=generator, use_synth=use_synth,
@@ -165,7 +165,8 @@ def train_step(model, opt, real, synth, idx, *, mode: str,
         mask = mask[rows]
     opt.zero_grad(set_to_none=True)
     if grad_accum > 1:
-        losses, logits = microbatch_grads(model, x, labels, mask, grad_accum)
+        losses, logits = microbatch_grads(model, x, labels, mask, grad_accum,
+                                          b, mesh)
     else:
         logits = model(x, train=True, mask=mask)
         losses = softmax_ce(logits, labels)
@@ -177,16 +178,21 @@ def train_step(model, opt, real, synth, idx, *, mode: str,
     if not _dp(mesh):
         return losses.detach(), preds, labels
     out = mesh.gather_rows(torch.stack(
-        [losses.detach(), preds.float(), labels.float()], 1), b)
+        [losses.detach(), preds.float(), labels.float()], 1), b, rows)
     return out[:, 0], out[:, 1].long(), out[:, 2].long()
 
 
-def microbatch_grads(model, x, labels, mask, accum: int):
+def microbatch_grads(model, x, labels, mask, accum: int,
+                     b: int | None = None, mesh=None):
     """The gradient of the valid-row mean loss of ``model`` on the
     normalized batch ``x``, accumulated over ``accum`` microbatches into
     the ``.grad`` of its trainable parameters; returns the per-sample
-    (losses, logits), zeros for the rows of a skipped microbatch."""
-    w_total, micro = microbatches(mask, x.shape[0], accum)
+    (losses, logits), zeros for the rows of a skipped microbatch.
+    ``mesh``: ``x`` holds this rank's rows of the global batch of ``b``
+    (``MeshContext.local_rows(b, accum)``), and the gradient is this
+    rank's part of the global one (``microbatches``)."""
+    w_total, micro = microbatches(mask, x.shape[0] if b is None else b,
+                                  accum, mesh)
     grads = zeroed_grads([p for p in model.parameters() if p.requires_grad])
     losses = x.new_zeros(x.shape[0], dtype=torch.float32)
     logits = x.new_zeros((x.shape[0], model.fc.out_features),

@@ -42,9 +42,12 @@ each fold trains on all ranks. ``--shard-store`` splits the real and test
 stores over the ranks (the synthetic store stays replicated) and turns
 the ``mixed_gather`` kernel off for them. Rank 0 alone writes the
 checkpoints, histories, summaries and figures, and traces; a stop is
-agreed by all ranks at each boundary. ``--grad-accum``, ``--remat`` and
-``--parallel-folds`` do not run across ranks yet (the CLI refuses them
-under a launch).
+agreed by all ranks at each boundary. ``--grad-accum`` gives each rank
+its share of every microbatch (``MeshContext.local_rows(B, A)``), and
+``--remat``'s recompute re-runs BN's cross-rank all-reduce in the
+backward, on every rank in the same order (BN's running statistics still
+advance once a step). ``--parallel-folds`` does not run across ranks yet
+(the CLI refuses it under a launch).
 """
 from __future__ import annotations
 

@@ -65,23 +65,35 @@ def bce_sum(logits: torch.Tensor, target: float | torch.Tensor,
         logits, target.float(), reduction="none"), mask_mb)
 
 
-def microbatches(mask, b: int, accum: int):
+def microbatches(mask, b: int, accum: int, mesh=None):
     """The microbatches of a (B,) batch split ``accum`` ways: the weight
     the summed gradients are divided by (the batch's valid rows) and
     ``(rows, mask_mb)`` for each microbatch that holds a valid row
     (``rows`` slices a (B, ...) tensor to it). Reads ``mask`` on the
     host: only a padded tail batch has one, and it never enters a CUDA
-    graph."""
+    graph.
+
+    ``mesh`` (a joined process group): ``b`` is still the global batch,
+    while ``mask`` and the tensors ``rows`` slices hold this rank's rows
+    (``MeshContext.local_rows(b, accum)``), its share of each microbatch
+    in turn. The weight and which microbatches hold a valid row are the
+    global batch's (one all-reduce of the per-microbatch counts), so
+    every rank runs the same microbatches and their collectives."""
     if b % accum:
         raise ValueError(f"grad_accum={accum} must divide batch size {b}")
     mb = b // accum
+    dp = mesh is not None and mesh.distributed
+    n = mesh.micro_rows(mb) if dp else mb
 
     def rows(j):
-        return lambda t: t[j * mb:(j + 1) * mb]
+        return lambda t: t[j * n:(j + 1) * n]
 
     if mask is None:
         return float(b), [(rows(j), None) for j in range(accum)]
-    valid = mask.reshape(accum, mb).float().sum(1).tolist()
+    valid = mask.reshape(accum, n).float().sum(1)
+    if dp:
+        valid = mesh.all_reduce_(valid)
+    valid = valid.tolist()
     return (max(float(sum(valid)), 1e-9),
-            [(rows(j), mask[j * mb:(j + 1) * mb])
+            [(rows(j), mask[j * n:(j + 1) * n])
              for j in range(accum) if valid[j] > 0])

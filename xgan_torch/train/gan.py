@@ -44,6 +44,11 @@ each form their global BN batch, both BCE means take global
 denominators, the gradients are summed over the ranks before each Adam
 step, and the (5,) metrics are global. Every rank's Adam so sees the
 same gradients, and the parameters stay bitwise equal across ranks.
+With ``grad_accum=A`` a rank holds its share of each microbatch
+(``MeshContext.local_rows(B, A)``, as the JAX package row-shards every
+microbatch over ``data``): each microbatch is one global BN batch, the
+weight and the skipped microbatches are the global batch's, and the
+gradients are summed over the ranks once per update.
 """
 from __future__ import annotations
 
@@ -76,11 +81,10 @@ def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
     the forward of G's k4s2 layers (the kernel; a check passes its plain
     version). ``grad_accum``: microbatches per update (it must divide
     B). ``take``: the store's gather (``DeviceStore.take``); ``mesh``:
-    the step of one data-parallel rank (see the module docstring;
-    ``grad_accum`` 1)."""
+    the step of one data-parallel rank (see the module docstring)."""
     dp = mesh is not None and mesh.distributed
     b = idx.shape[0]
-    rows = mesh.local_rows(b) if dp else slice(None)
+    rows = mesh.local_rows(b, grad_accum) if dp else slice(None)
     real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
                              dtype=dtype, take=take, rows=rows)
     if noise is None:
@@ -90,10 +94,9 @@ def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
     if mask is not None:
         mask = mask[rows]
     if grad_accum > 1:
-        if dp:
-            raise ValueError("grad_accum > 1 does not run across ranks yet")
-        return _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
-                           grad_accum)
+        metrics = _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
+                              b, grad_accum, mesh)
+        return mesh.all_reduce_(metrics) if dp else metrics
     fake = g.forward_train(noise, mask, convt=convt)
 
     opt_d.zero_grad(set_to_none=True)
@@ -119,11 +122,12 @@ def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
         return mesh.all_reduce_(metrics) if dp else metrics
 
 
-def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
-                accum: int) -> torch.Tensor:
-    """``dcgan_step`` with ``grad_accum=accum``; see the module
-    docstring."""
-    w_total, micro = microbatches(mask, real.shape[0], accum)
+def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt, b: int,
+                accum: int, mesh) -> torch.Tensor:
+    """``dcgan_step`` with ``grad_accum=accum`` over this rank's rows of
+    the global batch of ``b``; see the module docstring. Returns this
+    rank's share of the metrics."""
+    w_total, micro = microbatches(mask, b, accum, mesh)
     d_params, g_params = list(d.parameters()), list(g.parameters())
     zero = real.new_zeros((), dtype=torch.float32)
     ds = dxs = dgz1s = zero
@@ -143,6 +147,7 @@ def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
             dgz1s = dgz1s + guarded_sum(torch.sigmoid(logits_fake.float()),
                                          mask_mb)
     torch._foreach_div_(d_grads, w_total)
+    all_reduce_grads(d_params, mesh)
     opt_d.step()
 
     gs = dgz2s = zero
@@ -158,5 +163,6 @@ def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
             dgz2s = dgz2s + guarded_sum(torch.sigmoid(logits.float()),
                                          mask_mb)
     torch._foreach_div_(g_grads, w_total)
+    all_reduce_grads(g_params, mesh)
     opt_g.step()
     return torch.stack([gs, ds, dxs, dgz1s, dgz2s]).detach() / w_total

@@ -32,8 +32,9 @@ and step randomness, and each trains on its rows of every batch
 (:func:`~xgan_torch.train.gan.dcgan_step`); ``--shard-store`` splits the
 store over the ranks. Rank 0 alone writes the sheets, checkpoints,
 snapshot, history and figures, and traces; the ranks agree at each epoch
-boundary. ``--grad-accum`` and ``--steps-per-call`` do not run across
-ranks yet (the CLI refuses them under a launch).
+boundary. ``--grad-accum`` gives each rank its share of every
+microbatch; ``--steps-per-call`` does not run across ranks yet (the CLI
+refuses it under a launch).
 """
 from __future__ import annotations
 

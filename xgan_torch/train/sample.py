@@ -5,6 +5,8 @@ image) batch by batch on the device, converts
 to uint8 there (the reference's ``x*0.5+0.5`` export transform) and
 writes ``synthetic_00001.png`` ... on the host. The device work of batch
 k+1 is enqueued before the PNG encode of batch k, so the two overlap.
+Under a ``torchrun`` launch each rank renders and writes its rows of
+every batch (``generate_images(mesh=...)``).
 """
 from __future__ import annotations
 
@@ -85,7 +87,7 @@ def generate_images(model, *, output_dir: str, num_images: int,
                     dtype: torch.dtype = torch.bfloat16, noise=None,
                     conditional: bool = False, labels=None,
                     num_classes: int = 2,
-                    stats: dict | None = None) -> int:
+                    stats: dict | None = None, mesh=None) -> int:
     """Sample ``num_images`` and write PNGs; returns the count written.
 
     ``z`` is drawn from ``torch.Generator(device).manual_seed(seed)``
@@ -101,8 +103,19 @@ def generate_images(model, *, output_dir: str, num_images: int,
     ``imgs_per_sec`` (all images over the whole loop, writes included) and
     ``device_plus_transfer_imgs_per_sec`` (the JAX sampler's rate: the loop
     up to the last batch's arrival on the host, with the overlapped
-    encode of the batch before it)."""
+    encode of the batch before it).
+
+    ``mesh`` (a joined process group): the batch is ``batch_size``
+    rounded up to a multiple of the ranks (``pad_batch``, as the JAX
+    sampler shards ``z`` over ``data``); every rank draws the whole
+    batch's z and labels from the same seed, renders its
+    ``local_rows`` and writes those rows' PNGs under their global names,
+    so the ranks write the files one process writes at that batch and
+    share the PNG encode. A barrier ends the loop; rank 0 prints the
+    totals, and every rank returns the global count."""
     device = torch.device(device)
+    dp = mesh is not None and mesh.distributed
+    main = not dp or mesh.is_main
     check_create_dir(output_dir)
     if isinstance(model, Artifact):
         def render(z, y=None):  # its labels input is int32
@@ -118,6 +131,7 @@ def generate_images(model, *, output_dir: str, num_images: int,
     gen = torch.Generator(device=device).manual_seed(seed)
     draws = iter(noise) if noise is not None else None
     label_draws = iter(labels) if labels is not None else None
+    batch = mesh.pad_batch(batch_size) if dp else batch_size
 
     def injected(it, what, dtype):
         x = next(it, None)
@@ -126,58 +140,68 @@ def generate_images(model, *, output_dir: str, num_images: int,
         return torch.as_tensor(np.asarray(x, dtype), device=device)
 
     def next_batch():
+        """(this rank's rows rendered, the batch's rows, the first row's
+        place in it)."""
         if draws is None:
-            z = torch.randn((batch_size, latent_dim), generator=gen,
+            z = torch.randn((batch, latent_dim), generator=gen,
                             device=device)
         else:
             z = injected(draws, "noise", np.float32)
+        rows = mesh.local_rows(z.shape[0]) if dp else slice(0, None)
         if not conditional:
-            return render(z)
+            return render(z[rows]), z.shape[0], rows.start
         if label_draws is None:
             y = torch.randint(0, num_classes, (z.shape[0],),
                               generator=gen, device=device)
         else:
             y = injected(label_draws, "labels", np.int64)
-        return render(z, y)
+        return render(z[rows], y[rows]), z.shape[0], rows.start
 
-    print(f"Generating {num_images} synthetic images (batch {batch_size}, "
-          f"{device}, {dtype})...")
+    if main:
+        print(f"Generating {num_images} synthetic images (batch {batch}, "
+              f"{device}, {dtype}"
+              + (f", {mesh.world} ranks" if dp else "") + ")...")
     t0 = time.perf_counter()
     timer = StepTimer(device)
     written = sampled = 0
     pending = None  # host copy of the previous batch, encoded meanwhile
     while written < num_images:
-        imgs_dev = None
+        nxt = None
         if sampled < num_images:
-            imgs_dev = next_batch()
-            sampled += imgs_dev.shape[0]
+            nxt = next_batch()
+            sampled += nxt[1]
         if pending is not None:
-            written = _write_pngs(pending, output_dir, written, num_images)
-        if imgs_dev is not None:
-            pending = imgs_dev.cpu().numpy()
-            timer.tick(pending.shape[0])
-        else:
-            pending = None
+            imgs, n, first = pending
+            _write_pngs(imgs, output_dir, written + first, num_images)
+            done = min(written + n, num_images)
+            if main and done // 1000 > written // 1000:
+                print(f"Generated {done}/{num_images} images...")
+            written = done
+        pending = None
+        if nxt is not None:
+            pending = (nxt[0].cpu().numpy(), *nxt[1:])
+            timer.tick(nxt[1])
+    if dp:
+        mesh.barrier()  # every rank's files are written
     rate = written / (time.perf_counter() - t0)
-    print(f"Finished generating {written} images in {output_dir} "
-          f"({rate:.1f} imgs/s written, {timer.rate:.1f} imgs/s "
-          "device+transfer)")
+    if main:
+        print(f"Finished generating {written} images in {output_dir} "
+              f"({rate:.1f} imgs/s written, {timer.rate:.1f} imgs/s "
+              "device+transfer)")
     if stats is not None:
         stats["imgs_per_sec"] = rate
         stats["device_plus_transfer_imgs_per_sec"] = timer.rate
     return written
 
 
-def _write_pngs(images: np.ndarray, output_dir: str, written: int,
-                num_images: int) -> int:
-    take = min(images.shape[0], num_images - written)
-    paths = [os.path.join(output_dir,
-                          f"synthetic_{written + i + 1:05d}.png")
+def _write_pngs(images: np.ndarray, output_dir: str, start: int,
+                num_images: int) -> None:
+    """Encode ``images``, the rows of a batch from global row ``start``
+    on, as ``synthetic_{start + 1:05d}.png`` ..., never a row at or past
+    ``num_images``."""
+    take = max(0, min(images.shape[0], num_images - start))
+    paths = [os.path.join(output_dir, f"synthetic_{start + i + 1:05d}.png")
              for i in range(take)]
     failures = encode_png_batch(images[:take], paths)
     if failures:
         print(f"Warning: {failures} PNG writes failed")
-    written += take
-    if written % 1000 < take:
-        print(f"Generated {written}/{num_images} images...")
-    return written

@@ -41,21 +41,34 @@ True)`` through the critic (cuDNN convolutions, BN, LeakyReLU), then the
 loss's backward through that graph. The fake batch is made under
 ``no_grad``, so no ConvT of G is on that graph: the ConvT kernel's
 training form is only ever differentiated once.
+
+Across data-parallel ranks (``mesh``, a joined process group; G's and
+the critic's BN tied to it by ``sync_batch_norm``) every rank draws the
+global batch's flip, noises, α and G's noise from the same seed and takes
+its rows (``MeshContext.local_rows``), so N ranks compute the function of
+one. Every BN batch (G's, the critic's real, fake and x̂) is global, the
+loss means and the penalty's mean take global denominators, the
+gradients are summed over the ranks before each Adam step and the losses
+are global. The penalty's double backward crosses the ranks through BN's
+differentiable all-reduce, which every rank issues in the same order.
+With ``grad_accum`` a rank holds its share of each microbatch, as in
+:mod:`xgan_torch.train.gan`.
 """
 from __future__ import annotations
 
 import torch
 
-from xgan_torch.data.pipeline import gather_preprocess
+from xgan_torch.data.pipeline import gather_preprocess, take_rows
 from xgan_torch.kernels.convt import convt4x4s2_fused
 from xgan_torch.ops.reduce import weighted_mean
+from xgan_torch.parallel.mesh import all_reduce_grads
 from xgan_torch.train.common import guarded_sum, microbatches, \
     zeroed_grads
 
 
 def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
                      alpha: torch.Tensor, lambda_gp: float = 10.0,
-                     mask=None) -> torch.Tensor:
+                     mask=None, mesh=None) -> torch.Tensor:
     """``lambda_gp * wmean((‖∇_x critic(x̂)‖₂ − 1)², mask)`` with
     ``x̂ = α·real + (1−α)·fake`` in f32 (the JAX promotion of an f32 α and
     fake with a bf16 real; the critic casts x̂ to its compute dtype).
@@ -67,7 +80,14 @@ def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
     zeroed before the sum that is differentiated: their normalized
     activations depend on the valid rows' statistics, so they would leak
     gradient into the valid rows. The norm is ``sqrt(sum(g²) + 1e-12)``
-    in f32."""
+    in f32.
+
+    ``mesh`` (a joined process group; the critic's BN tied to it): the
+    rows are this rank's, and the result is this rank's share of the
+    global penalty mean. The differentiated sum stays this rank's: the
+    other ranks' scores reach its rows through BN's cross-rank statistics,
+    whose all-reduce backward sums their gradients, and that backward is
+    differentiable in turn (``all_reduce_sum``)."""
     b = real.shape[0]
     inter = (alpha * real + (1.0 - alpha) * fake).float().requires_grad_()
     scores = critic(inter, train=True, mask=mask)
@@ -76,7 +96,7 @@ def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
     grads, = torch.autograd.grad(scores.sum(), inter, create_graph=True)
     norms = torch.sqrt(grads.float().reshape(b, -1).square().sum(dim=1)
                        + 1e-12)
-    return lambda_gp * weighted_mean((norms - 1.0).square(), mask)
+    return lambda_gp * weighted_mean((norms - 1.0).square(), mask, mesh)
 
 
 def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
@@ -84,7 +104,8 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
               dtype: torch.dtype = torch.float32, mask=None, flip=None,
               noises=None, alphas=None, g_noise=None,
               generator: torch.Generator | None = None,
-              convt=convt4x4s2_fused, grad_accum: int = 1) -> torch.Tensor:
+              convt=convt4x4s2_fused, grad_accum: int = 1,
+              take=take_rows, mesh=None) -> torch.Tensor:
     """One iteration; returns the ``(critic_iters + 1,)`` device tensor
     ``[d_loss_1, ..., d_loss_n, g_loss]``, without a host sync unless
     ``grad_accum > 1`` and a ``mask`` is given (it then reads which
@@ -97,22 +118,30 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
     ``critic_iters`` of each); then G's (B, latent) noise (``g_noise``).
     ``convt``: the forward of G's k4s2 layers (the kernel; a check passes
     its plain version). ``grad_accum``: microbatches per update (it must
-    divide B)."""
+    divide B). ``take``: the store's gather (``DeviceStore.take``);
+    ``mesh``: the step of one data-parallel rank (see the module
+    docstring)."""
     dev = store_u8.device
+    dp = mesh is not None and mesh.distributed
     b = idx.shape[0]
+    rows = mesh.local_rows(b, grad_accum) if dp else slice(None)
     real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
-                             dtype=dtype)
-    draws = [(noises[i] if noises is not None else torch.randn(
-                  (b, latent_dim), generator=generator, device=dev),
-              alphas[i] if alphas is not None else torch.rand(
-                  (b, 1, 1, 1), generator=generator, device=dev))
+                             dtype=dtype, take=take, rows=rows)
+    draws = [((noises[i] if noises is not None else torch.randn(
+                   (b, latent_dim), generator=generator, device=dev))[rows],
+              (alphas[i] if alphas is not None else torch.rand(
+                   (b, 1, 1, 1), generator=generator, device=dev))[rows])
              for i in range(critic_iters)]
     if g_noise is None:
         g_noise = torch.randn((b, latent_dim), generator=generator,
                               device=dev)
+    g_noise = g_noise[rows]
+    if mask is not None:
+        mask = mask[rows]
     if grad_accum > 1:
-        return _step_accum(g, c, opt_g, opt_c, real, draws, g_noise, mask,
-                           lambda_gp, grad_accum, convt)
+        losses = _step_accum(g, c, opt_g, opt_c, real, draws, g_noise, mask,
+                             lambda_gp, b, grad_accum, convt, mesh)
+        return mesh.all_reduce_(losses) if dp else losses
     c_params = list(c.parameters())
     losses = []
     for noise, alpha in draws:
@@ -121,37 +150,43 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
         opt_c.zero_grad(set_to_none=True)
         d_real = c(real, train=True, mask=mask)
         d_fake = c(fake, train=True, mask=mask)
-        gp = gradient_penalty(c, real, fake, alpha, lambda_gp, mask)
-        loss = -weighted_mean(d_real, mask) + weighted_mean(d_fake, mask) + gp
+        gp = gradient_penalty(c, real, fake, alpha, lambda_gp, mask, mesh)
+        loss = (-weighted_mean(d_real, mask, mesh)
+                + weighted_mean(d_fake, mask, mesh) + gp)
         loss.backward(inputs=c_params)
+        all_reduce_grads(c_params, mesh)
         opt_c.step()
         losses.append(loss.detach())
 
     opt_g.zero_grad(set_to_none=True)
+    g_params = list(g.parameters())
     scores = c(g.forward_train(g_noise, mask, convt=convt), train=True,
                mask=mask)
-    loss_g = -weighted_mean(scores, mask)
-    loss_g.backward(inputs=list(g.parameters()))
+    loss_g = -weighted_mean(scores, mask, mesh)
+    loss_g.backward(inputs=g_params)
+    all_reduce_grads(g_params, mesh)
     opt_g.step()
     losses.append(loss_g.detach())
-    return torch.stack(losses)
+    losses = torch.stack(losses)
+    return mesh.all_reduce_(losses) if dp else losses
 
 
 def _step_accum(g, c, opt_g, opt_c, real, draws, g_noise, mask, lambda_gp,
-                accum: int, convt) -> torch.Tensor:
-    """``wgan_step`` with ``grad_accum=accum``; see the module
-    docstring."""
-    w_total, micro = microbatches(mask, real.shape[0], accum)
+                b: int, accum: int, convt, mesh) -> torch.Tensor:
+    """``wgan_step`` with ``grad_accum=accum`` over this rank's rows of
+    the global batch of ``b``; see the module docstring. Returns this
+    rank's share of the losses."""
+    w_total, micro = microbatches(mask, b, accum, mesh)
     losses = [_critic_update_accum(g, c, opt_c, real, noise, alpha,
-                                   lambda_gp, micro, w_total, convt)
+                                   lambda_gp, micro, w_total, convt, mesh)
               for noise, alpha in draws]
     losses.append(_g_update_accum(g, c, opt_g, g_noise, micro, w_total,
-                                  convt))
+                                  convt, mesh))
     return torch.stack(losses)
 
 
 def _critic_update_accum(g, c, opt_c, real, noise, alpha, lambda_gp, micro,
-                         w_total: float, convt) -> torch.Tensor:
+                         w_total: float, convt, mesh) -> torch.Tensor:
     """One critic update of ``wgan_step(grad_accum=A)`` over ``micro``
     (:func:`~xgan_torch.train.gan.microbatches`); returns its loss."""
     c_params = list(c.parameters())
@@ -164,18 +199,27 @@ def _critic_update_accum(g, c, opt_c, real, noise, alpha, lambda_gp, micro,
         d_real = c(real_mb, train=True, mask=mask_mb)
         d_fake = c(fake, train=True, mask=mask_mb)
         gp = gradient_penalty(c, real_mb, fake, rows(alpha), lambda_gp,
-                              mask_mb)
-        w_mb = real_mb.shape[0] if mask_mb is None else mask_mb.float().sum()
+                              mask_mb, mesh)
+        # gp: (this rank's share of) the microbatch's mean penalty; times
+        # the microbatch's valid rows over every rank, (this rank's part
+        # of) their sum. Without a mask every microbatch is whole.
+        if mask_mb is None:
+            w_mb = w_total / len(micro)
+        else:
+            w_mb = mask_mb.float().sum()
+            if mesh is not None and mesh.distributed:
+                w_mb = mesh.all_reduce_(w_mb)
         s = guarded_sum(d_fake.float() - d_real.float(), mask_mb) + gp * w_mb
         s.backward(inputs=c_params)
         total = total + s.detach()
     torch._foreach_div_(grads, w_total)
+    all_reduce_grads(c_params, mesh)
     opt_c.step()
     return total / w_total
 
 
 def _g_update_accum(g, c, opt_g, g_noise, micro, w_total: float,
-                    convt) -> torch.Tensor:
+                    convt, mesh) -> torch.Tensor:
     """The G update of ``wgan_step(grad_accum=A)``; returns its loss."""
     g_params = list(g.parameters())
     grads = zeroed_grads(g_params)
@@ -187,5 +231,6 @@ def _g_update_accum(g, c, opt_g, g_noise, micro, w_total: float,
         s.backward(inputs=g_params)
         total = total + s.detach()
     torch._foreach_div_(grads, w_total)
+    all_reduce_grads(g_params, mesh)
     opt_g.step()
     return total / w_total

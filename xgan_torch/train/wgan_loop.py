@@ -19,7 +19,11 @@ both optimizers, the EMA and the step-draw generator), ``--ema-decay``,
 as A microbatches) and ``--steps-per-call K`` (K full batches per CUDA
 graph replay, the masked tail as one eager step; Adam capturable on the
 card for every K) work as in the DCGAN loop
-(:mod:`xgan_torch.train.gan_loop`). Not ported yet: several devices.
+(:mod:`xgan_torch.train.gan_loop`), and so does a ``torchrun`` launch
+(``mesh``): the global batch padded to a multiple of the ranks, each
+rank's rows of every step (:func:`~xgan_torch.train.wgan.wgan_step`),
+``--shard-store``, rank 0 alone writing; ``--steps-per-call`` is refused
+there.
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ import torch
 
 from xgan_torch.data.pipeline import DeviceStore, minmax_to_u8
 from xgan_torch.io_.figures import plot_wgan_losses, save_image_grid
+from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.wgan import Critic, Generator
+from xgan_torch.parallel.mesh import MeshContext
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan_loop import load_train_store
@@ -43,9 +49,12 @@ from xgan_torch.train.wgan import wgan_step
 from xgan_torch.utils import StepTimer, check_create_dir
 
 
-def train_wgan(args, device: torch.device, dtype: torch.dtype):
+def train_wgan(args, device: torch.device, dtype: torch.dtype,
+               mesh: MeshContext | None = None):
     """args: the namespace of ``xgan_torch.cli.train_wggan``. Returns the
-    history, or None after a printed error."""
+    history, or None after a printed error. ``mesh``: this process's rank
+    of a data-parallel run (None: the only one)."""
+    mesh = mesh if mesh is not None else MeshContext(device)
     if not resume_preflight(args):
         return None
     model_dir = check_create_dir(os.path.join(args.model_dir, "wgan"))
@@ -54,13 +63,20 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
     metrics_dir = check_create_dir(args.results_dir)
     figures_dir = check_create_dir(args.figures_dir)
 
-    store = load_train_store(args, device)
+    with mesh.main_first():
+        store = load_train_store(args, device)
     if store is None:
         return None
     print(f"Loaded training data with {len(store)} samples.")
-    device_store = DeviceStore(store, device)
+    device_store = DeviceStore(store, device, mesh,
+                               shard=getattr(args, "shard_store", False))
+    batch_size = mesh.pad_batch(args.batch_size)
+    if batch_size != args.batch_size:
+        print(f"Note: batch size {args.batch_size} -> {batch_size} "
+              f"(multiple of {mesh.n_data} devices)")
     print(f"Device: {device}; compute dtype {dtype}; critic_iters "
-          f"{args.critic_iters}; lambda_gp {args.lambda_gp}")
+          f"{args.critic_iters}; lambda_gp {args.lambda_gp}; rank "
+          f"{mesh.rank} of {mesh.world}")
 
     seeds = [torch.Generator(device).manual_seed(args.seed + i)
              for i in range(4)]
@@ -69,6 +85,8 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
                   generator=seeds[0])
     c = Critic(args.num_channels, args.feature_maps_d, args.image_size,
                dtype=dtype, device=device, generator=seeds[1])
+    sync_batch_norm(g, mesh)
+    sync_batch_norm(c, mesh)
     # Adam betas (beta1, 0.9), as the reference's WGAN-GP trainer; on the
     # card capturable for every K, so that K = 1 trains as K > 1 does
     capturable = device.type == "cuda"
@@ -81,7 +99,6 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
                               generator=seeds[2], device=device)
     step_draws = seeds[3]
     ema = init_ema(g) if args.ema_decay > 0 else None
-    batch_size = args.batch_size
     ga = resolve_grad_accum(args.grad_accum, batch_size)
     k_steps = max(1, args.steps_per_call)
 
@@ -90,7 +107,8 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
                            latent_dim=args.latent_dim,
                            critic_iters=args.critic_iters,
                            lambda_gp=args.lambda_gp, dtype=dtype, mask=mask,
-                           generator=step_draws, grad_accum=ga)
+                           generator=step_draws, grad_accum=ga,
+                           take=device_store.take, mesh=mesh)
         if ema is not None:
             ema_update(ema, g, args.ema_decay)
         return losses
@@ -99,6 +117,8 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
         if k_steps > 1 else None
 
     def sample_grid(path):
+        if not mesh.is_main:
+            return
         g.repack()  # the eval forward reads tensors derived at repack
         imgs = minmax_to_u8(g(fixed_noise))
         save_image_grid(imgs.cpu().numpy(), path, nrow=8)
@@ -109,7 +129,7 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
     data_rng = np.random.default_rng(args.seed)
     run = EpochRun(args, model_dir, history_path, history,
                    {"g": g, "c": c}, {"g": opt_g, "c": opt_c}, ema,
-                   step_draws)
+                   step_draws, mesh)
     if not run.resume(len(store), batch_size, data_rng):
         return None
     history, iters = run.history, run.iters
@@ -167,6 +187,7 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype):
         return history
     print(f"Training finished in {time.time() - start_time:.2f} seconds.")
     run.save_final()
-    plot_wgan_losses(history, os.path.join(figures_dir,
-                                           "wgan_loss_curve.png"))
+    if mesh.is_main:
+        plot_wgan_losses(history, os.path.join(figures_dir,
+                                               "wgan_loss_curve.png"))
     return history
