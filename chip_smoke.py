@@ -210,14 +210,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
     gathered rows bitwise against the plain version, count the
     all-reduces a step, time bf16 steps (two ranks on one card, not a
     scaling figure), and must end with bitwise equal parameters;
-25. prints the kernel table line, the card line and, last, the result
+25. A14 part 3, after 24 (``phase_a14_3``; ``python3 chip_smoke.py --only
+    a14_3`` runs it alone after the build, the sampler and the stores):
+    the classifier CLI with ``--parallel-folds`` at k = 2 and 3 (f32, B =
+    16; k = 3 with ``--grad-accum 2``) under a world-1 NCCL launch and as
+    two gloo ranks on the card (``--dist-backend gloo``) against no
+    group, every JSON number within 1e-4 * (1 + |ref|) and the same
+    files; the DCGAN CLI at ``--steps-per-call 4`` under NCCL with
+    ``--shard-opt-state`` against no group; a gloo launch at K = 2, which
+    must exit 1 naming NCCL; meanwhile ZeRO-1 on two gloo ranks
+    (``--phase zero/RANK``: DCGAN-224 and unfrozen ResNet-50 parameters
+    after 3 f32 steps bitwise those of replicated Adam, the optimizers'
+    state bytes and the steps' peak memory per rank, a rank's
+    fold-batched ``mixed_gather``); then, in two processes (``--phase
+    kstep_dcgan``, ``kstep_wgan``, world-1 NCCL), the DCGAN-224 (B =
+    128), CGAN-224 (B = 32) and WGAN-GP-224 (B = 64) steps at K = 4
+    against K = 1 on the DP path (f32), the DCGAN's K = 4 run with a
+    ``ShardedAdam`` on the group bitwise plain Adam's (its NCCL
+    all-gather captured), the replay's ConvT kernels against a profiler
+    trace of one replay, and bf16 ms per step of the DP path and of no
+    group at K = 1 and K = 4;
+26. prints the kernel table line, the card line and, last, the result
     line.
 
 Profiler windows on the card have lost kernel records (ROADMAP.md C6):
 the profiler drops a kernel whose time, mapped from the card's clock,
 falls outside the window, and that mapping can be off by milliseconds.
-So a window that holds a kernel count (5's profile, 12, 17, 19 and 23's
-artifact call) keeps half a second of idle host time on each side of
+So a window that holds a kernel count (5's profile, 12, 17, 19, 23's
+artifact call and 25's replays) keeps half a second of idle host time on each side of
 its work and prints how far its first and last kernels lie from its
 edges; each such phase also runs in a new process of this script
 (``--phase NAME TMP CARD``, on the train store saved under the temporary
@@ -3426,8 +3446,8 @@ def k_calls(step, k: int, gen, idx, *inputs):
             for t in range(0, len(idx), k)], multi
 
 
-def hold_k_replay(label: str, run) -> None:
-    """f32 steps (B = 16, TF32 off, deterministic cuDNN) as K = 1 eager
+def hold_k_replay(label: str, run, b: int = 16) -> None:
+    """f32 steps (B = ``b``, TF32 off, deterministic cuDNN) as K = 1 eager
     steps and as K = LOOP_K (the first call eager, the later ones graph
     replays), each with the trainers' capturable Adam, from the same
     weights, draws and indices: the metrics and every state tensor within
@@ -3449,7 +3469,7 @@ def hold_k_replay(label: str, run) -> None:
         worst = max(worst, (s_k[key].float() - v.float()).abs().max().item())
         bitwise = bitwise and torch.equal(s_k[key], v)
     print(f"{label}: f32 K={LOOP_K} graph replays vs K=1 eager, "
-          f"{m_1.shape[0]} steps (B=16, the trainer's capturable Adam, "
+          f"{m_1.shape[0]} steps (B={b}, the trainer's capturable Adam, "
           f"{multi.replays} replays): metrics and state within "
           f"rtol 2e-4, atol 2e-5: max |diff| {worst:.3g}; bitwise equal "
           f"{bitwise}")
@@ -3458,9 +3478,10 @@ def hold_k_replay(label: str, run) -> None:
 def state_of(**named) -> dict:
     """Name -> a copy of each module's (or EMA dict's) tensors and each
     optimizer's state tensors."""
+    from xgan_torch.parallel.tp import ShardedAdam
     out = {}
     for name, obj in named.items():
-        if isinstance(obj, torch.optim.Optimizer):
+        if isinstance(obj, (torch.optim.Optimizer, ShardedAdam)):
             items = [(f"{i}.{k}", v) for i, st in enumerate(
                 obj.state_dict()["state"].values()) for k, v in st.items()]
         elif isinstance(obj, torch.nn.Module):
@@ -5069,15 +5090,13 @@ def phase_dp_cli_loops(tmp: str, root: str, synth_dir: str, smi: str,
     ``--grad-accum 2 --remat`` (ResNet-50, augmented, B = 32, 2 steps),
     and the DCGAN sampler CLI on ``phase_gan``'s generator (100 PNGs,
     batch 64), started with ``phase_dp_cli``'s (``procs``). The histories: the first step within 1e-4 * (1 + |ref|)
-    (the CGAN's within 1e-3, ROADMAP C10: the launched run's BN takes the
-    one-pass variance of the sums path, the plain run's ``F.batch_norm``
-    two passes, and the reference init's conv biases give D's channels a
-    mean far above their spread, 2.5e-4 apart at the first step on the
-    card; its f32 step is held at 1e-4 against the sums path in
-    ``dp_family_checks``), every step within 5e-2 (the classifier's
-    within 1e-4); the sampler's files byte-equal; the same files and
-    launches. Returns the launched runs' (ConvT, mixed_gather)
-    launches."""
+    (the CGAN's too: the launched run's BN combines its moments by Chan's
+    formula in float64, where the one-pass variance it took before parted
+    from the plain run's ``F.batch_norm`` by 2.5e-4 at the reference
+    init's far-from-zero channel means, ROADMAP C10), every step within
+    5e-2 (the classifier's within 1e-4); the sampler's files byte-equal;
+    the same files and launches. Returns the launched runs' (ConvT,
+    mixed_gather) launches."""
     res = {(key[0][:-1], key[1]): dp_cli_result(key[1], procs.pop(key))
            for key in [k for k in procs if k[0] in ("plain2", "nccl2")]}
     dirs = {n: os.path.join(tmp, "dp2", n) for n in ("plain", "nccl")}
@@ -5112,8 +5131,7 @@ def phase_dp_cli_loops(tmp: str, root: str, synth_dir: str, smi: str,
                          [h0[k][t] for k in keys
                           for t in range(len(h0[k])) if t * steps
                           // len(h0[k]) == s]) for s in range(steps)]
-        first = 1e-3 if module == "train_cgan" else 1e-4
-        check(per[0] <= first and max(per) <= 5e-2, (module, per))
+        check(per[0] <= 1e-4 and max(per) <= 5e-2, (module, per))
         worst[module] = per
     launches = {m: res["nccl", m][1] for m in DP_LOOP_RUNS}
     sheets = {m: len(os.listdir(os.path.join(
@@ -5143,7 +5161,7 @@ def phase_dp_cli_loops(tmp: str, root: str, synth_dir: str, smi: str,
               f"{m} {[float(f'{v:.3g}') for v in w]}"
               if isinstance(w, list) else f"{m} {w:.3g}"
               for m, w in worst.items())
-          + f" (limits: step 1 1e-4, the CGAN's 1e-3 (C10), all 5e-2; "
+          + f" (limits: step 1 1e-4, all 5e-2; "
           f"classifier 1e-4); the "
           f"sampler's 100 PNGs byte-equal; launches "
           + "; ".join(f"{m} {launches[m]}" for m in DP_LOOP_RUNS)
@@ -5310,7 +5328,8 @@ def dp_step_checks(mesh, store, sharded=None) -> dict:
     (from fresh weights rounding alone moves gradient norms past 1e-3, as
     ``hold_f32_kernel_step`` found), and a classifier step (ResNet-50,
     mix, frozen base, B = 32). The one-rank reference passes an all-ones
-    mask, which takes the BN sums path the DP path takes: metrics within
+    mask, BN's one-pass masked statistics (the DP path combines centred
+    moments since C10's fix; at these inits both hold): metrics within
     1e-4 * (1 + |ref|), per-tensor gradient norms within 1e-3 (plus twice
     the floor of the same DCGAN reference step over its rows in another
     order), parameters by :func:`params_close`. The same against the plain one-rank step
@@ -5426,8 +5445,10 @@ def dp_family_checks(mesh, store) -> dict:
     epoch 5 with the gate held closed as in ``phase_cgan_profile``) steps
     through ``mesh`` against one rank's step on the same inputs and state,
     after 3 warm-up steps of one rank (TF32 off, deterministic cuDNN; the
-    one-rank steps pass an all-ones mask, which takes the BN sums path
-    the ranks take):
+    one-rank steps normalize with ``F.batch_norm``'s two-pass statistics,
+    which the ranks' Chan combine matches: against the one-pass sums path
+    that the ranks took before C10's fix, the CGAN's gradient norms parted
+    by 1.66 of their limit at its reference init):
     the losses or metrics within 1e-4 * (1 + |ref|); each tensor's
     gradient norm within 1e-3 plus twice its floor, the larger move of
     the reference over its rows in two other orders (the second half
@@ -5444,7 +5465,6 @@ def dp_family_checks(mesh, store) -> dict:
     from xgan_torch.train.wgan import wgan_step
     dev = mesh.device
     b, n = 16, 2
-    ones = torch.ones(b, device=dev)
     orders = {"floor": torch.arange(b, device=dev).roll(b // 2),
               "floor2": torch.arange(b - 1, -1, -1, device=dev)}
     gen = torch.Generator(device=dev).manual_seed(81)
@@ -5506,8 +5526,7 @@ def dp_family_checks(mesh, store) -> dict:
                 critic_iters=n, lambda_gp=10.0, flip=draws["flip"][rows],
                 noises=[t[rows] for t in draws["noises"]],
                 alphas=[t[rows] for t in draws["alphas"]],
-                g_noise=draws["g_noise"][rows], take=store.take, mesh=m,
-                mask=None if m is not None else ones)
+                g_noise=draws["g_noise"][rows], take=store.take, mesh=m)
             torch.cuda.synchronize()
         finally:
             with_tf32(False)
@@ -5569,7 +5588,6 @@ def dp_family_checks(mesh, store) -> dict:
                     g, d, vgg, opt_g, opt_d, store.images, labels, idx[rows],
                     GATE_EPOCHS if closed else 0, latent_dim=LATENT,
                     take=store.take, mesh=m,
-                    mask=None if m is not None else ones,
                     **{k: v[rows] for k, v in draws.items()})
                 torch.cuda.synchronize()
             finally:
@@ -5786,20 +5804,18 @@ def phase_dist(train, smi: str, rank: int) -> list:
 def phase_dist1(train, smi: str, run: int) -> list:
     """The DP path on one card: one rank of a world-1 NCCL group
     (``--phase dist1``) holds :func:`dp_step_checks`, then times bf16
-    DCGAN-224 steps (B = 128), classifier steps (ResNet-50, mix, B = 32),
-    WGAN-GP steps (B = 64, 5 critic updates), CGAN steps (B = 32) and
-    accumulated DCGAN-224 steps (B = 128, A = 2) with the group (every
+    DCGAN-224 steps (B = 128), classifier steps (ResNet-50, mix, B = 32)
+    and accumulated DCGAN-224 steps (B = 128, A = 2) with the group (every
     all-reduce of the DP path) against the same steps with none, in turns
-    (none, group, group, none). Returns the group steps' (ConvT,
-    mixed_gather) launches."""
+    (none, group, group, none). (The WGAN-GP and CGAN steps' are timed at
+    K = 1 and K = 4 by :func:`phase_kstep_dp`.) Returns the group steps'
+    (ConvT, mixed_gather) launches."""
     from xgan_torch import kernels
     from xgan_torch.data.pipeline import DeviceStore
     from xgan_torch.models.layers import sync_batch_norm
     from xgan_torch.parallel.mesh import init_from_env, shutdown
-    from xgan_torch.train.cgan import cgan_step
     from xgan_torch.train.classifier import train_step
     from xgan_torch.train.gan import dcgan_step
-    from xgan_torch.train.wgan import wgan_step
     mesh = init_from_env(cpu=False)
     dev = mesh.device
     check(mesh.distributed and mesh.world == 1, mesh)
@@ -5828,26 +5844,12 @@ def phase_dist1(train, smi: str, run: int) -> list:
                          train_step(model, opt, store, synth, idx,
                                     mode="mix", ratio=0.5, flip=flip,
                                     use_synth=use, synth_pick=pick, mesh=m))
-            # A14 part 2: WGAN-GP, CGAN and the accumulated DCGAN step
-            gw, cw, ogw, ocw = wgan_models(torch.bfloat16, seed=74)
-            cg = cgan_models(dev, torch.bfloat16, seed=75)
+            # A14 part 2: the accumulated DCGAN step (the WGAN-GP and
+            # CGAN steps are timed at K = 1 and K = 4 by phase_kstep_dp)
             ga, da, oga, oda = gan_models(torch.bfloat16, seed=76)
-            for net in (gw, cw, cg[0], cg[1], ga, da):
+            for net in (ga, da):
                 sync_batch_norm(net, m)
-            widx = torch.randint(0, N_TRAIN, (WGAN_B,), generator=gen,
-                                 device=dev)
-            cidx = torch.randint(0, N_TRAIN, (CGAN_B,), generator=gen,
-                                 device=dev)
             fam[name] = {
-                "wgan": lambda nets=(gw, cw, ogw, ocw), m=m, gen=gen,
-                widx=widx: wgan_step(
-                    *nets, store.images, widx, latent_dim=LATENT,
-                    critic_iters=WGAN_CRITIC, lambda_gp=10.0, generator=gen,
-                    mesh=m),
-                "cgan": lambda cg=cg, m=m, gen=gen, cidx=cidx: cgan_step(
-                    *cg, store.images, store.labels, cidx, 0,
-                    latent_dim=LATENT, dtype=torch.bfloat16, generator=gen,
-                    mesh=m),
                 "accum": lambda nets=(ga, da, oga, oda), m=m, gen=gen,
                 gidx=gidx: dcgan_step(
                     *nets, store.images, gidx, latent_dim=LATENT,
@@ -5855,8 +5857,7 @@ def phase_dist1(train, smi: str, run: int) -> list:
         timed = [0, 0]
         # timed calls of each step a turn (3 warm ones first), its ConvT
         # launches a call
-        calls = {"gan": (10, 5), "clf": (10, 0), "wgan": (5, 5 * (
-            WGAN_CRITIC + 1)), "cgan": (5, 0), "accum": (5, 2 * 2 * 5)}
+        calls = {"gan": (10, 5), "clf": (10, 0), "accum": (5, 2 * 2 * 5)}
         for name in ("none", "group", "group", "none"):
             kernels.reset_launch_counts()
             times[f"gan {name}"].append(timed_steps(gan[name], 10))
@@ -5878,10 +5879,7 @@ def phase_dist1(train, smi: str, run: int) -> list:
           f"none, group, group, none): DCGAN-224 B={GAN_B} none "
           f"{times['gan none']} group {times['gan group']}; classifier "
           f"B={CLS_B} mix none {times['clf none']} group "
-          f"{times['clf group']}; WGAN-GP B={WGAN_B} ({WGAN_CRITIC} critic "
-          f"updates) none {times['wgan none']} group {times['wgan group']}; "
-          f"CGAN B={CGAN_B} none {times['cgan none']} group "
-          f"{times['cgan group']}; DCGAN-224 B={GAN_B} --grad-accum 2 none "
+          f"{times['clf group']}; DCGAN-224 B={GAN_B} --grad-accum 2 none "
           f"{times['accum none']} group {times['accum group']} [{smi}]")
     return [a + b for a, b in zip(launched, timed)]
 
@@ -5919,6 +5917,517 @@ def phase_dp(tmp: str, root: str, synth_dir: str, smi: str) -> list:
     return launched
 
 
+# A14 part 3: --steps-per-call under a launch, --parallel-folds on the fold
+# mesh, ZeRO-1 --shard-opt-state
+
+KSTEP_B = {"dcgan": GAN_B, "wgan": WGAN_B, "cgan": CGAN_B}
+# ConvT launches of one step of each (the CGAN's G launches none)
+KSTEP_CONVT = {"dcgan": 5, "wgan": 5 * (WGAN_CRITIC + 1), "cgan": 0}
+
+
+def kstep_setup(kind: str, store, mesh, dtype, steps: int, seed: int,
+                k: int, b: int | None = None, zero1: bool = False):
+    """The ``kind`` step (``dcgan``, ``wgan``, ``cgan``) at its full width
+    and batch (or ``b``), the trainer's capturable Adam, its BN tied to
+    ``mesh`` (a world-1 NCCL group, or None), over ``steps`` seeded
+    batches as :func:`k_calls` of ``k`` steps a call (the CGAN's epoch a
+    device input, 0). ``zero1``: each Adam a ``ShardedAdam`` built
+    directly on ``mesh`` at the CLI's rule (``shard_opt_state`` returns
+    the plain Adam at world 1), so that its NCCL all-gather runs. Returns
+    (the calls, the dispatcher or None, the state by name)."""
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.train.cgan import cgan_step
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.wgan import wgan_step
+    dev = store.images.device
+    if kind == "dcgan":
+        g, d, og, od = gan_models(dtype, seed=seed, capturable=True)
+    elif kind == "wgan":
+        g, d, og, od = wgan_models(dtype, seed=seed, capturable=True)
+    else:
+        g, d, vgg, og, od = cgan_models(dev, dtype, seed=seed,
+                                        capturable=True)
+    sync_batch_norm(g, mesh)
+    sync_batch_norm(d, mesh)
+    if zero1:
+        from xgan_torch.parallel.tp import ShardedAdam, shard_dims
+        og, od = (ShardedAdam(o, shard_dims([m], mesh.world), mesh)
+                  for o, m in ((og, g), (od, d)))
+    gen = torch.Generator(dev).manual_seed(seed + 2)
+    idx = torch.randint(0, len(store), (steps, b or KSTEP_B[kind]),
+                        device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed + 3))
+    common = dict(latent_dim=LATENT, dtype=dtype, generator=gen, mesh=mesh)
+    inputs = ()
+    if kind == "dcgan":
+        def step(i):
+            return dcgan_step(g, d, og, od, store.images, i, **common)
+    elif kind == "wgan":
+        def step(i):
+            return wgan_step(g, d, og, od, store.images, i,
+                             critic_iters=WGAN_CRITIC, lambda_gp=10.0,
+                             **common)
+    else:
+        inputs = (torch.zeros((), dtype=torch.int64, device=dev),)
+
+        def step(i, epoch):
+            return cgan_step(g, d, vgg, og, od, store.images, store.labels,
+                             i, epoch, **common)
+    calls, multi = k_calls(step, k, gen, idx, *inputs)
+    return calls, multi, dict(G=g, D=d, opt_G=og, opt_D=od)
+
+
+def phase_kstep_dp(train_store, smi: str, kind: str) -> list:
+    """``--steps-per-call`` on the DP path: one rank of a world-1 NCCL
+    group (``--phase kstep_dcgan``: the DCGAN-224 step, B = 128, then the
+    CGAN-224 step, B = 32; ``--phase kstep_wgan``: the WGAN-GP-224 step,
+    B = 64, 5 critic updates), K = LOOP_K steps with their all-reduces
+    captured in one CUDA graph:
+
+    - f32 (TF32 off, deterministic cuDNN), 8 steps at the full batch
+      after one warm-up step (the process's first f32 step picks other
+      cuDNN algorithms: the WGAN-GP's first K = 1 run parted from every
+      later one by 1.5e-3): K = LOOP_K (an eager call, then a replay)
+      against K = 1 eager steps through the group, the metrics and every
+      state tensor within LOOP_TOL; then the DCGAN's K = LOOP_K run with
+      a ``ShardedAdam`` built on the group (ZeRO-1 at world 1, its NCCL
+      all-gather captured) bitwise the plain Adam's;
+    - a profiler window of one replay (the first of its process, C6): its
+      ConvT kernels against the dispatcher's launches per replay;
+    - bf16 ms per step of the group at K = 1 and K = LOOP_K and of no
+      group at both, in turns (none, group; the WGAN-GP's 4 steps each).
+
+    Returns [the timed and profiled steps' ConvT launches]."""
+    from torch.autograd import DeviceType
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.parallel.mesh import init_from_env, shutdown
+    mesh = init_from_env(cpu=False)
+    check(mesh.distributed and mesh.world == 1 and mesh.backend == "nccl",
+          mesh)
+    store = DeviceStore(train_store, mesh.device)
+    launched = 0
+    lines = []
+    try:
+        # the CGAN (no kernel, no profiled window) after the DCGAN, whose
+        # window stays the first of the process
+        for kd in ("dcgan", "cgan") if kind == "dcgan" else (kind,):
+            torch.backends.cudnn.deterministic = True
+            kstep_setup(kd, store, mesh, torch.float32, 1, 89, 1)[0][0]()
+
+            def f32_run(k, kd=kd, zero1=False):
+                calls, multi, named = kstep_setup(
+                    kd, store, mesh, torch.float32, 8, seed=90, k=k,
+                    zero1=zero1)
+                metrics = torch.cat([c() for c in calls])
+                torch.cuda.synchronize()
+                return metrics, state_of(**named), multi
+
+            try:
+                hold_k_replay(f"{kd}-224 on the world-1 NCCL group",
+                              f32_run, KSTEP_B[kd])
+            except AssertionError:
+                # which steps part, and whether no group parts too
+                torch.backends.cudnn.deterministic = True
+                for m in (mesh, None):
+                    runs = {}
+                    for k in (1, LOOP_K):
+                        calls, _, _ = kstep_setup(kd, store, m,
+                                                  torch.float32, 8, 90, k)
+                        runs[k] = torch.cat([c() for c in calls])
+                    rel = ((runs[LOOP_K] - runs[1]).abs()
+                           / (1 + runs[1].abs())).amax(1)
+                    print(f"{kd} f32 K={LOOP_K} vs K=1, "
+                          f"{'group' if m else 'no group'}, worst "
+                          f"|a-b|/(1+|b|) per step: {rel.tolist()}")
+                raise
+            if kd == "dcgan":
+                # ZeRO-1's NCCL all-gather captured in the K-step graph
+                torch.backends.cudnn.deterministic = True
+                try:
+                    plain, zero = f32_run(LOOP_K), f32_run(LOOP_K, zero1=True)
+                finally:
+                    torch.backends.cudnn.deterministic = False
+                check(zero[2].replays >= 1 and torch.equal(zero[0], plain[0])
+                      and all(torch.equal(zero[1][n], v)
+                              for n, v in plain[1].items()),
+                      "ZeRO-1 in the K-step graph differs from plain Adam")
+                lines.append(
+                    f"dcgan-224 f32 K={LOOP_K}, 8 steps on the world-1 NCCL "
+                    f"group: with ShardedAdam (its all_gather_into_tensor "
+                    f"captured, {zero[2].replays} replays) the metrics, "
+                    f"parameters and whole Adam state bitwise plain Adam's")
+            per_step = KSTEP_CONVT[kd]
+            ms = {}
+            # the WGAN-GP step (~0.35 s) takes fewer steps
+            slow = kd == "wgan"
+            turns = ("none", "group")
+            for name in turns:
+                m = mesh if name == "group" else None
+                for k in (1, LOOP_K):
+                    steps = 4 if slow else 20
+                    warm, n_timed = (2 if slow else 3, steps) if k == 1 \
+                        else (2, steps // LOOP_K)
+                    profiled = (name == "group" and k > 1 and per_step
+                                and f"group K={k}" not in ms)
+                    calls, multi, _ = kstep_setup(
+                        kd, store, m, torch.bfloat16,
+                        (warm + n_timed + 2 * profiled) * k, seed=91, k=k)
+                    for c in calls[:warm]:
+                        c()
+                    torch.cuda.synchronize()
+                    kernels.reset_launch_counts()
+                    ms.setdefault(f"{name} K={k}", []).append(
+                        round(time_calls(calls[warm:], k, n_timed), 3))
+                    launches = dict(kernels.LAUNCHES)
+                    check(launches.get("convt4x4s2_fused", 0)
+                          == per_step * n_timed * k
+                          and on_new_designs(launches,
+                                             per_step * n_timed * k),
+                          (kd, name, k, launches))
+                    if name == "group":
+                        launched += launches.get("convt4x4s2_fused", 0)
+                    if profiled:
+                        rest = calls[warm + n_timed:]
+                        events, _ = warm_profile(rest[0], rest[1])
+                        n_convt = sum(
+                            "convt4x4s2" in e.name for e in events
+                            if e.device_type == DeviceType.CUDA)
+                        per = multi.launches_per_replay.get(
+                            "convt4x4s2_fused", 0)
+                        check(per == per_step * k and n_convt == per,
+                              (kd, per, n_convt))
+                        launched += per
+                        lines.append(
+                            f"{kd}: the dispatcher counts {per} ConvT "
+                            f"launches per replay of K={k} DP steps; the "
+                            f"profiler sees {n_convt} ConvT kernels in "
+                            f"one replay")
+            lines.append(
+                f"{kd}-224 B={KSTEP_B[kd]} bf16 ms per step (turns "
+                f"{', '.join(turns)}): " + "; ".join(
+                    f"{key} {v}" for key, v in sorted(ms.items()))
+                + f" [{smi}]")
+    finally:
+        shutdown(mesh)
+    print("\n".join(lines))
+    return [launched]
+
+
+def zero1_nets(kind: str, dev, mesh, seed: int, sharded: bool):
+    """f32 DCGAN (``kind`` ``dcgan``) or unfrozen ResNet-50 (``clf``, with
+    :func:`dist_classifier`'s synthetic store) tied to ``mesh``, and its
+    optimizers, ZeRO-1 at the CLI's rule when ``sharded``. Returns (nets,
+    optimizers, the synthetic store or None)."""
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.parallel.tp import shard_opt_state
+    from xgan_torch.train.classifier import classifier_optimizer
+    synth = None
+    if kind == "dcgan":
+        g, d, og, od = gan_models(torch.float32, seed=seed)
+        nets, opts = (g, d), [og, od]
+    else:
+        model, _, synth = dist_classifier(dev, mesh, torch.float32, seed)
+        nets, opts = (model,), [classifier_optimizer(model, 1e-3, False)]
+    for net in nets:
+        sync_batch_norm(net, mesh)
+    if sharded:
+        opts = [shard_opt_state(o, [n], mesh) for o, n in zip(opts, nets)]
+    return nets, opts, synth
+
+
+def phase_zero(train, smi: str, rank: int) -> list:
+    """ZeRO-1 and the fold groups on two ranks sharing the card over
+    gloo (``--phase zero/RANK``), f32 with TF32 off and deterministic
+    cuDNN:
+
+    - the DCGAN-224 (B = 16) and unfrozen-ResNet-50 (mix, B = 16)
+      parameters after 3 steps with ZeRO-1 (the CLI's rule, 256 wide)
+      bitwise equal to replicated Adam on the same ranks; the bytes of
+      every tensor of the optimizers' state this rank keeps between
+      steps both ways (``state_bytes``: the moments and step counts), and
+      the most memory the 3 steps allocated above what was allocated
+      before them (``torch.cuda.max_memory_allocated``: activations,
+      gradients, the state, and ZeRO-1's dense copies and all-gather
+      buckets);
+    - this rank's share of a (3, 16) lockstep batch (one fold group of
+      both ranks: 8 rows of each fold) through one fold-batched
+      ``mixed_gather`` launch, bitwise the plain version's on the same
+      rows.
+
+    Saves its parameters for the parent's check that the ranks agree;
+    returns its [ConvT, mixed_gather] launches."""
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels.gather import (mixed_gather, mixed_gather_ref,
+                                           new_error_flag, raise_if_flagged)
+    from xgan_torch.parallel.mesh import init_from_env, shutdown
+    from xgan_torch.parallel.tp import state_bytes
+    from xgan_torch.train.classifier import train_step
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.parallel_cv import FoldLayout
+    from xgan_torch.train.parallel_folds import _pick
+    mesh = init_from_env(cpu=False, backend="gloo")
+    dev = mesh.device
+    check(mesh.world == 2 and mesh.rank == rank, mesh)
+    torch.backends.cudnn.deterministic = True
+    store = DeviceStore(train, dev)
+    out, nbytes, peak, launched = {}, {}, {}, [0, 0]
+    try:
+        b = 16
+        idx, use, pick, flip = dist_draws(dev, b, 95)
+        for kind in ("dcgan", "clf"):
+            for sharded in (False, True):
+                nets, opts, synth = zero1_nets(kind, dev, mesh, 96, sharded)
+                gen = torch.Generator(dev).manual_seed(97)
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = torch.cuda.memory_allocated(dev)
+                for _ in range(3):
+                    if kind == "dcgan":
+                        dcgan_step(*nets, *opts, store.images, idx,
+                                   latent_dim=LATENT, generator=gen,
+                                   mesh=mesh)
+                    else:
+                        train_step(nets[0], opts[0], store, synth, idx,
+                                   mode="mix", ratio=0.5, flip=flip,
+                                   use_synth=use, synth_pick=pick,
+                                   mesh=mesh)
+                torch.cuda.synchronize()
+                peak[kind, sharded] = (torch.cuda.max_memory_allocated(dev)
+                                       - before)
+                launched[0] += kernels.LAUNCHES["convt4x4s2_fused"]
+                launched[1] += kernels.LAUNCHES["mixed_gather"]
+                out[kind, sharded] = {
+                    f"{i}.{k}": v.detach().clone()
+                    for i, n in enumerate(nets)
+                    for k, v in n.state_dict().items()}
+                nbytes[kind, sharded] = sum(state_bytes(o) for o in opts)
+                del nets, opts, synth
+        for kind in ("dcgan", "clf"):
+            plain, zero = out[kind, False], out[kind, True]
+            check(all(torch.equal(zero[k], v) for k, v in plain.items()),
+                  f"{kind}: ZeRO-1 parameters differ from replicated Adam")
+            check(nbytes[kind, True] < 0.75 * nbytes[kind, False],
+                  (kind, nbytes))
+
+        layout = FoldLayout(mesh, 3)
+        g = torch.Generator(dev).manual_seed(99)
+        fidx = torch.randint(0, len(store), (3, b), generator=g, device=dev)
+        fuse = torch.rand((3, b), generator=g, device=dev) < 0.5
+        fpick = torch.randint(0, len(store), (3, b), generator=g, device=dev)
+        rows = layout.group.local_rows(b)
+        parts = [_pick(t, layout.folds, rows) for t in (fidx, fpick, fuse)]
+        err = new_error_flag(dev)
+        kernels.reset_launch_counts()
+        mine = mixed_gather(store.images, store.images, *parts, err)
+        check(kernels.LAUNCHES["mixed_gather"] == 1, dict(kernels.LAUNCHES))
+        raise_if_flagged(err)
+        launched[1] += 1
+        check(torch.equal(mine, mixed_gather_ref(store.images, store.images,
+                                                 *parts)),
+              "the rank's fold-batched gather differs from the plain one")
+        torch.save({f"{k[0]}_{k[1]}": v for k, v in out.items()},
+                   os.path.join(CHILD_TMP, f"zero_rank{rank}.pt"))
+    finally:
+        shutdown(mesh)
+    print(f"rank {rank} of 2 (gloo, one card), f32: ZeRO-1 parameters after "
+          f"3 steps bitwise the replicated Adam's (DCGAN-224 B=16, "
+          f"ResNet-50 unfrozen mix B=16); bytes of the optimizers' state "
+          f"on this rank, replicated -> ZeRO-1: DCGAN "
+          f"{nbytes['dcgan', False]} -> {nbytes['dcgan', True]}, ResNet-50 "
+          f"{nbytes['clf', False]} -> {nbytes['clf', True]}; most bytes "
+          f"the 3 steps allocated above their start, replicated -> ZeRO-1: "
+          f"DCGAN {peak['dcgan', False]} -> {peak['dcgan', True]}, "
+          f"ResNet-50 {peak['clf', False]} -> {peak['clf', True]}; its "
+          f"(3 folds x {b // 2} rows) share of "
+          f"a lockstep batch in one fold-batched mixed_gather launch, "
+          f"bitwise the plain version [{smi}]")
+    return launched
+
+
+# name -> (k, the flags of the run): k = 3 accumulates two microbatches
+A14_3_CLF = {"k2": (2, ()), "k3": (3, ("--grad-accum", "2"))}
+
+
+def a14_3_processes(tmp: str, root: str, synth_dir: str) -> dict:
+    """The CLI processes of :func:`phase_a14_3`, all started at once (f32,
+    TF32 off, deterministic cuDNN): for k = 2 and 3, the classifier with
+    ``--parallel-folds`` (ResNet-50, augmented, B = 16, 2 steps; k = 3
+    with ``--grad-accum 2``, each rank's share of each microbatch) with no
+    group, under a world-1 NCCL launch and as two gloo ranks on the card;
+    the DCGAN with ``--steps-per-call 4`` (B = 128, 2 epochs of one K = 4
+    call: the eager one, then the captured replay) with no group and
+    under a world-1 NCCL launch with ``--shard-opt-state``; and
+    the DCGAN at ``--steps-per-call 2`` as a gloo launch, which must
+    refuse. Returns (run, part) -> process."""
+    procs = {}
+    ports = iter(free_ports(8))
+
+    def clf_argv(name, k, extra):
+        d = os.path.join(tmp, "a14_3", name)
+        return ["--data-dir", root, "--synthetic-dir", synth_dir,
+                "--use-synthetic", "--k-folds", str(k), "--parallel-folds",
+                "--epochs", "1", "--limit-batches", "2",
+                "--model-dir", os.path.join(d, "m"),
+                "--results-dir", os.path.join(d, "metrics"),
+                "--figures-dir", os.path.join(d, "figures"),
+                "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+                "--image-size", str(SIZE), "--batch-size", "16",
+                "--compute-dtype", "f32", *extra]
+
+    for name, (k, extra) in A14_3_CLF.items():
+        procs[f"{name}_plain", 0] = dp_cli("train_classifier",
+                                           clf_argv(f"{name}_plain", k,
+                                                    extra), None)
+        procs[f"{name}_nccl", 0] = dp_cli("train_classifier",
+                                          clf_argv(f"{name}_nccl", k, extra),
+                                          next(ports))
+        port = next(ports)
+        for r in range(2):
+            procs[f"{name}_gloo", r] = subprocess.Popen(
+                [sys.executable, "-u", "-c", CLI_LAUNCHER,
+                 "train_classifier", *clf_argv(f"{name}_gloo", k, extra),
+                 "--dist-backend", "gloo"], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, cwd=HERE,
+                env=launch_env(r, 2, 0, port))
+    for name, port, extra in (("gan_plain", None, []),
+                              ("gan_zero", next(ports),
+                               ["--shard-opt-state"])):
+        procs[name, 0] = dp_cli("train_gan", gan_cli_argv(
+            tmp, root, os.path.join(tmp, "a14_3", name), "--epochs", "2",
+            "--limit-batches", "4", "--compute-dtype", "f32",
+            "--steps-per-call", str(LOOP_K), *extra), port)
+    procs["gloo_k2", 0] = subprocess.Popen(
+        [sys.executable, "-u", "-c", CLI_LAUNCHER, "train_gan",
+         *gan_cli_argv(tmp, root, os.path.join(tmp, "a14_3", "gloo_k2"),
+                       "--steps-per-call", "2", "--dist-backend", "gloo")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE, env=launch_env(0, 1, 0, next(ports)))
+    return procs
+
+
+def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str) -> list:
+    """A14 part 3 on the card: the CLI runs of :func:`a14_3_processes`
+    (the classifier's parallel folds under a launch against no group: the
+    same files, every JSON within 1e-4 * (1 + |ref|); the K = 4 DCGAN
+    under NCCL with ZeRO-1 against no group: the first step within 1e-4 *
+    (1 + |ref|), every step within 5e-2, the same launches; the gloo
+    launch at K = 2 exits 1 with an ``Error:`` line that names NCCL) and,
+    while they run, ZeRO-1 on two gloo ranks (:func:`phase_zero`, both
+    ranks' parameters bitwise equal); then the timed DP K-step phases
+    (:func:`phase_kstep_dp`, one process each). Returns the (ConvT,
+    mixed_gather) launches."""
+    procs = a14_3_processes(tmp, root, synth_dir)
+    launched = [0, 0]
+    try:
+        # the two ZeRO-1 ranks share the card with the CLIs: none is timed
+        got = in_fresh_ranks("zero", 2, tmp, smi)
+        launched = [got[0][0] + got[1][0], got[0][1] + got[1][1]]
+        ranks = [torch.load(os.path.join(tmp, f"zero_rank{r}.pt"),
+                            weights_only=True) for r in range(2)]
+        check(all(torch.equal(v, ranks[1][n][k]) for n in ranks[0]
+                  for k, v in ranks[0][n].items()),
+              "the two ranks' parameters differ")
+        res = {}
+        for key, proc in procs.items():
+            try:
+                text = proc.communicate(timeout=600)[0]
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            res[key] = (proc.returncode, text)
+        rc, text = res["gloo_k2", 0]
+        last = text.strip().splitlines()[-1] if text.strip() else ""
+        check(rc == 1 and last.startswith("Error: --steps-per-call 2")
+              and "NCCL" in last, (rc, text[-2000:]))
+        for key, (rc, text) in res.items():
+            if key[0] == "gloo_k2":
+                continue
+            check(rc == 0, f"{key}: exit {rc}\n" + text[-3000:])
+
+        def launches(key):
+            last = res[key][1].strip().splitlines()[-1]
+            check(last.startswith("LAUNCHES "), last)
+            return json.loads(last[len("LAUNCHES "):])
+
+        def tree(name):
+            top = os.path.join(tmp, "a14_3", name)
+            files = sorted(os.path.relpath(os.path.join(p, f), top)
+                           for p, _, fs in os.walk(top) for f in fs)
+            return top, files
+
+        worst = {}
+        for name, (k, _) in A14_3_CLF.items():
+            top0, files0 = tree(f"{name}_plain")
+            for run in ("nccl", "gloo"):
+                top, files = tree(f"{name}_{run}")
+                check(files == files0, (name, run, files, files0))
+                w = 0.0
+                for f in files0:
+                    if f.endswith(".json"):
+                        with open(os.path.join(top0, f)) as fh:
+                            want = json.load(fh)
+                        with open(os.path.join(top, f)) as fh:
+                            got = json.load(fh)
+                        w = max(w, f32_close(json_numbers(got),
+                                             json_numbers(want)))
+                check(w <= 1e-4, (name, run, w))
+                worst[f"k={k} {run}"] = w
+                got = sum(launches((f"{name}_{run}", r)).get(
+                    "mixed_gather", 0) for r in range(1 + (run == "gloo")))
+                check(got == 2 * (1 + (run == "gloo")), (name, run, got))
+                launched[1] += got
+            check("rank 1 trains folds" in res[f"{name}_gloo", 1][1]
+                  or k != 2, res[f"{name}_gloo", 1][1][-2000:])
+        h = {}
+        for name in ("gan_plain", "gan_zero"):
+            with open(os.path.join(tmp, "a14_3", name, "metrics",
+                                   "gan_training_history.json")) as f:
+                h[name] = json.load(f)
+        per_step = [f32_close([h["gan_zero"][k][t] for k in GAN_ITER_KEYS],
+                              [h["gan_plain"][k][t] for k in GAN_ITER_KEYS])
+                    for t in range(len(h["gan_plain"]["G_losses_iter"]))]
+        gl = [launches((n, 0)) for n in ("gan_plain", "gan_zero")]
+        check(len(per_step) == 2 * LOOP_K and per_step[0] <= 1e-4
+              and max(per_step) <= 5e-2 and gl[0] == gl[1]
+              and gl[1].get("convt4x4s2_fused", 0) >= 5 * LOOP_K,
+              (per_step, gl))
+        check("rank 0 of 1" in res["gan_zero", 0][1], "no group joined")
+        launched[0] += gl[1]["convt4x4s2_fused"]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    print("A14 part 3 CLIs (f32, TF32 off, deterministic cuDNN): "
+          "--parallel-folds against no group, worst |a-b|/(1+|b|) of every "
+          "JSON number: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                      worst.items())
+          + " (limit 1e-4), the same files; the DCGAN at --steps-per-call "
+          f"{LOOP_K} under world-1 NCCL with --shard-opt-state against no "
+          "group, per step: " + ", ".join(f"{v:.3g}" for v in per_step)
+          + " (limits: step 1 1e-4, all 5e-2); a gloo launch at K=2 exits "
+          f"1 naming NCCL [{smi}]")
+    failed = []
+    for kind in ("dcgan", "wgan"):  # the CGAN's runs with the DCGAN's
+        try:
+            launched[0] += in_fresh_ranks(f"kstep_{kind}", 1, tmp, smi)[0][0]
+        except AssertionError as e:  # the other phases still report
+            failed.append(str(e)[-3000:])
+    check(not failed, "\n".join(failed))
+    return launched
+
+
+def json_numbers(v) -> list:
+    """The numbers of a JSON value, in order."""
+    if isinstance(v, dict):
+        return [x for k in sorted(v) for x in json_numbers(v[k])]
+    if isinstance(v, list):
+        return [x for e in v for x in json_numbers(e)]
+    return [float(v)] if isinstance(v, (int, float)) else []
+
+
 # the phases that hold a kernel count read from a profiler window,
 # called with (the train store, the card's line, the run)
 FRESH_PHASES = {
@@ -5929,6 +6438,9 @@ FRESH_PHASES = {
     "artifact_profile": phase_artifact_profile,
     "dist": phase_dist,
     "dist1": phase_dist1,
+    **{f"kstep_{kind}": lambda train, smi, run, kind=kind: phase_kstep_dp(
+        train, smi, kind) for kind in ("dcgan", "wgan")},
+    "zero": phase_zero,
 }
 CHILD_TMP = None  # a --phase process's temporary directory
 
@@ -5943,6 +6455,24 @@ def fresh_runs(phase: str, runs, fields: str, tmp: str, smi: str) -> int:
           + "; ".join(f"{fields} = {r}: {ms / out[0][1]:.3f}"
                       for r, (_, ms) in zip(runs[1:], out[1:])))
     return sum(launched for launched, _ in out)
+
+
+def main_a14_3():
+    """``python3 chip_smoke.py --only a14_3``: the build, the sampler (the
+    synthetic set), the RSNA tree and its stores, then
+    :func:`phase_a14_3` alone (a quick check of this slice's paths; it
+    prints no result line)."""
+    smi = phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="xgan_chip_smoke_") as tmp:
+        phase_sampler(tmp)
+        root, synth_dir = os.path.join(tmp, "rsna"), \
+            os.path.join(tmp, "synthetic")
+        write_rsna_tree(root)
+        train, _ = phase_stores(root, synth_dir)
+        save_store(train, tmp)
+        print(f"launches (ConvT, mixed_gather): "
+              f"{phase_a14_3(tmp, root, synth_dir, smi)}")
 
 
 def main():
@@ -5995,6 +6525,9 @@ def main():
         gather_entry["launches"] += phase_data_loader(tmp, root, synth_dir)
         dp_convt, dp_gather = phase_dp(tmp, root, synth_dir, smi)
         gather_entry["launches"] += dp_gather
+        a14_convt, a14_gather = phase_a14_3(tmp, root, synth_dir, smi)
+        dp_convt += a14_convt
+        gather_entry["launches"] += a14_gather
     loop_ms_per_batch = B / warm_rate * 1e3
     print(f"sampler loop: {loop_ms_per_batch:.2f} ms per batch of {B} "
           f"(warm median) vs {busy_ms:.3f} ms profiled device time per "
@@ -6016,5 +6549,7 @@ for _name in [n for n in globals() if n.startswith("phase_")] + [
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
         phase_child(*sys.argv[2:5])
+    elif sys.argv[1:3] == ["--only", "a14_3"]:
+        main_a14_3()
     else:
         main()

@@ -11,15 +11,17 @@ environment with ``--cpu`` (gloo), against the same CLI in one process.
   with and without ``--shard-store``: every history, the CV summary and
   the best checkpoints within 1e-4 of the one-process run, the same
   files, only rank 0 writing.
-- A 2-rank DCGAN run whose rank 1 gets SIGTERM after its first epoch:
-  both ranks stop at the same boundary (exit 0, the notice), and
-  ``--resume-from auto`` ends bitwise equal to a straight 2-rank run.
+- A 2-rank DCGAN run with ZeRO-1 (``--shard-opt-state``) whose rank 1
+  gets SIGTERM after its first epoch: both ranks stop at the same
+  boundary (exit 0, the notice), and ``--resume-from auto`` ends bitwise
+  equal to a straight 2-rank run with replicated Adam.
 - The WGAN-GP and CGAN trainers, ``--grad-accum`` (DCGAN and classifier)
   and ``--remat`` on 2 ranks against one process: the history, the files
   and the ``.pth`` checkpoints.
-- The loop flags that do not run across ranks yet (``--steps-per-call``
-  of the three GAN trainers, ``--parallel-folds``) exit 1 with "not
-  supported by xgan_torch yet" under a launch environment.
+- The flags a launch once refused: the three GAN trainers at
+  ``--steps-per-call 2`` with ``--shard-opt-state``, and the classifier
+  with ``--parallel-folds`` (a fold a rank), on 2 ranks against one
+  process.
 """
 import json
 import os
@@ -34,8 +36,6 @@ import torch
 
 from tests.torch_port_dist_worker import RANK_TIMEOUT, start_ranks, \
     wait_ranks
-from xgan_torch.cli import train_cgan, train_classifier, train_gan, \
-    train_wggan
 
 torch.set_num_threads(1)
 
@@ -65,6 +65,13 @@ def _clf_argv(ds, out, *extra):
             "--figures-dir", f"{out}/figures", "--cache-dir", f"{out}/cache",
             "--image-size", "32", "--batch-size", "8", "--epochs", "1",
             "--k-folds", "2", "--resnet-stages", "1,1,1,1", *extra]
+
+
+def _narrow(argv):
+    """``argv`` (a CLI run as ``-m MODULE``) through
+    ``tests/torch_port_narrow_zero1.py``: ZeRO-1's rule at 8 features."""
+    i = argv.index("-m") + 1
+    return argv[:i] + ["tests.torch_port_narrow_zero1"] + argv[i:]
 
 
 def _one(argv):
@@ -173,7 +180,11 @@ def test_sigterm_to_one_rank_stops_both_and_resumes(fake_dataset, tmp_path):
     data, epochs = fake_dataset["data_dir"], 12
     straight = _ranks(_gan_argv(data, tmp_path / "straight", epochs))
     assert "Training finished" in straight[0]
-    argv = _gan_argv(data, tmp_path / "stopped", epochs)
+    # the stopped and resumed runs keep ZeRO-1 moments: the snapshot
+    # holds them whole and the resume cuts them again, bitwise the
+    # straight replicated run
+    argv = _narrow(_gan_argv(data, tmp_path / "stopped", epochs,
+                             "--shard-opt-state"))
     paths = [tmp_path / f"rank{r}.log" for r in range(2)]
     logs = [open(p, "w") for p in paths]
     procs = start_ranks(argv, 2, logs)
@@ -248,45 +259,41 @@ LAUNCHED = {
 }
 
 
-@pytest.mark.parametrize("name", list(LAUNCHED))
-def test_launch_runs_what_it_refused(fake_dataset, tmp_path, name):
-    """The WGAN-GP and CGAN trainers, ``--grad-accum`` and ``--remat`` on
-    2 ranks against one process: the same files; the classifier's JSON
-    files within 1e-4, as above; a GAN history's first step at
-    tests/test_sharding.py's metric tolerances (rtol 2e-4, atol 2e-5) and
-    its second within 5e-2 * (1 + |ref|), as chip_smoke.py's
-    ``phase_dp_cli`` holds the DCGAN CLI's later steps; every ``.pth``
-    within 3 lr an Adam step (the GANs) or 1e-4 (the classifier).
+# the second step's limit, worst |a - b| / (1 + |b|) of a history entry:
+# 5e-2 (chip_smoke.py's ``phase_dp_cli`` for the DCGAN CLI's later
+# steps), the CGAN's re-derived from its measured floor (see below)
+SECOND = {"train_cgan": 1e-4}
 
-    Why the second step is not held as close: it starts from parameters
-    that Adam moved by up to lr where a gradient is rounding noise (1.33
-    lr at a coordinate's second step). And the CGAN's reference init
-    gives D's conv biases a channel mean far above its spread, where the
-    ranks' one-pass BN variance (``xgan``'s) loses digits that one
-    process's ``F.batch_norm`` keeps (ROADMAP C10): the first step
-    already parts by 5.6e-5, the second by 2e-3."""
-    argv, history = LAUNCHED[name]
+
+def _held_against_one_process(fake_dataset, tmp_path, argv, history,
+                              clf: bool, updates: int, second: float):
+    """The CLI of ``argv`` on 2 ranks against one process: the same
+    files; the classifier's JSON files within 1e-4, as above; a GAN
+    history's first step at tests/test_sharding.py's metric tolerances
+    (rtol 2e-4, atol 2e-5) and every entry within ``second`` * (1 +
+    |ref|); every ``.pth`` within 3 lr an Adam step (``updates``, the
+    GANs) or 1e-4 (the classifier). Returns the ranks' outputs."""
     one = _one(argv(fake_dataset, tmp_path / "one"))
     ranks = _ranks(argv(fake_dataset, tmp_path / "two"))
     assert _files(tmp_path / "two") == _files(tmp_path / "one")
     want = json.loads((tmp_path / "one" / "metrics" / history).read_text())
     got = json.loads((tmp_path / "two" / "metrics" / history).read_text())
     assert got.keys() == want.keys()
-    clf = name.startswith("train_classifier")
+    worst = 0.0
     for k in want:
         a, b = np.asarray(_flat(got[k])), np.asarray(_flat(want[k]))
         if clf:
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=k)
             continue
-        # the first of the 2 steps of a per-step series (none of an epoch
-        # mean), then every entry
-        first = len(b) // 2
+        # the first step of a per-step series (none of an epoch mean),
+        # then every entry
+        steps = len(want["G_losses_iter" if "G_losses_iter" in want
+                         else "G_losses"])
+        first = len(b) // steps
         np.testing.assert_allclose(a[:first], b[:first], rtol=2e-4,
                                    atol=2e-5, err_msg=k)
-        assert np.max(np.abs(a - b) / (1 + np.abs(b))) <= 5e-2, k
-    # Adam steps a parameter took: the GAN runs take 2 steps of
-    # --critic-iters (or 1) updates
-    steps = 2 * (2 if name == "train_wggan" else 1)
+        worst = max(worst, float(np.max(np.abs(a - b) / (1 + np.abs(b)))))
+    assert worst <= second, worst
     for f in _files(tmp_path / "one"):
         if not f.endswith(".pth") or "snapshot" in f:
             continue
@@ -295,29 +302,81 @@ def test_launch_runs_what_it_refused(fake_dataset, tmp_path, name):
         for k, v in b.items():
             torch.testing.assert_close(
                 a[k].double(), v.double(), rtol=0,
-                atol=1e-4 if clf else 3 * 2e-4 * steps, msg=f"{f}:{k}")
+                atol=1e-4 if clf else 3 * 2e-4 * updates, msg=f"{f}:{k}")
     assert "rank 0 of 1" in one and "rank 1 of 2" in ranks[1]
     assert "Saved" not in ranks[1], ranks[1][-2000:]
+    return ranks
 
 
-REFUSED = [
-    (train_gan, ["--steps-per-call", "2"], "--steps-per-call"),
-    (train_wggan, ["--steps-per-call", "2"], "--steps-per-call"),
-    (train_cgan, ["--steps-per-call", "2"], "--steps-per-call"),
-    (train_classifier, ["--parallel-folds"], "--parallel-folds"),
-]
+@pytest.mark.parametrize("name", list(LAUNCHED))
+def test_launch_runs_what_it_refused(fake_dataset, tmp_path, name):
+    """The WGAN-GP and CGAN trainers, ``--grad-accum`` and ``--remat`` on
+    2 ranks against one process (``_held_against_one_process``), 2 GAN
+    steps of ``--critic-iters`` (or 1) updates.
+
+    Why the second step is not held as close as the first: it starts
+    from parameters that Adam moved by up to lr where a gradient is
+    rounding noise (1.33 lr at a coordinate's second step), 5e-2 as
+    chip_smoke.py holds the DCGAN CLI's later steps. The CGAN's is 1e-4:
+    with the ranks' BN moments combined by Chan's formula (C10 fixed) its
+    steps part from one process by 1.4e-5, where the ranks' former
+    one-pass variance parted by 5.6e-5 at the first step and 2e-3 at the
+    second."""
+    argv, history = LAUNCHED[name]
+    _held_against_one_process(
+        fake_dataset, tmp_path, argv, history,
+        name.startswith("train_classifier"),
+        2 * (2 if name == "train_wggan" else 1), SECOND.get(name, 5e-2))
 
 
-@pytest.mark.parametrize("cli,flags,what", REFUSED,
-                         ids=[f"{c.__name__.rsplit('.', 1)[-1]}{f}"
-                              for c, f, _ in REFUSED])
-def test_flags_refused_under_a_launch(cli, flags, what, monkeypatch,
-                                      capsys):
-    for k, v in LAUNCH.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--cpu", *flags])
-    assert e.value.code == 1
-    last = capsys.readouterr().out.strip().splitlines()[-1]
-    assert last.startswith(f"Error: {what}"), last
-    assert "not supported by xgan_torch yet under a torchrun launch" in last
+def _k2_argv(module, *extra):
+    """A GAN trainer at ``--steps-per-call 2`` and ZeRO-1 over the ranks:
+    1 epoch of 24 images at B = 10, one K = 2 call then the masked tail
+    (4 valid rows, all on rank 0) as one step."""
+    def argv(ds, out):
+        a = _narrow(_family_argv(module, ds["data_dir"], out,
+                                 "--steps-per-call", "2",
+                                 "--shard-opt-state", *extra))
+        a[a.index("--batch-size") + 1] = "10"
+        return a
+    return argv
+
+
+# the flags a launch refused until they ran across ranks: name -> (its
+# argv function, its history JSON, the Adam updates of a parameter)
+REFUSED = {
+    "train_gan--steps-per-call": (_k2_argv("train_gan"),
+                                  "gan_training_history.json", 3),
+    "train_wggan--steps-per-call": (
+        _k2_argv("train_wggan", "--critic-iters", "2"),
+        "wgan_training_history.json", 6),
+    "train_cgan--steps-per-call": (_k2_argv("train_cgan"),
+                                   "cgan_training_history.json", 3),
+    "train_classifier--parallel-folds": (
+        lambda ds, out: _clf_argv(ds, out, "--parallel-folds",
+                                  "--shard-store"),
+        "fold_1_augmented_training_history.json", 1),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSED))
+def test_flags_refused_under_a_launch(fake_dataset, tmp_path, name):
+    """The flags a launch refused run there: the three GAN trainers at
+    ``--steps-per-call 2`` with ZeRO-1 (``--shard-opt-state``), the
+    classifier with ``--parallel-folds`` (2 folds, a fold a rank, and
+    ``--shard-store``'s note), each on 2 ranks against one process
+    (``_held_against_one_process``; the CGAN's later steps at its
+    ``SECOND`` limit)."""
+    argv, history, updates = REFUSED[name]
+    clf = name.startswith("train_classifier")
+    module = name.split("--")[0]
+    ranks = _held_against_one_process(fake_dataset, tmp_path, argv, history,
+                                      clf, updates,
+                                      SECOND.get(module, 5e-2))
+    if clf:
+        assert "Note: --shard-store is ignored with --parallel-folds" \
+            in ranks[0]
+        assert "rank 1 trains folds 2-2" in ranks[1], ranks[1][-2000:]
+        assert "Cross-Validation Summary (parallel folds)" in ranks[0]
+    else:
+        assert "ZeRO-1: the Adam moments of" in ranks[0]

@@ -116,16 +116,24 @@ def gan_run(tmp_path_factory):
                            "flip": flip, "noise": noise})
     g1, d1 = _state_dicts(g_state, d_state)
 
-    # the same steps of the port on one rank (no process group)
-    g, d = Generator(LATENT, 3, FM, SIZE), Discriminator(3, FM, SIZE)
-    g.load_state_dict(g0)
-    d.load_state_dict(d0)
-    opt_g, opt_d = adam(g.parameters(), LR, 0.5), adam(d.parameters(), LR,
-                                                       0.5)
-    one = [dcgan_step(g, d, opt_g, opt_d, torch.from_numpy(images),
-                      s["idx"], latent_dim=LATENT, mask=s["mask"],
-                      noise=s["noise"], flip=s["flip"]).numpy()
-           for s in port_steps]
+    # the same steps of the port on one rank (no process group), and
+    # again with each batch's rows permuted: reduction order alone
+    def one_rank(perm):
+        g, d = Generator(LATENT, 3, FM, SIZE), Discriminator(3, FM, SIZE)
+        g.load_state_dict(g0)
+        d.load_state_dict(d0)
+        opt_g, opt_d = adam(g.parameters(), LR, 0.5), \
+            adam(d.parameters(), LR, 0.5)
+        m = [dcgan_step(g, d, opt_g, opt_d, torch.from_numpy(images),
+                        s["idx"][perm], latent_dim=LATENT,
+                        mask=None if s["mask"] is None else s["mask"][perm],
+                        noise=s["noise"][perm], flip=s["flip"][perm]).numpy()
+             for s in port_steps]
+        return np.stack(m), g.state_dict(), d.state_dict()
+
+    one = one_rank(torch.arange(B))
+    floor = [one_rank(torch.from_numpy(np.random.default_rng(s).permutation(
+        B))) for s in (0, 1)]
 
     x = torch.from_numpy(np.random.default_rng(6).normal(
         size=(8, 3, 3, 6)).astype(np.float32) * 2 + 0.5)
@@ -148,8 +156,8 @@ def gan_run(tmp_path_factory):
                 "steps": port_steps,
                 "runs": {"replicated": False, "sharded": True}},
         "bn": bn_in}, tmp_path_factory.mktemp("dist_gan"))
-    return {"want": (np.stack(want), g1, d1), "one": (np.stack(one),
-            g.state_dict(), d.state_dict()), "ranks": ranks["gan"],
+    return {"want": (np.stack(want), g1, d1), "one": one, "floor": floor,
+            "ranks": ranks["gan"],
             "bn": (bn_in, bn.state_dict(), ranks["bn"])}
 
 
@@ -174,14 +182,39 @@ def test_two_ranks_match_the_jax_mesh_step(gan_run, run):
 
 @pytest.mark.parametrize("run", ["replicated", "sharded"])
 def test_two_ranks_match_one_rank(gan_run, run):
+    """The metrics within 1e-5; the parameters and BN buffers within 1e-5
+    but for at most 1 in 1000 elements, which stay within 2 * lr a step:
+    the floor of ``test_one_rank_floor_of_reduction_order``. The ranks'
+    BN moments (Chan's combine, float64) part from the one-rank masked
+    step's one-pass variance on one of D's 8,192 conv weights by more
+    than 1e-5."""
     one_m, one_g, one_d = gan_run["one"]
     r0 = gan_run["ranks"][0][run]
+    steps = one_m.shape[0]
     np.testing.assert_allclose(r0["metrics"].numpy(), one_m, rtol=0,
                                atol=1e-5)
+    outside = total = 0
     for got, want in ((r0["g"], one_g), (r0["d"], one_d)):
         for k, v in want.items():
-            np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0,
-                                       atol=1e-5, err_msg=k)
+            a, b = got[k].double().numpy(), v.double().numpy()
+            np.testing.assert_allclose(a, b, rtol=0, atol=2 * LR * steps,
+                                       err_msg=k)
+            outside += int(np.sum(np.abs(a - b) > 1e-5))
+            total += a.size
+    assert outside <= total // 1000, (outside, total)
+
+
+def test_one_rank_floor_of_reduction_order(gan_run):
+    """The one-rank run against itself with each batch's rows permuted:
+    a parameter whose gradient is rounding noise parts by more than 1e-5
+    (Adam moves it by up to lr either way), so the ranks are held to the
+    envelope of ``test_two_ranks_match_one_rank``, not 1e-5 everywhere."""
+    _, one_g, one_d = gan_run["one"]
+    worst = max(float((got[k].double() - v.double()).abs().max())
+                for _, g, d in gan_run["floor"]
+                for got, want in ((g, one_g), (d, one_d))
+                for k, v in want.items() if v.is_floating_point())
+    assert 1e-5 < worst <= 2 * LR * 2, worst
 
 
 @pytest.mark.parametrize("run", ["replicated", "sharded"])

@@ -129,12 +129,21 @@ def test_flags_and_defaults_follow_the_jax_cli():
 @pytest.mark.parametrize("flag", [["--model-parallel", "4"],
                                   ["--shard-opt-state"],
                                   ["--model-parallel", "2"]])
-def test_unported_flags_exit_1(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--cpu", *flag])
-    assert e.value.code == 1
-    last = capsys.readouterr().out.strip().splitlines()[-1]
-    assert last.startswith("Error:") and "not supported" in last
+def test_unported_flags_exit_1(flag, tmp_path, capsys):
+    """The flags a port once refused run as the JAX CLI does on one
+    device: ``--model-parallel N`` prints its note and trains replicated,
+    ``--shard-opt-state`` has no ranks to shard over; the run goes on to
+    the dataset check."""
+    assert cli.main(["--cpu", *flag, "--data-dir", str(tmp_path / "none"),
+                     "--model-dir", str(tmp_path / "m"),
+                     "--output-dir", str(tmp_path / "o"),
+                     "--results-dir", str(tmp_path / "r"),
+                     "--figures-dir", str(tmp_path / "f")]) is None
+    out = capsys.readouterr().out
+    assert "Dataset not found" in out and "not supported" not in out
+    note = (f"Note: --model-parallel {flag[-1]} does not divide the 1 "
+            "available device(s); training with replicated params.")
+    assert (note in out) == (flag[0] == "--model-parallel")
 
 @pytest.mark.parametrize("flag", [["--resume-from", "auto"],
                                   ["--ema-decay", "0.999"],

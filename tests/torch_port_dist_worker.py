@@ -298,9 +298,220 @@ def case_take(inp, mesh):
     return out
 
 
+def _gan_nets(kind, inp, mesh):
+    """G, the second net (D or the critic), their Adam, the VGG16 (the
+    CGAN's) and the step of ``kind`` (``dcgan``, ``wgan``, ``cgan``),
+    from ``inp``'s weights, tied to ``mesh``: ``step(idx, t)`` runs step
+    ``t`` with ``inp["draws"][kind][t]`` injected."""
+    from xgan_torch.models import cgan, dcgan, wgan
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.models.vgg import VGG16Features
+    from xgan_torch.train.cgan import cgan_step
+    from xgan_torch.train.common import adam
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.wgan import wgan_step
+    latent, fm, size, lr = inp["latent"], inp["fm"], inp["size"], inp["lr"]
+    images = torch.as_tensor(inp["images"])
+    vgg = None
+    if kind == "cgan":
+        g, d = cgan.Generator(latent, 2, 3, fm, size), \
+            cgan.Discriminator(2, 3, fm, size)
+        vgg = VGG16Features()
+        vgg.load_state_dict(inp["vgg"])
+    elif kind == "wgan":
+        g, d = wgan.Generator(latent, 3, fm, size), wgan.Critic(3, fm, size)
+    else:
+        g, d = dcgan.Generator(latent, 3, fm, size), \
+            dcgan.Discriminator(3, fm, size)
+    g.load_state_dict(inp["nets"][kind][0])
+    d.load_state_dict(inp["nets"][kind][1])
+    sync_batch_norm(g, mesh)
+    sync_batch_norm(d, mesh)
+    b2 = 0.9 if kind == "wgan" else 0.999
+    opt_g, opt_d = adam(g.parameters(), lr, 0.5, b2), \
+        adam(d.parameters(), lr, 0.5, b2)
+    draws = inp["draws"][kind]
+
+    def step(idx, t, opts):
+        if kind == "dcgan":
+            return dcgan_step(g, d, *opts, images, idx, latent_dim=latent,
+                              mesh=mesh, **draws[t])
+        if kind == "wgan":
+            return wgan_step(g, d, *opts, images, idx, latent_dim=latent,
+                             critic_iters=inp["critic_iters"],
+                             lambda_gp=10.0, mesh=mesh, **draws[t])
+        return cgan_step(g, d, vgg, *opts, images, inp["labels"], idx, 0,
+                         latent_dim=latent, mesh=mesh, **draws[t])
+
+    return g, d, (opt_g, opt_d), step
+
+
+def case_zero1(inp, mesh):
+    """ZeRO-1 (``--shard-opt-state``) against replicated Adam on the same
+    ranks: for each GAN of ``inp["nets"]`` and each classifier run of
+    ``inp["clf_runs"]`` (name -> frozen base), the parameters after
+    ``inp["steps"]`` steps both ways, and the numel of each moment this
+    rank keeps. ``resumed``: the DCGAN's sharded run whose optimizers go
+    through their whole state dict after step 1 (assembled, then cut
+    again by fresh sharded optimizers), as a snapshot and a resume do."""
+    from xgan_torch.parallel.tp import shard_opt_state
+    from xgan_torch.train.classifier import classifier_optimizer, train_step
+    out = {}
+    idx = inp["idx"]
+    for kind in inp["nets"]:
+        for run in ("plain", "zero", "resumed"):
+            if run == "resumed" and kind != "dcgan":
+                continue
+            g, d, opts, step = _gan_nets(kind, inp, mesh)
+            if run != "plain":
+                opts = tuple(shard_opt_state(o, [m], mesh, inp["min"])
+                             for o, m in zip(opts, (g, d)))
+            for t in range(inp["steps"]):
+                step(idx, t, opts)
+                if run == "resumed" and t == 0:
+                    sds = [o.state_dict() for o in opts]
+                    opts = tuple(shard_opt_state(
+                        torch.optim.Adam(m.parameters(),
+                                         **{k: v for k, v in
+                                            o.param_groups[0].items()
+                                            if k != "params"}),
+                        [m], mesh, inp["min"])
+                        for o, m in zip(opts, (g, d)))
+                    for o, sd in zip(opts, sds):
+                        o.load_state_dict(sd)
+            out[f"{kind}_{run}"] = {
+                "params": {**{f"g.{k}": v for k, v in g.state_dict().items()},
+                           **{f"d.{k}": v for k, v in d.state_dict().items()}},
+                "moments": _moment_numel(opts, (g, d))}
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.models.resnet import ResNet50
+    clf = inp["clf"]
+    real = DeviceStore(_store(clf["real"], clf["real_labels"]), "cpu")
+    synth = DeviceStore(_store(clf["synth"], clf["synth_labels"]), "cpu")
+    for name, frozen in inp["clf_runs"].items():
+        for run in ("plain", "zero"):
+            model = ResNet50(2, stage_sizes=clf["stages"])
+            model.load_state_dict(clf["model"])
+            sync_batch_norm(model, mesh)
+            opt = classifier_optimizer(model, 1e-3, freeze_base=frozen)
+            if run == "zero":
+                opt = shard_opt_state(opt, [model], mesh, inp["min"])
+            for t in range(inp["steps"]):
+                train_step(model, opt, real, synth, clf["idx"], mode="mix",
+                           ratio=0.5, mesh=mesh, **clf["draws"][t])
+            out[f"{name}_{run}"] = {"params": model.state_dict(),
+                                    "moments": _moment_numel((opt,),
+                                                             (model,))}
+    return out
+
+
+def _moment_numel(opts, models) -> dict:
+    """``{parameter name: numel of its exp_avg on this rank}`` of the
+    optimizers' parameters (``nets`` named ``g``/``d`` for two)."""
+    names = {}
+    for prefix, m in zip(("g.", "d.") if len(models) == 2 else ("",),
+                         models):
+        for n, p in m.named_parameters():
+            names[id(p)] = prefix + n
+    out = {}
+    for opt in opts:
+        wide = {id(s): p for p, s, _ in getattr(opt, "wide", [])}
+        for group in opt.param_groups:
+            for s in group["params"]:
+                st = opt.state.get(s, {})
+                if "exp_avg" in st:
+                    out[names[id(wide.get(id(s), s))]] = st["exp_avg"].numel()
+    return out
+
+
+def case_kstep(inp, mesh):
+    """``--steps-per-call``: each GAN of ``inp["nets"]`` trained
+    ``inp["steps"]`` steps as one :class:`StepsPerCall` call of K =
+    steps (a plain loop of K steps on the CPU) and as K single steps, the
+    draws of step t injected into both; the (K, M) metrics and the
+    parameters of each."""
+    from xgan_torch.train.multistep import StepsPerCall
+    out = {}
+    chunk = inp["chunk"]
+    for kind in inp["nets"]:
+        for k in (1, chunk.shape[0]):
+            g, d, opts, step = _gan_nets(kind, inp, mesh)
+            calls = iter(range(chunk.shape[0]))
+
+            def one(idx, opts=opts, step=step, calls=calls):
+                return step(idx, next(calls), opts)
+
+            if k == 1:
+                metrics = torch.stack([one(i) for i in chunk])
+            else:
+                metrics = StepsPerCall(one, k, torch.Generator())(chunk)
+            out[f"{kind}_k{k}"] = {
+                "metrics": metrics,
+                "params": {**{f"g.{n}": v for n, v in g.state_dict().items()},
+                           **{f"d.{n}": v for n, v in d.state_dict().items()}}}
+    return out
+
+
+def case_folds(inp, mesh):
+    """``--parallel-folds`` across ranks: for each run of ``inp["runs"]``
+    (name -> (k, batch, grad_accum)), one lockstep step of the k folds on
+    ``fold_groups(k, world)`` from ``inp``'s weights and draws
+    (``inp["mix"][name]``, its ``accum`` the step's ``grad_accum``):
+    this rank's fold slice, its (k/f, B/n) losses and labels, every fold's
+    outputs gathered, each owned fold's state dict (and every fold's, by
+    broadcast), and the step's ``mixed_gather`` calls with the indices
+    each got."""
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.kernels import gather as gather_mod
+    from xgan_torch.models.resnet import ResNet50
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.train import parallel_folds as pf
+    from xgan_torch.train.parallel_cv import FoldLayout
+    real = DeviceStore(_store(inp["real"], inp["real_labels"]), "cpu")
+    synth = DeviceStore(_store(inp["synth"], inp["synth_labels"]), "cpu")
+    out = {}
+    for name, (k, _, _) in inp["runs"].items():
+        run = inp["mix"][name]
+        layout = FoldLayout(mesh, k)
+        models = []
+        for f in range(layout.folds.start, layout.folds.stop):
+            m = ResNet50(2, stage_sizes=inp["stages"])
+            m.load_state_dict(inp["models"][f])
+            models.append(m)
+        stack = pf.FoldStack(models, [n for n, _ in
+                                      models[0].named_parameters()])
+        sync_batch_norm(stack.model, layout.group)
+        opt = pf.FoldAdam(stack.trainable, stack.k, inp["lr"])
+        calls = []
+        ref = gather_mod.mixed_gather_ref
+
+        def counted(real_, synth_, r_idx, s_idx, use, *a, **kw):
+            calls.append(r_idx.clone())
+            return ref(real_, synth_, r_idx, s_idx, use, *a, **kw)
+
+        gather_mod.mixed_gather_ref = counted
+        try:
+            mine = pf.lockstep_train_step(
+                stack, opt, real, synth, run["idx"], run["mask"],
+                mode="mix", ratio=0.5, mesh=layout.group,
+                folds=layout.folds, use_synth=run["use_synth"],
+                synth_pick=run["synth_pick"], flip=run["flip"],
+                grad_accum=run["accum"])
+        finally:
+            gather_mod.mixed_gather_ref = ref
+        every = layout.gather(mine, run["idx"].shape[1], run["accum"])
+        out[name] = {"folds": (layout.folds.start, layout.folds.stop),
+                     "mine": mine, "every": every, "gathers": calls,
+                     "states": [layout.state_dict(stack, f)
+                                for f in range(k)]}
+    return out
+
+
 CASES = {"gan": case_gan, "bn": case_bn, "classifier": case_classifier,
          "take": case_take, "wgan": case_wgan, "penalty": case_penalty,
-         "cgan": case_cgan, "sampler": case_sampler}
+         "cgan": case_cgan, "sampler": case_sampler, "zero1": case_zero1,
+         "kstep": case_kstep, "folds": case_folds}
 
 
 def main(in_path: str, out_dir: str) -> None:
@@ -310,7 +521,9 @@ def main(in_path: str, out_dir: str) -> None:
     mesh = init_from_env(cpu=True)
     try:
         inputs = torch.load(in_path, weights_only=True)
-        out = {case: CASES[case](inp, mesh) for case, inp in inputs.items()}
+        # "case" or "case:label", so that one launch runs a case twice
+        out = {case: CASES[case.split(":")[0]](inp, mesh)
+               for case, inp in inputs.items()}
         torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     finally:
         shutdown(mesh)

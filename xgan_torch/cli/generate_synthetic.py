@@ -70,7 +70,7 @@ def sample(args, generator_cls, conditional: bool = False) -> dict:
               f"xgan_torch yet{config.UNDER_LAUNCH}; sample it as one "
               "process, or pass its .pth or .msgpack checkpoint")
         sys.exit(1)
-    mesh = config.join_ranks(args, {})
+    mesh = config.join_ranks(args)
     try:
         return _sample(args, generator_cls, conditional, mesh)
     finally:

@@ -14,8 +14,9 @@ writes a profiler trace of one train epoch per run, and with k-fold CV
 ``--resume-from auto`` loads the folds a stopped run completed (a first
 SIGTERM or SIGINT stops the run at the end of its epoch), while
 ``--parallel-folds`` trains the k folds in lockstep, one step advancing
-all of them (``xgan_torch.train.parallel_cv``). Flags of the JAX CLI that
-this port does not support yet exit 1 when set away from their default.
+all of them (``xgan_torch.train.parallel_cv``). ``--model-parallel N``
+trains replicated after the JAX CLI's note when N does not divide the
+ranks (1 without a launch).
 
 Data parallelism (the JAX CLI's default over every local device) is a
 ``torchrun`` launch here, one process a card::
@@ -25,8 +26,13 @@ Data parallelism (the JAX CLI's default over every local device) is a
 ``--batch-size`` is then the global batch (rounded up to a multiple of
 the ranks); every fold trains on all ranks, rank 0 writes every file, and
 ``--shard-store`` splits the real and test stores over the ranks.
-``--grad-accum`` and ``--remat`` run there too; ``--parallel-folds``
-exits 1 under a launch.
+``--grad-accum``, ``--remat`` and ``--shard-opt-state`` (ZeRO-1 Adam
+moments) run there too. ``--parallel-folds`` splits the ranks into
+gcd(k, ranks) fold groups, each training k / gcd folds on its ranks
+(``xgan_torch.train.parallel_cv``); ``--shard-store``,
+``--shard-opt-state`` and ``--model-parallel`` are ignored there, each
+with the JAX CLI's note. ``--model-parallel N`` with N > 1 dividing the
+ranks exits 1: tensor parallelism across ranks is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,11 +42,6 @@ import sys
 import torch
 
 from xgan_torch import config
-
-# flag -> its default: other values are not supported by the port yet
-UNSUPPORTED = {"shard_opt_state": False, "model_parallel": 1}
-# the loop flags that do not run across ranks yet
-DP_REFUSED = {"parallel_folds": False}
 
 
 def build_parser():
@@ -110,14 +111,7 @@ def build_parser():
                         "(stacked models, one step per batch for all "
                         "folds); the same artifacts as the sequential "
                         "path")
-    # flags of the JAX CLI that the port does not support yet
-    p.add_argument("--shard-store", action="store_true",
-                   help="Split the real and test stores over the "
-                        "data-parallel ranks (a no-op on one rank)")
-    p.add_argument("--shard-opt-state", action="store_true",
-                   help="(not supported by xgan_torch yet)")
-    p.add_argument("--model-parallel", type=int, default=1,
-                   help="(not supported by xgan_torch yet)")
+    config.add_shard_args(p)
     return p
 
 
@@ -128,8 +122,7 @@ def main(argv=None):
     if args.k_folds < 1:
         print("Error: k-folds must be at least 1.")
         sys.exit(1)
-    config.refuse_unsupported(args, UNSUPPORTED)
-    mesh = config.join_ranks(args, DP_REFUSED)
+    mesh = config.join_ranks(args, parallel_folds=args.parallel_folds)
     device = mesh.device
     if args.use_curriculum and not args.use_synthetic:
         print("Warning: --use-curriculum requires --use-synthetic. "

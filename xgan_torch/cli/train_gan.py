@@ -16,8 +16,9 @@ its epoch with that snapshot saved (exit 0). ``--ema-decay`` adds
 microbatches, ``--steps-per-call K`` replays K steps as one CUDA graph,
 ``--trace-dir`` writes a profiler trace of one epoch. Runs on the CUDA
 device unless ``--cpu`` is given; without a CUDA device it exits 1 with a
-structured ``Error:`` line. Flags of the JAX CLI that this port does not
-support yet exit 1 when set away from their default.
+structured ``Error:`` line. ``--model-parallel N`` trains replicated
+after the JAX CLI's note when N does not divide the ranks (1 without a
+launch).
 
 Data parallelism (the JAX CLI's default over every local device) is a
 ``torchrun`` launch here, one process a card::
@@ -27,23 +28,22 @@ Data parallelism (the JAX CLI's default over every local device) is a
 ``--batch-size`` is then the global batch (rounded up to a multiple of
 the ranks), each rank trains on its rows with BN statistics, losses and
 gradients reduced over all of them (NCCL; gloo with ``--cpu``), rank 0
-writes every file, and ``--shard-store`` splits the image store over the
-ranks. ``--grad-accum`` runs there too; ``--steps-per-call`` exits 1
-under a launch. The WGAN-GP and CGAN trainers take the same launch.
+writes every file, ``--shard-store`` splits the image store over the
+ranks and ``--shard-opt-state`` their Adam moments (ZeRO-1). ``--grad-accum``
+and ``--steps-per-call`` run there too: K steps with their NCCL
+all-reduces are one CUDA graph (gloo cannot be captured, so a gloo launch
+on the cards takes K = 1 only). ``--model-parallel N`` with N > 1
+dividing the ranks exits 1: tensor parallelism across ranks is not
+ported yet. The WGAN-GP and CGAN trainers take the same launch.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 
 import torch
 
 from xgan_torch import config
-
-# flag -> its default: other values are not supported by the port yet
-UNSUPPORTED = {"shard_opt_state": False, "model_parallel": 1}
-# the loop flags of the three GAN trainers that do not run across ranks
-# yet
-DP_REFUSED = {"steps_per_call": 1}
 
 
 def build_parser():
@@ -60,8 +60,7 @@ def build_parser():
 
 def add_run_args(p: argparse.ArgumentParser) -> None:
     """The run flags of the JAX GAN CLIs: size, seed, dtype, cache, batch
-    cap, device, dispatch, tracing and resume, and the flags the port does
-    not support yet."""
+    cap, device, dispatch, tracing and resume, and the sharding flags."""
     p.add_argument("--image-size", type=int, default=224,
                    help="Image size (multiple of 32; 224 = reference)")
     p.add_argument("--seed", type=int, default=0)
@@ -81,27 +80,27 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume-from", type=str, default="",
                    help="Resume from a snapshot_last.pth ('auto' = pick "
                         "up the run's own last snapshot)")
-    # flags of the JAX CLI that the port does not support yet
-    p.add_argument("--shard-store", action="store_true",
-                   help="Split the image store over the data-parallel "
-                        "ranks (a no-op on one rank)")
-    p.add_argument("--shard-opt-state", action="store_true",
-                   help="(not supported by xgan_torch yet)")
-    p.add_argument("--model-parallel", type=int, default=1,
-                   help="(not supported by xgan_torch yet)")
+    config.add_shard_args(p)
 
 
-def start(args, unsupported: dict = UNSUPPORTED,
-          dp_refused: dict | None = DP_REFUSED):
-    """Refuse the ``unsupported`` flags (dest -> the one value the port
-    takes), join the ranks of a launch (``config.join_ranks``: refuses
-    ``dp_refused`` there, or the launch itself when None), resolve the
+def start(args):
+    """Join the ranks of a launch (``config.join_ranks``), resolve the
     device (exit 1 with an ``Error:`` line without CUDA and ``--cpu``) and
     the compute dtype, and print the arguments. Returns ``(mesh,
-    dtype)``; ``mesh.device`` is the run's device."""
-    config.refuse_unsupported(args, unsupported)
-    mesh = config.join_ranks(args, dp_refused)
+    dtype)``; ``mesh.device`` is the run's device. ``--steps-per-call``
+    above 1 on a gloo group on the cards exits 1: a CUDA graph cannot
+    capture gloo's collectives."""
+    mesh = config.join_ranks(args)
     device = mesh.device
+    if (args.steps_per_call > 1 and device.type == "cuda"
+            and mesh.backend == "gloo"):
+        from xgan_torch.parallel.mesh import shutdown
+        shutdown(mesh)
+        print(f"Error: --steps-per-call {args.steps_per_call} captures the "
+              "steps' all-reduces in a CUDA graph, which needs NCCL on the "
+              "cards; gloo's cannot be captured (use --dist-backend nccl, "
+              "or --steps-per-call 1)")
+        sys.exit(1)
     dtype = config.resolve_dtype(args.compute_dtype, device)
     if device.type == "cuda" and dtype == torch.float32:
         # f32 means f32: cuDNN would otherwise run the convolutions in TF32

@@ -8,6 +8,7 @@ continuing on the CPU.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -89,38 +90,37 @@ def ema_decay(value: str) -> float:
     return f
 
 
-def refuse_unsupported(args, defaults: dict, where: str = "") -> None:
-    """Exit 1 with an ``Error:`` line when a flag the port does not
-    support yet is set away from its default (``defaults``: dest ->
-    default); ``where`` names the setting it is refused in."""
-    for name, default in defaults.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            print(f"Error: {flag} {getattr(args, name)!r} is not supported "
-                  f"by xgan_torch yet{where}; leave it at its default "
-                  f"({default!r})")
-            sys.exit(1)
-
-
 UNDER_LAUNCH = " under a torchrun launch (RANK, WORLD_SIZE, LOCAL_RANK set)"
 
 
-def join_ranks(args, refused: dict | None):
+def join_ranks(args, *, parallel_folds: bool = False):
     """The run's :class:`~xgan_torch.parallel.MeshContext`
-    (``init_from_env``). Under a launch, first refuse the ``refused`` flags
-    (dest -> the one value a launch takes: the loop flags that do not run
-    across ranks yet, ROADMAP A14), or the launch itself when ``refused``
-    is None (a trainer that does not run across ranks). Exits 1 with an
-    ``Error:`` line when the device or the process group is not there."""
+    (``init_from_env``; ``--dist-backend`` picks the backend of a launch).
+    Before it joins, ``--model-parallel N`` (a trainer's) against the
+    launch's world (1 without one): the JAX package's note when N does not
+    divide it (training replicated), its note under ``parallel_folds``
+    (the fold groups own the ranks), and an ``Error:`` line (exit 1) when
+    N > 1 divides it: tensor parallelism across ranks is not ported yet.
+    Exits 1 with an ``Error:`` line when the device or the process group
+    is not there."""
     from xgan_torch.parallel.mesh import init_from_env, launched
-    if launched():
-        if refused is None:
-            print(f"Error: this trainer is not supported by xgan_torch "
-                  f"yet{UNDER_LAUNCH}; run it as one process")
-            sys.exit(1)
-        refuse_unsupported(args, refused, UNDER_LAUNCH)
+    from xgan_torch.parallel.tp import model_parallel_from_args
+    world = int(os.environ["WORLD_SIZE"]) if launched() else 1
+    n = model_parallel_from_args(args, world)
+    if n > 1 and parallel_folds:
+        print("Note: --model-parallel is ignored with --parallel-folds "
+              "(the fold axis owns the mesh); training with replicated "
+              "params.")
+        n = 1
+    if n > 1:
+        print(f"Error: --model-parallel {n} (tensor parallelism over the "
+              f"{world} ranks) is not supported by xgan_torch "
+              f"yet{UNDER_LAUNCH}; leave it at 1, or at a value that does "
+              f"not divide the ranks (replicated training)")
+        sys.exit(1)
     try:
-        return init_from_env(args.cpu)
+        return init_from_env(args.cpu, getattr(args, "dist_backend", "")
+                             or None)
     except (RuntimeError, ValueError) as e:
         print(f"Error: {e}")
         sys.exit(1)
@@ -138,6 +138,26 @@ def add_resnet_stages_arg(p: argparse.ArgumentParser):
 def add_device_arg(p: argparse.ArgumentParser):
     p.add_argument("--cpu", action="store_true",
                    help="Run on the CPU (default: the CUDA device)")
+
+
+def add_shard_args(p: argparse.ArgumentParser):
+    """The trainers' ``--shard-store``, ``--shard-opt-state``,
+    ``--model-parallel`` and ``--dist-backend``."""
+    p.add_argument("--dist-backend", default="", choices=["", "nccl", "gloo"],
+                   help="The process group's backend under a torchrun "
+                        "launch (default: NCCL on the cards, gloo with "
+                        "--cpu; gloo runs two ranks on one card)")
+    p.add_argument("--shard-store", action="store_true",
+                   help="Split the image stores over the data-parallel "
+                        "ranks (a no-op on one rank)")
+    p.add_argument("--shard-opt-state", action="store_true",
+                   help="ZeRO-1: each data-parallel rank keeps the Adam "
+                        "moments of its slice of every wide parameter "
+                        "(a no-op on one rank); the same parameters")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="Tensor parallelism over N ranks; a value that "
+                        "does not divide the ranks trains replicated "
+                        "after a note")
 
 
 def resolve_device(cpu: bool) -> torch.device:

@@ -29,7 +29,10 @@ Dtype policy as in the JAX package: each conv and ``fc`` in the compute
 ``dtype`` with f32 accumulation, rounded to ``dtype``, the bias added in
 ``dtype``; BN statistics and affine in f32; tanh and the projection in
 f32. The convolutions are cuDNN's on channels_last tensors (no Pallas
-kernel is on this path in the JAX package either).
+kernel is on this path in the JAX package either). The label embeddings
+are read with ``F.embedding``, whose CUDA backward sums a row's
+gradients in a fixed order (``index_select``'s adds them atomically, so
+a step's result would vary from run to run on the card).
 """
 from __future__ import annotations
 
@@ -133,7 +136,7 @@ class Generator(nn.Module):
     def _run(self, z, labels, *, train: bool, mask,
              update_stats: bool = True) -> torch.Tensor:
         dt, b = self.dtype, z.shape[0]
-        x = z.float() + self.label_emb.weight.index_select(0, labels.long())
+        x = z.float() + F.embedding(labels.long(), self.label_emb.weight)
         x = F.linear(x.to(dt), self.fc.weight.to(dt)) + self.fc.bias.to(dt)
         x = x.view(b, -1, self.s0, self.s0) \
             .contiguous(memory_format=torch.channels_last)
@@ -195,7 +198,7 @@ class Discriminator(nn.Module):
                 feats += [x, x]  # conv0's entry aliased to the LeakyReLU's
         # reshape of the channels_last map: the CHW flatten of the reference
         flat = x.reshape(b, -1).float()
-        proj = (self.label_emb.weight.index_select(0, labels.long())
+        proj = (F.embedding(labels.long(), self.label_emb.weight)
                 * flat).sum(dim=1)
         logits = _conv(self.main[SEQ_D_CONV[-1]], x, 1, 0).float() \
             .reshape(b) + proj

@@ -14,10 +14,18 @@ are bf16; the result has the input's dtype.
 
 Across data-parallel ranks (``mesh``, a joined process group) the
 statistics are those of the global batch, as GSPMD makes them in the JAX
-package: each rank's per-channel ``sum(w*x)``, ``sum(w*x^2)`` and ``n``
-are summed over the ranks by one differentiable all-reduce, so the
-gradient reaches every rank's rows, and every rank derives the same
-running statistics from them.
+package, combined by Chan's formula: each rank takes its per-channel
+weighted count ``n_r``, mean ``mean_r`` and centred second moment
+``M2_r = sum(w*(x - mean_r)^2)`` (a second pass over its own rows), one
+differentiable all-reduce carries the three rows at the rank's slot of a
+zero ``(world, 3, C)`` buffer, so the gradient reaches every rank's rows,
+and every rank combines them alike: ``n = sum n_r``, ``mean = sum n_r
+mean_r / n``, ``M2 = sum M2_r + sum n_r (mean_r - mean)^2``. The moments
+are summed in float64 and the mean is applied as an f32 pair
+(:func:`_split`), so a channel whose mean is far above its spread keeps
+the digits one process's ``F.batch_norm`` keeps (the one-pass
+``s2/n - mean^2`` cancels there). A rank whose rows are all masked adds
+nothing.
 """
 from __future__ import annotations
 
@@ -43,7 +51,9 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
     axes = [a for a in range(x.dim()) if a != dim]
     shape = [1] * x.dim()
     shape[dim] = -1
-    if mask is None and (mesh is None or not mesh.distributed):
+    dp = mesh is not None and mesh.distributed
+    shift = None  # the f32 pair of a float64 mean (the mesh path)
+    if mask is None and not dp:
         mean = x32.mean(dim=axes)
         var = x32.square().mean(dim=axes) - mean.square()
         n = torch.tensor(float(x.numel() // x.shape[dim]), device=x.device)
@@ -59,22 +69,62 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
         w = w.reshape(shape_w)
         n = w.sum(dim=0).reshape(-1) \
             * float(x.numel() // (x.shape[0] * x.shape[dim]))
-        s1 = (x32 * w).sum(dim=axes)
-        s2 = (x32.square() * w).sum(dim=axes)
-        if mesh is not None and mesh.distributed:
-            s1, s2, n = all_reduce_sum(
-                torch.stack([s1, s2, n.expand_as(s1)]), mesh)
-        denom = torch.clamp(n, min=1.0)
-        mean = s1 / denom
-        var = s2 / denom - mean.square()
+        if dp:
+            # no mask: every weight is 1, so the products are skipped
+            n, mean, var = _moments_across_ranks(
+                x32, None if mask is None else w, n, axes, shape, mesh)
+            shift = _split(mean)
+            mean, var, n = mean.float(), var.float(), n.float()
+        else:
+            s1 = (x32 * w).sum(dim=axes)
+            s2 = (x32.square() * w).sum(dim=axes)
+            denom = torch.clamp(n, min=1.0)
+            mean = s1 / denom
+            var = s2 / denom - mean.square()
     var = torch.clamp(var, min=0.0)
     unbiased = var * (n / torch.clamp(n - 1, min=1.0))
     new_mean = (1.0 - momentum) * running_mean + momentum * mean
     new_var = (1.0 - momentum) * running_var + momentum * unbiased
     inv = scale.float() / torch.sqrt(var + eps)
-    y = (x32 - mean.reshape(shape)) * inv.reshape(shape) \
-        + bias.float().reshape(shape)
+    if shift is None:
+        centred = x32 - mean.reshape(shape)
+    else:
+        centred = (x32 - shift[0].reshape(shape)) - shift[1].reshape(shape)
+    y = centred * inv.reshape(shape) + bias.float().reshape(shape)
     return y.to(x.dtype), new_mean, new_var
+
+
+def _split(m64: torch.Tensor):
+    """A float64 tensor as the f32 pair ``(hi, lo)``: ``hi`` is ``m64``
+    rounded to f32 and ``lo`` the f32 of the rest. ``(x - hi) - lo``
+    centres an f32 ``x`` on ``m64`` without that rounding, which at a
+    mean far above the spread would shift every normalized value."""
+    hi = m64.float()
+    return hi, (m64 - hi.double()).float()
+
+
+def _moments_across_ranks(x32, w, n_r, axes, shape, mesh):
+    """Chan's combine of the ranks' per-channel moments (see the module
+    docstring), ``w`` the row weights or None (all 1): returns the global
+    ``(n, mean, var)`` in float64, the same on every rank and
+    differentiable through one all-reduce."""
+    s1 = (x32 if w is None else x32 * w).sum(dim=axes, dtype=torch.float64)
+    n_r = n_r.double().expand_as(s1)
+    mean_r = s1 / torch.clamp(n_r, min=1.0)
+    hi, lo = _split(mean_r)
+    d = (x32 - hi.reshape(shape)) - lo.reshape(shape)
+    d2 = d.square()
+    m2_r = (d2 if w is None else d2 * w).sum(dim=axes, dtype=torch.float64)
+    mine = torch.stack([n_r, mean_r, m2_r])
+    zero = torch.zeros_like(mine)
+    n_i, mean_i, m2_i = all_reduce_sum(torch.stack(
+        [mine if r == mesh.rank else zero for r in range(mesh.world)]),
+        mesh).unbind(1)
+    n = n_i.sum(0)
+    denom = torch.clamp(n, min=1.0)
+    mean = (n_i * mean_i).sum(0) / denom
+    m2 = m2_i.sum(0) + (n_i * (mean_i - mean).square()).sum(0)
+    return n, mean, m2 / denom
 
 
 def batch_norm_infer(x, scale, bias, running_mean, running_var, *,

@@ -19,9 +19,15 @@ xgan_torch.cli.train_gan ...``), and writes those collectives by hand:
   flattened buffer, so that every rank's Adam sees the same numbers and
   the parameters stay bitwise equal across ranks.
 
-The only collective is ``all_reduce``: gloo's CUDA path offers it and
-``broadcast`` and no other, and gloo runs two ranks on one card, where
-NCCL refuses to.
+The collectives are ``all_reduce`` and ``broadcast``: gloo's CUDA path
+offers those two and no other, and gloo runs two ranks on one card,
+where NCCL refuses to. (ZeRO-1's parameter all-gather,
+:mod:`xgan_torch.parallel.tp`, uses NCCL's ``all_gather_into_tensor`` and
+a zero-padded all-reduce on gloo.)
+
+:meth:`MeshContext.split` cuts the ranks into groups (``--parallel-folds``'
+fold groups): each group is a context of its own whose rank, world and
+collectives are the group's.
 """
 from __future__ import annotations
 
@@ -44,6 +50,10 @@ class MeshContext:
     rank: int = 0
     world: int = 1
     distributed: bool = False
+    # the process group of the collectives (None: every rank's) and the
+    # global ranks it holds, in group-rank order
+    group: object = None
+    members: tuple = ()
 
     @property
     def n_data(self) -> int:
@@ -98,10 +108,45 @@ class MeshContext:
         lo, hi = self._share(mb)
         return hi - lo
 
+    @property
+    def backend(self) -> str:
+        """The process group's backend (``nccl`` or ``gloo``), or ``""``
+        without one."""
+        return dist.get_backend(self.group) if self.distributed else ""
+
+    def global_rank(self, rank: int) -> int:
+        """The global rank of this context's rank ``rank``."""
+        return self.members[rank] if self.members else rank
+
+    def split(self, groups) -> "MeshContext":
+        """Cut the ranks into ``groups`` (lists of global ranks, every
+        rank in one) and return this rank's group as a context of its own:
+        its rank and world within the group, its collectives over the
+        group alone. Every rank creates every group, in the same order
+        (``dist.new_group`` asks that of every rank)."""
+        mine = None
+        for ranks in groups:
+            ranks = tuple(int(r) for r in ranks)
+            group = dist.new_group(list(ranks)) if self.distributed \
+                else None
+            if self.rank in ranks:
+                mine = MeshContext(self.device, ranks.index(self.rank),
+                                   len(ranks), self.distributed, group,
+                                   ranks)
+        if mine is None:
+            raise ValueError(f"rank {self.rank} is in none of {groups}")
+        return mine
+
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks in place (no autograd)."""
         if self.distributed:
-            dist.all_reduce(t)
+            dist.all_reduce(t, group=self.group)
+        return t
+
+    def broadcast_(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """``t`` of this context's rank ``src`` on every rank, in place."""
+        if self.distributed:
+            dist.broadcast(t, src=self.global_rank(src), group=self.group)
         return t
 
     def gather_rows(self, t: torch.Tensor, b: int,
@@ -187,22 +232,23 @@ def shutdown(ctx: MeshContext) -> None:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """SUM over the ranks whose backward is this function again, so that
-    autograd records it: a double backward (WGAN-GP's penalty through
-    cross-rank BN) differentiates the backward's all-reduce as one more
-    SUM all-reduce, issued by every rank in the same order. An in-place
-    ``dist.all_reduce`` in the backward would be invisible to autograd,
-    and the second derivative silently wrong."""
+    """SUM over the ranks of ``group`` whose backward is this function
+    again, so that autograd records it: a double backward (WGAN-GP's
+    penalty through cross-rank BN) differentiates the backward's
+    all-reduce as one more SUM all-reduce, issued by every rank in the
+    same order. An in-place ``dist.all_reduce`` in the backward would be
+    invisible to autograd, and the second derivative silently wrong."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return _AllReduceSum.apply(g.contiguous())
+        return _AllReduceSum.apply(g.contiguous(), ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: MeshContext | None
@@ -212,7 +258,7 @@ def all_reduce_sum(x: torch.Tensor, mesh: MeshContext | None
     SUM all-reduce. ``x`` itself without a process group."""
     if mesh is None or not mesh.distributed:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, mesh.group)
 
 
 @torch.no_grad()
@@ -227,7 +273,7 @@ def all_reduce_grads(params, mesh: MeshContext | None) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=mesh.group)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))

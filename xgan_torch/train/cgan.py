@@ -98,7 +98,11 @@ def gated_step(opt: torch.optim.Optimizer, gate: torch.Tensor) -> None:
     created is selected against zeros, the state it starts from. A
     ``step`` kept on the host (Adam without ``capturable``, on a CUDA
     parameter) takes the gate to the host; the trainers' Adam on the card
-    is capturable."""
+    is capturable. A ZeRO-1 :class:`~xgan_torch.parallel.tp.ShardedAdam`
+    gates the step of its slices, before it assembles the parameters."""
+    if hasattr(opt, "inner"):
+        opt.step(lambda inner: gated_step(inner, gate))
+        return
     params = [p for group in opt.param_groups for p in group["params"]]
     old_params = [p.detach().clone() for p in params]
     old_state = [{k: v.clone() for k, v in opt.state[p].items()

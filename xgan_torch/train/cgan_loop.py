@@ -28,7 +28,9 @@ DCGAN loop: the global batch padded to a multiple of the ranks, each
 rank's rows of every step (:func:`~xgan_torch.train.cgan.cgan_step`, the
 gate on the global D(x) and D(G(z))), ``--shard-store``, rank 0 alone
 writing, every rank loading the same ``--vgg-path`` or drawing the same
-random VGG16 from the seed; ``--steps-per-call`` is refused there.
+random VGG16 from the seed; ``--shard-opt-state`` and
+``--steps-per-call`` (the gate's all-reduced D(x) and D(G(z)) inside the
+captured steps) run there too.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.vgg import VGG16Features, load_vgg16_pth, \
     read_vgg16_pth
 from xgan_torch.parallel.mesh import MeshContext
+from xgan_torch.parallel.tp import opt_from_args
 from xgan_torch.train.cgan import cgan_step
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
@@ -127,8 +130,10 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype,
               "with the reference needs the ImageNet checkpoint).")
     # on the card capturable for every K, so that K = 1 trains as K > 1
     capturable = device.type == "cuda"
-    opt_g = adam(g.parameters(), args.lr, args.beta1, capturable=capturable)
-    opt_d = adam(d.parameters(), args.lr, args.beta1, capturable=capturable)
+    opt_g = opt_from_args(args, adam(g.parameters(), args.lr, args.beta1,
+                                     capturable=capturable), [g], mesh)
+    opt_d = opt_from_args(args, adam(d.parameters(), args.lr, args.beta1,
+                                     capturable=capturable), [d], mesh)
     print("Generator and Discriminator initialized.")
     fixed_noise = torch.randn((args.vis_batch_size, args.latent_dim),
                               generator=seeds[3], device=device)

@@ -46,8 +46,11 @@ agreed by all ranks at each boundary. ``--grad-accum`` gives each rank
 its share of every microbatch (``MeshContext.local_rows(B, A)``), and
 ``--remat``'s recompute re-runs BN's cross-rank all-reduce in the
 backward, on every rank in the same order (BN's running statistics still
-advance once a step). ``--parallel-folds`` does not run across ranks yet
-(the CLI refuses it under a launch).
+advance once a step). ``--shard-opt-state`` keeps each rank's slice of
+the wide Adam moments (:mod:`xgan_torch.parallel.tp`). ``--parallel-folds``
+runs on the JAX package's fold mesh (:mod:`xgan_torch.train.parallel_cv`);
+``--shard-store`` and ``--shard-opt-state`` are ignored there, each with
+the JAX loop's note, and the stores stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ from xgan_torch.models.convert import load_resnet_pth
 from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.resnet import ResNet50
 from xgan_torch.parallel.mesh import MeshContext
+from xgan_torch.parallel.tp import opt_from_args
 from xgan_torch.train.classifier import (accuracy, auroc,
                                          classifier_optimizer, eval_step,
                                          train_step, weighted_prf)
@@ -231,7 +235,8 @@ def train_one_run(args, device, dtype, stores, train_indices, val_spec, *,
         synth = real  # the pool's values index the real store
     seed = args.seed + seed_offset
     model = init_resnet(args, dtype, device, seed, mesh)
-    opt = classifier_optimizer(model, args.lr, freeze_base=not args.unfreeze)
+    opt = opt_from_args(args, classifier_optimizer(
+        model, args.lr, freeze_base=not args.unfreeze), [model], mesh)
     generator = torch.Generator(device).manual_seed(seed + 1)
     err = new_error_flag(device)
     batch_size = mesh.pad_batch(args.batch_size)
@@ -408,6 +413,11 @@ def load_stores(args, device, mesh=None):
     print(f"Stores ready in {time.perf_counter() - t0:.1f} s "
           f"(decode + resize, or the cache)")
     shard = getattr(args, "shard_store", False)
+    if shard and args.parallel_folds:
+        # the fold groups gather their folds' rows from whole stores
+        print("Note: --shard-store is ignored with --parallel-folds; "
+              "replicating the stores.")
+        shard = False
     stores = (DeviceStore(train_store, device, mesh, shard=shard),
               DeviceStore(synth_store, device),
               DeviceStore(test_store, device, mesh, shard=shard))
@@ -450,6 +460,12 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype,
         print("Note: --resume-from auto has no effect on single (non-CV) "
               "classifier runs; training from scratch.")
     parallel = args.k_folds > 1 and args.parallel_folds
+    if args.parallel_folds and args.shard_opt_state:
+        # the fold groups own the ranks: ZeRO-1 never runs there
+        print("Note: --shard-opt-state is ignored with --parallel-folds "
+              "(the fold axis owns the mesh); Adam moments stay "
+              "replicated.")
+        args.shard_opt_state = False
     if resume == "auto" and parallel:
         # fold-level resume skips completed folds, which exist only on the
         # sequential path
@@ -495,7 +511,7 @@ def train_classifier(args, device: torch.device, dtype: torch.dtype,
         result = run_parallel_cv(
             args, device, dtype, stores, kfold_splits(len(real), args.k_folds),
             strategy=strategy, schedule=schedule,
-            synth_fallback=synth_fallback)
+            synth_fallback=synth_fallback, mesh=mesh)
         if result is None:  # stopped: no summary of incomplete folds
             return None
         fold_metrics = []

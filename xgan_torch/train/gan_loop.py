@@ -33,8 +33,10 @@ and step randomness, and each trains on its rows of every batch
 store over the ranks. Rank 0 alone writes the sheets, checkpoints,
 snapshot, history and figures, and traces; the ranks agree at each epoch
 boundary. ``--grad-accum`` gives each rank its share of every
-microbatch; ``--steps-per-call`` does not run across ranks yet (the CLI
-refuses it under a launch).
+microbatch; ``--steps-per-call`` captures K steps with their NCCL
+all-reduces in one CUDA graph (:mod:`xgan_torch.train.multistep`); and
+``--shard-opt-state`` keeps each rank's slice of the wide Adam moments
+(:mod:`xgan_torch.parallel.tp`), the snapshot holding them whole.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from xgan_torch.io_.figures import plot_gan_losses, save_image_grid
 from xgan_torch.models.dcgan import Discriminator, Generator
 from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.parallel.mesh import MeshContext
+from xgan_torch.parallel.tp import opt_from_args
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan import dcgan_step
@@ -124,8 +127,10 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype,
     # on the card, Adam's update stays on the device for every K: a step
     # inside a CUDA graph needs it, and K = 1 then trains as K > 1 does
     capturable = device.type == "cuda"
-    opt_g = adam(g.parameters(), args.lr, args.beta1, capturable=capturable)
-    opt_d = adam(d.parameters(), args.lr, args.beta1, capturable=capturable)
+    opt_g = opt_from_args(args, adam(g.parameters(), args.lr, args.beta1,
+                                     capturable=capturable), [g], mesh)
+    opt_d = opt_from_args(args, adam(d.parameters(), args.lr, args.beta1,
+                                     capturable=capturable), [d], mesh)
     print("Generator and Discriminator initialized.")
     fixed_noise = torch.randn((args.vis_batch_size, args.latent_dim),
                               generator=seeds[2], device=device)

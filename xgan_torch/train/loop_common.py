@@ -17,7 +17,7 @@ import torch
 from xgan_torch.data.pipeline import epoch_batches
 from xgan_torch.io_.metrics import write_json
 from xgan_torch.train.snapshot import SnapshotManager, resume_run, \
-    save_epoch
+    run_state, save_epoch
 from xgan_torch.utils.timer import maybe_trace
 
 
@@ -297,10 +297,13 @@ class EpochRun:
                 requested=self.mesh.any(shutdown.requested))
 
         def save():
+            # every rank: a ZeRO-1 optimizer's state dict assembles its
+            # moments with a collective
+            states = run_state(self.models, self.opts, self.ema, self.rng)
             if self.is_main:
                 save_epoch(self.snapshots, self.model_dir, epoch + 1, iters,
-                           self.models, self.opts, self.ema, self.rng,
-                           self.history_path, self.history)
+                           self.models, self.history_path, self.history,
+                           states)
 
         stop = checkpoint_boundary(shutdown, epoch, self.args.epochs,
                                    self.args.checkpoint_interval, save)

@@ -42,6 +42,7 @@ import torch
 from xgan_torch.data.pipeline import (epoch_batches, normalize_images,
                                       random_flip, take_rows)
 from xgan_torch.models.resnet import ResNet50
+from xgan_torch.parallel.mesh import all_reduce_grads
 from xgan_torch.train.classifier import assemble, softmax_ce
 
 
@@ -107,6 +108,15 @@ class FoldStack:
         self.params = dict(self.model.named_parameters())
         self.buffers = dict(self.model.named_buffers())
         self.trainable = [p for n, p in self.params.items() if n in trainable]
+
+    def __call__(self, x: torch.Tensor, *, train: bool, mask=None):
+        """The k folds' logits (k, B, classes) of ``x`` (k, B, H, W, 3);
+        ``mask``: (k, B) BN row weights. A stack of one fold (a rank's
+        share of a fold-sharded run) is one plain ResNet-50."""
+        if self.k > 1:
+            return self.model(x, train=train, mask=mask)
+        return self.model(x[0], train=train,
+                          mask=None if mask is None else mask[0])[None]
 
     def state_dict(self, fold: int) -> dict:
         """Fold ``fold``'s ResNet-50 state dict, copied to the host."""
@@ -206,6 +216,13 @@ def _fold_sum(losses: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask > 0, losses.float(), 0.0).sum(1)
 
 
+def _pick(t: torch.Tensor, folds: slice, rows) -> torch.Tensor:
+    """This rank's part of a (k, B, ...) tensor: its group's ``folds``,
+    its ``rows`` of each, contiguous (the gather kernel reads its indices
+    in place)."""
+    return t[folds][:, rows].contiguous()
+
+
 def lockstep_train_step(stack: FoldStack, opt: FoldAdam, real, synth,
                         idx: torch.Tensor, mask: torch.Tensor, *,
                         mode: str, dtype: torch.dtype = torch.float32,
@@ -213,77 +230,120 @@ def lockstep_train_step(stack: FoldStack, opt: FoldAdam, real, synth,
                         synth_pool=None, host_mask: np.ndarray | None = None,
                         generator: torch.Generator | None = None, flip=None,
                         use_synth=None, synth_pick=None, err=None,
-                        grad_accum: int = 1):
-    """One step of every fold; returns (losses, preds, labels), each
-    (k, B), on the device.
+                        grad_accum: int = 1, mesh=None,
+                        folds: slice = slice(None)):
+    """One step of every fold of ``stack``; returns (losses, preds,
+    labels), each (k, B), on the device.
 
     ``idx`` (k, B) int64 rows of each fold's batch; ``mask`` (k, B) 0/1
     float validity (:func:`fold_masks`) on the device, ``host_mask`` the
     same on the host (read there without a sync; taken from ``mask``
     when missing); ``synth_pool`` (k, P): each fold's fallback pool. The
     draws, each (k, B), come from ``generator`` unless injected: the
-    mixer's ``use_synth`` and ``synth_pick``, then ``flip``."""
+    mixer's ``use_synth`` and ``synth_pick``, then ``flip``.
+
+    Across ranks (``--parallel-folds`` under a launch): ``mesh`` is this
+    rank's fold group (:meth:`MeshContext.split`), whose ranks share the
+    batch rows of the stack's folds, ``folds`` of the (k, B) inputs. Every
+    rank draws the whole (k, B) draws and takes its part of the inputs
+    (``MeshContext.local_rows``), so that the group computes what one
+    process computes: BN's statistics and each fold's loss denominator
+    span the group's rows, and the gradients are summed over the group
+    before :class:`FoldAdam`. The outputs are this rank's (k/f, B/n)
+    part; whether a fold is active or a microbatch runs is read from the
+    whole batch's mask, the same on every rank of the group."""
     if host_mask is None:
         host_mask = mask.cpu().numpy()
+    dp = mesh is not None and mesh.distributed
+    host_mask = host_mask[folds]
+    k, b = host_mask.shape
+    rows = mesh.local_rows(b, grad_accum) if dp else slice(None)
+    shape = idx.shape
+    if mode == "mix":  # the mixer's draws, whole (see mix_batch)
+        if use_synth is None:
+            use_synth = torch.rand(shape, generator=generator,
+                                   device=idx.device) < ratio
+        if synth_pick is None:
+            n_pool = (synth_pool.shape[-1] if synth_pool is not None
+                      else synth.images.shape[0])
+            synth_pick = torch.randint(0, n_pool, shape, generator=generator,
+                                       device=idx.device)
+        use_synth = _pick(use_synth, folds, rows)
+        synth_pick = _pick(synth_pick, folds, rows)
     active = host_mask.sum(1) > 0
+    mask = _pick(mask, folds, rows)
     bn_mask = None if host_mask.all() else mask  # see the module docstring
-    images, labels = assemble(mode, real, synth, idx, ratio=ratio,
-                              n_real=n_real, synth_pool=synth_pool,
-                              generator=generator, use_synth=use_synth,
-                              synth_pick=synth_pick, err=err)
-    images = random_flip(images, flip, generator=generator)
+    images, labels = assemble(
+        mode, real, synth, _pick(idx, folds, rows), ratio=ratio,
+        n_real=n_real, synth_pool=None if synth_pool is None
+        else synth_pool[folds], use_synth=use_synth, synth_pick=synth_pick,
+        err=err)
+    if flip is None:
+        flip = torch.rand(shape, generator=generator,
+                          device=images.device) < 0.5
+    images = random_flip(images, _pick(flip, folds, rows))
     x = normalize_images(images, dtype=dtype)
-    k, b = idx.shape
     opt.zero_grad()
     frozen = np.flatnonzero(~active)
     with _Keep(stack.fold_tensors() + opt.state_tensors(), frozen, k):
         if grad_accum > 1:
             losses, logits = _accum_grads(stack, x, labels, mask, host_mask,
-                                          grad_accum)
+                                          grad_accum, mesh)
         else:
-            logits = stack.model(x, train=True, mask=bn_mask)
-            losses = softmax_ce(logits.reshape(k * b, -1),
-                                labels.reshape(-1)).reshape(k, b)
+            logits = stack(x, train=True, mask=bn_mask)
+            losses = softmax_ce(logits.reshape(-1, logits.shape[-1]),
+                                labels.reshape(-1)).reshape(mask.shape)
             w = mask.float()
-            per_fold = (losses * w).sum(1) / torch.clamp(w.sum(1), min=1e-9)
+            total = w.sum(1)
+            if dp:
+                total = mesh.all_reduce_(total)
+            per_fold = (losses * w).sum(1) / torch.clamp(total, min=1e-9)
             per_fold.sum().backward()
+        if dp:
+            all_reduce_grads(stack.trainable, mesh)
         opt.step(active)
     return losses.detach(), logits.detach().argmax(-1), labels
 
 
-def _accum_grads(stack: FoldStack, x, labels, mask, host_mask, accum: int):
+def _accum_grads(stack: FoldStack, x, labels, mask, host_mask, accum: int,
+                 mesh=None):
     """``grad_accum`` microbatches of B/A rows in every fold: the gradient
     of each fold's valid-row mean loss, accumulated; a fold's microbatch
     with no valid row adds nothing and leaves its BN statistics as they
     were. Returns the per-sample (losses, logits), zeros in microbatches
-    that no fold ran."""
-    k, b = mask.shape
+    that no fold ran. ``host_mask``: the whole (k, B) batch's; across a
+    fold group (``mesh``) ``x``, ``labels`` and ``mask`` hold this rank's
+    share of each microbatch (``MeshContext.local_rows(B, A)``)."""
+    k, b = host_mask.shape
     if b % accum:
         raise ValueError(f"grad_accum={accum} must divide batch size {b}")
     mb = b // accum
+    n = mesh.micro_rows(mb) if mesh is not None and mesh.distributed \
+        else mb
     for p in stack.trainable:
         p.grad = torch.zeros_like(p)
-    losses = x.new_zeros((k, b), dtype=torch.float32)
-    logits = x.new_zeros((k, b, stack.model.num_classes),
+    losses = x.new_zeros(mask.shape, dtype=torch.float32)
+    logits = x.new_zeros((*mask.shape, stack.model.num_classes),
                          dtype=torch.float32)
     valid = host_mask.reshape(k, accum, mb).sum(2)
     for j in range(accum):
         if not valid[:, j].any():
             continue  # padding in every fold
-        rows = slice(j * mb, (j + 1) * mb)
+        rows = slice(j * n, (j + 1) * n)
         idle = np.flatnonzero(valid[:, j] == 0)
         with _Keep([t for t in stack.buffers.values() if t.dim()], idle, k), \
                 _Keep(stack.trainable, idle, k, grads=True):
-            full = host_mask[:, rows].all()
-            logits_mb = stack.model(x[:, rows], train=True,
+            full = host_mask[:, j * mb:(j + 1) * mb].all()
+            logits_mb = stack(x[:, rows], train=True,
                                     mask=None if full else mask[:, rows])
-            losses_mb = softmax_ce(logits_mb.reshape(k * mb, -1),
+            losses_mb = softmax_ce(logits_mb.reshape(k * n, -1),
                                    labels[:, rows].reshape(-1)
-                                   ).reshape(k, mb)
+                                   ).reshape(k, n)
             _fold_sum(losses_mb, mask[:, rows]).sum().backward()
         losses[:, rows] = losses_mb.detach()
         logits[:, rows] = logits_mb.detach()
-    w_total = torch.clamp(mask.float().sum(1), min=1e-9)
+    w_total = torch.clamp(torch.from_numpy(
+        host_mask.sum(1).astype(np.float32)).to(x.device), min=1e-9)
     with torch.no_grad():
         for p in stack.trainable:
             fold_view(p.grad, k).div_(
@@ -293,14 +353,18 @@ def _accum_grads(stack: FoldStack, x, labels, mask, host_mask, accum: int):
 
 @torch.no_grad()
 def lockstep_eval_step(stack: FoldStack, store, idx: torch.Tensor, *,
-                       dtype: torch.dtype = torch.float32):
+                       dtype: torch.dtype = torch.float32, mesh=None,
+                       folds: slice = slice(None)):
     """Running-statistics BN, no flip, every fold on its own (k, B) rows of
-    ``store``. Returns (losses, preds, labels, prob1), each (k, B)."""
+    ``store``. Returns (losses, preds, labels, prob1), each (k, B): across
+    a fold group (``mesh``, ``folds`` as for :func:`lockstep_train_step`)
+    this rank's part."""
+    if mesh is not None and mesh.distributed:
+        idx = _pick(idx, folds, mesh.local_rows(idx.shape[1]))
     labels = store.labels[idx]
     x = normalize_images(take_rows(store.images, idx), dtype=dtype)
-    logits = stack.model(x, train=False)
-    k, b = idx.shape
+    logits = stack(x, train=False)
     prob1 = torch.softmax(logits, dim=-1)[..., 1]
-    losses = softmax_ce(logits.reshape(k * b, -1),
-                        labels.reshape(-1)).reshape(k, b)
+    losses = softmax_ce(logits.reshape(-1, logits.shape[-1]),
+                        labels.reshape(-1)).reshape(idx.shape)
     return losses, logits.argmax(-1), labels, prob1

@@ -248,20 +248,21 @@ def resume_run(mgr: SnapshotManager, resume_from: str, models: dict,
 
 
 def save_epoch(mgr: SnapshotManager, model_dir: str, epoch: int,
-               iters: int, models: dict, opts: dict, ema,
-               rng: torch.Generator, history_path: str,
-               history: dict) -> None:
+               iters: int, models: dict, history_path: str,
+               history: dict, states: dict) -> None:
     """An epoch boundary's writes, in the writer's order: G's and D's (or
     the critic's) ``{generator,discriminator}_epoch_EEE.pth``, the
     snapshot, then the history, which so never lands before its
-    snapshot. ``epoch``: the number of epochs done."""
+    snapshot. ``epoch``: the number of epochs done; ``states``: the
+    run's :func:`run_state`, which a ZeRO-1 optimizer assembles on every
+    rank."""
     tag = f"epoch_{epoch:03d}"
     g, second = models.values()
     mgr.save_file(os.path.join(model_dir, f"generator_{tag}.pth"),
                   g.state_dict())
     mgr.save_file(os.path.join(model_dir, f"discriminator_{tag}.pth"),
                   second.state_dict())
-    mgr.save(run_state(models, opts, ema, rng), epoch, iters)
+    mgr.save(states, epoch, iters)
     mgr.save_json(history_path, history)
     print(f"Saved checkpoints for epoch {epoch} to {model_dir}")
 

@@ -22,8 +22,8 @@ card for every K) work as in the DCGAN loop
 (:mod:`xgan_torch.train.gan_loop`), and so does a ``torchrun`` launch
 (``mesh``): the global batch padded to a multiple of the ranks, each
 rank's rows of every step (:func:`~xgan_torch.train.wgan.wgan_step`),
-``--shard-store``, rank 0 alone writing; ``--steps-per-call`` is refused
-there.
+``--shard-store``, ``--shard-opt-state`` and ``--steps-per-call``, rank 0
+alone writing.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ from xgan_torch.io_.figures import plot_wgan_losses, save_image_grid
 from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.wgan import Critic, Generator
 from xgan_torch.parallel.mesh import MeshContext
+from xgan_torch.parallel.tp import opt_from_args
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan_loop import load_train_store
@@ -90,10 +91,10 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype,
     # Adam betas (beta1, 0.9), as the reference's WGAN-GP trainer; on the
     # card capturable for every K, so that K = 1 trains as K > 1 does
     capturable = device.type == "cuda"
-    opt_g = adam(g.parameters(), args.lr, args.beta1, 0.9,
-                 capturable=capturable)
-    opt_c = adam(c.parameters(), args.lr, args.beta1, 0.9,
-                 capturable=capturable)
+    opt_g = opt_from_args(args, adam(g.parameters(), args.lr, args.beta1,
+                                     0.9, capturable=capturable), [g], mesh)
+    opt_c = opt_from_args(args, adam(c.parameters(), args.lr, args.beta1,
+                                     0.9, capturable=capturable), [c], mesh)
     print("Generator and Critic initialized.")
     fixed_noise = torch.randn((args.vis_batch_size, args.latent_dim),
                               generator=seeds[2], device=device)
