@@ -230,7 +230,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
     all-gather captured), the replay's ConvT kernels against a profiler
     trace of one replay, and bf16 ms per step of the DP path and of no
     group at K = 1 and K = 4;
-26. prints the kernel table line, the card line and, last, the result
+26. A14 part 4, after 25 (``phase_a14_4``; ``python3 chip_smoke.py
+    --only a14_4`` runs it alone after the build, the sampler and the
+    stores): tensor parallelism, ``--model-parallel 2`` over two gloo
+    ranks sharing the card (data 1 x model 2; ``--phase tp/RANK``), f32
+    with TF32 off and deterministic cuDNN, against one rank: the
+    DCGAN-224 step (B = 128, after 3 shared warm-up steps) and the
+    unfrozen ResNet-50 step (mix, B = 32), 3 steps each: the first
+    step's metrics within 1e-4 * (1 + |ref|), its gradient norms within
+    1e-3 plus twice the measured floor, a TF32 control that must fail,
+    the parameters after 3 steps within the step envelope; the replicated
+    leaves bitwise equal on both ranks, the slices not; G's sharded ConvT
+    launched at (B, 7, 7, 512) -> Cout 128 on each rank and held against
+    its plain version at that shape in bf16 and f32; the parameter and
+    Adam bytes per rank over one rank's (0.565 G, 0.534 D, 0.521
+    ResNet-50); bf16 ms per step of both TP steps and of one rank. Then
+    the DCGAN and classifier CLIs under the 2-rank gloo launch at
+    ``--model-parallel 2`` against no group (the same files and
+    launches, the JSON within 1e-4 * (1 + |ref|) at step 1) and the
+    WGAN-GP CLI's refusal;
+27. prints the kernel table line, the card line and, last, the result
     line.
 
 Profiler windows on the card have lost kernel records (ROADMAP.md C6):
@@ -249,6 +268,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import functools
@@ -2506,9 +2526,7 @@ def phase_cgan_step_check(train_store, grad_accum: int = 1):
     part by more than 1e-3 on some of G's tensors; the floor says on which
     and by how much, and a device bug moves a norm by far more. The noise
     level is that of the card's VGG16 features against the CPU's, printed
-    beside it. The comparison from the fresh weights is printed unheld
-    with its floor (Adam's first step moves each weight by about lr *
-    sign(g), so rounding in a near-zero gradient flips a ±lr move).
+    beside it.
 
     The control: the same step on the card with TF32 on must fall outside
     these limits, on the metrics or on some held norm, or the check could
@@ -2531,7 +2549,6 @@ def phase_cgan_step_check(train_store, grad_accum: int = 1):
              "fake_targets": 0.1 + 0.1 * torch.rand(b, generator=gen)}
     on_card = (images.to(dev), labels.to(dev))
     nets = cgan_models(dev, torch.float32, seed=22)
-    fresh = copy.deepcopy([m.state_dict() for m in nets[:2] + nets[3:]])
     warm_gen = torch.Generator(dev).manual_seed(23)
     for i in range(3):
         cgan_step(*nets, *on_card,
@@ -2573,9 +2590,6 @@ def phase_cgan_step_check(train_store, grad_accum: int = 1):
                    .item() for a, r in zip(nets[2](x.to(dev)), cgan_models(
                        cpu, torch.float32, seed=22)[2](x))]
     t0 = time.perf_counter()
-    cold_cpu = run(fresh, cpu)
-    cold_l, cold_rel = diffs(run(fresh, dev), cold_cpu)
-    cold_fl, cold_floor = diffs(run(fresh, cpu, floor_seed=0), cold_cpu)
     ref = run(warm, cpu)
     card, card2 = run(warm, dev), run(warm, dev)
     floors = [diffs(run(warm, cpu, floor_seed=s), ref) for s in (1, 2)]
@@ -2610,10 +2624,7 @@ def phase_cgan_step_check(train_store, grad_accum: int = 1):
           f"above 1e-3 on {len(over)} of {len(rel)} tensors {over}; the "
           f"pre-BN biases, not held: norms {max(ref[1][k] for k in noisy):.3g}"
           f" at most, against {min(ref[1][k] for k in rel):.3g} for the "
-          f"smallest held tensor. From the fresh weights (not held): "
-          f"metrics {cold_l:.3g}, norms {worst(cold_rel)}; floor "
-          f"{cold_fl:.3g} and {worst(cold_floor)}; {cpu_s:.1f} s for the "
-          f"9 steps")
+          f"smallest held tensor; {cpu_s:.1f} s for the 6 steps")
     tf_l, tf_rel = diffs(card_tf32, ref)
     tf_ratio = {k: tf_rel[k] / limit[k] for k in rel}
     tf_over = sorted(k for k in rel if tf_ratio[k] > 1)
@@ -3006,7 +3017,8 @@ def idle_share(events, steps: int, step_ms: float) -> tuple[float, int, int]:
 # (K, capturable Adam) of each run of phase_loop_steps_per_call: the
 # trainer's capturable Adam at K = 1 and K; then K = 1 with the default
 # Adam, for what the device-side update costs an eager step
-STEPS_PER_CALL_RUNS = ((1, True), (LOOP_K, True), (1, False))
+# (K, capturable Adam): a process each (C6)
+STEPS_PER_CALL_RUNS = ((1, True), (LOOP_K, True))
 
 
 def phase_loop_steps_per_call(train_store, smi: str, run: int) -> list:
@@ -3144,6 +3156,72 @@ def save_store(store, tmp: str) -> None:
     np.save(os.path.join(tmp, "train_labels.npy"), store.labels)
 
 
+# interpreters of this script that have imported torch (~8 s on the card's
+# host) and wait on stdin for one --phase command (--wait)
+WARM = []
+WARM_N = 2  # the most that one fresh phase takes at once (two ranks)
+
+
+def warm_interpreters() -> None:
+    """Tops the waiting interpreters up to ``WARM_N``: each imports torch
+    now, beside whatever runs, instead of when a fresh phase needs it. No
+    CUDA work runs in one before its command, so the phase's profiler
+    window is still the first of its process (C6)."""
+    while len(WARM) < WARM_N:
+        WARM.append(subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), "--wait"],
+            stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL, text=True, cwd=HERE))
+
+
+@atexit.register
+def close_interpreters() -> None:
+    """Ends the waiting interpreters (their stdin closed, each exits)."""
+    while WARM:
+        p = WARM.pop()
+        p.stdin.close()
+        p.wait(timeout=60)
+
+
+def interpreter(argv: list, env: dict, log: str):
+    """A process of this script running ``argv`` (``--phase ...``) with
+    ``env``'s variables set (and the launch's others unset), its stdout
+    and stderr in the file ``log``: a waiting interpreter when there is
+    one (then topped up again), else a new one."""
+    if WARM:
+        p = WARM.pop(0)
+        p.stdin.write(json.dumps({"argv": argv, "env": env, "log": log})
+                      + "\n")
+        p.stdin.close()
+        warm_interpreters()
+        return p
+    with open(log, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), *argv],
+            stdout=f, stderr=subprocess.STDOUT, text=True, cwd=HERE,
+            env={**{k: v for k, v in os.environ.items()
+                    if k not in LAUNCH_KEYS}, **env})
+
+
+def wait_command() -> list:
+    """The ``--wait`` side of :func:`interpreter`: blocks for the command,
+    sends stdout and stderr to its log, sets its environment and returns
+    its argv (empty when stdin closed without one)."""
+    line = sys.stdin.readline()
+    if not line:
+        return []
+    cmd = json.loads(line)
+    fd = os.open(cmd["log"], os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    for k in LAUNCH_KEYS:
+        os.environ.pop(k, None)
+    os.environ.update(cmd["env"])
+    global START
+    START = time.perf_counter()  # the phase's clock, not the wait's
+    return cmd["argv"]
+
+
 def in_fresh_process(phase: str, tmp: str, smi: str):
     """Runs ``FRESH_PHASES[phase]`` in a new process of this script
     (``--phase``) on the train store that :func:`save_store` left in
@@ -3151,11 +3229,16 @@ def in_fresh_process(phase: str, tmp: str, smi: str):
     a kernel count read from a profiler window, and such a window is
     then the first of its process: late in this long process, windows on
     the card have lost kernel records (C6, ROADMAP.md)."""
-    p = subprocess.run([sys.executable, "-u", os.path.abspath(__file__),
-                        "--phase", phase, tmp, smi],
-                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                       text=True, cwd=HERE, timeout=900)
-    lines = p.stdout.splitlines()
+    log = os.path.join(tmp, f"{phase.replace('/', '_')}.log")
+    p = interpreter(["--phase", phase, tmp, smi], {}, log)
+    try:
+        p.wait(timeout=900)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    with open(log) as f:
+        lines = f.read().splitlines()
     results = [ln for ln in lines if ln.startswith('{"result": ')]
     print("\n".join(ln for ln in lines if ln not in results))
     check(p.returncode == 0 and len(results) == 1,
@@ -3612,7 +3695,7 @@ def phase_loop_wgan(train_store, smi: str, run: int) -> list:
     k, accum = WGAN_LOOP_RUNS[run]
     # 2 warm calls (K > 1: the eager one, then the capture), the timed
     # ones, 2 for the profiled window
-    n_timed = 8 if k == 1 else 2
+    n_timed = (8 if accum == 1 else 4) if k == 1 else 2
     calls, multi, named = setup(k, torch.bfloat16, WGAN_B,
                                 (4 + n_timed) * k, WGAN_CRITIC, seed=54,
                                 accum=accum)
@@ -4962,6 +5045,11 @@ def dp_cli_processes(tmp: str, root: str, synth_dir: str) -> dict:
     return procs
 
 
+# the launches of phase_dp_cli's runs with no group, which phase_a14_4
+# holds its TP CLIs against
+PLAIN_LAUNCHES = {}
+
+
 def phase_dp_cli(tmp: str, root: str, synth_dir: str, smi: str,
                  procs: dict):
     """(a) The DCGAN and classifier CLIs under a ``torchrun`` environment
@@ -5000,6 +5088,7 @@ def phase_dp_cli(tmp: str, root: str, synth_dir: str, smi: str,
                      sorted(os.listdir(os.path.join(gdir, "models", "gan"))))
     (h0, m0, c0, g0, l0, f0), (h1, m1, c1, g1, l1, f1) = \
         out["plain"], out["nccl"]
+    PLAIN_LAUNCHES.update(train_gan=g0, train_classifier=l0)
     check(f0 == f1 and g0 == g1 and l0 == l1, (f0, f1, g0, g1, l0, l1))
     per_step = [f32_close([h1[k][t] for k in GAN_ITER_KEYS],
                           [h0[k][t] for k in GAN_ITER_KEYS])
@@ -5175,16 +5264,26 @@ def in_fresh_ranks(phase: str, world: int, tmp: str, smi: str) -> list:
     each under a ``torchrun`` environment of its rank with LOCAL_RANK 0
     (every rank on the one card); prints their output and returns each
     rank's result."""
+    return finish_fresh_ranks(start_fresh_ranks(phase, world, tmp, smi))
+
+
+def start_fresh_ranks(phase: str, world: int, tmp: str, smi: str):
+    """Starts :func:`in_fresh_ranks`' processes without waiting for them;
+    :func:`finish_fresh_ranks` does."""
     port = free_port()
     logs = [os.path.join(tmp, f"{phase}_rank{r}.log") for r in range(world)]
-    procs = []
-    for r in range(world):
-        with open(logs[r], "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-u", os.path.abspath(__file__), "--phase",
-                 f"{phase}/{r}", tmp, smi], stdout=f,
-                stderr=subprocess.STDOUT, text=True, cwd=HERE,
-                env=launch_env(r, world, 0, port)))
+    procs = [interpreter(["--phase", f"{phase}/{r}", tmp, smi],
+                         {k: v for k, v in launch_env(r, world, 0,
+                                                      port).items()
+                          if k in LAUNCH_KEYS}, logs[r])
+             for r in range(world)]
+    return phase, procs, logs
+
+
+def finish_fresh_ranks(started) -> list:
+    """Waits for the ranks :func:`start_fresh_ranks` started, prints their
+    output and returns each rank's result."""
+    phase, procs, logs = started
     try:
         rcs = [p.wait(timeout=300) for p in procs]
     finally:
@@ -5205,11 +5304,11 @@ def in_fresh_ranks(phase: str, world: int, tmp: str, smi: str) -> list:
     return results
 
 
-def timed_steps(step, n: int, mesh=None) -> float:
-    """ms per call of ``step`` over ``n`` calls after 3 warm ones, by the
-    host clock around work that ends in a synchronise (and, with
+def timed_steps(step, n: int, mesh=None, warm: int = 3) -> float:
+    """ms per call of ``step`` over ``n`` calls after ``warm`` warm ones,
+    by the host clock around work that ends in a synchronise (and, with
     ``mesh``, starts and ends at a barrier of its ranks)."""
-    for _ in range(3):
+    for _ in range(warm):
         step()
     torch.cuda.synchronize()
     if mesh is not None:
@@ -5801,13 +5900,17 @@ def phase_dist(train, smi: str, rank: int) -> list:
     return launched
 
 
+# the turns of phase_dist1's timings
+DIST1_TURNS = ("none", "group")
+
+
 def phase_dist1(train, smi: str, run: int) -> list:
     """The DP path on one card: one rank of a world-1 NCCL group
     (``--phase dist1``) holds :func:`dp_step_checks`, then times bf16
     DCGAN-224 steps (B = 128), classifier steps (ResNet-50, mix, B = 32)
     and accumulated DCGAN-224 steps (B = 128, A = 2) with the group (every
     all-reduce of the DP path) against the same steps with none, in turns
-    (none, group, group, none). (The WGAN-GP and CGAN steps' are timed at
+    ``DIST1_TURNS``. (The WGAN-GP and CGAN steps' are timed at
     K = 1 and K = 4 by :func:`phase_kstep_dp`.) Returns the group steps'
     (ConvT, mixed_gather) launches."""
     from xgan_torch import kernels
@@ -5858,7 +5961,7 @@ def phase_dist1(train, smi: str, run: int) -> list:
         # timed calls of each step a turn (3 warm ones first), its ConvT
         # launches a call
         calls = {"gan": (10, 5), "clf": (10, 0), "accum": (5, 2 * 2 * 5)}
-        for name in ("none", "group", "group", "none"):
+        for name in DIST1_TURNS:
             kernels.reset_launch_counts()
             times[f"gan {name}"].append(timed_steps(gan[name], 10))
             times[f"clf {name}"].append(timed_steps(clf[name], 10))
@@ -5872,11 +5975,12 @@ def phase_dist1(train, smi: str, run: int) -> list:
                 timed[1] += kernels.LAUNCHES["mixed_gather"]
     finally:
         shutdown(mesh)
-    check(timed == [2 * sum((n + 3) * k for n, k in calls.values()),
-                    2 * 13], timed)
+    turns = DIST1_TURNS.count("group")
+    check(timed == [turns * sum((n + 3) * k for n, k in calls.values()),
+                    turns * 13], timed)
     dp_summary("world-1 NCCL group", c, smi)
     print(f"world-1 NCCL DP path against no group, bf16 ms per step (turns "
-          f"none, group, group, none): DCGAN-224 B={GAN_B} none "
+          f"{', '.join(DIST1_TURNS)}): DCGAN-224 B={GAN_B} none "
           f"{times['gan none']} group {times['gan group']}; classifier "
           f"B={CLS_B} mix none {times['clf none']} group "
           f"{times['clf group']}; DCGAN-224 B={GAN_B} --grad-accum 2 none "
@@ -5884,20 +5988,27 @@ def phase_dist1(train, smi: str, run: int) -> list:
     return [a + b for a, b in zip(launched, timed)]
 
 
-def phase_dp(tmp: str, root: str, synth_dir: str, smi: str) -> list:
+def phase_dp(tmp: str, root: str, synth_dir: str, smi: str,
+             others: dict | None = None) -> list:
     """(a) and (b), after every earlier phase: the CLIs on NCCL at world 1
     (A14 parts 1 and 2), the cost of the DP path on one card, then two
     ranks on the card over gloo, whose parameters must be bitwise equal
     (DCGAN, classifier, WGAN-GP, CGAN with the gate open and closed).
-    Returns the DP paths' (ConvT, mixed_gather) launches."""
+    ``others``: processes started beside its CLIs
+    (:func:`a14_4_processes`), drained in place into their (exit code,
+    output) before the timed phases. Returns the DP paths' (ConvT,
+    mixed_gather) launches."""
     procs = dp_cli_processes(tmp, root, synth_dir)
     try:
         launched = list(phase_dp_cli(tmp, root, synth_dir, smi, procs))
         launched = [a + b for a, b in zip(
             launched, phase_dp_cli_loops(tmp, root, synth_dir, smi, procs))]
+        if others is not None:
+            others.update(drain_all(others))
     finally:
-        for proc in procs.values():  # those a failed check left running
-            if proc.poll() is None:
+        # those a failed check left running
+        for proc in [*procs.values(), *(others or {}).values()]:
+            if isinstance(proc, subprocess.Popen) and proc.poll() is None:
                 proc.kill()
     for phase, world in (("dist1", 1), ("dist", 2)):
         for got in in_fresh_ranks(phase, world, tmp, smi):
@@ -5921,6 +6032,7 @@ def phase_dp(tmp: str, root: str, synth_dir: str, smi: str) -> list:
 # mesh, ZeRO-1 --shard-opt-state
 
 KSTEP_B = {"dcgan": GAN_B, "wgan": WGAN_B, "cgan": CGAN_B}
+KSTEP_TURNS = ("group",)  # the timed turns of phase_kstep_dp
 # ConvT launches of one step of each (the CGAN's G launches none)
 KSTEP_CONVT = {"dcgan": 5, "wgan": 5 * (WGAN_CRITIC + 1), "cgan": 0}
 
@@ -5994,8 +6106,9 @@ def phase_kstep_dp(train_store, smi: str, kind: str) -> list:
       all-gather captured) bitwise the plain Adam's;
     - a profiler window of one replay (the first of its process, C6): its
       ConvT kernels against the dispatcher's launches per replay;
-    - bf16 ms per step of the group at K = 1 and K = LOOP_K and of no
-      group at both, in turns (none, group; the WGAN-GP's 4 steps each).
+    - bf16 ms per step of the group at K = 1 and K = LOOP_K
+      (``KSTEP_TURNS``; no group's are phases 17, 19 and 20's; the
+      WGAN-GP's 4 steps each).
 
     Returns [the timed and profiled steps' ConvT launches]."""
     from torch.autograd import DeviceType
@@ -6061,7 +6174,7 @@ def phase_kstep_dp(train_store, smi: str, kind: str) -> list:
             ms = {}
             # the WGAN-GP step (~0.35 s) takes fewer steps
             slow = kd == "wgan"
-            turns = ("none", "group")
+            turns = KSTEP_TURNS
             for name in turns:
                 m = mesh if name == "group" else None
                 for k in (1, LOOP_K):
@@ -6308,7 +6421,22 @@ def a14_3_processes(tmp: str, root: str, synth_dir: str) -> dict:
     return procs
 
 
-def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str) -> list:
+def drain_all(procs: dict) -> dict:
+    """Each process's (exit code, output), waited for in turn (600 s
+    each); one still running then is killed."""
+    res = {}
+    for key, proc in procs.items():
+        try:
+            text = proc.communicate(timeout=600)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        res[key] = (proc.returncode, text)
+    return res
+
+
+def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str,
+                held=None) -> list:
     """A14 part 3 on the card: the CLI runs of :func:`a14_3_processes`
     (the classifier's parallel folds under a launch against no group: the
     same files, every JSON within 1e-4 * (1 + |ref|); the K = 4 DCGAN
@@ -6317,8 +6445,10 @@ def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str) -> list:
     launch at K = 2 exits 1 with an ``Error:`` line that names NCCL) and,
     while they run, ZeRO-1 on two gloo ranks (:func:`phase_zero`, both
     ranks' parameters bitwise equal); then the timed DP K-step phases
-    (:func:`phase_kstep_dp`, one process each). Returns the (ConvT,
-    mixed_gather) launches."""
+    (:func:`phase_kstep_dp`, one process each). ``held``: phase 26's
+    ranks started beside its CLIs (:func:`start_fresh_ranks`), waited for
+    until they are ready, idle, before the timed phases. Returns the
+    (ConvT, mixed_gather) launches."""
     procs = a14_3_processes(tmp, root, synth_dir)
     launched = [0, 0]
     try:
@@ -6330,14 +6460,9 @@ def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str) -> list:
         check(all(torch.equal(v, ranks[1][n][k]) for n in ranks[0]
                   for k, v in ranks[0][n].items()),
               "the two ranks' parameters differ")
-        res = {}
-        for key, proc in procs.items():
-            try:
-                text = proc.communicate(timeout=600)[0]
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-            res[key] = (proc.returncode, text)
+        res = drain_all(procs)
+        if held:
+            tp_ready(tmp, held[1])
         rc, text = res["gloo_k2", 0]
         last = text.strip().splitlines()[-1] if text.strip() else ""
         check(rc == 1 and last.startswith("Error: --steps-per-call 2")
@@ -6419,6 +6544,675 @@ def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str) -> list:
     return launched
 
 
+# A14 part 4: tensor parallelism over two gloo ranks sharing the card
+TP_N = 2  # --model-parallel: data 1 x model 2
+TP_STEPS = 3  # the f32 steps held; the first of them held by its norms
+TP_RATIOS = {"G": 0.565, "D": 0.534, "ResNet-50": 0.521}  # counts, N = 2
+# the floors of a held step (tp_held): name -> (the batch's rows rolled
+# by this fraction of B, cuDNN on); "floor" takes every step (the
+# parameters' floor), the others and the TF32 control one
+TP_FLOORS = {"floor": (1 / 2, True), "floor_b4": (1 / 4, True),
+             "algo": (0, False), "algo_b4": (1 / 4, False)}
+TP_RUNS = ("tp", "ref", *TP_FLOORS, "tf32")
+ONE_STEP = (*list(TP_FLOORS)[1:], "tf32")
+
+
+def tp_rows(name: str, b: int, dev):
+    """The rows of run ``name`` of a held step: the batch rolled by its
+    floor's fraction, or all in order."""
+    shift = int(TP_FLOORS.get(name, (0, True))[0] * b)
+    return torch.arange(b, device=dev).roll(shift) if shift else slice(None)
+
+
+def tp_gan_nets(mesh, warm, dtype=torch.float32):
+    """Full-width G and D (seed 60) with ``warm``'s weights and Adam
+    state (whole; copied, since Adam steps a loaded tensor in place),
+    tied to ``mesh`` and placed over its model group when it has one;
+    their Adam optimizers on the slices."""
+    import copy
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.parallel import tp
+    from xgan_torch.train.common import adam
+    warm = copy.deepcopy(warm)
+    g, d, _, _ = gan_models(dtype, seed=60)
+    g.load_state_dict(warm[0])
+    d.load_state_dict(warm[1])
+    sync_batch_norm(g, mesh)
+    sync_batch_norm(d, mesh)
+    if mesh is not None:
+        tp.shard_over_model([g, d], mesh.model)
+    opts = [adam(m.parameters(), 2e-4, 0.5) for m in (g, d)]
+    for o, sd in zip(opts, warm[2:]):
+        o.load_state_dict(tp.opt_state_for_load(o, sd))
+    return g, d, *opts
+
+
+def tp_classifier(dev, mesh, dtype, seed: int):
+    """A seeded ResNet-50 tied to ``mesh`` and placed over its model group
+    when it has one, with ``--unfreeze``'s Adam."""
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.models.resnet import ResNet50
+    from xgan_torch.parallel import tp
+    from xgan_torch.train.classifier import classifier_optimizer
+    model = ResNet50(2, dtype=dtype, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(seed))
+    sync_batch_norm(model, mesh)
+    if mesh is not None:
+        tp.shard_over_model([model], mesh.model)
+    return model, classifier_optimizer(model, 1e-3, False)
+
+
+def whole_grad_norms(*nets) -> dict:
+    """Each parameter's whole gradient norm, by name: a slice's squared
+    norm summed over its model group."""
+    from xgan_torch.parallel import tp
+    out = {}
+    for i, net in enumerate(nets):
+        for n, p in net.named_parameters():
+            if p.grad is None:
+                continue
+            sq = p.grad.double().square().sum()
+            if tp.sharded(p):
+                p.tp_model.all_reduce_(sq)
+            out[f"{i}.{n}"] = sq.sqrt().item()
+    return out
+
+
+@contextlib.contextmanager
+def convt_shapes():
+    """Records ``(x.shape, Cout)`` of every ConvT kernel launch made
+    inside (the shapes the wrapper gave the kernel)."""
+    from xgan_torch.kernels import convt as convt_mod
+    seen, orig = [], convt_mod.convt4x4s2_fused_cuda
+
+    def recorded(x, wp, *args, **kwargs):
+        seen.append((tuple(x.shape), wp.shape[-1]))
+        return orig(x, wp, *args, **kwargs)
+
+    convt_mod.convt4x4s2_fused_cuda = recorded
+    try:
+        yield seen
+    finally:
+        convt_mod.convt4x4s2_fused_cuda = orig
+
+
+def tp_params_close(a: dict, b: dict, floor: dict, steps: int,
+                    lr: float) -> tuple:
+    """(max |a - b|, elements outside rtol 2e-3 / atol 2e-5, elements, the
+    floor's max and outside count) of two state dicts' float tensors
+    after ``steps`` Adam steps from a warm state, where Adam may move a
+    coordinate by more than lr a step: held at twice the floor (the
+    reference over its rows in another order, rounding alone) or 2 lr a
+    step, whichever is larger, and at most twice the floor's outside
+    count plus 1 in 1000."""
+    def diff(x):
+        worst, outside, total = 0.0, 0, 0
+        for k, v in b.items():
+            if v.is_floating_point():
+                d = (x[k].double() - v.double()).abs()
+                worst = max(worst, d.max().item())
+                outside += int((d > 2e-5 + 2e-3 * v.double().abs()).sum())
+                total += v.numel()
+        return worst, outside, total
+
+    (worst, outside, total), (f_worst, f_out, _) = diff(a), diff(floor)
+    ok = (worst <= max(2 * lr * steps, 2 * f_worst) + 1e-6
+          and outside <= 2 * f_out + total // 1000)
+    return worst, outside, total, f_worst, f_out, ok
+
+
+def tp_held(label: str, runs: dict, lr: float) -> dict:
+    """The TP run against the one-rank reference (with an all-ones mask,
+    as :func:`dp_step_checks`): the first step's metrics within 1e-4 *
+    (1 + |ref|), its per-tensor gradient norms within 1e-3 plus twice the
+    floor, the parameters after the steps by :func:`tp_params_close`; the
+    TF32 control's norms must fail those limits. The floor of a norm is
+    the largest of four rounding-only departures from the reference
+    (``TP_FLOORS``): its rows in two other orders, and every convolution
+    on another algorithm (cuDNN off), in order and rolled, as TP's sliced
+    convolutions take other cuDNN algorithms than the whole ones and sum
+    their rows in other orders. ``runs``: name ->
+    (metrics, grad norms, whole state). Returns the readings and
+    ``failed``, the holds that failed (the caller prints the readings
+    first)."""
+    ref = runs["ref"][1]
+    # one floor whose departure from ref is the largest of the floors'
+    floor = {k: v + max(abs(runs[f][1][k] - v) for f in TP_FLOORS)
+             for k, v in ref.items()}
+    out = {"metrics": f32_close(runs["tp"][0], runs["ref"][0])}
+    out["grads"] = grad_norms_ratio(runs["tp"][1], ref, floor)
+    out["tf32"] = grad_norms_ratio(runs["tf32"][1], ref, floor)
+
+    def rel(x, k):
+        return abs(x[k] - ref[k]) / max(ref[k], 1e-30)
+
+    out["worst"] = sorted(((rel(runs["tp"][1], k), rel(floor, k), k)
+                           for k in ref), reverse=True)[:4]
+    out["median"] = [statistics.median(rel(runs[r][1], k) for k in ref)
+                     for r in ("tp", *TP_FLOORS)]
+    out["params"] = tp_params_close(runs["tp"][2], runs["ref"][2],
+                                    runs["floor"][2], TP_STEPS, lr)
+    out["failed"] = [what for what, ok in (
+        ("metrics", out["metrics"] <= 1e-4), ("norms", out["grads"] <= 1.0),
+        ("TF32 control", out["tf32"] > 1.0), ("params", out["params"][-1]))
+        if not ok]
+    return out
+
+
+def phase_tp(train, smi: str, rank: int) -> list:
+    """One rank of two sharing the card over gloo with ``--model-parallel
+    2`` (``--phase tp/RANK``): :func:`tp_holds`, then, once the parent
+    writes ``tp_go`` into the temporary directory (nothing else then
+    runs on the card), :func:`tp_timings`. Between the two it writes
+    ``tp_ready{RANK}`` and waits with its cached memory given back.
+    Returns its [ConvT, mixed_gather] launches."""
+    from xgan_torch.parallel.mesh import init_from_env, shutdown
+    world = init_from_env(cpu=False, backend="gloo")
+    try:
+        data, model = world.split_model(TP_N)
+        check(world.world == 2 and world.rank == rank and data.world == 1
+              and model.rank == rank, (world, data, model))
+        held = tp_holds(world, data, model, train, smi, rank)
+        torch.cuda.empty_cache()
+        with open(os.path.join(CHILD_TMP, f"tp_ready{rank}"), "w"):
+            pass
+        go = os.path.join(CHILD_TMP, "tp_go")
+        deadline = time.time() + 900
+        while not os.path.exists(go):
+            check(time.time() < deadline, "no tp_go in 900 s")
+            time.sleep(0.2)
+        timed = tp_timings(world, data, train, smi, rank)
+    finally:
+        shutdown(world)
+    return [a + b for a, b in zip(held, timed)]
+
+
+def tp_ready(tmp: str, procs) -> None:
+    """Waits until each rank of :func:`phase_tp` (``procs``) has written
+    its ``tp_ready`` file or ended (its failure is read later)."""
+    deadline = time.time() + 600
+    for r, p in enumerate(procs):
+        while not os.path.exists(os.path.join(tmp, f"tp_ready{r}")) \
+                and p.poll() is None:
+            check(time.time() < deadline, "the TP ranks never got ready")
+            time.sleep(0.2)
+
+
+def tp_holds(world, data, model, train, smi: str, rank: int) -> list:
+    """One rank of two sharing the card over gloo with ``--model-parallel
+    2`` (data 1 x model 2; ``world`` and its groups ``data`` and
+    ``model``), f32 with TF32 off and deterministic cuDNN, against one
+    rank on the same inputs:
+
+    - the DCGAN-224 step (fg 64, latent 100, B = 128) after 3 shared
+      warm-up steps, 3 steps (:func:`tp_held`); every ConvT launch shape
+      recorded: G's sharded first k4s2 layer launches at (B, 7, 7, 512) ->
+      Cout 128;
+    - the unfrozen ResNet-50 step (mix, B = 32), 3 steps, held alike;
+    - that sharded ConvT launch held against its plain version at the
+      same shape in bf16 and f32 (``TOL``; timed by :func:`tp_timings`);
+    - the bytes of the parameters and Adam state this rank keeps against
+      one rank's (counts from the shapes).
+
+    Saves its parameters and slices' names for the parent's check of the
+    replicated leaves; returns its [ConvT, mixed_gather] launches."""
+    import copy
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.data.store import ImageStore
+    from xgan_torch.kernels.convt import (convt4x4s2_fused,
+                                          convt4x4s2_fused_ref,
+                                          pack_convt_weight)
+    from xgan_torch.parallel import tp
+    from xgan_torch.train.classifier import train_step
+    from xgan_torch.train.gan import dcgan_step
+    dev = world.device
+    torch.backends.cudnn.deterministic = True
+    store = DeviceStore(train, dev)
+    launched, res = [0, 0], {}
+    ones_g = torch.ones(GAN_B, device=dev)
+    ones_c = torch.ones(CLS_B, device=dev)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(61)
+        draws = [(torch.randint(0, N_TRAIN, (GAN_B,), generator=gen,
+                                device=dev),
+                  torch.rand(GAN_B, generator=gen, device=dev) < 0.5,
+                  torch.randn(GAN_B, LATENT, generator=gen, device=dev))
+                 for _ in range(3 + TP_STEPS)]
+        gn, dn, og, od = gan_models(torch.float32, seed=60)
+        for idx, flip, noise in draws[:3]:
+            dcgan_step(gn, dn, og, od, store.images, idx, latent_dim=LATENT,
+                       flip=flip, noise=noise)
+        warm = copy.deepcopy([x.state_dict() for x in (gn, dn, og, od)])
+        del gn, dn, og, od
+        runs, shapes, nbytes = {}, [], {}
+        for name in TP_RUNS:
+            m = data if name in ("tp", "tf32") else None
+            rows = tp_rows(name, GAN_B, dev)
+            mask = None if m is not None else ones_g
+            torch.backends.cuda.matmul.allow_tf32 = name == "tf32"
+            torch.backends.cudnn.allow_tf32 = name == "tf32"
+            torch.backends.cudnn.enabled = TP_FLOORS.get(name, (0, True))[1]
+            g, d, og, od = tp_gan_nets(m, warm)
+            kernels.reset_launch_counts()
+            with convt_shapes() as seen:
+                metrics, norms = [], None
+                for idx, flip, noise in draws[3:4 if name in ONE_STEP
+                                              else None]:
+                    metrics.append(dcgan_step(
+                        g, d, og, od, store.images, idx[rows],
+                        latent_dim=LATENT, flip=flip[rows],
+                        noise=noise[rows], mask=mask, mesh=m).tolist())
+                    if norms is None:
+                        norms = whole_grad_norms(g, d)
+                torch.cuda.synchronize()
+            steps = len(metrics)
+            check(kernels.LAUNCHES["convt4x4s2_fused"] == 5 * steps,
+                  (name, dict(kernels.LAUNCHES)))
+            if name == "tp":
+                shapes = seen
+                launched[0] += 5 * steps
+                nbytes["G"] = tp.rank_bytes([g], [og])
+                nbytes["D"] = tp.rank_bytes([d], [od])
+                local = {**{f"g.{k}": v for k, v in g.state_dict().items()},
+                         **{f"d.{k}": v for k, v in d.state_dict().items()}}
+                sliced = [f"g.{k}" for k in g.tp_dims] \
+                    + [f"d.{k}" for k in d.tp_dims]
+            if name == "ref":
+                nbytes["G"] /= tp.rank_bytes([g], [og])
+                nbytes["D"] /= tp.rank_bytes([d], [od])
+            runs[name] = (metrics[0], norms, {
+                **{f"g.{k}": v.clone()
+                   for k, v in tp.whole_state_dict(g).items()},
+                **{f"d.{k}": v.clone()
+                   for k, v in tp.whole_state_dict(d).items()}})
+            del g, d, og, od
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.enabled = True
+        res["gan"] = tp_held("DCGAN", runs, 2e-4)
+        want = (GAN_B, 7, 7, 8 * FG)
+        check(shapes.count((want, 4 * FG // TP_N)) == TP_STEPS, shapes)
+
+        # the unfrozen classifier, mix
+        cdraws = [dist_draws(dev, CLS_B, 62 + t) for t in range(TP_STEPS)]
+        rng = np.random.default_rng(63)
+        synth = DeviceStore(ImageStore(
+            rng.integers(0, 256, (256, SIZE, SIZE, 3), np.uint8),
+            np.ones(256, np.int32), SIZE), dev)
+        runs = {}
+        for name in TP_RUNS:
+            m = data if name in ("tp", "tf32") else None
+            rows = tp_rows(name, CLS_B, dev)
+            torch.backends.cuda.matmul.allow_tf32 = name == "tf32"
+            torch.backends.cudnn.allow_tf32 = name == "tf32"
+            torch.backends.cudnn.enabled = TP_FLOORS.get(name, (0, True))[1]
+            net, opt = tp_classifier(dev, m, torch.float32, 63)
+            kernels.reset_launch_counts()
+            losses, norms = None, None
+            for idx, use, pick, flip in cdraws[:1 if name in ONE_STEP
+                                               else None]:
+                got = train_step(net, opt, store, synth, idx[rows],
+                                 mode="mix", ratio=0.5, flip=flip[rows],
+                                 use_synth=use[rows], synth_pick=pick[rows],
+                                 mask=None if m is not None else ones_c,
+                                 mesh=m)
+                if norms is None:
+                    losses = got[0].tolist()
+                    norms = whole_grad_norms(net)
+            torch.cuda.synchronize()
+            n = kernels.LAUNCHES["mixed_gather"]
+            check(n == (1 if name in ONE_STEP else TP_STEPS), (name, n))
+            if name == "tp":
+                launched[1] += n
+                nbytes["ResNet-50"] = tp.rank_bytes([net], [opt])
+                local.update({f"c.{k}": v
+                              for k, v in net.state_dict().items()})
+                sliced += [f"c.{k}" for k in net.tp_dims]
+            if name == "ref":
+                nbytes["ResNet-50"] /= tp.rank_bytes([net], [opt])
+            runs[name] = (losses, norms, {
+                k: v.clone() for k, v in tp.whole_state_dict(net).items()})
+            del net, opt
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.enabled = True
+        res["clf"] = tp_held("classifier", runs, 1e-3)
+        for k, ratio in TP_RATIOS.items():
+            check(abs(nbytes[k] - ratio) < 5e-3, (k, nbytes[k], ratio))
+        torch.save({"local": local, "sliced": sliced},
+                   os.path.join(CHILD_TMP, f"tp_rank{rank}.pt"))
+
+        # the sharded layer's launch against its plain version
+        cin, cout = 8 * FG, 4 * FG // TP_N
+        gk = torch.Generator(device=dev).manual_seed(64)
+        x32 = torch.randn(GAN_B, 7, 7, cin, generator=gk, device=dev)
+        w = torch.randn(cin, cout, 4, 4, generator=gk, device=dev) \
+            / math.sqrt(4 * cin)
+        ones_o = torch.ones(cout, device=dev)
+        zeros_o = torch.zeros(cout, device=dev)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wp = x32.to(dtype), pack_convt_weight(w, dtype)
+            kernels.reset_launch_counts()
+            y = convt4x4s2_fused(x, wp, ones_o, zeros_o, act="none")
+            check(kernels.LAUNCHES["convt4x4s2_fused"] == 1,
+                  dict(kernels.LAUNCHES))
+            ref = convt4x4s2_fused_ref(x, wp, ones_o, zeros_o, act="none")
+            errs[dtype] = (y.float() - ref.float()).abs().max().item()
+            # the limits of phase_kernels: TOL of (1 + max |ref|)
+            tol = TOL[dtype] * (1 + ref.float().abs().max().item())
+            check(errs[dtype] <= tol, (dtype, errs[dtype], tol))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.enabled = True
+        torch.backends.cudnn.deterministic = False
+    g, c = res["gan"], res["clf"]
+
+    def params(p):
+        return (f"max {p[0]:.3g} ({p[1]} of {p[2]} outside 2e-5 + 2e-3 "
+                f"|ref|; the floor {p[3]:.3g}, {p[4]})")
+
+    print(f"rank {rank} of 2, --model-parallel 2 (gloo, one card), f32 "
+          f"against one rank: DCGAN-224 B={GAN_B} metrics {g['metrics']:.3g}"
+          f" (limit 1e-4), gradient norms {g['grads']:.3f} of the limit "
+          f"(TF32 control {g['tf32']:.3f}), params after {TP_STEPS} steps "
+          f"{params(g['params'])}; ResNet-50 --unfreeze mix B={CLS_B} "
+          f"losses {c['metrics']:.3g}, gradient norms {c['grads']:.3f} of "
+          f"the limit (TF32 control {c['tf32']:.3f}), params "
+          f"{params(c['params'])} [{smi}]")
+    for label, r in (("DCGAN", g), ("classifier", c)):
+        print(f"rank {rank}: {label}'s worst gradient norms (relative "
+              "difference, the floor's): " + ", ".join(
+                  f"{k} ({a:.3g}, {f:.3g})" for a, f, k in r["worst"])
+              + "; the median relative difference of TP and of each floor "
+              f"{list(TP_FLOORS)}: "
+              + ", ".join(f"{v:.3g}" for v in r["median"]))
+    check(not g["failed"] and not c["failed"],
+          f"DCGAN {g['failed']}, classifier {c['failed']}")
+    print(f"rank {rank}: G's sharded ConvT launched {TP_STEPS} times at "
+          f"x {want} -> Cout {4 * FG // TP_N}; held against the plain "
+          f"version at that shape (limits TOL of 1 + max |ref|): max |err| "
+          f"f32 {errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}; "
+          f"per-rank parameter + Adam bytes over one rank's (counts): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in nbytes.items())
+          + f" [{smi}]")
+    return launched
+
+
+def tp_timings(world, data, train, smi: str, rank: int) -> list:
+    """The timings of tensor parallelism, alone on the card (two gloo
+    ranks, ``--model-parallel 2``; ``world`` and its data group): G's
+    sliced
+    ConvT layer at (B, 7, 7, 512) -> Cout 128 in bf16, the kernel, its
+    plain version and cuDNN's ``F.conv_transpose2d`` by CUDA events
+    against its bound; bf16 ms per DCGAN-224 (B = 128) and ResNet-50
+    (mix, B = 32, ``--unfreeze``) step of one rank alone (rank 0, while
+    rank 1 waits), then of the TP ranks. Returns the TP steps' [ConvT,
+    mixed_gather] launches."""
+    from xgan_torch import kernels
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.data.store import ImageStore
+    from xgan_torch.kernels.convt import (convt4x4s2_fused,
+                                          convt4x4s2_fused_ref,
+                                          pack_convt_weight)
+    from xgan_torch.train.classifier import train_step
+    from xgan_torch.train.gan import dcgan_step
+    dev = world.device
+    store = DeviceStore(train, dev)
+    launched, ms, times = [0, 0], {}, {}
+    cin, cout = 8 * FG, 4 * FG // TP_N
+    gk = torch.Generator(device=dev).manual_seed(64)
+    x = torch.randn(GAN_B, 7, 7, cin, generator=gk, device=dev) \
+        .to(torch.bfloat16)
+    w = torch.randn(cin, cout, 4, 4, generator=gk, device=dev) \
+        / math.sqrt(4 * cin)
+    wp = pack_convt_weight(w, torch.bfloat16)
+    ones_o = torch.ones(cout, device=dev)
+    zeros_o = torch.zeros(cout, device=dev)
+    xn, wl = x.permute(0, 3, 1, 2), w.to(torch.bfloat16)  # NCHW views
+    if rank == 0:  # alone on the card: rank 1 waits
+        for name, fn, reps in (
+                ("kernel", convt4x4s2_fused, 20),
+                ("plain", convt4x4s2_fused_ref, 5)):
+            ms[name] = time_ms(lambda fn=fn: fn(x, wp, ones_o, zeros_o,
+                                                act="none"), reps=reps)
+        ms["cuDNN"] = time_ms(
+            lambda: torch.nn.functional.conv_transpose2d(xn, wl, None, 2,
+                                                         1))
+    world.barrier()
+    # the least time: each output sums 4 taps of Cin (4 phases of 2 x
+    # 2), bf16 x, packed w and out each moved once
+    flops = 2 * GAN_B * 14 * 14 * cout * cin * 4
+    nbytes = 2 * (GAN_B * 7 * 7 * cin + 16 * cin * cout
+                  + GAN_B * 14 * 14 * cout)
+    ms["bound"] = max(flops / BF16_PEAK_FLOPS,
+                      nbytes / HBM_BYTES_PER_S) * 1e3
+
+    g32 = torch.Generator(device=dev).manual_seed(65)
+    gidx = torch.randint(0, N_TRAIN, (GAN_B,), generator=g32, device=dev)
+    cidx, use, pick, flip = dist_draws(dev, CLS_B, 66)
+    rng = np.random.default_rng(63)
+    synth = DeviceStore(ImageStore(
+        rng.integers(0, 256, (256, SIZE, SIZE, 3), np.uint8),
+        np.ones(256, np.int32), SIZE), dev)
+    for name, m in (("one", None), ("tp", data)):
+        if m is None and rank == 1:
+            world.barrier()
+            continue
+        bf = [x.state_dict() for x in gan_models(torch.bfloat16,
+                                                 seed=64)]
+        g, d, og, od = tp_gan_nets(m, bf, torch.bfloat16)
+        kernels.reset_launch_counts()
+        # TP steps take ~0.4-0.7 s (DCGAN) and 1.2-1.8 s (ResNet-50):
+        # fewer
+        times[f"DCGAN {name}"] = timed_steps(lambda: dcgan_step(
+            g, d, og, od, store.images, gidx, latent_dim=LATENT,
+            generator=g32, mesh=m), 2 if m else 5, m, 1 if m else 3)
+        if m is not None:
+            launched[0] += kernels.LAUNCHES["convt4x4s2_fused"]
+        del g, d, og, od
+        net, opt = tp_classifier(dev, m, torch.bfloat16, 66)
+        kernels.reset_launch_counts()
+        times[f"classifier {name}"] = timed_steps(lambda: train_step(
+            net, opt, store, synth, cidx, mode="mix", ratio=0.5,
+            flip=flip, use_synth=use, synth_pick=pick, mesh=m),
+            2 if m else 10, m, 1 if m else 3)
+        if m is not None:
+            launched[1] += kernels.LAUNCHES["mixed_gather"]
+        del net, opt
+        if m is None:
+            world.barrier()
+    if rank == 0:
+        print(f"G's sliced ConvT at x ({GAN_B}, 7, 7, {cin}) -> Cout "
+              f"{cout}, bf16, alone on the card: kernel {ms['kernel']:.4f} "
+              f"ms, plain {ms['plain']:.4f} ms, cuDNN {ms['cuDNN']:.4f} ms "
+              f"(F.conv_transpose2d), bound {ms['bound']:.4f} ms "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) [{smi}]")
+    print(f"rank {rank}: bf16 ms per step (two ranks sharing the card over "
+          f"host-staged gloo, not a scaling figure): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f" [{smi}]")
+    return launched
+
+
+def a14_4_argv(tmp: str, root: str, synth_dir: str, module: str,
+               out: str) -> list:
+    """The DCGAN CLI (224 px, B = 128, 2 epochs of 2 steps) or the
+    classifier CLI (augmented, ResNet-50, B = 32, one run of 2 steps) as
+    :func:`dp_cli_processes` runs them with no group (f32), into
+    ``out``."""
+    if module == "train_gan":
+        return gan_cli_argv(tmp, root, out, "--epochs", "2",
+                            "--limit-batches", "2", "--compute-dtype", "f32")
+    return ["--data-dir", root, "--synthetic-dir", synth_dir,
+            "--use-synthetic", "--k-folds", "1", "--epochs", "1",
+            "--limit-batches", "2", "--model-dir", os.path.join(out, "m"),
+            "--results-dir", os.path.join(out, "metrics"),
+            "--figures-dir", os.path.join(out, "figures"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--workers", "8",
+            "--image-size", str(SIZE), "--batch-size", str(CLS_B),
+            "--compute-dtype", "f32"]
+
+
+# the directories of the runs with no group (phase_dp_cli's, or phase
+# 26's own when it runs alone)
+A14_4_PLAIN = {"train_gan": ("dp", "gan_plain"),
+               "train_classifier": ("dp", "clf_plain")}
+
+
+def a14_4_processes(tmp: str, root: str, synth_dir: str,
+                    plain: bool = False) -> dict:
+    """The CLI processes of :func:`phase_a14_4`, all started at once (f32,
+    TF32 off, deterministic cuDNN): the DCGAN and classifier CLIs of
+    :func:`a14_4_argv` as two gloo ranks on the card at
+    ``--model-parallel 2`` (and, with ``plain``, with no group, as
+    phase 24 runs them), and the WGAN-GP CLI at ``--model-parallel 2``
+    under a 2-rank launch, which must refuse. Returns (run, rank) ->
+    process."""
+    procs = {}
+    ports = iter(free_ports(3))
+    for module in ("train_gan", "train_classifier"):
+        if plain:
+            procs[f"{module}_plain", 0] = dp_cli(module, a14_4_argv(
+                tmp, root, synth_dir, module,
+                os.path.join(tmp, *A14_4_PLAIN[module])), None)
+        port = next(ports)
+        for r in range(TP_N):
+            procs[f"{module}_tp", r] = subprocess.Popen(
+                [sys.executable, "-u", "-c", CLI_LAUNCHER, module,
+                 *a14_4_argv(tmp, root, synth_dir, module,
+                             os.path.join(tmp, "a14_4", f"{module}_tp")),
+                 "--dist-backend", "gloo", "--model-parallel", str(TP_N)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=HERE, env=launch_env(r, TP_N, 0, port))
+    procs["wgan_refused", 0] = subprocess.Popen(
+        [sys.executable, "-u", "-m", "xgan_torch.cli.train_wggan",
+         *a14_4_argv(tmp, root, synth_dir, "train_gan",
+                     os.path.join(tmp, "a14_4", "wgan_refused")),
+         "--dist-backend", "gloo", "--model-parallel", str(TP_N)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE, env=launch_env(0, TP_N, 0, next(ports)))
+    return procs
+
+
+def phase_a14_4(tmp: str, root: str, synth_dir: str, smi: str,
+                res: dict | None = None, held=None) -> list:
+    """A14 part 4 on the card: tensor parallelism over two gloo ranks
+    sharing it (``--model-parallel 2``). :func:`phase_tp` on both ranks
+    (or ``held``, its ranks started earlier beside phase 25's CLIs): the
+    holds while the CLI runs of :func:`a14_4_processes` run (or ``res``,
+    their (exit code, output), when they ran earlier, beside phase 24's
+    CLIs), then, on ``tp_go``, the timings alone; both ranks' replicated
+    leaves bitwise equal, their slices not. Under TP against no group
+    (phase 24's
+    runs, or its own alone): the same files, the DCGAN history's first
+    step within 1e-4 * (1 + |ref|) and every step within 5e-2, the
+    classifier's every JSON number but the flags within 1e-4 * (1 +
+    |ref|), each TP rank's kernel launches those of the run with no
+    group; the WGAN-GP CLI exits 1 with its ``Error:`` line. Returns the
+    (ConvT, mixed_gather) launches."""
+    procs = a14_4_processes(tmp, root, synth_dir, plain=True) \
+        if res is None else {}
+    held = held or start_fresh_ranks("tp", TP_N, tmp, smi)
+    try:
+        if res is None:
+            res = drain_all(procs)
+        tp_ready(tmp, held[1])
+        with open(os.path.join(tmp, "tp_go"), "w"):
+            pass
+        got = finish_fresh_ranks(held)
+        launched = [got[0][0] + got[1][0], got[0][1] + got[1][1]]
+        ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"),
+                            weights_only=True) for r in range(TP_N)]
+        sliced = set(ranks[0]["sliced"])
+        check(sliced == set(ranks[1]["sliced"]) and sliced, sliced)
+        for k, v in ranks[0]["local"].items():
+            same = torch.equal(v, ranks[1]["local"][k])
+            check(same != (k in sliced), f"{k}: sliced {k in sliced}, "
+                  f"equal on both ranks {same}")
+        rc, text = res["wgan_refused", 0]
+        last = text.strip().splitlines()[-1] if text.strip() else ""
+        check(rc == 1 and last.startswith(f"Error: --model-parallel {TP_N}")
+              and "not supported by xgan_torch yet" in last,
+              (rc, text[-2000:]))
+        for key, (rc, text) in res.items():
+            if key[0] != "wgan_refused":
+                check(rc == 0, f"{key}: exit {rc}\n" + text[-3000:])
+        for r in range(TP_N):
+            check(f"Tensor parallelism: mesh {{'data': 1, 'model': {TP_N}}};"
+                  f" rank {r} is data rank 0, model rank {r}"
+                  in res["train_gan_tp", r][1],
+                  res["train_gan_tp", r][1][-2000:])
+
+        def launches(key):
+            last = res[key][1].strip().splitlines()[-1]
+            check(last.startswith("LAUNCHES "), last)
+            return json.loads(last[len("LAUNCHES "):])
+
+        def tree(*name):
+            top = os.path.join(tmp, *name)
+            return top, sorted(os.path.relpath(os.path.join(p, f), top)
+                               for p, _, fs in os.walk(top) for f in fs)
+
+        worst = {}
+        for module in ("train_gan", "train_classifier"):
+            top0, files0 = tree(*A14_4_PLAIN[module])
+            top, files = tree("a14_4", f"{module}_tp")
+            check(files == files0 and files, (module, files, files0))
+            if (f"{module}_plain", 0) in res:  # run here, not in phase 24
+                PLAIN_LAUNCHES[module] = launches((f"{module}_plain", 0))
+            for r in range(TP_N):
+                got = launches((f"{module}_tp", r))
+                check(all(got.get(k, 0) == n for k, n in
+                          PLAIN_LAUNCHES[module].items()), (module, r, got))
+                for k, n in launches((f"{module}_tp", r)).items():
+                    if k in ("convt4x4s2_fused", "mixed_gather"):
+                        launched[k == "mixed_gather"] += n
+            if module == "train_classifier":
+                w = 0.0
+                for f in files0:
+                    if f.endswith(".json"):
+                        with open(os.path.join(top0, f)) as fh:
+                            want = json.load(fh)
+                        with open(os.path.join(top, f)) as fh:
+                            got_j = json.load(fh)
+                        # the flags the run was given differ by design
+                        for j in (want, got_j):
+                            j.pop("config", None)
+                        w = max(w, f32_close(json_numbers(got_j),
+                                             json_numbers(want)))
+                check(w <= 1e-4, (module, w))
+                worst[module] = [w]
+                continue
+            h = []
+            for t in (top0, top):
+                with open(os.path.join(t, "metrics",
+                                       "gan_training_history.json")) as fh:
+                    h.append(json.load(fh))
+            per_step = [f32_close([h[1][k][t] for k in GAN_ITER_KEYS],
+                                  [h[0][k][t] for k in GAN_ITER_KEYS])
+                        for t in range(len(h[0]["G_losses_iter"]))]
+            check(len(per_step) == 4 and per_step[0] <= 1e-4
+                  and max(per_step) <= 5e-2, per_step)
+            worst[module] = per_step
+    finally:
+        for proc in [*procs.values(), *held[1]]:
+            if proc.poll() is None:
+                proc.kill()
+    print(f"A14 part 4 CLIs at --model-parallel {TP_N} (two gloo ranks on "
+          "the card, f32, TF32 off, deterministic cuDNN) against no group: "
+          "the same files and launches on each rank; worst |a-b|/(1+|b|): "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.3g}" for v in vs)
+                      for k, vs in worst.items())
+          + " (limits: the DCGAN's step 1 1e-4, all 5e-2; the classifier's "
+          f"every number 1e-4); the WGAN-GP CLI refuses; phase 26's "
+          f"launches: ConvT {launched[0]}, mixed_gather {launched[1]} "
+          f"[{smi}]")
+    return launched
+
+
 def json_numbers(v) -> list:
     """The numbers of a JSON value, in order."""
     if isinstance(v, dict):
@@ -6441,6 +7235,7 @@ FRESH_PHASES = {
     **{f"kstep_{kind}": lambda train, smi, run, kind=kind: phase_kstep_dp(
         train, smi, kind) for kind in ("dcgan", "wgan")},
     "zero": phase_zero,
+    "tp": phase_tp,
 }
 CHILD_TMP = None  # a --phase process's temporary directory
 
@@ -6475,9 +7270,27 @@ def main_a14_3():
               f"{phase_a14_3(tmp, root, synth_dir, smi)}")
 
 
+def main_a14_4():
+    """``python3 chip_smoke.py --only a14_4``: the build, the sampler, the
+    RSNA tree and its stores, then :func:`phase_a14_4` alone (a quick check
+    of this slice's paths; it prints no result line)."""
+    smi = phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="xgan_chip_smoke_") as tmp:
+        phase_sampler(tmp)
+        root, synth_dir = os.path.join(tmp, "rsna"), \
+            os.path.join(tmp, "synthetic")
+        write_rsna_tree(root)
+        train, _ = phase_stores(root, synth_dir)
+        save_store(train, tmp)
+        print(f"launches (ConvT, mixed_gather): "
+              f"{phase_a14_4(tmp, root, synth_dir, smi)}")
+
+
 def main():
     smi = phase_card()
     phase_build()
+    warm_interpreters()
     entry = phase_kernels()
     phase_wgan_kernels(smi)
     gather_entry = phase_gather()
@@ -6523,9 +7336,23 @@ def main():
         phase_predict(tmp, root, paths, arts)
         phase_serve(tmp, root, arts, smi)
         gather_entry["launches"] += phase_data_loader(tmp, root, synth_dir)
-        dp_convt, dp_gather = phase_dp(tmp, root, synth_dir, smi)
+        # phase 26's CLIs run beside phase 24's, its held steps beside
+        # phase 25's CLIs: each before the timed phases there
+        a14_4_res = a14_4_processes(tmp, root, synth_dir)
+        dp_convt, dp_gather = phase_dp(tmp, root, synth_dir, smi, a14_4_res)
         gather_entry["launches"] += dp_gather
-        a14_convt, a14_gather = phase_a14_3(tmp, root, synth_dir, smi)
+        held = start_fresh_ranks("tp", TP_N, tmp, smi)
+        try:
+            a14_convt, a14_gather = phase_a14_3(tmp, root, synth_dir, smi,
+                                                held)
+        except BaseException:
+            for proc in held[1]:  # they wait for phase 26's tp_go
+                proc.kill()
+            raise
+        dp_convt += a14_convt
+        gather_entry["launches"] += a14_gather
+        a14_convt, a14_gather = phase_a14_4(tmp, root, synth_dir, smi,
+                                            a14_4_res, held)
         dp_convt += a14_convt
         gather_entry["launches"] += a14_gather
     loop_ms_per_batch = B / warm_rate * 1e3
@@ -6543,13 +7370,18 @@ def main():
 
 
 for _name in [n for n in globals() if n.startswith("phase_")] + [
-        "cli_process", "dp_cli", "in_fresh_process", "in_fresh_ranks"]:
+        "cli_process", "dp_cli", "in_fresh_process", "in_fresh_ranks",
+        "finish_fresh_ranks"]:
     globals()[_name] = timed(globals()[_name])
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--wait"]:
+        sys.argv[1:] = wait_command() or sys.exit(0)
     if sys.argv[1:2] == ["--phase"]:
         phase_child(*sys.argv[2:5])
     elif sys.argv[1:3] == ["--only", "a14_3"]:
         main_a14_3()
+    elif sys.argv[1:3] == ["--only", "a14_4"]:
+        main_a14_4()
     else:
         main()

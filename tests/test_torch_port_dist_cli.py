@@ -22,6 +22,16 @@ environment with ``--cpu`` (gloo), against the same CLI in one process.
   ``--steps-per-call 2`` with ``--shard-opt-state``, and the classifier
   with ``--parallel-folds`` (a fold a rank), on 2 ranks against one
   process.
+- Tensor parallelism: the DCGAN CLI (with ``--ema-decay``) and the
+  classifier CLI at ``--model-parallel 2`` on 2 ranks (data 1 x model 2;
+  the width rule at 8 features, so that the fixture's nets have wide
+  layers) against one process: the same files, the DCGAN history within
+  rtol 2e-4, atol 2e-5 and its ``.pth`` files within 3 lr an update, the
+  classifier's JSON and checkpoints within 1e-4, only rank 0 writing.
+  A TP DCGAN run whose rank 1 gets SIGTERM after its first epoch and is
+  resumed with ``--resume-from auto`` ends bitwise equal to the straight
+  TP run (the snapshot holds the slices whole, the resume cuts them
+  again).
 """
 import json
 import os
@@ -380,3 +390,96 @@ def test_flags_refused_under_a_launch(fake_dataset, tmp_path, name):
         assert "Cross-Validation Summary (parallel folds)" in ranks[0]
     else:
         assert "ZeRO-1: the Adam moments of" in ranks[0]
+
+
+# name -> (the argv function, the Adam updates of a parameter: the
+# GAN's, or 0 for the classifier)
+TP_RUNS = {
+    "train_gan": (lambda ds, out, *extra: _narrow(_gan_argv(
+        ds["data_dir"], out, 2, "--ema-decay", "0.9", *extra)), 4),
+    "train_classifier": (lambda ds, out, *extra: _narrow(_clf_argv(
+        ds, out, *extra)), 0),
+}
+
+
+@pytest.mark.parametrize("name", list(TP_RUNS))
+def test_model_parallel_matches_one_process(fake_dataset, tmp_path, name):
+    argv, updates = TP_RUNS[name]
+    _one(argv(fake_dataset, tmp_path / "one"))
+    ranks = _ranks(argv(fake_dataset, tmp_path / "tp", "--model-parallel",
+                        "2"))
+    assert _files(tmp_path / "tp") == _files(tmp_path / "one")
+    for r, text in enumerate(ranks):
+        assert (f"Tensor parallelism: mesh {{'data': 1, 'model': 2}}; rank "
+                f"{r} is data rank 0, model rank {r}") in text, text[-2000:]
+        assert "Error" not in text, text[-2000:]
+    assert "Saved" not in ranks[1], ranks[1][-2000:]
+    for f in _files(tmp_path / "one"):
+        if f.endswith(".json"):
+            want = _flat(json.loads((tmp_path / "one" / f).read_text()))
+            got = _flat(json.loads((tmp_path / "tp" / f).read_text()))
+            tol = dict(rtol=0, atol=1e-4) if not updates \
+                else dict(rtol=2e-4, atol=2e-5)
+            np.testing.assert_allclose(got, want, **tol, err_msg=f)
+        elif f.endswith(".pth") and "snapshot" not in f:
+            want = torch.load(tmp_path / "one" / f, weights_only=True)
+            got = torch.load(tmp_path / "tp" / f, weights_only=True)
+            assert got.keys() == want.keys(), f
+            for k, v in want.items():
+                torch.testing.assert_close(
+                    got[k].double(), v.double(), rtol=0,
+                    atol=3 * 2e-4 * updates if updates else 1e-4,
+                    msg=f"{f}:{k}")
+
+
+def test_model_parallel_sigterm_and_resume(fake_dataset, tmp_path):
+    epochs = 6
+    argv, _ = TP_RUNS["train_gan"]
+
+    def tp_argv(out):
+        a = argv(fake_dataset, out, "--model-parallel", "2")
+        a[a.index("--epochs") + 1] = str(epochs)
+        return a
+
+    straight = _ranks(tp_argv(tmp_path / "straight"))
+    assert "Training finished" in straight[0]
+    paths = [tmp_path / f"rank{r}.log" for r in range(2)]
+    logs = [open(p, "w") for p in paths]
+    procs = start_ranks(tp_argv(tmp_path / "stopped"), 2, logs)
+    try:
+        deadline = time.time() + RANK_TIMEOUT
+        while f"Epoch 1/{epochs} Summary" not in paths[1].read_text():
+            if time.time() > deadline or procs[1].poll() is not None:
+                pytest.fail("rank 1 never finished its first epoch")
+            time.sleep(0.05)
+        procs[1].send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    texts = [p.read_text() for p in paths]
+    assert rcs == [0, 0], texts
+    stops = [ln for t in texts for ln in t.splitlines()
+             if ln.startswith("Preempted: training stopped after epoch")]
+    assert len(stops) == 2 and stops[0] == stops[1], stops
+    stopped = int(stops[0].split("epoch ")[1].split()[0])
+    assert 1 <= stopped < epochs
+    out = tmp_path / "stopped"
+    resumed = _ranks(tp_argv(out) + ["--resume-from", "auto"])
+    for text in resumed:
+        assert f"at epoch {stopped}, iter {2 * stopped}" in text, text
+    a = json.loads((tmp_path / "straight/metrics/gan_training_history.json")
+                   .read_text())
+    b = json.loads((out / "metrics/gan_training_history.json").read_text())
+    assert a == b
+    for f in ("generator_final.pth", "discriminator_final.pth",
+              "generator_ema_final.pth"):
+        want = torch.load(tmp_path / "straight/models/gan" / f,
+                          weights_only=True)
+        got = torch.load(out / "models/gan" / f, weights_only=True)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (f, k)

@@ -12,7 +12,10 @@ state`` without ranks to shard over, and the fold groups of
 - ``model_parallel_from_args`` prints the JAX note where the JAX package
   does, and returns what it returns for the same device count.
 - Under a 2-rank launch environment ``--model-parallel 2`` exits 1 with
-  its launch message before it joins a group.
+  its launch message before it joins a group in the WGAN-GP and CGAN
+  trainers (the DCGAN and classifier trainers take it:
+  ``tests/test_torch_port_dist_tp.py``, ``tests/test_torch_port_dist_cli
+  .py``).
 - ``fold_groups`` equals ``fold_mesh``'s device rows for worlds 1, 2 and 8.
 """
 import argparse
@@ -24,7 +27,7 @@ from torch import nn
 
 from xgan.parallel import tp as jax_tp
 from xgan.train.parallel_folds import fold_mesh
-from xgan_torch.cli import train_classifier, train_gan
+from xgan_torch.cli import train_cgan, train_wggan
 from xgan_torch.models import cgan, dcgan, wgan
 from xgan_torch.models.resnet import ResNet50
 from xgan_torch.parallel import tp
@@ -106,8 +109,8 @@ def test_model_parallel_from_args_matches_jax(n, world, note, capsys,
     assert ("Note: --model-parallel" in ours) == note
 
 
-@pytest.mark.parametrize("cli", [train_gan, train_classifier],
-                         ids=["train_gan", "train_classifier"])
+@pytest.mark.parametrize("cli", [train_wggan, train_cgan],
+                         ids=["train_wggan", "train_cgan"])
 def test_model_parallel_dividing_the_ranks_is_refused(cli, monkeypatch,
                                                       capsys):
     for k, v in LAUNCH.items():

@@ -508,10 +508,158 @@ def case_folds(inp, mesh):
     return out
 
 
+def tp_net(x, w1, w2, w3, b3, model):
+    """A small tensor-parallel network of the three operators (float64):
+    ``x (B, C)`` through a column-parallel ``w1`` (C, H/N), its slices
+    gathered, a column-parallel ``w2`` (H, K/N), and a row-parallel ``w3``
+    (K/N, O) whose partial products are summed over the model group, then
+    the bias; with ``model`` None (whole weights) the one-process
+    function."""
+    from xgan_torch.parallel.tp import (copy_to_model, gather_from_model,
+                                        reduce_from_model)
+    h = torch.tanh(copy_to_model(x, model) @ w1)
+    h = gather_from_model(h, model, 1)
+    h = torch.tanh(copy_to_model(h, model) @ w2)
+    return reduce_from_model(h @ w3, model) + b3
+
+
+def tp_penalty(x, ws, model, n: int):
+    """The first and second derivatives through :func:`tp_net`: the input
+    gradient of its summed outputs over the rows ``x`` (kept in the graph)
+    and the penalty ``sum_i (||g_i|| - 1)^2 / n`` on its rows' norms,
+    differentiable in the weights (the double backward that WGAN-GP's
+    penalty takes)."""
+    x = x.clone().requires_grad_(True)
+    g, = torch.autograd.grad(tp_net(x, *ws, model).sum(), x,
+                             create_graph=True)
+    return g, (g.norm(dim=1) - 1.0).square().sum() / n
+
+
+def _tp_gan(inp, mesh, run):
+    """One tensor-parallel DCGAN run of :func:`case_tp`."""
+    from xgan_torch.models.dcgan import Discriminator, Generator
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.parallel import tp
+    from xgan_torch.train.common import adam
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.multistep import StepsPerCall
+    gi = inp["gan"]
+    latent, fm, size = gi["latent"], gi["fm"], gi["size"]
+    g, d = Generator(latent, 3, fm, size), Discriminator(3, fm, size)
+    g.load_state_dict(gi["g"])
+    d.load_state_dict(gi["d"])
+    sync_batch_norm(g, mesh)
+    sync_batch_norm(d, mesh)
+    tp.shard_over_model([g, d], mesh.model, inp["min"])
+    opts = [adam(m.parameters(), gi["lr"], 0.5) for m in (g, d)]
+    if run == "zero":
+        opts = [tp.shard_opt_state(o, [m], mesh, inp["min"])
+                for o, m in zip(opts, (g, d))]
+    images = gi["images"]
+    steps = gi["steps"] if run != "accum" else gi["steps"][:1]
+    calls = iter(steps)
+
+    def one(idx):
+        s = next(calls)
+        return dcgan_step(g, d, *opts, images, idx, latent_dim=latent,
+                          flip=s["flip"], noise=s["noise"], mesh=mesh,
+                          grad_accum=2 if run == "accum" else 1)
+
+    idx = torch.stack([s["idx"] for s in steps])
+    if run == "k2":
+        metrics = StepsPerCall(one, 2, torch.Generator())(idx)
+    else:
+        metrics = torch.stack([one(i) for i in idx])
+    return {"metrics": metrics,
+            "whole": {"g": tp.whole_state_dict(g),
+                      "d": tp.whole_state_dict(d)},
+            "local": {"g": g.state_dict(), "d": d.state_dict()},
+            "dims": {"g": g.tp_dims, "d": d.tp_dims},
+            "opt_whole": [tp.whole_opt_state_dict(o) for o in opts]}
+
+
+def _tp_clf(inp, mesh, run):
+    """One tensor-parallel classifier run of :func:`case_tp`: 3 steps
+    with the base frozen, or 1 unfrozen (with ``remat`` too), then the
+    eval step on the first 16 rows."""
+    from xgan_torch.data.pipeline import DeviceStore
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.models.resnet import ResNet50
+    from xgan_torch.parallel import tp
+    from xgan_torch.train.classifier import (classifier_optimizer,
+                                             eval_step, train_step)
+    ci = inp["clf"]
+    model = ResNet50(2, stage_sizes=ci["stages"], remat=run == "remat")
+    model.load_state_dict(ci["model"])
+    sync_batch_norm(model, mesh)
+    tp.shard_over_model([model], mesh.model, inp["min"])
+    frozen = run == "frozen"
+    opt = classifier_optimizer(model, ci["lr"], freeze_base=frozen)
+    store = DeviceStore(_store(ci["images"], ci["labels"]), "cpu", mesh)
+    losses = [train_step(model, opt, store, store, s["idx"], mode="real",
+                         flip=s["flip"], mesh=mesh)[0]
+              for s in ci["steps"][:3 if frozen else 1]]
+    ev = eval_step(model, store, torch.arange(16), mesh=mesh)
+    return {"losses": torch.stack(losses), "eval": ev,
+            "whole": tp.whole_state_dict(model),
+            "local": model.state_dict(), "dims": model.tp_dims}
+
+
+def case_tp(inp, mesh):
+    """Tensor parallelism on the ``(data, model)`` layout of
+    ``inp["model_parallel"]``: the DCGAN runs (``tp``: the K = 1 steps,
+    ``k2``: one K = 2 call, ``zero``: ZeRO-1 over the data group,
+    ``accum``: one ``--grad-accum 2`` step), the classifier runs
+    (``frozen``, ``unfrozen``, ``remat``), the round trips of
+    ``shard_over_model`` and ``whole_state_dict`` (a 64-px G, whose first
+    ConvT packs 2 x 2 pixels, included), and the float64 first and second
+    derivatives of :func:`tp_penalty` on this rank's data rows."""
+    from xgan_torch.models.dcgan import Discriminator, Generator
+    from xgan_torch.models.resnet import ResNet50
+    from xgan_torch.parallel import tp
+    from xgan_torch.parallel.mesh import all_reduce_grads
+    data, model = mesh.split_model(inp["model_parallel"])
+    out = {"data_rank": data.rank, "model_rank": model.rank,
+           "is_main": data.is_main}
+    for run in ("tp", "k2", "zero", "accum"):
+        out[f"gan_{run}"] = _tp_gan(inp, data, run)
+    for run in ("frozen", "unfrozen", "remat"):
+        out[f"clf_{run}"] = _tp_clf(inp, data, run)
+    gi, ci = inp["gan"], inp["clf"]
+    nets = {"g32": (Generator(gi["latent"], 3, gi["fm"], 32), gi["g"]),
+            "g64": (Generator(gi["latent"], 3, gi["fm"], 64), inp["g64"]),
+            "d": (Discriminator(3, gi["fm"], 32), gi["d"]),
+            "resnet": (ResNet50(2, stage_sizes=ci["stages"]), ci["model"])}
+    out["round_trip"] = {}
+    for name, (net, sd) in nets.items():
+        net.load_state_dict(sd)
+        tp.shard_over_model([net], model, inp["min"])
+        out["round_trip"][name] = {
+            "whole": tp.whole_state_dict(net), "local": net.state_dict(),
+            "dims": net.tp_dims,
+            "w0_mat": net.w0_mat.clone() if name[0] == "g" else None}
+    ops = inp["ops"]
+    ws = [w.clone() for w in ops["ws"]]
+    n = model.world
+    for i, dim in ((0, 1), (1, 1), (2, 0)):  # w1, w2 columns; w3 rows
+        k = ws[i].shape[dim] // n
+        ws[i] = ws[i].narrow(dim, model.rank * k, k).clone()
+    ws = [w.requires_grad_(True) for w in ws]
+    for w in ws[:3]:
+        w.tp_dim = 0  # sliced: no broadcast of its gradient
+    rows = data.local_rows(ops["x"].shape[0])
+    g, pen = tp_penalty(ops["x"][rows], ws, model, ops["x"].shape[0])
+    pen.backward()
+    all_reduce_grads(ws, data)
+    out["ops"] = {"dx": g.detach(), "grads": [w.grad for w in ws]}
+    return out
+
+
 CASES = {"gan": case_gan, "bn": case_bn, "classifier": case_classifier,
          "take": case_take, "wgan": case_wgan, "penalty": case_penalty,
          "cgan": case_cgan, "sampler": case_sampler, "zero1": case_zero1,
-         "kstep": case_kstep, "folds": case_folds}
+         "kstep": case_kstep, "folds": case_folds,
+         "tp": case_tp}
 
 
 def main(in_path: str, out_dir: str) -> None:
@@ -575,14 +723,16 @@ def wait_ranks(procs: list, timeout: float = RANK_TIMEOUT) -> list:
     return outs
 
 
-def run_cases(inputs: dict, tmp, world: int = 2) -> dict:
+def run_cases(inputs: dict, tmp, world: int = 2,
+              timeout: float = RANK_TIMEOUT) -> dict:
     """Run the cases of ``inputs`` on ``world`` gloo ranks; returns case
     name -> [each rank's outputs]."""
     tmp = str(tmp)
     in_path = os.path.join(tmp, "in.pt")
     torch.save(inputs, in_path)
     outs = wait_ranks(start_ranks(
-        [sys.executable, os.path.abspath(__file__), in_path, tmp], world))
+        [sys.executable, os.path.abspath(__file__), in_path, tmp], world),
+        timeout)
     for rc, text in outs:
         assert rc == 0, text[-4000:]
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)

@@ -32,7 +32,11 @@ gcd(k, ranks) fold groups, each training k / gcd folds on its ranks
 (``xgan_torch.train.parallel_cv``); ``--shard-store``,
 ``--shard-opt-state`` and ``--model-parallel`` are ignored there, each
 with the JAX CLI's note. ``--model-parallel N`` with N > 1 dividing the
-ranks exits 1: tensor parallelism across ranks is not ported yet.
+ranks is tensor parallelism on the JAX CLI's ``(data, model)`` mesh: each
+group of N ranks splits ResNet-50's wide layers' output channels
+(``fc`` row-parallel; ``xgan_torch.parallel.tp``) and sees the same rows;
+``--shard-store`` and ``--shard-opt-state`` then split over the data
+ranks.
 """
 from __future__ import annotations
 
@@ -122,7 +126,8 @@ def main(argv=None):
     if args.k_folds < 1:
         print("Error: k-folds must be at least 1.")
         sys.exit(1)
-    mesh = config.join_ranks(args, parallel_folds=args.parallel_folds)
+    mesh = config.join_ranks(args, parallel_folds=args.parallel_folds,
+                             tensor_parallel=True)
     device = mesh.device
     if args.use_curriculum and not args.use_synthetic:
         print("Warning: --use-curriculum requires --use-synthetic. "

@@ -11,6 +11,8 @@ step then gathers its own rows (``rows``, :meth:`MeshContext.local_rows
 <xgan_torch.parallel.MeshContext.local_rows>`). A store is replicated on
 every rank, or, with ``--shard-store``, split over the ranks; its
 ``take`` then assembles rows by one all-reduce (:func:`sharded_take`).
+Under ``--model-parallel`` the ranks are the data group's: the ranks of
+one model group hold the same block and gather the same rows.
 """
 from __future__ import annotations
 

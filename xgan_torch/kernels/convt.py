@@ -705,7 +705,10 @@ class ConvT4x4s2Train(torch.autograd.Function):
     the JAX package takes these gradients from XLA's convolutions
     (``jax.vjp`` of lax ``conv_transpose``), outside any Pallas kernel. The
     weight is cast to ``x.dtype`` for both passes and ``dW`` back to the
-    parameter's dtype, as the gradient of flax's cast of its f32 kernel."""
+    parameter's dtype, as the gradient of flax's cast of its f32 kernel.
+    Under tensor parallelism ``w`` is this rank's slice ``(Cin, Cout/N,
+    4, 4)`` and ``x`` all Cin channels: the slice is packed as any weight
+    and the kernel runs at Cout/N (its route by :func:`convt_route`)."""
 
     @staticmethod
     def forward(ctx, x, w, convt):

@@ -31,6 +31,17 @@ The generator has two forwards:
   ``convt4x4s2_train`` (the kernel forward, cuDNN backward), each BN in
   train mode with batch statistics (running statistics advance once per
   call), tanh in f32.
+
+Under tensor parallelism (:func:`xgan_torch.parallel.tp.shard_over_model`
+sets ``tp``, the model group, and slices the wide leaves) each wide layer
+is column-parallel, both forwards of G and D's: a rank computes its slice
+of the layer's output channels from all of its input channels, gathered
+where the previous layer left a slice (:func:`~xgan_torch.parallel.tp.
+layer_input`); BN and the activation act on the slice. G's first ConvT
+is packed from its sliced parameter, so its matrix's columns are this
+rank's channels at every pixel; each sliced k4s2 layer runs the kernel on
+its slice of Cout. D gathers before the next layer that needs all
+channels and before its valid head.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ from xgan_torch.kernels.convt import (convt4x4s2_fused, convt4x4s2_train,
                                       pack_convt_weight)
 from xgan_torch.models.layers import batch_norm, gan_init_, leaky_relu
 from xgan_torch.ops.norm import batch_norm_infer, fold_bn
+from xgan_torch.parallel.tp import copy_to_model, layer_input, sharded
 
 SEQ_CONVT = (0, 3, 6, 9, 12, 15)
 SEQ_BN = (1, 4, 7, 10, 13)
@@ -177,10 +189,19 @@ class Generator(nn.Module):
         x = torch.relu(batch_norm_infer(x, bn.weight, bn.bias,
                                         bn.running_mean, bn.running_var,
                                         eps=bn.eps))
-        for i in range(5):
+        for i, seq in enumerate(SEQ_CONVT[1:]):
+            x = self._input(x, seq)
             x = convt(x, t[f"wp{i}"], t[f"scale{i}"], t[f"shift{i}"],
                       act="relu" if i < 4 else "none")
         return torch.tanh(x.float())
+
+    def _input(self, x: torch.Tensor, seq: int) -> torch.Tensor:
+        """``x`` (NHWC) as the input of the ConvT at ``main[seq]``: all
+        channels, and column-parallel when its weight is a slice (``x``
+        itself without tensor parallelism)."""
+        w = self.main[seq].weight
+        return layer_input(x, w.shape[0], getattr(self, "tp", None),
+                           sharded(w), dim=-1)
 
     def forward_train(self, z: torch.Tensor, mask=None, *,
                       convt=convt4x4s2_fused,
@@ -193,13 +214,16 @@ class Generator(nn.Module):
         statistics where they are (a recompute of a forward that already
         advanced them)."""
         b = z.shape[0]
+        if sharded(self.main[0].weight):
+            z = copy_to_model(z, self.tp)
         x = (z.to(self.dtype) @ self._w0_mat()).reshape(b, self.s0, self.s0,
                                                         -1)
         x = torch.relu(batch_norm(self.main[SEQ_BN[0]], x, train=True,
                                   mask=mask, dim=-1,
                                   update_stats=update_stats))
         for i, seq in enumerate(SEQ_CONVT[1:]):
-            x = convt4x4s2_train(x, self.main[seq].weight, convt)
+            x = convt4x4s2_train(self._input(x, seq), self.main[seq].weight,
+                                 convt)
             if i < 4:
                 x = torch.relu(batch_norm(self.main[SEQ_BN[i + 1]], x,
                                           train=True, mask=mask, dim=-1,
@@ -236,23 +260,28 @@ class Discriminator(nn.Module):
         """x (B, S, S, C) NHWC -> f32 logits (B,). ``mask``: (B,) validity
         weights for train-mode BN statistics."""
         x = conv_ladder(self.main, SEQ_D_CONV, SEQ_D_BN, x, self.dtype,
-                        train=train, mask=mask)
+                        train=train, mask=mask, tp=getattr(self, "tp", None))
         return x.float().reshape(x.shape[0])
 
 
 def conv_ladder(main: nn.Sequential, seq_conv, seq_bn, x: torch.Tensor,
-                dtype: torch.dtype, *, train: bool, mask=None) -> torch.Tensor:
+                dtype: torch.dtype, *, train: bool, mask=None,
+                tp=None) -> torch.Tensor:
     """The convolutions of a reference-layout discriminator ``main`` (conv
     at ``seq_conv``, BN right after the convs that have one at ``seq_bn``):
     NHWC ``x`` -> the last conv's NCHW output in ``dtype``. Each conv but
     the last is k4 s2 p1, then BN where there is one, then LeakyReLU 0.2;
     the last is valid with stride 1. The convolutions are cuDNN's, on a
     channels_last NCHW view in ``dtype`` (the JAX package leaves them to
-    XLA too)."""
+    XLA too). ``tp``: the model group of a tensor-parallel ``main``
+    (column-parallel wide convs; see the module docstring)."""
     x = x.to(dtype).permute(0, 3, 1, 2)
-    for seq in seq_conv[:-1]:
-        x = F.conv2d(x, main[seq].weight.to(x.dtype), None, 2, 1)
+    for seq in seq_conv:
+        w = main[seq].weight
+        x = layer_input(x, w.shape[1], tp, sharded(w))
+        if seq == seq_conv[-1]:
+            return F.conv2d(x, w.to(x.dtype))
+        x = F.conv2d(x, w.to(x.dtype), None, 2, 1)
         if seq + 1 in seq_bn:
             x = batch_norm(main[seq + 1], x, train=train, mask=mask)
         x = leaky_relu(x)
-    return F.conv2d(x, main[seq_conv[-1]].weight.to(x.dtype))

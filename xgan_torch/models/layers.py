@@ -14,7 +14,10 @@ restricts the statistics to the valid rows of a padded tail batch
 ``F.batch_norm``, which has the same semantics. :func:`sync_batch_norm`
 makes a model's train-mode statistics those of the batch its data-parallel
 ranks share; such a BN always takes the sums path (``F.batch_norm`` sees
-this rank's rows only).
+this rank's rows only). Under tensor parallelism a BN of a sliced width
+holds this rank's channels (scale, shift and running statistics): BN is
+per channel, so it is exact on the slice, its moments reduced over the
+data group it is tied to.
 """
 from __future__ import annotations
 

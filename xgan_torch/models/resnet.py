@@ -43,6 +43,19 @@ the folds' ``(k*classes, C)``. Each parameter and buffer is thus the k
 models' tensors concatenated on its first axis. ``forward`` takes
 ``(k, B, H, W, 3)`` images and returns ``(k, B, classes)`` logits; the
 train-mode ``mask`` is ``(k, B)``, each fold's row weights.
+
+Under tensor parallelism (:func:`xgan_torch.parallel.tp.shard_over_model`
+sets ``tp``, the model group) each wide convolution is column-parallel:
+a rank computes its slice of the output channels from all input
+channels, gathered where a slice arrives (:func:`~xgan_torch.parallel.
+tp.layer_input`), and BN acts on the slice. The residual stream of a
+wide stage stays sliced: conv3 and the downsample share one O split, so
+a block adds slice to slice, and its input is gathered once for conv1
+and the downsample. ``fc`` is row-parallel: each rank's partial product
+over its slice of the pooled features, summed over the model group
+(:func:`~xgan_torch.parallel.tp.reduce_from_model`), then the bias once.
+The ``remat`` recompute re-issues the block's collectives in the
+backward, in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -52,6 +65,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from xgan_torch.models.layers import batch_norm
+from xgan_torch.parallel.tp import (copy_to_model, gather_from_model,
+                                    layer_input, reduce_from_model, sharded,
+                                    split_to_model)
 
 WIDTHS = (64, 128, 256, 512)
 REMAT_SCOPES = ("block", "stage", "nested")
@@ -113,16 +129,33 @@ class Bottleneck(nn.Module):
         output. ``update_stats=False``: train-mode BN that leaves the
         running statistics (a remat recompute)."""
         kw = {"train": train, "mask": mask, "update_stats": update_stats}
-        out = torch.relu(conv_bn(self.conv1, self.bn1, x, **kw))
-        out = torch.relu(conv_bn(self.conv2, self.bn2, out, **kw))
-        pre_bn = conv(self.conv3, out)
+        tp = getattr(self, "tp", None)
+        # all of x's channels, gathered once for conv1 and the downsample
+        x_in = x_ds = layer_input(x, self.conv1.weight.shape[1], tp, False)
+        ds = self.downsample
+        column = (sharded(self.conv1.weight),
+                  ds is not None and sharded(ds[0].weight))
+        if any(column):
+            x_col = copy_to_model(x_in, tp)
+            x_in = x_col if column[0] else x_in
+            x_ds = x_col if column[1] else x_ds
+        out = torch.relu(conv_bn(self.conv1, self.bn1, x_in, **kw))
+        out = torch.relu(conv_bn(self.conv2, self.bn2,
+                                 _input(self.conv2, out, tp), **kw))
+        pre_bn = conv(self.conv3, _input(self.conv3, out, tp))
         out = batch_norm(self.bn3, pre_bn, **kw)
         identity = x
         if self.downsample is not None:
-            identity = conv_bn(self.downsample[0], self.downsample[1], x,
+            identity = conv_bn(self.downsample[0], self.downsample[1], x_ds,
                                **kw)
         out = torch.relu(out + identity)
         return (out, pre_bn) if tap else out
+
+
+def _input(conv_: nn.Conv2d, x: torch.Tensor, tp) -> torch.Tensor:
+    """``x`` as ``conv_``'s input (``layer_input``; ``x`` itself without
+    tensor parallelism)."""
+    return layer_input(x, conv_.weight.shape[1], tp, sharded(conv_.weight))
 
 
 class ResNet50(nn.Module):
@@ -194,8 +227,10 @@ class ResNet50(nn.Module):
             k, b, h, w, c = x.shape
             x = x.permute(1, 2, 3, 0, 4).reshape(b, h, w, k * c)
         x = x.permute(0, 3, 1, 2)  # channels_last NCHW view
-        x = torch.relu(conv_bn(self.conv1, self.bn1, x, train=train,
-                               mask=mask))
+        x = torch.relu(conv_bn(self.conv1, self.bn1,
+                               _input(self.conv1, x, getattr(self, "tp",
+                                                             None)),
+                               train=train, mask=mask))
         x = F.max_pool2d(x, 3, 2, 1)
         if self.remat and train and not cam:
             for stage in range(len(self.stage_sizes)):
@@ -210,8 +245,19 @@ class ResNet50(nn.Module):
         return (logits, conv3, x) if cam else logits
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean-pool and ``fc`` in f32 (each fold's with k folds)."""
+        """The mean-pool and ``fc`` in f32 (each fold's with k folds; row-
+        parallel under tensor parallelism)."""
         feats = x.float().mean(dim=(2, 3))
+        tp = getattr(self, "tp", None)
+        if tp is not None:
+            w = self.fc.weight
+            if not sharded(w):
+                if feats.shape[1] != w.shape[1]:
+                    feats = gather_from_model(feats, tp, 1)
+                return F.linear(feats, w, self.fc.bias)
+            if feats.shape[1] != w.shape[1]:
+                feats = split_to_model(feats, tp, 1)
+            return reduce_from_model(F.linear(feats, w), tp) + self.fc.bias
         if self.folds == 1:
             return F.linear(feats, self.fc.weight, self.fc.bias)
         b, k = feats.shape[0], self.folds

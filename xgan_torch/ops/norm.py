@@ -25,7 +25,9 @@ are summed in float64 and the mean is applied as an f32 pair
 (:func:`_split`), so a channel whose mean is far above its spread keeps
 the digits one process's ``F.batch_norm`` keeps (the one-pass
 ``s2/n - mean^2`` cancels there). A rank whose rows are all masked adds
-nothing.
+nothing. Under tensor parallelism ``x`` holds this rank's slice of the
+channels and ``mesh`` is the data group: the statistics are per channel,
+so the slice's are exact, and the model group takes no part in them.
 """
 from __future__ import annotations
 

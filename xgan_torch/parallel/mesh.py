@@ -10,8 +10,8 @@ device computes, up to reduction order. The port launches one process a
 rank, as PyTorch users do (``torchrun --nproc-per-node N -m
 xgan_torch.cli.train_gan ...``), and writes those collectives by hand:
 
-- :class:`MeshContext`: the rank, the world (the data axis; the model axis
-  stays 1), the device, ``pad_batch`` and each rank's ``local_rows``;
+- :class:`MeshContext`: the rank, the world (the data axis), the device,
+  ``pad_batch`` and each rank's ``local_rows``;
 - :func:`all_reduce_sum`: a SUM all-reduce whose backward is one too, so
   a statistic summed across ranks (BN's sums, a loss's denominator) passes
   its gradient back to every rank's rows;
@@ -27,7 +27,15 @@ a zero-padded all-reduce on gloo.)
 
 :meth:`MeshContext.split` cuts the ranks into groups (``--parallel-folds``'
 fold groups): each group is a context of its own whose rank, world and
-collectives are the group's.
+collectives are the group's. :meth:`MeshContext.split_model` lays the
+ranks out as the JAX package's ``(data, model)`` mesh for
+``--model-parallel N`` (rank r at data index ``r // N``, model index ``r %
+N``) and returns two groups: the data group (the ranks of one model
+index), which every collective of data parallelism takes, and the model
+group (the ranks of one data index), which tensor parallelism's take
+(:mod:`xgan_torch.parallel.tp`). The data group's context carries the
+model group (``model``), so that its file-writing rank, its stop decision
+and its barrier stay those of every rank.
 """
 from __future__ import annotations
 
@@ -54,6 +62,8 @@ class MeshContext:
     # global ranks it holds, in group-rank order
     group: object = None
     members: tuple = ()
+    # the model group of this data group's rank (``split_model``), or None
+    model: "MeshContext | None" = None
 
     @property
     def n_data(self) -> int:
@@ -61,8 +71,10 @@ class MeshContext:
 
     @property
     def is_main(self) -> bool:
-        """Rank 0: the one rank that writes files."""
-        return self.rank == 0
+        """Rank 0 (of the model group too): the one rank that writes
+        files."""
+        return self.rank == 0 and (self.model is None
+                                   or self.model.rank == 0)
 
     def pad_batch(self, n: int) -> int:
         """Smallest multiple of the world size >= n (the global batch)."""
@@ -137,6 +149,20 @@ class MeshContext:
             raise ValueError(f"rank {self.rank} is in none of {groups}")
         return mine
 
+    def split_model(self, n: int):
+        """The ``(data, model)`` layout of ``--model-parallel n`` over
+        these ranks (``n`` divides the world): returns ``(data, model)``,
+        this rank's data group ``{m, m + n, ...}`` (its model index ``m``)
+        carrying its model group ``{d*n, ..., d*n + n - 1}`` (its data
+        index ``d``). Every rank calls it, in the same order."""
+        if self.world % n:
+            raise ValueError(f"--model-parallel {n} does not divide the "
+                             f"{self.world} ranks")
+        model = self.split([range(d * n, (d + 1) * n)
+                            for d in range(self.world // n)])
+        data = self.split([range(m, self.world, n) for m in range(n)])
+        return dataclasses.replace(data, model=model), model
+
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks in place (no autograd)."""
         if self.distributed:
@@ -148,6 +174,23 @@ class MeshContext:
         if self.distributed:
             dist.broadcast(t, src=self.global_rank(src), group=self.group)
         return t
+
+    def all_gather(self, mine: torch.Tensor) -> torch.Tensor:
+        """``(world, *mine.shape)``: every rank's ``mine``, in rank order
+        (no autograd). NCCL's ``all_gather_into_tensor``; on gloo a zero
+        buffer holding ``mine`` at this rank's place, summed over the ranks
+        (``x + 0`` is exact)."""
+        n = self.world
+        if not self.distributed:
+            return mine[None]
+        out = mine.new_zeros((n, *mine.shape))
+        if self.backend == "nccl":
+            dist.all_gather_into_tensor(out.view(-1),
+                                        mine.contiguous().view(-1),
+                                        group=self.group)
+            return out
+        out[self.rank] = mine
+        return self.all_reduce_(out)
 
     def gather_rows(self, t: torch.Tensor, b: int,
                     rows=None) -> torch.Tensor:
@@ -164,11 +207,17 @@ class MeshContext:
 
     def any(self, flag: bool) -> bool:
         """True on every rank when ``flag`` is true on any: the ranks'
-        shared decision (and a barrier) at world > 1."""
-        if self.world == 1:
+        shared decision (and a barrier) at world > 1, over the model
+        groups too (every rank of the run)."""
+        model = self.model if self.model is not None \
+            and self.model.world > 1 else None
+        if self.world == 1 and model is None:
             return bool(flag)
         t = torch.tensor([float(bool(flag))], device=self.device)
-        return bool(self.all_reduce_(t).item() > 0)
+        self.all_reduce_(t)
+        if model is not None:
+            model.all_reduce_(t)
+        return bool(t.item() > 0)
 
     def barrier(self) -> None:
         """Wait for every rank (nothing at world 1)."""
@@ -266,14 +315,33 @@ def all_reduce_grads(params, mesh: MeshContext | None) -> None:
     """Sum the ``.grad`` of ``params`` over the ranks in one flattened
     buffer, in place (a parameter without a gradient is left out, as on
     every rank). Each rank's loss is its share of the global loss, so the
-    sum is the global gradient, the same on every rank."""
+    sum is the global gradient, the same on every rank.
+
+    Under tensor parallelism (``mesh.model``, a model group of several
+    ranks) the gradients of the replicated parameters (those without a
+    ``tp_dim``, :func:`xgan_torch.parallel.tp.shard_over_model`) are then
+    broadcast from the model group's first rank: every rank of the group
+    computed them, but two processes' cuDNN backward may add in other
+    orders, and the narrow layers' copies must not drift apart."""
     if mesh is None or not mesh.distributed:
         return
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    params = [p for p in params if p.grad is not None]
+    if not params:
         return
+    _flat_(params, lambda flat: dist.all_reduce(flat, group=mesh.group))
+    model = mesh.model
+    if model is not None and model.world > 1:
+        replicated = [p for p in params if getattr(p, "tp_dim", None) is None]
+        if replicated:
+            _flat_(replicated, lambda flat: model.broadcast_(flat, 0))
+
+
+def _flat_(params, collective) -> None:
+    """``collective`` on the gradients of ``params`` as one flattened
+    buffer, copied back in place."""
+    grads = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.group)
+    collective(flat)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))

@@ -35,7 +35,12 @@ the global batch's on every rank (the mixer's ``use_synth`` and
 all-reduced valid count, the gradients are summed over the ranks in one
 buffer before Adam, and the per-sample outputs come back for the whole
 batch on every rank (``MeshContext.gather_rows``), as from the JAX
-package's sharded step.
+package's sharded step. Under ``--model-parallel`` ``mesh`` is the data
+group (its model group rides along): the rows, the valid count, the
+gradient sum and the gathered outputs are the data group's, the model
+computes column-parallel over its model group
+(:mod:`xgan_torch.parallel.tp`), and ``mixed_gather_ranks`` gathers the
+data group's rows on each of its ranks.
 
 The metrics replace sklearn's with numpy and scipy:
 :func:`weighted_prf` (support-weighted precision, recall and F1 with

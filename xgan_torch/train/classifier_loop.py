@@ -51,6 +51,16 @@ the wide Adam moments (:mod:`xgan_torch.parallel.tp`). ``--parallel-folds``
 runs on the JAX package's fold mesh (:mod:`xgan_torch.train.parallel_cv`);
 ``--shard-store`` and ``--shard-opt-state`` are ignored there, each with
 the JAX loop's note, and the stores stay whole on every rank.
+
+``--model-parallel N`` (``mesh`` is then the data group of the ``(data,
+model)`` layout, carrying the model group): each run's ResNet-50 is
+placed over the model group after init and the ImageNet load
+(:func:`~xgan_torch.parallel.tp.shard_over_model`), before its optimizer;
+the batch is padded to and split over the data ranks, and so are
+``--shard-store``'s stores and ``--shard-opt-state``'s moments; the best
+state is assembled whole on every rank (``host_state``) and written by
+rank 0; the test metrics come from that whole state, evaluated over the
+data ranks.
 """
 from __future__ import annotations
 
@@ -71,7 +81,7 @@ from xgan_torch.models.convert import load_resnet_pth
 from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.resnet import ResNet50
 from xgan_torch.parallel.mesh import MeshContext
-from xgan_torch.parallel.tp import opt_from_args
+from xgan_torch.parallel.tp import opt_from_args, shard_over_model
 from xgan_torch.train.classifier import (accuracy, auroc,
                                          classifier_optimizer, eval_step,
                                          train_step, weighted_prf)
@@ -130,6 +140,8 @@ def init_resnet(args, dtype, device, seed: int, mesh=None):
               "cannot be downloaded here; training ResNet-50 from random "
               "init (throughput is unaffected; accuracy parity with the "
               "reference requires the ImageNet checkpoint).")
+    if mesh is not None and mesh.model is not None:
+        shard_over_model([model], mesh.model)
     return model
 
 

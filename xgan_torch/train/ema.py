@@ -4,9 +4,11 @@
 ``ema <- ema * d + (1 - d) * param`` after every G Adam step, over G's
 parameters (not its BN buffers: those are already a running average, and
 the EMA checkpoint pairs the EMA parameters with the raw generator's
-buffers, :func:`xgan_torch.train.loop_common.save_ema_final`). The EMA is
+buffers, :func:`xgan_torch.train.loop_common.ema_state`). The EMA is
 write-only: nothing in the step reads it, so training with it on is
-bitwise the same as with it off.
+bitwise the same as with it off. Under tensor parallelism it holds
+this rank's slices of G's parameters (made after the placement), and the
+checkpoints and snapshots assemble it whole.
 """
 from __future__ import annotations
 

@@ -49,6 +49,14 @@ With ``grad_accum=A`` a rank holds its share of each microbatch
 microbatch over ``data``): each microbatch is one global BN batch, the
 weight and the skipped microbatches are the global batch's, and the
 gradients are summed over the ranks once per update.
+
+Under ``--model-parallel`` ``mesh`` is the data group of the ``(data,
+model)`` layout: the ranks of one model group take the same rows, noise
+and flips, compute G and D column-parallel
+(:mod:`xgan_torch.parallel.tp`; G's sliced k4s2 layers run the kernel on
+their slice of Cout) and count their shared loss once; the replicated
+parameters' gradients are broadcast over the model group after the data
+group's sum (``all_reduce_grads``).
 """
 from __future__ import annotations
 

@@ -37,6 +37,15 @@ microbatch; ``--steps-per-call`` captures K steps with their NCCL
 all-reduces in one CUDA graph (:mod:`xgan_torch.train.multistep`); and
 ``--shard-opt-state`` keeps each rank's slice of the wide Adam moments
 (:mod:`xgan_torch.parallel.tp`), the snapshot holding them whole.
+
+``--model-parallel N`` (``mesh`` is then the data group of the ``(data,
+model)`` layout, carrying the model group): G and D are placed over the
+model group after init (:func:`~xgan_torch.parallel.tp.shard_over_model`),
+before the optimizers and the EMA, so that both hold this rank's slices;
+the batch is padded to and split over the data ranks; every rank renders
+the sheets (the eval forward gathers over the model group) and assembles
+the checkpoints, the snapshot and the EMA whole, and rank 0 writes them;
+a resume cuts them again.
 """
 from __future__ import annotations
 
@@ -53,7 +62,7 @@ from xgan_torch.io_.figures import plot_gan_losses, save_image_grid
 from xgan_torch.models.dcgan import Discriminator, Generator
 from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.parallel.mesh import MeshContext
-from xgan_torch.parallel.tp import opt_from_args
+from xgan_torch.parallel.tp import opt_from_args, shard_over_model
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan import dcgan_step
@@ -123,6 +132,8 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype,
                       generator=seeds[1])
     sync_batch_norm(g, mesh)
     sync_batch_norm(d, mesh)
+    if mesh.model is not None:
+        shard_over_model([g, d], mesh.model)
     k_steps = max(1, args.steps_per_call)
     # on the card, Adam's update stays on the device for every K: a step
     # inside a CUDA graph needs it, and K = 1 then trains as K > 1 does
@@ -155,11 +166,12 @@ def train_dcgan(args, device: torch.device, dtype: torch.dtype,
         if k_steps > 1 else None
 
     def sample_grid(path):
-        if not mesh.is_main:
-            return
+        if not mesh.is_main and mesh.model is None:
+            return  # under tensor parallelism every rank renders
         g.repack()  # the eval forward reads tensors derived at repack
         imgs = minmax_to_u8(g(fixed_noise))
-        save_image_grid(imgs.cpu().numpy(), path, nrow=8)
+        if mesh.is_main:
+            save_image_grid(imgs.cpu().numpy(), path, nrow=8)
 
     data_rng = np.random.default_rng(args.seed)
     run = EpochRun(args, gan_model_dir,

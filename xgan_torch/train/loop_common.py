@@ -16,6 +16,7 @@ import torch
 
 from xgan_torch.data.pipeline import epoch_batches
 from xgan_torch.io_.metrics import write_json
+from xgan_torch.parallel import tp
 from xgan_torch.train.snapshot import SnapshotManager, resume_run, \
     run_state, save_epoch
 from xgan_torch.utils.timer import maybe_trace
@@ -74,18 +75,18 @@ def resolve_grad_accum(grad_accum: int, batch_size: int) -> int:
 
 
 def save_gan_checkpoints(model_dir: str, tag: str, g, d) -> None:
-    """``generator_{tag}.pth`` and ``discriminator_{tag}.pth``: host copies
-    of the reference-layout state dicts."""
-    torch.save(host_state(g), os.path.join(model_dir,
-                                            f"generator_{tag}.pth"))
-    torch.save(host_state(d), os.path.join(model_dir,
-                                            f"discriminator_{tag}.pth"))
+    """``generator_{tag}.pth`` and ``discriminator_{tag}.pth``: the
+    reference-layout state dicts ``g`` and ``d`` (:func:`host_state`'s)."""
+    torch.save(g, os.path.join(model_dir, f"generator_{tag}.pth"))
+    torch.save(d, os.path.join(model_dir, f"discriminator_{tag}.pth"))
 
 
 def host_state(model) -> dict:
-    """A copy of ``model``'s state dict on the host (a checkpoint that
-    later steps do not change)."""
-    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    """A copy of ``model``'s whole state dict on the host (a checkpoint
+    that later steps do not change); under tensor parallelism a
+    collective of its model group, which assembles the slices."""
+    return {k: v.detach().cpu().clone()
+            for k, v in tp.whole_state_dict(model).items()}
 
 
 def grid_iters(iters: int, chunk: int, save_interval: int,
@@ -211,14 +212,25 @@ def trace_epoch(start_epoch: int, epochs: int) -> int:
     return min(start_epoch + 1, epochs - 1)
 
 
-def save_ema_final(model_dir: str, g, ema) -> None:
-    """``generator_ema_final.pth``: ``g``'s state dict with the EMA
-    parameters and the raw generator's BN buffers (already a running
-    average), loadable by the samplers as is. No-op without EMA."""
+def ema_state(g, ema) -> dict | None:
+    """``g``'s whole state dict with the EMA parameters and the raw
+    generator's BN buffers (already a running average), on the host; None
+    without EMA. A collective of the model group under tensor
+    parallelism."""
     if ema is None:
-        return
+        return None
     sd = host_state(g)
-    sd.update({k: v.detach().cpu().clone() for k, v in ema.items()})
+    sd.update({k: v.detach().cpu().clone()
+               for k, v in tp.whole_state_dict(g, ema).items()})
+    return sd
+
+
+def save_ema_final(model_dir: str, sd) -> None:
+    """``generator_ema_final.pth``: the EMA state dict ``sd``
+    (:func:`ema_state`'s), loadable by the samplers as is. No-op without
+    EMA."""
+    if sd is None:
+        return
     path = os.path.join(model_dir, "generator_ema_final.pth")
     torch.save(sd, path)
     print(f"Saved EMA generator to {path}")
@@ -326,12 +338,13 @@ class EpochRun:
 
     def save_final(self) -> None:
         """``{generator,discriminator}_final.pth``, the EMA generator and
-        the history JSON (rank 0)."""
+        the history JSON (rank 0; every rank assembles them)."""
+        g, second = self.models.values()
+        states = [host_state(g), host_state(second), ema_state(g, self.ema)]
         if not self.is_main:
             return
-        g, second = self.models.values()
-        save_gan_checkpoints(self.model_dir, "final", g, second)
-        save_ema_final(self.model_dir, g, self.ema)
+        save_gan_checkpoints(self.model_dir, "final", *states[:2])
+        save_ema_final(self.model_dir, states[2])
         print(f"Saved final models to {self.model_dir}")
         write_json(self.history_path, self.history)
 

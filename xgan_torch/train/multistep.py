@@ -27,6 +27,12 @@ must not depend on the data: the GAN trainers build Adam
 alike), the EMA and optimizer state exist before capture, and the constants the
 step needs are already on the device.
 
+Across ranks on NCCL the graph holds the step's collectives: data
+parallelism's all-reduces and, under ``--model-parallel``, tensor
+parallelism's all-reduces and all-gathers over the model group, captured
+in the order every rank issues them. A gloo group cannot be captured
+(the CLIs refuse K > 1 there).
+
 On the CPU (tests, ``--cpu``) a call is a plain loop of K steps.
 
 The kernels' wrappers count a launch where they launch, in Python, so a

@@ -20,6 +20,12 @@ writes the snapshot, the epoch checkpoints and the history JSON in the
 order they were submitted, so the history never lands before its
 snapshot. A write goes to a temporary file that ``os.replace`` puts in
 place: a crash mid-write leaves the previous snapshot intact.
+
+Under tensor parallelism a snapshot holds every tensor whole, in the
+reference layouts (:func:`run_state` assembles the slices of the models,
+the optimizers' moments and the EMA, a collective of every rank), and a
+resume cuts them to each rank's slices again (:func:`load_run_state`), as
+the JAX loops re-place a restored state.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import threading
 import torch
 
 from xgan_torch.io_.metrics import write_json
+from xgan_torch.parallel import tp
 
 
 class AsyncWriter:
@@ -223,14 +230,17 @@ class SnapshotManager:
 
 
 def run_state(models: dict, opts: dict, ema, rng: torch.Generator) -> dict:
-    """What a snapshot holds, as live references (no copy): each model's
-    state dict under its name (``g``, ``d`` or ``c``), each optimizer's
-    under ``opt_<name>``, the EMA tensors (``ema``, when on) and the
-    step-draw generator's state (``rng``)."""
-    out = {name: m.state_dict() for name, m in models.items()}
-    out.update({f"opt_{name}": o.state_dict() for name, o in opts.items()})
+    """What a snapshot holds, as live references (no copy) where nothing
+    is assembled: each model's state dict under its name (``g``, ``d`` or
+    ``c``), each optimizer's under ``opt_<name>``, the EMA tensors
+    (``ema``, when on, of the first model's parameters) and the step-draw
+    generator's state (``rng``). Every tensor is whole: under tensor
+    parallelism or ZeRO-1 a collective of every rank assembles it."""
+    out = {name: tp.whole_state_dict(m) for name, m in models.items()}
+    out.update({f"opt_{name}": tp.whole_opt_state_dict(o)
+                for name, o in opts.items()})
     if ema is not None:
-        out["ema"] = ema
+        out["ema"] = tp.whole_state_dict(next(iter(models.values())), ema)
     out["rng"] = rng.get_state()
     return out
 
@@ -254,14 +264,14 @@ def save_epoch(mgr: SnapshotManager, model_dir: str, epoch: int,
     the critic's) ``{generator,discriminator}_epoch_EEE.pth``, the
     snapshot, then the history, which so never lands before its
     snapshot. ``epoch``: the number of epochs done; ``states``: the
-    run's :func:`run_state`, which a ZeRO-1 optimizer assembles on every
-    rank."""
+    run's :func:`run_state`, which every rank assembles (the models'
+    whole state dicts among it)."""
     tag = f"epoch_{epoch:03d}"
-    g, second = models.values()
+    g, second = models
     mgr.save_file(os.path.join(model_dir, f"generator_{tag}.pth"),
-                  g.state_dict())
+                  states[g])
     mgr.save_file(os.path.join(model_dir, f"discriminator_{tag}.pth"),
-                  second.state_dict())
+                  states[second])
     mgr.save(states, epoch, iters)
     mgr.save_json(history_path, history)
     print(f"Saved checkpoints for epoch {epoch} to {model_dir}")
@@ -270,15 +280,17 @@ def save_epoch(mgr: SnapshotManager, model_dir: str, epoch: int,
 def load_run_state(snap: dict, models: dict, opts: dict, ema,
                    rng: torch.Generator) -> None:
     """Restore a :func:`run_state` snapshot in place (tensors keep their
-    storage, which a captured CUDA graph relies on)."""
+    storage, which a captured CUDA graph relies on), each whole tensor
+    cut to this rank's slice under tensor parallelism."""
     for name, m in models.items():
-        m.load_state_dict(snap[name], strict=True)
+        tp.load_whole(m, snap[name], strict=True)
     for name, o in opts.items():
-        load_optimizer(o, snap[f"opt_{name}"])
+        load_optimizer(o, tp.opt_state_for_load(o, snap[f"opt_{name}"]))
     if ema is not None:
+        first = next(iter(models.values()))
         with torch.no_grad():
-            for k, v in ema.items():
-                v.copy_(snap["ema"][k])
+            for k, v in tp.slice_state(first, snap["ema"]).items():
+                ema[k].copy_(v)
     rng.set_state(snap["rng"])
 
 
