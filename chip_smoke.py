@@ -90,7 +90,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
     ``.pth`` files, 30 launches a step and 5 a sheet), then the sampler on
     its ``generator_final.pth``; after phase 12, one f32 WGAN-GP step (B =
     16, 2 critic updates) through the kernel against the plain version
-    (losses, G's and the critic's gradient norms), and 20 warm bf16 steps
+    (losses, G's and the critic's gradient norms), and 8 warm bf16 steps
     at B = 64 with one profiled (ms per step, imgs/s, top device ops, the
     ConvT kernels' share, the idle share, the model FLOPs and their
     bound);
@@ -223,32 +223,45 @@ Phases, each of which raises on failure (the script then exits non-zero):
     after 3 f32 steps bitwise those of replicated Adam, the optimizers'
     state bytes and the steps' peak memory per rank, a rank's
     fold-batched ``mixed_gather``); then, in two processes (``--phase
-    kstep_dcgan``, ``kstep_wgan``, world-1 NCCL), the DCGAN-224 (B =
-    128), CGAN-224 (B = 32) and WGAN-GP-224 (B = 64) steps at K = 4
-    against K = 1 on the DP path (f32), the DCGAN's K = 4 run with a
-    ``ShardedAdam`` on the group bitwise plain Adam's (its NCCL
-    all-gather captured), the replay's ConvT kernels against a profiler
-    trace of one replay, and bf16 ms per step of the DP path and of no
-    group at K = 1 and K = 4;
-26. A14 part 4, after 25 (``phase_a14_4``; ``python3 chip_smoke.py
-    --only a14_4`` runs it alone after the build, the sampler and the
-    stores): tensor parallelism, ``--model-parallel 2`` over two gloo
-    ranks sharing the card (data 1 x model 2; ``--phase tp/RANK``), f32
-    with TF32 off and deterministic cuDNN, against one rank: the
-    DCGAN-224 step (B = 128, after 3 shared warm-up steps) and the
-    unfrozen ResNet-50 step (mix, B = 32), 3 steps each: the first
-    step's metrics within 1e-4 * (1 + |ref|), its gradient norms within
-    1e-3 plus twice the measured floor, a TF32 control that must fail,
-    the parameters after 3 steps within the step envelope; the replicated
-    leaves bitwise equal on both ranks, the slices not; G's sharded ConvT
-    launched at (B, 7, 7, 512) -> Cout 128 on each rank and held against
-    its plain version at that shape in bf16 and f32; the parameter and
-    Adam bytes per rank over one rank's (0.565 G, 0.534 D, 0.521
-    ResNet-50); bf16 ms per step of both TP steps and of one rank. Then
-    the DCGAN and classifier CLIs under the 2-rank gloo launch at
+    kstep_dcgan``, ``kstep_wgan``, world-1 NCCL) started as the ZeRO-1
+    ranks end, the DCGAN-224 (B = 128), CGAN-224 (B = 32) and
+    WGAN-GP-224 (B = 64) steps at K = 4 against K = 1 on the DP path
+    (f32), the DCGAN's K = 4 run with a ``ShardedAdam`` on the group
+    bitwise plain Adam's (its NCCL all-gather captured), beside the
+    phase's other processes; then, each alone on the card, the replay's
+    ConvT kernels against a profiler trace of one replay, and bf16 ms per
+    step of the DP path at K = 1 and K = 4;
+26. A14 parts 4 and 5, after 25 (``phase_a14_4``; ``python3
+    chip_smoke.py --only a14_4`` or ``--only a14_5`` runs one part alone
+    after the build, the sampler and the stores): tensor parallelism,
+    ``--model-parallel 2`` over two gloo ranks sharing the card (data 1 x
+    model 2; a pair of ranks a part, ``--phase tp4/RANK`` and
+    ``tp5/RANK``), f32 with TF32 off and deterministic cuDNN, against one
+    rank (a process a part, ``--phase tp4ref``, ``tp5ref``), 3 steps
+    each: part 4's DCGAN-224 step (B = 128) and unfrozen ResNet-50 step
+    (mix, B = 32), part 5's WGAN-GP-224 step (5 critic updates, B = 32:
+    the budget's cut of the trainer's 64) and CGAN-224 step (B = 32,
+    random VGG16, the gate open), the GANs' after 3 shared bf16 warm-up
+    steps: the first step's metrics within 1e-4 * (1 + |ref|), its
+    gradient norms within 1e-3 plus twice the measured floor, a TF32
+    control that must fail, the parameters after 3 steps within the step
+    envelope; the replicated leaves bitwise equal on both ranks, the
+    slices not; G's sliced ConvTs launched on each rank, and held against
+    their plain version in bf16 and f32 and timed alone against their
+    bound and cuDNN at the trainers' batch: (128, 7, 7, 512) -> 128
+    (DCGAN), (64, 7, 7, 1024) -> 256 and (64, 14, 14, 512) -> 128
+    (WGAN-GP); the parameter and Adam bytes per rank over one rank's
+    (``TP_RATIOS``: 0.5651 DCGAN G, 0.5339 D, 0.5208 ResNet-50, 0.5204
+    WGAN-GP G, 0.5287 critic, 0.9961 CGAN G, 0.6434 CGAN D); bf16 ms per
+    CGAN step of the TP ranks and of one rank (the WGAN-GP's TP step over
+    gloo is not timed: it measures host staging alone); before the
+    WGAN-GP's TP steps rank 0 alone runs a one-rank step, and the holds
+    pass all the same. Then
+    the four trainers' CLIs under the 2-rank gloo launch at
     ``--model-parallel 2`` against no group (the same files and
-    launches, the JSON within 1e-4 * (1 + |ref|) at step 1) and the
-    WGAN-GP CLI's refusal;
+    launches, a GAN history's step 1 within 1e-4 * (1 + |ref|), the
+    classifier's JSON within 1e-4 * (1 + |ref|)); part 4's run beside
+    phase 24's CLIs, part 5's beside phase 25's;
 27. prints the kernel table line, the card line and, last, the result
     line.
 
@@ -2287,8 +2300,9 @@ def wgan_step_flops(b: int, critic_iters: int) -> dict:
 
 
 def phase_wgan_profile(train_store, smi: str):
-    """20 warm bf16 WGAN-GP steps at B = 64 with 5 critic updates: ms per
-    step, imgs/s; one profiled step: 30 ConvT kernel launches, the top
+    """8 warm bf16 WGAN-GP steps at B = 64 with 5 critic updates (phase
+    19's K = 1 run times the same step): ms per step, imgs/s; one
+    profiled step: 30 ConvT kernel launches, the top
     device ops, the ConvT kernels' share, the idle share; the model FLOPs
     and the bound they give."""
     from torch.autograd import DeviceType
@@ -2300,7 +2314,7 @@ def phase_wgan_profile(train_store, smi: str):
     store = DeviceStore(train_store, dev)
     g_net, c_net, opt_g, opt_c = wgan_models(torch.bfloat16, seed=14)
     gen = torch.Generator(dev).manual_seed(15)
-    idx = torch.randint(0, len(store), (24, WGAN_B), generator=gen,
+    idx = torch.randint(0, len(store), (12, WGAN_B), generator=gen,
                         device=dev)
 
     def step(i):
@@ -2312,15 +2326,15 @@ def phase_wgan_profile(train_store, smi: str):
         step(i)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(3, 23):
+    for i in range(3, 11):
         losses = step(i)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
     check(bool(torch.isfinite(losses).all()), losses)
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        step(23)
+        step(11)
         torch.cuda.synchronize()
     # the wrapper's count, not the trace's: a trace can miss a kernel
     want = 5 * (WGAN_CRITIC + 1)
@@ -2333,7 +2347,7 @@ def phase_wgan_profile(train_store, smi: str):
     bound_ms = flops["step"] / BF16_PEAK_FLOPS * 1e3
     print(f"WGAN-GP train step (bf16, B={WGAN_B}, {WGAN_CRITIC} critic "
           f"updates, 224 px, fg = fd = 64): {step_ms:.3f} ms per step (mean "
-          f"of 20 warm), {WGAN_B / step_ms * 1e3:.1f} imgs/s; profiled step: "
+          f"of 8 warm), {WGAN_B / step_ms * 1e3:.1f} imgs/s; profiled step: "
           f"{len(events)} kernels, {busy_ms:.3f} ms device time, {len(ours)} "
           f"convt4x4s2 kernels {ours_ms:.3f} ms (share "
           f"{ours_ms / busy_ms:.3f}); device idle share "
@@ -5212,17 +5226,13 @@ def phase_dp_cli_loops(tmp: str, root: str, synth_dir: str, smi: str,
               and res["plain", module][1] == res["nccl", module][1],
               (module, res["plain", module][1], res["nccl", module][1]))
         check("rank 0 of 1" in res["nccl", module][0], module)
-        steps = len(h0[keys[-1]])
-        check(steps == 2, (module, steps))
-        per = [f32_close([h1[k][t] for k in keys
-                          for t in range(len(h0[k])) if t * steps
-                          // len(h0[k]) == s],
-                         [h0[k][t] for k in keys
-                          for t in range(len(h0[k])) if t * steps
-                          // len(h0[k]) == s]) for s in range(steps)]
-        check(per[0] <= 1e-4 and max(per) <= 5e-2, (module, per))
+        per = history_steps_close(h1, h0, keys)
+        check(len(per) == 2 and per[0] <= 1e-4 and max(per) <= 5e-2,
+              (module, per))
         worst[module] = per
     launches = {m: res["nccl", m][1] for m in DP_LOOP_RUNS}
+    PLAIN_LAUNCHES.update({m: res["plain", m][1]
+                           for m in A14_MODULES[5]})
     sheets = {m: len(os.listdir(os.path.join(
         dirs["nccl"], sub, "results", f"{sub}_images")))
         for m, sub in (("train_wggan", "wgan"), ("train_gan", "gan"))}
@@ -5291,17 +5301,18 @@ def finish_fresh_ranks(started) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    results = []
-    for r, path in enumerate(logs):
+    outs = []
+    for r, path in enumerate(logs):  # every rank's output, then the checks
         with open(path) as f:
             lines = f.read().splitlines()
         res = [ln for ln in lines if ln.startswith('{"result": ')]
         print("\n".join(f"[rank {r}] {ln}" for ln in lines if ln not in res))
+        outs.append((lines, res))
+    for r, (lines, res) in enumerate(outs):
         check(rcs[r] == 0 and len(res) == 1,
               f"phase {phase} rank {r}: exit {rcs[r]}; the end of its "
               f"output:\n" + "\n".join(lines[-40:]))
-        results.append(json.loads(res[0])["result"])
-    return results
+    return [json.loads(res[0])["result"] for _, res in outs]
 
 
 def timed_steps(step, n: int, mesh=None, warm: int = 3) -> float:
@@ -6089,6 +6100,58 @@ def kstep_setup(kind: str, store, mesh, dtype, steps: int, seed: int,
     return calls, multi, dict(G=g, D=d, opt_G=og, opt_D=od)
 
 
+def kstep_holds(kd: str, store, mesh, lines: list) -> None:
+    """The f32 holds of :func:`phase_kstep_dp` for the ``kd`` step
+    (appends what it prints to ``lines``)."""
+    torch.backends.cudnn.deterministic = True
+    kstep_setup(kd, store, mesh, torch.float32, 1, 89, 1,
+                KSTEP_B[kd])[0][0]()
+
+    def f32_run(k, kd=kd, zero1=False):
+        calls, multi, named = kstep_setup(
+            kd, store, mesh, torch.float32, 8, seed=90, k=k,
+            b=KSTEP_B[kd], zero1=zero1)
+        metrics = torch.cat([c() for c in calls])
+        torch.cuda.synchronize()
+        return metrics, state_of(**named), multi
+
+    try:
+        hold_k_replay(f"{kd}-224 on the world-1 NCCL group",
+                      f32_run, KSTEP_B[kd])
+    except AssertionError:
+        # which steps part, and whether no group parts too
+        torch.backends.cudnn.deterministic = True
+        for m in (mesh, None):
+            runs = {}
+            for k in (1, LOOP_K):
+                calls, _, _ = kstep_setup(kd, store, m,
+                                          torch.float32, 8, 90, k,
+                                          KSTEP_B[kd])
+                runs[k] = torch.cat([c() for c in calls])
+            rel = ((runs[LOOP_K] - runs[1]).abs()
+                   / (1 + runs[1].abs())).amax(1)
+            print(f"{kd} f32 K={LOOP_K} vs K=1, "
+                  f"{'group' if m else 'no group'}, worst "
+                  f"|a-b|/(1+|b|) per step: {rel.tolist()}")
+        raise
+    if kd == "dcgan":
+        # ZeRO-1's NCCL all-gather captured in the K-step graph
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain, zero = f32_run(LOOP_K), f32_run(LOOP_K, zero1=True)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(zero[2].replays >= 1 and torch.equal(zero[0], plain[0])
+              and all(torch.equal(zero[1][n], v)
+                      for n, v in plain[1].items()),
+              "ZeRO-1 in the K-step graph differs from plain Adam")
+        lines.append(
+            f"dcgan-224 f32 K={LOOP_K}, 8 steps on the world-1 NCCL "
+            f"group: with ShardedAdam (its all_gather_into_tensor "
+            f"captured, {zero[2].replays} replays) the metrics, "
+            f"parameters and whole Adam state bitwise plain Adam's")
+
+
 def phase_kstep_dp(train_store, smi: str, kind: str) -> list:
     """``--steps-per-call`` on the DP path: one rank of a world-1 NCCL
     group (``--phase kstep_dcgan``: the DCGAN-224 step, B = 128, then the
@@ -6096,16 +6159,20 @@ def phase_kstep_dp(train_store, smi: str, kind: str) -> list:
     B = 64, 5 critic updates), K = LOOP_K steps with their all-reduces
     captured in one CUDA graph:
 
-    - f32 (TF32 off, deterministic cuDNN), 8 steps at the full batch
-      after one warm-up step (the process's first f32 step picks other
-      cuDNN algorithms: the WGAN-GP's first K = 1 run parted from every
-      later one by 1.5e-3): K = LOOP_K (an eager call, then a replay)
+    - first, once the card has ``KSTEP_FREE`` free and the other K-step
+      phase's holds are done (:func:`card_turn`; other phases' processes
+      may still run beside it), f32 (TF32 off, deterministic cuDNN), 8
+      steps at the full batch after one warm-up step (the process's first
+      f32 step picks other cuDNN algorithms: the WGAN-GP's first K = 1
+      run parted from every later one by 1.5e-3): K = LOOP_K (an eager call, then a replay)
       against K = 1 eager steps through the group, the metrics and every
       state tensor within LOOP_TOL; then the DCGAN's K = LOOP_K run with
       a ``ShardedAdam`` built on the group (ZeRO-1 at world 1, its NCCL
       all-gather captured) bitwise the plain Adam's;
-    - a profiler window of one replay (the first of its process, C6): its
-      ConvT kernels against the dispatcher's launches per replay;
+    - then, on the parent's go (:func:`ready_then_go`; nothing else runs
+      on the card), a profiler window of one replay (the first of its
+      process, C6): its ConvT kernels against the dispatcher's launches
+      per replay;
     - bf16 ms per step of the group at K = 1 and K = LOOP_K
       (``KSTEP_TURNS``; no group's are phases 17, 19 and 20's; the
       WGAN-GP's 4 steps each).
@@ -6121,55 +6188,16 @@ def phase_kstep_dp(train_store, smi: str, kind: str) -> list:
     store = DeviceStore(train_store, mesh.device)
     launched = 0
     lines = []
+    kinds = ("dcgan", "cgan") if kind == "dcgan" else (kind,)
     try:
+        with card_turn(KSTEP_FREE):  # one K-step phase's holds at a time
+            for kd in kinds:
+                kstep_holds(kd, store, mesh, lines)
+        torch.cuda.empty_cache()
+        ready_then_go(f"kstep_{kind}")  # the timings alone on the card
         # the CGAN (no kernel, no profiled window) after the DCGAN, whose
         # window stays the first of the process
-        for kd in ("dcgan", "cgan") if kind == "dcgan" else (kind,):
-            torch.backends.cudnn.deterministic = True
-            kstep_setup(kd, store, mesh, torch.float32, 1, 89, 1)[0][0]()
-
-            def f32_run(k, kd=kd, zero1=False):
-                calls, multi, named = kstep_setup(
-                    kd, store, mesh, torch.float32, 8, seed=90, k=k,
-                    zero1=zero1)
-                metrics = torch.cat([c() for c in calls])
-                torch.cuda.synchronize()
-                return metrics, state_of(**named), multi
-
-            try:
-                hold_k_replay(f"{kd}-224 on the world-1 NCCL group",
-                              f32_run, KSTEP_B[kd])
-            except AssertionError:
-                # which steps part, and whether no group parts too
-                torch.backends.cudnn.deterministic = True
-                for m in (mesh, None):
-                    runs = {}
-                    for k in (1, LOOP_K):
-                        calls, _, _ = kstep_setup(kd, store, m,
-                                                  torch.float32, 8, 90, k)
-                        runs[k] = torch.cat([c() for c in calls])
-                    rel = ((runs[LOOP_K] - runs[1]).abs()
-                           / (1 + runs[1].abs())).amax(1)
-                    print(f"{kd} f32 K={LOOP_K} vs K=1, "
-                          f"{'group' if m else 'no group'}, worst "
-                          f"|a-b|/(1+|b|) per step: {rel.tolist()}")
-                raise
-            if kd == "dcgan":
-                # ZeRO-1's NCCL all-gather captured in the K-step graph
-                torch.backends.cudnn.deterministic = True
-                try:
-                    plain, zero = f32_run(LOOP_K), f32_run(LOOP_K, zero1=True)
-                finally:
-                    torch.backends.cudnn.deterministic = False
-                check(zero[2].replays >= 1 and torch.equal(zero[0], plain[0])
-                      and all(torch.equal(zero[1][n], v)
-                              for n, v in plain[1].items()),
-                      "ZeRO-1 in the K-step graph differs from plain Adam")
-                lines.append(
-                    f"dcgan-224 f32 K={LOOP_K}, 8 steps on the world-1 NCCL "
-                    f"group: with ShardedAdam (its all_gather_into_tensor "
-                    f"captured, {zero[2].replays} replays) the metrics, "
-                    f"parameters and whole Adam state bitwise plain Adam's")
+        for kd in kinds:
             per_step = KSTEP_CONVT[kd]
             ms = {}
             # the WGAN-GP step (~0.35 s) takes fewer steps
@@ -6436,7 +6464,7 @@ def drain_all(procs: dict) -> dict:
 
 
 def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str,
-                held=None) -> list:
+                held=None, others: dict | None = None) -> list:
     """A14 part 3 on the card: the CLI runs of :func:`a14_3_processes`
     (the classifier's parallel folds under a launch against no group: the
     same files, every JSON within 1e-4 * (1 + |ref|); the K = 4 DCGAN
@@ -6444,13 +6472,20 @@ def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str,
     (1 + |ref|), every step within 5e-2, the same launches; the gloo
     launch at K = 2 exits 1 with an ``Error:`` line that names NCCL) and,
     while they run, ZeRO-1 on two gloo ranks (:func:`phase_zero`, both
-    ranks' parameters bitwise equal); then the timed DP K-step phases
-    (:func:`phase_kstep_dp`, one process each). ``held``: phase 26's
-    ranks started beside its CLIs (:func:`start_fresh_ranks`), waited for
-    until they are ready, idle, before the timed phases. Returns the
-    (ConvT, mixed_gather) launches."""
+    ranks' parameters bitwise equal); then the DP K-step phases
+    (:func:`phase_kstep_dp`, one process each), started once the ZeRO-1
+    ranks end: their f32 holds beside the CLIs and the held TP steps,
+    their timings each alone on the card (:func:`ready_then_go`).
+    ``held``: phase 26's
+    processes started beside its CLIs (:func:`start_tp`), waited for
+    until they are ready, idle, before the timed phases. ``others``:
+    more processes started beside its CLIs (phase 26's part 5 CLIs),
+    drained in place into their (exit code, output) before the timed
+    phases. Returns the (ConvT, mixed_gather) launches."""
     procs = a14_3_processes(tmp, root, synth_dir)
+    procs.update({("others", key): p for key, p in (others or {}).items()})
     launched = [0, 0]
+    ksteps = {}
     try:
         # the two ZeRO-1 ranks share the card with the CLIs: none is timed
         got = in_fresh_ranks("zero", 2, tmp, smi)
@@ -6460,9 +6495,17 @@ def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str,
         check(all(torch.equal(v, ranks[1][n][k]) for n in ranks[0]
                   for k, v in ranks[0][n].items()),
               "the two ranks' parameters differ")
+        # the K-step phases' f32 holds beside the CLIs' and the held TP
+        # steps' last seconds (each once the card has KSTEP_FREE free);
+        # their timings later, each alone on the card
+        ksteps = {kind: start_fresh_ranks(f"kstep_{kind}", 1, tmp, smi)
+                  for kind in ("dcgan", "wgan")}
         res = drain_all(procs)
-        if held:
-            tp_ready(tmp, held[1])
+        if others is not None:
+            others.update({key[1]: res.pop(key) for key in list(res)
+                           if key[0] == "others"})
+        for part, started in (held or {}).items():
+            wait_ready(tmp, f"tp{part}", started[1])
         rc, text = res["gloo_k2", 0]
         last = text.strip().splitlines()[-1] if text.strip() else ""
         check(rc == 1 and last.startswith("Error: --steps-per-call 2")
@@ -6521,6 +6564,11 @@ def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str,
               (per_step, gl))
         check("rank 0 of 1" in res["gan_zero", 0][1], "no group joined")
         launched[0] += gl[1]["convt4x4s2_fused"]
+    except BaseException:
+        for _, ranks, _ in ksteps.values():
+            for proc in ranks:
+                proc.kill()
+        raise
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -6535,26 +6583,59 @@ def phase_a14_3(tmp: str, root: str, synth_dir: str, smi: str,
           + " (limits: step 1 1e-4, all 5e-2); a gloo launch at K=2 exits "
           f"1 naming NCCL [{smi}]")
     failed = []
-    for kind in ("dcgan", "wgan"):  # the CGAN's runs with the DCGAN's
-        try:
-            launched[0] += in_fresh_ranks(f"kstep_{kind}", 1, tmp, smi)[0][0]
-        except AssertionError as e:  # the other phases still report
-            failed.append(str(e)[-3000:])
+    try:
+        for kind, started in ksteps.items():  # both done with the card
+            wait_ready(tmp, f"kstep_{kind}", started[1])
+        for kind, started in ksteps.items():  # the CGAN's with the DCGAN's
+            try:
+                go(tmp, f"kstep_{kind}")
+                launched[0] += finish_fresh_ranks(started)[0][0]
+            except AssertionError as e:  # the other phases still report
+                failed.append(str(e)[-3000:])
+    finally:
+        for _, ranks, _ in ksteps.values():
+            for proc in ranks:
+                if proc.poll() is None:
+                    proc.kill()
     check(not failed, "\n".join(failed))
     return launched
 
 
-# A14 part 4: tensor parallelism over two gloo ranks sharing the card
+# A14 parts 4 and 5: tensor parallelism over two gloo ranks sharing the
+# card
 TP_N = 2  # --model-parallel: data 1 x model 2
 TP_STEPS = 3  # the f32 steps held; the first of them held by its norms
-TP_RATIOS = {"G": 0.565, "D": 0.534, "ResNet-50": 0.521}  # counts, N = 2
 # the floors of a held step (tp_held): name -> (the batch's rows rolled
 # by this fraction of B, cuDNN on); "floor" takes every step (the
 # parameters' floor), the others and the TF32 control one
 TP_FLOORS = {"floor": (1 / 2, True), "floor_b4": (1 / 4, True),
              "algo": (0, False), "algo_b4": (1 / 4, False)}
-TP_RUNS = ("tp", "ref", *TP_FLOORS, "tf32")
 ONE_STEP = (*list(TP_FLOORS)[1:], "tf32")
+# the steps held under TP, by part: the DCGAN-224 (B = 128) and the
+# unfrozen ResNet-50 (mix, B = 32); the WGAN-GP-224 (B = 64, 5 critic
+# updates) and the CGAN-224 (B = 32, random VGG16, the gate open)
+TP_CASES = {4: ("dcgan", "clf"), 5: ("wgan", "cgan")}
+TP_LABEL = {"dcgan": "DCGAN", "clf": "ResNet-50", "wgan": "WGAN-GP",
+            "cgan": "CGAN"}
+# the held steps' batches: the WGAN-GP's at 32, not the trainer's 64 (its
+# f32 TP steps over gloo cost the script's time limit too much); its bf16
+# timings, the ConvT launches held and timed, and its CLI at 64
+TP_B = {"dcgan": GAN_B, "clf": CLS_B, "wgan": WGAN_B // 2, "cgan": CGAN_B}
+# the kernel each case launches, and its launches a step
+TP_LAUNCHES = {"dcgan": ("convt4x4s2_fused", 5), "clf": ("mixed_gather", 1),
+               "wgan": ("convt4x4s2_fused", 5 * (WGAN_CRITIC + 1)),
+               "cgan": ("convt4x4s2_fused", 0)}
+# parameter + Adam bytes a rank keeps over one rank's at N = 2 (counts
+# from the shapes; shard_dims of the nets), by the nets' tags
+TP_RATIOS = {"dcgan.g": 0.5651, "dcgan.d": 0.5339, "clf.c": 0.5208,
+             "wgan.g": 0.5204, "wgan.d": 0.5287, "cgan.g": 0.9961,
+             "cgan.d": 0.6434}
+# the sliced k4s2 ConvT launches at N = 2, by part: (the case, H = W, Cin,
+# Cout); held and timed at the trainers' B (GAN_B, WGAN_B)
+TP_CONVT = {4: (("dcgan", 7, 8 * FG, 4 * FG // TP_N),),
+            5: (("wgan", 7, 16 * FG, 8 * FG // TP_N),
+                ("wgan", 14, 8 * FG, 4 * FG // TP_N))}
+TP_TRAIN_B = {"dcgan": GAN_B, "wgan": WGAN_B, "cgan": CGAN_B}
 
 
 def tp_rows(name: str, b: int, dev):
@@ -6562,44 +6643,6 @@ def tp_rows(name: str, b: int, dev):
     floor's fraction, or all in order."""
     shift = int(TP_FLOORS.get(name, (0, True))[0] * b)
     return torch.arange(b, device=dev).roll(shift) if shift else slice(None)
-
-
-def tp_gan_nets(mesh, warm, dtype=torch.float32):
-    """Full-width G and D (seed 60) with ``warm``'s weights and Adam
-    state (whole; copied, since Adam steps a loaded tensor in place),
-    tied to ``mesh`` and placed over its model group when it has one;
-    their Adam optimizers on the slices."""
-    import copy
-    from xgan_torch.models.layers import sync_batch_norm
-    from xgan_torch.parallel import tp
-    from xgan_torch.train.common import adam
-    warm = copy.deepcopy(warm)
-    g, d, _, _ = gan_models(dtype, seed=60)
-    g.load_state_dict(warm[0])
-    d.load_state_dict(warm[1])
-    sync_batch_norm(g, mesh)
-    sync_batch_norm(d, mesh)
-    if mesh is not None:
-        tp.shard_over_model([g, d], mesh.model)
-    opts = [adam(m.parameters(), 2e-4, 0.5) for m in (g, d)]
-    for o, sd in zip(opts, warm[2:]):
-        o.load_state_dict(tp.opt_state_for_load(o, sd))
-    return g, d, *opts
-
-
-def tp_classifier(dev, mesh, dtype, seed: int):
-    """A seeded ResNet-50 tied to ``mesh`` and placed over its model group
-    when it has one, with ``--unfreeze``'s Adam."""
-    from xgan_torch.models.layers import sync_batch_norm
-    from xgan_torch.models.resnet import ResNet50
-    from xgan_torch.parallel import tp
-    from xgan_torch.train.classifier import classifier_optimizer
-    model = ResNet50(2, dtype=dtype, device=dev,
-                     generator=torch.Generator(device=dev).manual_seed(seed))
-    sync_batch_norm(model, mesh)
-    if mesh is not None:
-        tp.shard_over_model([model], mesh.model)
-    return model, classifier_optimizer(model, 1e-3, False)
 
 
 def whole_grad_norms(*nets) -> dict:
@@ -6661,18 +6704,26 @@ def tp_params_close(a: dict, b: dict, floor: dict, steps: int,
     return worst, outside, total, f_worst, f_out, ok
 
 
-def tp_held(label: str, runs: dict, lr: float) -> dict:
-    """The TP run against the one-rank reference (with an all-ones mask,
-    as :func:`dp_step_checks`): the first step's metrics within 1e-4 *
-    (1 + |ref|), its per-tensor gradient norms within 1e-3 plus twice the
-    floor, the parameters after the steps by :func:`tp_params_close`; the
-    TF32 control's norms must fail those limits. The floor of a norm is
-    the largest of four rounding-only departures from the reference
-    (``TP_FLOORS``): its rows in two other orders, and every convolution
-    on another algorithm (cuDNN off), in order and rolled, as TP's sliced
-    convolutions take other cuDNN algorithms than the whole ones and sum
-    their rows in other orders. ``runs``: name ->
-    (metrics, grad norms, whole state). Returns the readings and
+def tp_held(label: str, runs: dict, lr: float, skip=(),
+            adam_steps: int = TP_STEPS, control_metrics: bool = False
+            ) -> dict:
+    """The TP run against the one-rank reference (the DCGAN's and the
+    classifier's with an all-ones mask, as :func:`dp_step_checks`; the
+    WGAN-GP's and the CGAN's with none, as :func:`dp_family_checks`): the
+    first step's metrics within 1e-4 * (1 + |ref|), its per-tensor
+    gradient norms within 1e-3 plus twice the floor, the parameters after
+    the steps by :func:`tp_params_close` (``adam_steps`` Adam updates of a
+    parameter at most); the TF32 control's norms must fail those limits
+    (with ``control_metrics``, its norms or its metrics, as
+    :func:`dp_family_checks` holds the WGAN-GP's and the CGAN's).
+    The floor of a norm is the largest of four rounding-only departures
+    from the reference (``TP_FLOORS``): its rows in two other orders, and
+    every convolution on another algorithm (cuDNN off), in order and
+    rolled, as TP's sliced convolutions take other cuDNN algorithms than
+    the whole ones and sum their rows in other orders. ``skip``: the
+    norms not held (the CGAN's biases right before a BN, whose gradient is
+    0 in exact arithmetic; a sliced one's whole norm too). ``runs``: name
+    -> (metrics, grad norms, whole state). Returns the readings and
     ``failed``, the holds that failed (the caller prints the readings
     first)."""
     ref = runs["ref"][1]
@@ -6680,31 +6731,36 @@ def tp_held(label: str, runs: dict, lr: float) -> dict:
     floor = {k: v + max(abs(runs[f][1][k] - v) for f in TP_FLOORS)
              for k, v in ref.items()}
     out = {"metrics": f32_close(runs["tp"][0], runs["ref"][0])}
-    out["grads"] = grad_norms_ratio(runs["tp"][1], ref, floor)
-    out["tf32"] = grad_norms_ratio(runs["tf32"][1], ref, floor)
+    out["grads"] = grad_norms_ratio(runs["tp"][1], ref, floor, skip)
+    out["tf32"] = grad_norms_ratio(runs["tf32"][1], ref, floor, skip)
+    out["tf32_metrics"] = f32_close(runs["tf32"][0], runs["ref"][0])
 
     def rel(x, k):
         return abs(x[k] - ref[k]) / max(ref[k], 1e-30)
 
+    held = [k for k in ref if k not in skip]
     out["worst"] = sorted(((rel(runs["tp"][1], k), rel(floor, k), k)
-                           for k in ref), reverse=True)[:4]
-    out["median"] = [statistics.median(rel(runs[r][1], k) for k in ref)
+                           for k in held), reverse=True)[:4]
+    out["median"] = [statistics.median(rel(runs[r][1], k) for k in held)
                      for r in ("tp", *TP_FLOORS)]
     out["params"] = tp_params_close(runs["tp"][2], runs["ref"][2],
-                                    runs["floor"][2], TP_STEPS, lr)
+                                    runs["floor"][2], adam_steps, lr)
+    control = out["tf32"] > 1.0 or (control_metrics
+                                     and out["tf32_metrics"] > 1e-4)
     out["failed"] = [what for what, ok in (
         ("metrics", out["metrics"] <= 1e-4), ("norms", out["grads"] <= 1.0),
-        ("TF32 control", out["tf32"] > 1.0), ("params", out["params"][-1]))
+        ("TF32 control", control), ("params", out["params"][-1]))
         if not ok]
     return out
 
 
-def phase_tp(train, smi: str, rank: int) -> list:
+def phase_tp(train, smi: str, rank: int, part: int) -> list:
     """One rank of two sharing the card over gloo with ``--model-parallel
-    2`` (``--phase tp/RANK``): :func:`tp_holds`, then, once the parent
-    writes ``tp_go`` into the temporary directory (nothing else then
-    runs on the card), :func:`tp_timings`. Between the two it writes
-    ``tp_ready{RANK}`` and waits with its cached memory given back.
+    2`` for A14 part ``part`` (``--phase tp4/RANK``, ``tp5/RANK``):
+    :func:`tp_holds`, then, once the parent writes ``tp{part}_go`` into
+    the temporary directory (nothing else then runs on the card),
+    :func:`tp_timings`. Between the two it writes
+    ``tp{part}_ready{RANK}`` and waits with its cached memory given back.
     Returns its [ConvT, mixed_gather] launches."""
     from xgan_torch.parallel.mesh import init_from_env, shutdown
     world = init_from_env(cpu=False, backend="gloo")
@@ -6712,259 +6768,519 @@ def phase_tp(train, smi: str, rank: int) -> list:
         data, model = world.split_model(TP_N)
         check(world.world == 2 and world.rank == rank and data.world == 1
               and model.rank == rank, (world, data, model))
-        held = tp_holds(world, data, model, train, smi, rank)
+        held = tp_holds(world, data, train, smi, rank, part)
         torch.cuda.empty_cache()
-        with open(os.path.join(CHILD_TMP, f"tp_ready{rank}"), "w"):
-            pass
-        go = os.path.join(CHILD_TMP, "tp_go")
-        deadline = time.time() + 900
-        while not os.path.exists(go):
-            check(time.time() < deadline, "no tp_go in 900 s")
-            time.sleep(0.2)
-        timed = tp_timings(world, data, train, smi, rank)
+        ready_then_go(f"tp{part}", rank)
+        timed = tp_timings(world, data, train, smi, rank, part)
     finally:
         shutdown(world)
     return [a + b for a, b in zip(held, timed)]
 
 
-def tp_ready(tmp: str, procs) -> None:
-    """Waits until each rank of :func:`phase_tp` (``procs``) has written
-    its ``tp_ready`` file or ended (its failure is read later)."""
+def ready_then_go(name: str, rank: int = 0) -> None:
+    """In a ``--phase`` process: writes ``{name}_ready{rank}`` into the
+    temporary directory, then waits (900 s at most) for the parent's
+    ``{name}_go`` (:func:`go`), written once nothing else runs on the
+    card."""
+    with open(os.path.join(CHILD_TMP, f"{name}_ready{rank}"), "w"):
+        pass
+    path = os.path.join(CHILD_TMP, f"{name}_go")
+    deadline = time.time() + 900
+    while not os.path.exists(path):
+        check(time.time() < deadline, f"no {name}_go in 900 s")
+        time.sleep(0.2)
+
+
+def wait_ready(tmp: str, name: str, procs) -> None:
+    """Waits until each rank of ``procs`` has written its
+    ``{name}_ready{RANK}`` file (:func:`ready_then_go`) or ended (its
+    failure is read later); a process after the ranks (a TP part's
+    reference, :func:`phase_tp_ref`), which writes none, until it has
+    ended."""
     deadline = time.time() + 600
     for r, p in enumerate(procs):
-        while not os.path.exists(os.path.join(tmp, f"tp_ready{r}")) \
+        while not os.path.exists(os.path.join(tmp, f"{name}_ready{r}")) \
                 and p.poll() is None:
-            check(time.time() < deadline, "the TP ranks never got ready")
+            check(time.time() < deadline, f"{name} never got ready")
             time.sleep(0.2)
 
 
-def tp_holds(world, data, model, train, smi: str, rank: int) -> list:
-    """One rank of two sharing the card over gloo with ``--model-parallel
-    2`` (data 1 x model 2; ``world`` and its groups ``data`` and
-    ``model``), f32 with TF32 off and deterministic cuDNN, against one
-    rank on the same inputs:
+def go(tmp: str, name: str) -> None:
+    """Lets the processes waiting in :func:`ready_then_go` on ``name``
+    go on."""
+    with open(os.path.join(tmp, f"{name}_go"), "w"):
+        pass
 
-    - the DCGAN-224 step (fg 64, latent 100, B = 128) after 3 shared
-      warm-up steps, 3 steps (:func:`tp_held`); every ConvT launch shape
-      recorded: G's sharded first k4s2 layer launches at (B, 7, 7, 512) ->
-      Cout 128;
-    - the unfrozen ResNet-50 step (mix, B = 32), 3 steps, held alike;
-    - that sharded ConvT launch held against its plain version at the
-      same shape in bf16 and f32 (``TOL``; timed by :func:`tp_timings`);
-    - the bytes of the parameters and Adam state this rank keeps against
-      one rank's (counts from the shapes).
 
-    Saves its parameters and slices' names for the parent's check of the
-    replicated leaves; returns its [ConvT, mixed_gather] launches."""
+# card bytes free before a K-step phase starts its f32 holds beside the
+# phase's other processes
+KSTEP_FREE = 30 * 2**30
+
+
+@contextlib.contextmanager
+def card_turn(free: int, timeout: float = 300):
+    """Waits, holding the ``card.lock`` file of the temporary directory,
+    until the card has ``free`` bytes free (the script's other processes
+    share it; ``timeout`` s at most), and keeps the lock while the block
+    runs, so that the blocks of two processes never share the free bytes.
+    Prints what it found."""
+    import fcntl
+    with open(os.path.join(CHILD_TMP, "card.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        t0 = time.time()
+        while torch.cuda.mem_get_info()[0] < free \
+                and time.time() - t0 < timeout:
+            time.sleep(0.5)
+        print(f"{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB of the card "
+              f"free after {time.time() - t0:.1f} s (wanted "
+              f"{free / 2**30:.0f} GiB)")
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def tp_nets(kind: str, mesh, warm=None, dtype=torch.float32):
+    """The nets of case ``kind`` at full width, seeded: the DCGAN's G and
+    D (seed 60), the WGAN-GP's G and critic (70), the CGAN's G and D and
+    random VGG16 features (72), or a ResNet-50 with ``--unfreeze``'s Adam
+    (63); ``warm``'s weights and Adam state (whole; copied) when given;
+    tied to ``mesh`` and, when it has one, placed over its model group
+    (never the VGG16, which stays whole as the trainer keeps it). Returns
+    (the step's nets, [(tag, module, its Adam)])."""
     import copy
-    from xgan_torch import kernels
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.parallel import tp
+    from xgan_torch.train.common import adam
+    dev = torch.device("cuda")
+    if kind == "clf":
+        from xgan_torch.models.resnet import ResNet50
+        from xgan_torch.train.classifier import classifier_optimizer
+        net = ResNet50(2, dtype=dtype, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(63))
+        sync_batch_norm(net, mesh)
+        if mesh is not None:
+            tp.shard_over_model([net], mesh.model)
+        opt = classifier_optimizer(net, 1e-3, False)
+        return (net, opt), [("c", net, opt)]
+    vgg = None
+    if kind == "dcgan":
+        g, d, _, _ = gan_models(dtype, seed=60)
+    elif kind == "wgan":
+        g, d, _, _ = wgan_models(dtype, seed=70)
+    else:
+        g, d, vgg, _, _ = cgan_models(dev, dtype, seed=72)
+    if warm is not None:
+        warm = copy.deepcopy(warm)
+        g.load_state_dict(warm[0])
+        d.load_state_dict(warm[1])
+    sync_batch_norm(g, mesh)
+    sync_batch_norm(d, mesh)
+    if mesh is not None:
+        tp.shard_over_model([g, d], mesh.model)
+    b2 = 0.9 if kind == "wgan" else 0.999
+    og, od = (adam(m.parameters(), 2e-4, 0.5, b2) for m in (g, d))
+    for o, sd in zip((og, od), warm[2:] if warm is not None else ()):
+        o.load_state_dict(tp.opt_state_for_load(o, sd))
+    return (g, d, vgg, og, od), [("g", g, og), ("d", d, od)]
+
+
+def tp_draws(kind: str, n: int, b: int | None = None) -> list:
+    """``n`` seeded steps' batches (of ``b`` rows, default the case's
+    ``TP_B``) and draws of case ``kind``: the
+    DCGAN's (idx, flip, noise), the classifier's (idx, use_synth, pick,
+    flip), the WGAN-GP's (idx, flip, critic noises, alphas, G's noise),
+    the CGAN's (idx, flip, noise, fake labels, real targets, fake
+    targets)."""
+    dev = torch.device("cuda")
+    if kind == "clf":
+        return [dist_draws(dev, CLS_B, 62 + t) for t in range(n)]
+    b = b or TP_B[kind]
+    gen = torch.Generator(device=dev).manual_seed(
+        {"dcgan": 61, "wgan": 90, "cgan": 91}[kind])
+
+    def unif(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    out = []
+    for _ in range(n):
+        idx = torch.randint(0, N_TRAIN, (b,), generator=gen, device=dev)
+        if kind == "dcgan":
+            out.append((idx, unif(b) < 0.5, normal(b, LATENT)))
+        elif kind == "wgan":
+            out.append((idx, unif(b) < 0.5,
+                        [normal(b, LATENT) for _ in range(WGAN_CRITIC)],
+                        [unif(b, 1, 1, 1) for _ in range(WGAN_CRITIC)],
+                        normal(b, LATENT)))
+        else:
+            out.append((idx, unif(b) < 0.5, normal(b, LATENT),
+                        torch.randint(0, 2, (b,), generator=gen, device=dev),
+                        0.9 - 0.1 * unif(b), 0.1 + 0.1 * unif(b)))
+    return out
+
+
+def tp_step(kind: str, nets, stores, draw, rows=slice(None), mesh=None,
+            mask=None) -> list:
+    """One step of case ``kind`` on ``nets`` (:func:`tp_nets`) with
+    ``draw``'s rows ``rows`` (the CGAN's at epoch 0: the gate open);
+    ``stores``: the train store and the classifier's synthetic store.
+    Returns its metrics (the classifier's per-sample losses)."""
+    from xgan_torch.train.cgan import cgan_step
+    from xgan_torch.train.classifier import train_step
+    from xgan_torch.train.gan import dcgan_step
+    from xgan_torch.train.wgan import wgan_step
+    store, synth = stores
+
+    def r(t):
+        return [x[rows] for x in t] if isinstance(t, list) else t[rows]
+
+    if kind == "clf":
+        net, opt = nets
+        idx, use, pick, flip = draw
+        return train_step(net, opt, store, synth, r(idx), mode="mix",
+                          ratio=0.5, flip=r(flip), use_synth=r(use),
+                          synth_pick=r(pick), mask=mask,
+                          mesh=mesh)[0].tolist()
+    g, d, vgg, og, od = nets
+    if kind == "dcgan":
+        idx, flip, noise = draw
+        out = dcgan_step(g, d, og, od, store.images, r(idx),
+                         latent_dim=LATENT, flip=r(flip), noise=r(noise),
+                         mask=mask, mesh=mesh)
+    elif kind == "wgan":
+        idx, flip, noises, alphas, g_noise = draw
+        out = wgan_step(g, d, og, od, store.images, r(idx),
+                        latent_dim=LATENT, critic_iters=WGAN_CRITIC,
+                        lambda_gp=10.0, flip=r(flip), noises=r(noises),
+                        alphas=r(alphas), g_noise=r(g_noise), mask=mask,
+                        mesh=mesh)
+    else:
+        idx, flip, noise, fake_labels, real_t, fake_t = draw
+        out = cgan_step(g, d, vgg, og, od, store.images, store.labels,
+                        r(idx), 0, latent_dim=LATENT, flip=r(flip),
+                        noise=r(noise), fake_labels=r(fake_labels),
+                        real_targets=r(real_t), fake_targets=r(fake_t),
+                        mask=mask, mesh=mesh)
+    return out.tolist()
+
+
+def tp_stores(train, dev):
+    """The train store on ``dev`` and the classifier's seeded 256-image
+    synthetic store."""
     from xgan_torch.data.pipeline import DeviceStore
     from xgan_torch.data.store import ImageStore
+    rng = np.random.default_rng(63)
+    return DeviceStore(train, dev), DeviceStore(ImageStore(
+        rng.integers(0, 256, (256, SIZE, SIZE, 3), np.uint8),
+        np.ones(256, np.int32), SIZE), dev)
+
+
+def tp_run(kind: str, name: str, nets, tagged, stores, draws, mesh,
+           rows=slice(None), mask=None, shapes=None) -> tuple:
+    """Run ``name`` of case ``kind``: its held steps (one for the floors
+    after the first and the TF32 control), each kernel launch counted;
+    returns (the first step's metrics, its whole gradient norms, the
+    whole state after the steps on the host). ``shapes``: a list that
+    takes every ConvT launch shape."""
+    from xgan_torch import kernels
+    from xgan_torch.parallel import tp
+    kernels.reset_launch_counts()
+    with convt_shapes() as seen:
+        metrics, norms = [], None
+        for draw in draws[:1 if name in ONE_STEP else None]:
+            metrics.append(tp_step(kind, nets, stores, draw, rows, mesh,
+                                   mask))
+            if norms is None:
+                norms = whole_grad_norms(*(m for _, m, _ in tagged))
+        torch.cuda.synchronize()
+    key, per_step = TP_LAUNCHES[kind]
+    check(kernels.LAUNCHES[key] == per_step * len(metrics),
+          (kind, name, dict(kernels.LAUNCHES)))
+    if shapes is not None:
+        shapes += seen
+    state = {f"{tag}.{k}": v.cpu().clone() for tag, m, _ in tagged
+             for k, v in tp.whole_state_dict(m).items()}
+    return metrics[0], norms, state
+
+
+def tp_warm(kind: str, stores):
+    """The 3 warm-up steps of case ``kind`` on one rank (bf16; none for
+    the classifier, which steps from its seeded weights): G's and D's
+    weights and Adam state after them."""
+    if kind == "clf":
+        return None
+    nets, _ = tp_nets(kind, None, dtype=torch.bfloat16)
+    for draw in tp_draws(kind, 3 + TP_STEPS)[:3]:
+        tp_step(kind, nets, stores, draw)
+    g, d, _, og, od = nets
+    return [x.state_dict() for x in (g, d, og, od)]
+
+
+def phase_tp_ref(train, smi: str, run: int, part: int) -> list:
+    """The one-rank side of A14 part ``part``'s holds (``--phase tp4ref``,
+    ``tp5ref``), in a process of its own beside the part's TP ranks, f32
+    with TF32 off and deterministic cuDNN: first each case's 3
+    warm-up steps (bf16), written as ``tp_warm_{kind}.pt`` for the TP
+    ranks and its own runs to start from; then each case's reference and
+    the four floors of :func:`tp_held` (``ref`` and ``floor`` 3 steps,
+    the others 1), written as ``tp_ref_{kind}.pt`` (name -> (the first
+    step's metrics, its whole gradient norms, the whole state after the
+    steps), and each net's parameter and Adam bytes). The DCGAN's and the
+    classifier's one-rank steps take the all-ones mask of
+    :func:`dp_step_checks` (BN's sums path), the WGAN-GP's and the CGAN's
+    none (``F.batch_norm``, as :func:`dp_family_checks`). Returns no
+    launches (the references' are not the main path's)."""
+    from xgan_torch.parallel import tp
+    dev = torch.device("cuda")
+    stores = tp_stores(train, dev)
+    torch.backends.cudnn.deterministic = True
+    warm = {}
+    for kind in TP_CASES[part]:
+        warm[kind] = tp_warm(kind, stores)
+        save_whole(warm[kind], os.path.join(CHILD_TMP, f"tp_warm_{kind}.pt"))
+    try:
+        for kind in TP_CASES[part]:
+            draws = tp_draws(kind, 3 + TP_STEPS)[3:]
+            mask = torch.ones(TP_B[kind], device=dev) \
+                if kind in ("dcgan", "clf") else None
+            out = {}
+            for name in ("ref", *TP_FLOORS):
+                torch.backends.cudnn.enabled = \
+                    TP_FLOORS.get(name, (0, True))[1]
+                nets, tagged = tp_nets(kind, None, warm[kind])
+                out[name] = tp_run(kind, name, nets, tagged, stores, draws,
+                                   None, tp_rows(name, TP_B[kind], dev),
+                                   mask)
+                if name == "ref":
+                    out["bytes"] = {f"{kind}.{tag}": tp.rank_bytes([m], [o])
+                                    for tag, m, o in tagged}
+                del nets, tagged
+            save_whole(out, os.path.join(CHILD_TMP, f"tp_ref_{kind}.pt"))
+            print(f"{TP_LABEL[kind]}: the one-rank reference and its floors "
+                  f"{list(TP_FLOORS)} written")
+    finally:
+        torch.backends.cudnn.enabled = True
+        torch.backends.cudnn.deterministic = False
+    return [0, 0]
+
+
+def tp_holds(world, data, train, smi: str, rank: int, part: int) -> list:
+    """One rank of two sharing the card over gloo with ``--model-parallel
+    2`` (data 1 x model 2; ``world`` and its data group), f32 with TF32
+    off and deterministic cuDNN, against one rank on the same inputs
+    (:func:`phase_tp_ref`, a process of its own), for the cases of A14
+    part ``part`` (``TP_CASES``):
+
+    - 3 steps of each case from the reference's warm-up state and the
+      TF32 control's one step; on rank 0 :func:`tp_held` of each (the
+      first step's metrics, its norms against the floor of four
+      rounding-only runs, the TF32 control, the parameters after 3
+      steps; the CGAN's biases right before a BN not held, G's sliced
+      ``fc.bias`` by its whole norm);
+    - every ConvT launch shape of the TP steps recorded: each sliced k4s2
+      layer of ``TP_CONVT`` launched once a G forward (DCGAN: (128, 7, 7,
+      512) -> 128; WGAN-GP: (32, 7, 7, 1024) -> 256 and (32, 14, 14, 512)
+      -> 128, 6 G forwards a step);
+    - those layers' launches at the trainers' batch held against the
+      plain version in bf16 and f32 (``TOL``; timed by
+      :func:`tp_timings`);
+    - the bytes of the parameters and Adam state this rank keeps of each
+      net against one rank's (counts from the shapes; ``TP_RATIOS``).
+
+    Before the WGAN-GP's TP steps rank 0 alone runs a one-rank WGAN-GP
+    step, so that the ranks' autograd histories differ: the penalty's
+    double backward must issue its collectives in one order all the same
+    (``xgan_torch.parallel.tp.one_autograd_thread``).
+    Saves its parameters and slices' names (``tp{part}_rank{RANK}.pt``)
+    for the parent's check of the replicated leaves; returns its [ConvT,
+    mixed_gather] launches."""
+    from xgan_torch import kernels
     from xgan_torch.kernels.convt import (convt4x4s2_fused,
                                           convt4x4s2_fused_ref,
                                           pack_convt_weight)
+    from xgan_torch.models.cgan import D_PRE_BN_BIASES, G_PRE_BN_BIASES
     from xgan_torch.parallel import tp
-    from xgan_torch.train.classifier import train_step
-    from xgan_torch.train.gan import dcgan_step
     dev = world.device
     torch.backends.cudnn.deterministic = True
-    store = DeviceStore(train, dev)
-    launched, res = [0, 0], {}
-    ones_g = torch.ones(GAN_B, device=dev)
-    ones_c = torch.ones(CLS_B, device=dev)
+    stores = tp_stores(train, dev)
+    launched, runs, nbytes, shapes = [0, 0], {}, {}, []
+    local, sliced, errs = {}, [], {}
     try:
-        gen = torch.Generator(device=dev).manual_seed(61)
-        draws = [(torch.randint(0, N_TRAIN, (GAN_B,), generator=gen,
-                                device=dev),
-                  torch.rand(GAN_B, generator=gen, device=dev) < 0.5,
-                  torch.randn(GAN_B, LATENT, generator=gen, device=dev))
-                 for _ in range(3 + TP_STEPS)]
-        gn, dn, og, od = gan_models(torch.float32, seed=60)
-        for idx, flip, noise in draws[:3]:
-            dcgan_step(gn, dn, og, od, store.images, idx, latent_dim=LATENT,
-                       flip=flip, noise=noise)
-        warm = copy.deepcopy([x.state_dict() for x in (gn, dn, og, od)])
-        del gn, dn, og, od
-        runs, shapes, nbytes = {}, [], {}
-        for name in TP_RUNS:
-            m = data if name in ("tp", "tf32") else None
-            rows = tp_rows(name, GAN_B, dev)
-            mask = None if m is not None else ones_g
-            torch.backends.cuda.matmul.allow_tf32 = name == "tf32"
-            torch.backends.cudnn.allow_tf32 = name == "tf32"
-            torch.backends.cudnn.enabled = TP_FLOORS.get(name, (0, True))[1]
-            g, d, og, od = tp_gan_nets(m, warm)
-            kernels.reset_launch_counts()
-            with convt_shapes() as seen:
-                metrics, norms = [], None
-                for idx, flip, noise in draws[3:4 if name in ONE_STEP
-                                              else None]:
-                    metrics.append(dcgan_step(
-                        g, d, og, od, store.images, idx[rows],
-                        latent_dim=LATENT, flip=flip[rows],
-                        noise=noise[rows], mask=mask, mesh=m).tolist())
-                    if norms is None:
-                        norms = whole_grad_norms(g, d)
-                torch.cuda.synchronize()
-            steps = len(metrics)
-            check(kernels.LAUNCHES["convt4x4s2_fused"] == 5 * steps,
-                  (name, dict(kernels.LAUNCHES)))
-            if name == "tp":
-                shapes = seen
-                launched[0] += 5 * steps
-                nbytes["G"] = tp.rank_bytes([g], [og])
-                nbytes["D"] = tp.rank_bytes([d], [od])
-                local = {**{f"g.{k}": v for k, v in g.state_dict().items()},
-                         **{f"d.{k}": v for k, v in d.state_dict().items()}}
-                sliced = [f"g.{k}" for k in g.tp_dims] \
-                    + [f"d.{k}" for k in d.tp_dims]
-            if name == "ref":
-                nbytes["G"] /= tp.rank_bytes([g], [og])
-                nbytes["D"] /= tp.rank_bytes([d], [od])
-            runs[name] = (metrics[0], norms, {
-                **{f"g.{k}": v.clone()
-                   for k, v in tp.whole_state_dict(g).items()},
-                **{f"d.{k}": v.clone()
-                   for k, v in tp.whole_state_dict(d).items()}})
-            del g, d, og, od
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.enabled = True
-        res["gan"] = tp_held("DCGAN", runs, 2e-4)
-        want = (GAN_B, 7, 7, 8 * FG)
-        check(shapes.count((want, 4 * FG // TP_N)) == TP_STEPS, shapes)
-
-        # the unfrozen classifier, mix
-        cdraws = [dist_draws(dev, CLS_B, 62 + t) for t in range(TP_STEPS)]
-        rng = np.random.default_rng(63)
-        synth = DeviceStore(ImageStore(
-            rng.integers(0, 256, (256, SIZE, SIZE, 3), np.uint8),
-            np.ones(256, np.int32), SIZE), dev)
-        runs = {}
-        for name in TP_RUNS:
-            m = data if name in ("tp", "tf32") else None
-            rows = tp_rows(name, CLS_B, dev)
-            torch.backends.cuda.matmul.allow_tf32 = name == "tf32"
-            torch.backends.cudnn.allow_tf32 = name == "tf32"
-            torch.backends.cudnn.enabled = TP_FLOORS.get(name, (0, True))[1]
-            net, opt = tp_classifier(dev, m, torch.float32, 63)
-            kernels.reset_launch_counts()
-            losses, norms = None, None
-            for idx, use, pick, flip in cdraws[:1 if name in ONE_STEP
-                                               else None]:
-                got = train_step(net, opt, store, synth, idx[rows],
-                                 mode="mix", ratio=0.5, flip=flip[rows],
-                                 use_synth=use[rows], synth_pick=pick[rows],
-                                 mask=None if m is not None else ones_c,
-                                 mesh=m)
-                if norms is None:
-                    losses = got[0].tolist()
-                    norms = whole_grad_norms(net)
-            torch.cuda.synchronize()
-            n = kernels.LAUNCHES["mixed_gather"]
-            check(n == (1 if name in ONE_STEP else TP_STEPS), (name, n))
-            if name == "tp":
-                launched[1] += n
-                nbytes["ResNet-50"] = tp.rank_bytes([net], [opt])
-                local.update({f"c.{k}": v
-                              for k, v in net.state_dict().items()})
-                sliced += [f"c.{k}" for k in net.tp_dims]
-            if name == "ref":
-                nbytes["ResNet-50"] /= tp.rank_bytes([net], [opt])
-            runs[name] = (losses, norms, {
-                k: v.clone() for k, v in tp.whole_state_dict(net).items()})
-            del net, opt
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.enabled = True
-        res["clf"] = tp_held("classifier", runs, 1e-3)
-        for k, ratio in TP_RATIOS.items():
-            check(abs(nbytes[k] - ratio) < 5e-3, (k, nbytes[k], ratio))
+        for kind in TP_CASES[part]:
+            draws = tp_draws(kind, 3 + TP_STEPS)[3:]
+            warm = None if kind == "clf" else torch.load(wait_file(
+                os.path.join(CHILD_TMP, f"tp_warm_{kind}.pt")),
+                weights_only=True)
+            runs[kind] = {}
+            if kind == "wgan" and rank == 0:
+                # autograd work of this rank's own first (a one-rank step,
+                # its penalty's double backward): the TP steps' model-group
+                # collectives must keep their order all the same
+                lone, _ = tp_nets(kind, None, warm)
+                tp_step(kind, lone, stores, draws[0])
+                del lone
+            for name in ("tp", "tf32"):
+                torch.backends.cuda.matmul.allow_tf32 = name == "tf32"
+                torch.backends.cudnn.allow_tf32 = name == "tf32"
+                nets, tagged = tp_nets(kind, data, warm)
+                runs[kind][name] = tp_run(
+                    kind, name, nets, tagged, stores, draws, data,
+                    shapes=shapes if name == "tp" else None)
+                if name == "tp":
+                    key, per_step = TP_LAUNCHES[kind]
+                    launched[key == "mixed_gather"] += per_step * TP_STEPS
+                    for tag, m, o in tagged:
+                        nbytes[f"{kind}.{tag}"] = tp.rank_bytes([m], [o])
+                        local.update({f"{kind}.{tag}.{k}": v.clone()
+                                      for k, v in m.state_dict().items()})
+                        sliced += [f"{kind}.{tag}.{k}" for k in m.tp_dims]
+                del nets, tagged
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         torch.save({"local": local, "sliced": sliced},
-                   os.path.join(CHILD_TMP, f"tp_rank{rank}.pt"))
-
-        # the sharded layer's launch against its plain version
-        cin, cout = 8 * FG, 4 * FG // TP_N
-        gk = torch.Generator(device=dev).manual_seed(64)
-        x32 = torch.randn(GAN_B, 7, 7, cin, generator=gk, device=dev)
-        w = torch.randn(cin, cout, 4, 4, generator=gk, device=dev) \
-            / math.sqrt(4 * cin)
-        ones_o = torch.ones(cout, device=dev)
-        zeros_o = torch.zeros(cout, device=dev)
-        errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            x, wp = x32.to(dtype), pack_convt_weight(w, dtype)
-            kernels.reset_launch_counts()
-            y = convt4x4s2_fused(x, wp, ones_o, zeros_o, act="none")
-            check(kernels.LAUNCHES["convt4x4s2_fused"] == 1,
-                  dict(kernels.LAUNCHES))
-            ref = convt4x4s2_fused_ref(x, wp, ones_o, zeros_o, act="none")
-            errs[dtype] = (y.float() - ref.float()).abs().max().item()
-            # the limits of phase_kernels: TOL of (1 + max |ref|)
-            tol = TOL[dtype] * (1 + ref.float().abs().max().item())
-            check(errs[dtype] <= tol, (dtype, errs[dtype], tol))
+                   os.path.join(CHILD_TMP, f"tp{part}_rank{rank}.pt"))
+        # each sliced launch a G forward: 1 a DCGAN step, 6 a WGAN-GP one
+        for kind, hw, cin, cout in TP_CONVT[part]:
+            forwards = 1 if kind == "dcgan" else WGAN_CRITIC + 1
+            check(shapes.count(((TP_B[kind], hw, hw, cin), cout))
+                  == forwards * TP_STEPS, (hw, cin, cout, shapes))
+            b = TP_TRAIN_B[kind]
+            gk = torch.Generator(device=dev).manual_seed(74 + hw + cin)
+            x32 = torch.randn(b, hw, hw, cin, generator=gk, device=dev)
+            w = torch.randn(cin, cout, 4, 4, generator=gk, device=dev) \
+                / math.sqrt(4 * cin)
+            ones_o = torch.ones(cout, device=dev)
+            zeros_o = torch.zeros(cout, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x, wp = x32.to(dtype), pack_convt_weight(w, dtype)
+                kernels.reset_launch_counts()
+                y = convt4x4s2_fused(x, wp, ones_o, zeros_o, act="none")
+                check(kernels.LAUNCHES["convt4x4s2_fused"] == 1,
+                      dict(kernels.LAUNCHES))
+                ref = convt4x4s2_fused_ref(x, wp, ones_o, zeros_o,
+                                           act="none")
+                err = (y.float() - ref.float()).abs().max().item()
+                # the limits of phase_kernels: TOL of (1 + max |ref|)
+                tol = TOL[dtype] * (1 + ref.float().abs().max().item())
+                check(err <= tol, (hw, cin, cout, dtype, err, tol))
+                errs[f"({b}, {hw}, {hw}, {cin}) -> {cout}", dtype] = err
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.enabled = True
         torch.backends.cudnn.deterministic = False
-    g, c = res["gan"], res["clf"]
+    print(f"rank {rank}: G's sliced ConvTs launched once a G forward "
+          f"({TP_STEPS} held steps); at x " + "; ".join(
+              sorted({s for s, _ in errs})) + " held against the plain "
+          "version (limits TOL of 1 + max |ref|): "
+          "max |err| " + ", ".join(
+              f"{s} {'f32' if dt == torch.float32 else 'bf16'} {e:.3g}"
+              for (s, dt), e in errs.items()) + f" [{smi}]")
+    if rank:
+        return launched
 
     def params(p):
         return (f"max {p[0]:.3g} ({p[1]} of {p[2]} outside 2e-5 + 2e-3 "
                 f"|ref|; the floor {p[3]:.3g}, {p[4]})")
 
-    print(f"rank {rank} of 2, --model-parallel 2 (gloo, one card), f32 "
-          f"against one rank: DCGAN-224 B={GAN_B} metrics {g['metrics']:.3g}"
-          f" (limit 1e-4), gradient norms {g['grads']:.3f} of the limit "
-          f"(TF32 control {g['tf32']:.3f}), params after {TP_STEPS} steps "
-          f"{params(g['params'])}; ResNet-50 --unfreeze mix B={CLS_B} "
-          f"losses {c['metrics']:.3g}, gradient norms {c['grads']:.3f} of "
-          f"the limit (TF32 control {c['tf32']:.3f}), params "
-          f"{params(c['params'])} [{smi}]")
-    for label, r in (("DCGAN", g), ("classifier", c)):
-        print(f"rank {rank}: {label}'s worst gradient norms (relative "
-              "difference, the floor's): " + ", ".join(
+    skip = {f"0.{k}" for k in G_PRE_BN_BIASES} \
+        | {f"1.{k}" for k in D_PRE_BN_BIASES}
+    failed = []
+    for kind in TP_CASES[part]:
+        ref = torch.load(wait_file(os.path.join(
+            CHILD_TMP, f"tp_ref_{kind}.pt")), weights_only=True)
+        for key, one in ref.pop("bytes").items():
+            nbytes[key] /= one
+        # Adam updates of a parameter in the held steps
+        updates = TP_STEPS * (WGAN_CRITIC if kind == "wgan" else 1)
+        r = tp_held(TP_LABEL[kind], {**runs[kind], **ref},
+                    1e-3 if kind == "clf" else 2e-4,
+                    skip if kind == "cgan" else (), updates,
+                    kind in ("wgan", "cgan"))
+        failed += [f"{kind} {what}" for what in r["failed"]]
+        print(f"--model-parallel 2 (gloo, one card), f32 against one rank: "
+              f"{TP_LABEL[kind]}-224 B={TP_B[kind]} metrics "
+              f"{r['metrics']:.3g} (limit 1e-4), gradient norms "
+              f"{r['grads']:.3f} of the limit (TF32 control {r['tf32']:.3f},"
+              f" its metrics {r['tf32_metrics']:.3g}), params after "
+              f"{TP_STEPS} steps {params(r['params'])}; its worst gradient "
+              "norms (relative difference, the floor's): " + ", ".join(
                   f"{k} ({a:.3g}, {f:.3g})" for a, f, k in r["worst"])
               + "; the median relative difference of TP and of each floor "
               f"{list(TP_FLOORS)}: "
-              + ", ".join(f"{v:.3g}" for v in r["median"]))
-    check(not g["failed"] and not c["failed"],
-          f"DCGAN {g['failed']}, classifier {c['failed']}")
-    print(f"rank {rank}: G's sharded ConvT launched {TP_STEPS} times at "
-          f"x {want} -> Cout {4 * FG // TP_N}; held against the plain "
-          f"version at that shape (limits TOL of 1 + max |ref|): max |err| "
-          f"f32 {errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}; "
-          f"per-rank parameter + Adam bytes over one rank's (counts): "
+              + ", ".join(f"{v:.3g}" for v in r["median"]) + f" [{smi}]")
+    print("per-rank parameter + Adam bytes over one rank's (counts): "
           + ", ".join(f"{k} {v:.4f}" for k, v in nbytes.items())
           + f" [{smi}]")
+    check(not failed, failed)
+    for k, v in nbytes.items():
+        check(abs(v - TP_RATIOS[k]) <= 1e-3, (k, v, TP_RATIOS[k]))
     return launched
 
 
-def tp_timings(world, data, train, smi: str, rank: int) -> list:
-    """The timings of tensor parallelism, alone on the card (two gloo
-    ranks, ``--model-parallel 2``; ``world`` and its data group): G's
-    sliced
-    ConvT layer at (B, 7, 7, 512) -> Cout 128 in bf16, the kernel, its
-    plain version and cuDNN's ``F.conv_transpose2d`` by CUDA events
-    against its bound; bf16 ms per DCGAN-224 (B = 128) and ResNet-50
-    (mix, B = 32, ``--unfreeze``) step of one rank alone (rank 0, while
-    rank 1 waits), then of the TP ranks. Returns the TP steps' [ConvT,
-    mixed_gather] launches."""
-    from xgan_torch import kernels
-    from xgan_torch.data.pipeline import DeviceStore
-    from xgan_torch.data.store import ImageStore
+def wait_file(path: str, seconds: float = 900):
+    """``path`` once it exists (written whole by :func:`save_whole`)."""
+    deadline = time.time() + seconds
+    while not os.path.exists(path):
+        check(time.time() < deadline, f"no {path} in {seconds} s")
+        time.sleep(0.2)
+    return path
+
+
+def save_whole(obj, path: str) -> None:
+    """``torch.save`` to ``path`` through a rename, so that a reader
+    polling for it never sees it half written."""
+    torch.save(obj, path + ".part")
+    os.replace(path + ".part", path)
+
+
+def whole_cpu_state(g, d) -> dict:
+    """G's and D's whole state dicts (``g.``, ``d.`` keys) on the host."""
+    from xgan_torch.parallel import tp
+    return {**{f"g.{k}": v.cpu().clone()
+               for k, v in tp.whole_state_dict(g).items()},
+            **{f"d.{k}": v.cpu().clone()
+               for k, v in tp.whole_state_dict(d).items()}}
+
+
+def tp_timings(world, data, train, smi: str, rank: int, part: int) -> list:
+    """The timings of A14 part ``part``'s tensor parallelism, alone on the
+    card (two gloo ranks, ``--model-parallel 2``; ``world`` and its data
+    group), rank 0 timing while rank 1 waits: the sliced ConvT layers of
+    ``TP_CONVT`` at the trainers' batch (part 4's DCGAN G's at (128, 7, 7,
+    512) -> 128, part 5's WGAN-GP G's at (64, 7, 7, 1024) -> 256 and (64,
+    14, 14, 512) -> 128), each by :func:`sliced_convt_ms`; then part 5's
+    bf16 CGAN steps (:func:`tp_family_timings`). Returns the TP steps'
+    [ConvT, mixed_gather] launches."""
+    if rank == 0:  # alone on the card: rank 1 waits
+        for i, (kind, hw, cin, cout) in enumerate(TP_CONVT[part]):
+            ms = sliced_convt_ms(TP_TRAIN_B[kind], hw, cin, cout, 64 + i)
+            print(f"sliced ConvT at {ms['shape']}, bf16, alone on the "
+                  f"card: kernel {ms['kernel']:.4f} ms, plain "
+                  f"{ms['plain']:.4f} ms, cuDNN {ms['cuDNN']:.4f} ms "
+                  f"(F.conv_transpose2d), bound {ms['bound']:.4f} ms "
+                  f"({ms['work']}; by {ms['bound_by']}) [{smi}]")
+    world.barrier()
+    return tp_family_timings(world, data, train, smi, rank) \
+        if part == 5 else [0, 0]
+
+
+def sliced_convt_ms(b: int, hw: int, cin: int, cout: int,
+                    seed: int) -> dict:
+    """A sliced k4s2 ConvT launch at x (``b``, ``hw``, ``hw``, ``cin``)
+    -> ``cout``, bf16, act none: the kernel, its plain
+    version and cuDNN's ``F.conv_transpose2d`` on the same inputs by CUDA
+    events, and the bound (each output sums 4 taps of Cin over the 4
+    phases of 2 x 2; bf16 x, packed w and out each moved once)."""
     from xgan_torch.kernels.convt import (convt4x4s2_fused,
                                           convt4x4s2_fused_ref,
                                           pack_convt_weight)
-    from xgan_torch.train.classifier import train_step
-    from xgan_torch.train.gan import dcgan_step
-    dev = world.device
-    store = DeviceStore(train, dev)
-    launched, ms, times = [0, 0], {}, {}
-    cin, cout = 8 * FG, 4 * FG // TP_N
-    gk = torch.Generator(device=dev).manual_seed(64)
-    x = torch.randn(GAN_B, 7, 7, cin, generator=gk, device=dev) \
+    dev = torch.device("cuda")
+    gk = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, hw, hw, cin, generator=gk, device=dev) \
         .to(torch.bfloat16)
     w = torch.randn(cin, cout, 4, 4, generator=gk, device=dev) \
         / math.sqrt(4 * cin)
@@ -6972,66 +7288,58 @@ def tp_timings(world, data, train, smi: str, rank: int) -> list:
     ones_o = torch.ones(cout, device=dev)
     zeros_o = torch.zeros(cout, device=dev)
     xn, wl = x.permute(0, 3, 1, 2), w.to(torch.bfloat16)  # NCHW views
-    if rank == 0:  # alone on the card: rank 1 waits
-        for name, fn, reps in (
-                ("kernel", convt4x4s2_fused, 20),
-                ("plain", convt4x4s2_fused_ref, 5)):
-            ms[name] = time_ms(lambda fn=fn: fn(x, wp, ones_o, zeros_o,
-                                                act="none"), reps=reps)
-        ms["cuDNN"] = time_ms(
-            lambda: torch.nn.functional.conv_transpose2d(xn, wl, None, 2,
-                                                         1))
-    world.barrier()
-    # the least time: each output sums 4 taps of Cin (4 phases of 2 x
-    # 2), bf16 x, packed w and out each moved once
-    flops = 2 * GAN_B * 14 * 14 * cout * cin * 4
-    nbytes = 2 * (GAN_B * 7 * 7 * cin + 16 * cin * cout
-                  + GAN_B * 14 * 14 * cout)
-    ms["bound"] = max(flops / BF16_PEAK_FLOPS,
-                      nbytes / HBM_BYTES_PER_S) * 1e3
+    ms = {name: time_ms(lambda fn=fn: fn(x, wp, ones_o, zeros_o,
+                                         act="none"), reps=reps)
+          for name, fn, reps in (("kernel", convt4x4s2_fused, 20),
+                                 ("plain", convt4x4s2_fused_ref, 5))}
+    ms["cuDNN"] = time_ms(
+        lambda: torch.nn.functional.conv_transpose2d(xn, wl, None, 2, 1))
+    flops = 2 * b * (2 * hw) ** 2 * cout * cin * 4
+    nbytes = 2 * (b * hw * hw * cin + 16 * cin * cout
+                  + b * (2 * hw) ** 2 * cout)
+    ms["bound"] = max(flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    ms["bound_by"] = "operations" if flops / BF16_PEAK_FLOPS \
+        >= nbytes / HBM_BYTES_PER_S else "bytes"
+    ms["shape"] = f"x ({b}, {hw}, {hw}, {cin}) -> Cout {cout}"
+    ms["work"] = f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB"
+    return ms
 
-    g32 = torch.Generator(device=dev).manual_seed(65)
-    gidx = torch.randint(0, N_TRAIN, (GAN_B,), generator=g32, device=dev)
-    cidx, use, pick, flip = dist_draws(dev, CLS_B, 66)
-    rng = np.random.default_rng(63)
-    synth = DeviceStore(ImageStore(
-        rng.integers(0, 256, (256, SIZE, SIZE, 3), np.uint8),
-        np.ones(256, np.int32), SIZE), dev)
-    for name, m in (("one", None), ("tp", data)):
+
+def tp_family_timings(world, data, train, smi: str, rank: int) -> list:
+    """bf16 ms per CGAN-224 (B = 32) step of the two TP ranks
+    (``--model-parallel 2`` over gloo, host-staged: not a scaling
+    figure), then of one rank alone (rank 0, while rank 1 waits). The
+    WGAN-GP's TP step is not timed: over gloo each of its gathers and
+    their double backward is a host-staged all-reduce of an activation,
+    seconds a step that measure the staging alone. Returns the TP steps'
+    [ConvT, mixed_gather] launches (none: the CGAN's G runs no ConvT
+    kernel)."""
+    from xgan_torch import kernels
+    stores = tp_stores(train, world.device)
+    launched, times = [0, 0], {}
+    for name, m in (("tp", data), ("one", None)):
         if m is None and rank == 1:
             world.barrier()
             continue
-        bf = [x.state_dict() for x in gan_models(torch.bfloat16,
-                                                 seed=64)]
-        g, d, og, od = tp_gan_nets(m, bf, torch.bfloat16)
-        kernels.reset_launch_counts()
-        # TP steps take ~0.4-0.7 s (DCGAN) and 1.2-1.8 s (ResNet-50):
-        # fewer
-        times[f"DCGAN {name}"] = timed_steps(lambda: dcgan_step(
-            g, d, og, od, store.images, gidx, latent_dim=LATENT,
-            generator=g32, mesh=m), 2 if m else 5, m, 1 if m else 3)
-        if m is not None:
-            launched[0] += kernels.LAUNCHES["convt4x4s2_fused"]
-        del g, d, og, od
-        net, opt = tp_classifier(dev, m, torch.bfloat16, 66)
-        kernels.reset_launch_counts()
-        times[f"classifier {name}"] = timed_steps(lambda: train_step(
-            net, opt, store, synth, cidx, mode="mix", ratio=0.5,
-            flip=flip, use_synth=use, synth_pick=pick, mesh=m),
-            2 if m else 10, m, 1 if m else 3)
-        if m is not None:
-            launched[1] += kernels.LAUNCHES["mixed_gather"]
-        del net, opt
+        for kind in ("cgan",):
+            draw = tp_draws(kind, 1, TP_TRAIN_B[kind])[0]
+            nets, _ = tp_nets(kind, m, dtype=torch.bfloat16)
+            kernels.reset_launch_counts()
+            # TP steps take a third of a second (host-staged gloo): fewer
+            n, warm = (2, 1) if m is not None else (10, 3)
+            times[f"{TP_LABEL[kind]} {name}"] = timed_steps(
+                lambda: tp_step(kind, nets, stores, draw, mesh=m), n, m,
+                warm)
+            if m is not None:
+                key, per_step = TP_LAUNCHES[kind]
+                check(kernels.LAUNCHES[key] == per_step * (n + warm),
+                      (kind, dict(kernels.LAUNCHES)))
+                launched[0] += kernels.LAUNCHES["convt4x4s2_fused"]
+            del nets
         if m is None:
             world.barrier()
-    if rank == 0:
-        print(f"G's sliced ConvT at x ({GAN_B}, 7, 7, {cin}) -> Cout "
-              f"{cout}, bf16, alone on the card: kernel {ms['kernel']:.4f} "
-              f"ms, plain {ms['plain']:.4f} ms, cuDNN {ms['cuDNN']:.4f} ms "
-              f"(F.conv_transpose2d), bound {ms['bound']:.4f} ms "
-              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) [{smi}]")
     print(f"rank {rank}: bf16 ms per step (two ranks sharing the card over "
-          f"host-staged gloo, not a scaling figure): "
+          f"host-staged gloo, not a scaling figure; one rank alone): "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
           + f" [{smi}]")
     return launched
@@ -7041,11 +7349,16 @@ def a14_4_argv(tmp: str, root: str, synth_dir: str, module: str,
                out: str) -> list:
     """The DCGAN CLI (224 px, B = 128, 2 epochs of 2 steps) or the
     classifier CLI (augmented, ResNet-50, B = 32, one run of 2 steps) as
-    :func:`dp_cli_processes` runs them with no group (f32), into
-    ``out``."""
+    :func:`dp_cli_processes` runs them with no group, or the WGAN-GP or
+    CGAN CLI as :func:`dp_loop_argv` runs them (f32), into ``out``."""
     if module == "train_gan":
         return gan_cli_argv(tmp, root, out, "--epochs", "2",
                             "--limit-batches", "2", "--compute-dtype", "f32")
+    if module == "train_wggan":
+        return family_cli_argv(tmp, root, out, WGAN_B, FG, "--critic-iters",
+                               str(WGAN_CRITIC))
+    if module == "train_cgan":
+        return family_cli_argv(tmp, root, out, CGAN_B, CGAN_FM)
     return ["--data-dir", root, "--synthetic-dir", synth_dir,
             "--use-synthetic", "--k-folds", "1", "--epochs", "1",
             "--limit-batches", "2", "--model-dir", os.path.join(out, "m"),
@@ -7056,24 +7369,34 @@ def a14_4_argv(tmp: str, root: str, synth_dir: str, module: str,
             "--compute-dtype", "f32"]
 
 
-# the directories of the runs with no group (phase_dp_cli's, or phase
-# 26's own when it runs alone)
+# the directories of the runs with no group (phase_dp_cli's and
+# phase_dp_cli_loops', or phase 26's own when it runs alone)
 A14_4_PLAIN = {"train_gan": ("dp", "gan_plain"),
-               "train_classifier": ("dp", "clf_plain")}
+               "train_classifier": ("dp", "clf_plain"),
+               "train_wggan": ("dp2", "plain", "wgan"),
+               "train_cgan": ("dp2", "plain", "cgan")}
+# the trainers of each part of phase 26, and the GAN histories held
+# (file, per-step keys)
+A14_MODULES = {4: ("train_gan", "train_classifier"),
+               5: ("train_wggan", "train_cgan")}
+A14_HISTORIES = {"train_gan": ("gan_training_history.json", GAN_ITER_KEYS),
+                 "train_wggan": ("wgan_training_history.json",
+                                 ("D_losses", "G_losses")),
+                 "train_cgan": ("cgan_training_history.json",
+                                GAN_ITER_KEYS)}
 
 
 def a14_4_processes(tmp: str, root: str, synth_dir: str,
-                    plain: bool = False) -> dict:
+                    plain: bool = False, parts=(4, 5)) -> dict:
     """The CLI processes of :func:`phase_a14_4`, all started at once (f32,
-    TF32 off, deterministic cuDNN): the DCGAN and classifier CLIs of
-    :func:`a14_4_argv` as two gloo ranks on the card at
-    ``--model-parallel 2`` (and, with ``plain``, with no group, as
-    phase 24 runs them), and the WGAN-GP CLI at ``--model-parallel 2``
-    under a 2-rank launch, which must refuse. Returns (run, rank) ->
-    process."""
+    TF32 off, deterministic cuDNN): the trainers of ``parts``
+    (``A14_MODULES``; :func:`a14_4_argv`) as two gloo ranks on the card
+    at ``--model-parallel 2`` (and, with ``plain``, with no group, as
+    phase 24 runs them). Returns (run, rank) -> process."""
     procs = {}
-    ports = iter(free_ports(3))
-    for module in ("train_gan", "train_classifier"):
+    modules = [m for p in parts for m in A14_MODULES[p]]
+    ports = iter(free_ports(len(modules)))
+    for module in modules:
         if plain:
             procs[f"{module}_plain", 0] = dp_cli(module, a14_4_argv(
                 tmp, root, synth_dir, module,
@@ -7087,64 +7410,65 @@ def a14_4_processes(tmp: str, root: str, synth_dir: str,
                  "--dist-backend", "gloo", "--model-parallel", str(TP_N)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 cwd=HERE, env=launch_env(r, TP_N, 0, port))
-    procs["wgan_refused", 0] = subprocess.Popen(
-        [sys.executable, "-u", "-m", "xgan_torch.cli.train_wggan",
-         *a14_4_argv(tmp, root, synth_dir, "train_gan",
-                     os.path.join(tmp, "a14_4", "wgan_refused")),
-         "--dist-backend", "gloo", "--model-parallel", str(TP_N)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=HERE, env=launch_env(0, TP_N, 0, next(ports)))
     return procs
 
 
+def start_tp(tmp: str, smi: str, parts=(4, 5)) -> dict:
+    """Starts phase 26's processes (:func:`start_fresh_ranks`): for each
+    part, the two ranks of :func:`phase_tp` and the one-rank reference of
+    :func:`phase_tp_ref` after them. Returns part -> (phase, processes,
+    logs)."""
+    held = {}
+    for part in parts:
+        phase, procs, logs = start_fresh_ranks(f"tp{part}", TP_N, tmp, smi)
+        _, ref, ref_logs = start_fresh_ranks(f"tp{part}ref", 1, tmp, smi)
+        held[part] = (phase, procs + ref, logs + ref_logs)
+    return held
+
+
 def phase_a14_4(tmp: str, root: str, synth_dir: str, smi: str,
-                res: dict | None = None, held=None) -> list:
-    """A14 part 4 on the card: tensor parallelism over two gloo ranks
-    sharing it (``--model-parallel 2``). :func:`phase_tp` on both ranks
-    (or ``held``, its ranks started earlier beside phase 25's CLIs): the
-    holds while the CLI runs of :func:`a14_4_processes` run (or ``res``,
-    their (exit code, output), when they ran earlier, beside phase 24's
-    CLIs), then, on ``tp_go``, the timings alone; both ranks' replicated
-    leaves bitwise equal, their slices not. Under TP against no group
-    (phase 24's
-    runs, or its own alone): the same files, the DCGAN history's first
-    step within 1e-4 * (1 + |ref|) and every step within 5e-2, the
-    classifier's every JSON number but the flags within 1e-4 * (1 +
-    |ref|), each TP rank's kernel launches those of the run with no
-    group; the WGAN-GP CLI exits 1 with its ``Error:`` line. Returns the
-    (ConvT, mixed_gather) launches."""
-    procs = a14_4_processes(tmp, root, synth_dir, plain=True) \
+                res: dict | None = None, held=None, parts=(4, 5)) -> list:
+    """A14 parts 4 and 5 on the card (``parts``): tensor parallelism over
+    two gloo ranks sharing it (``--model-parallel 2``). :func:`phase_tp`
+    on both ranks (or ``held``, its ranks started earlier beside phase
+    25's CLIs): the holds while the CLI runs of :func:`a14_4_processes`
+    run (or ``res``, their (exit code, output), when they ran earlier,
+    beside phase 24's CLIs), then, on ``tp_go``, the timings alone; both
+    ranks' replicated leaves bitwise equal, their slices not. Under TP
+    against no group (phase 24's runs, or its own alone): the same files,
+    each TP rank's kernel launches those of the run with no group, the
+    GAN histories' first step within 1e-4 * (1 + |ref|) and every step
+    within 5e-2, the classifier's every JSON number but the flags within
+    1e-4 * (1 + |ref|). Returns the (ConvT, mixed_gather) launches."""
+    procs = a14_4_processes(tmp, root, synth_dir, plain=True, parts=parts) \
         if res is None else {}
-    held = held or start_fresh_ranks("tp", TP_N, tmp, smi)
+    held = held or start_tp(tmp, smi, parts)
+    launched = [0, 0]
     try:
         if res is None:
             res = drain_all(procs)
-        tp_ready(tmp, held[1])
-        with open(os.path.join(tmp, "tp_go"), "w"):
-            pass
-        got = finish_fresh_ranks(held)
-        launched = [got[0][0] + got[1][0], got[0][1] + got[1][1]]
-        ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"),
-                            weights_only=True) for r in range(TP_N)]
-        sliced = set(ranks[0]["sliced"])
-        check(sliced == set(ranks[1]["sliced"]) and sliced, sliced)
-        for k, v in ranks[0]["local"].items():
-            same = torch.equal(v, ranks[1]["local"][k])
-            check(same != (k in sliced), f"{k}: sliced {k in sliced}, "
-                  f"equal on both ranks {same}")
-        rc, text = res["wgan_refused", 0]
-        last = text.strip().splitlines()[-1] if text.strip() else ""
-        check(rc == 1 and last.startswith(f"Error: --model-parallel {TP_N}")
-              and "not supported by xgan_torch yet" in last,
-              (rc, text[-2000:]))
+        for part in parts:  # each part's timings alone on the card
+            wait_ready(tmp, f"tp{part}", held[part][1])
+            go(tmp, f"tp{part}")
+            for got in finish_fresh_ranks(held[part]):
+                launched = [a + b for a, b in zip(launched, got)]
+            ranks = [torch.load(os.path.join(tmp, f"tp{part}_rank{r}.pt"),
+                                weights_only=True) for r in range(TP_N)]
+            sliced = set(ranks[0]["sliced"])
+            check(sliced == set(ranks[1]["sliced"]) and sliced, sliced)
+            for k, v in ranks[0]["local"].items():
+                same = torch.equal(v, ranks[1]["local"][k])
+                check(same != (k in sliced), f"{k}: sliced {k in sliced}, "
+                      f"equal on both ranks {same}")
         for key, (rc, text) in res.items():
-            if key[0] != "wgan_refused":
-                check(rc == 0, f"{key}: exit {rc}\n" + text[-3000:])
-        for r in range(TP_N):
-            check(f"Tensor parallelism: mesh {{'data': 1, 'model': {TP_N}}};"
-                  f" rank {r} is data rank 0, model rank {r}"
-                  in res["train_gan_tp", r][1],
-                  res["train_gan_tp", r][1][-2000:])
+            check(rc == 0, f"{key}: exit {rc}\n" + text[-3000:])
+        modules = [m for p in parts for m in A14_MODULES[p]]
+        for module in modules:
+            for r in range(TP_N):
+                text = res[f"{module}_tp", r][1]
+                check(f"Tensor parallelism: mesh {{'data': 1, 'model': "
+                      f"{TP_N}}}; rank {r} is data rank 0, model rank {r}"
+                      in text, text[-2000:])
 
         def launches(key):
             last = res[key][1].strip().splitlines()[-1]
@@ -7157,7 +7481,7 @@ def phase_a14_4(tmp: str, root: str, synth_dir: str, smi: str,
                                for p, _, fs in os.walk(top) for f in fs)
 
         worst = {}
-        for module in ("train_gan", "train_classifier"):
+        for module in modules:
             top0, files0 = tree(*A14_4_PLAIN[module])
             top, files = tree("a14_4", f"{module}_tp")
             check(files == files0 and files, (module, files, files0))
@@ -7167,7 +7491,7 @@ def phase_a14_4(tmp: str, root: str, synth_dir: str, smi: str,
                 got = launches((f"{module}_tp", r))
                 check(all(got.get(k, 0) == n for k, n in
                           PLAIN_LAUNCHES[module].items()), (module, r, got))
-                for k, n in launches((f"{module}_tp", r)).items():
+                for k, n in got.items():
                     if k in ("convt4x4s2_fused", "mixed_gather"):
                         launched[k == "mixed_gather"] += n
             if module == "train_classifier":
@@ -7186,31 +7510,42 @@ def phase_a14_4(tmp: str, root: str, synth_dir: str, smi: str,
                 check(w <= 1e-4, (module, w))
                 worst[module] = [w]
                 continue
+            name, keys = A14_HISTORIES[module]
             h = []
             for t in (top0, top):
-                with open(os.path.join(t, "metrics",
-                                       "gan_training_history.json")) as fh:
+                with open(os.path.join(t, "metrics", name)) as fh:
                     h.append(json.load(fh))
-            per_step = [f32_close([h[1][k][t] for k in GAN_ITER_KEYS],
-                                  [h[0][k][t] for k in GAN_ITER_KEYS])
-                        for t in range(len(h[0]["G_losses_iter"]))]
-            check(len(per_step) == 4 and per_step[0] <= 1e-4
-                  and max(per_step) <= 5e-2, per_step)
+            per_step = history_steps_close(h[1], h[0], keys)
+            check(per_step[0] <= 1e-4 and max(per_step) <= 5e-2,
+                  (module, per_step))
             worst[module] = per_step
     finally:
-        for proc in [*procs.values(), *held[1]]:
+        for proc in [*procs.values(),
+                     *(p for h in held.values() for p in h[1])]:
             if proc.poll() is None:
                 proc.kill()
-    print(f"A14 part 4 CLIs at --model-parallel {TP_N} (two gloo ranks on "
-          "the card, f32, TF32 off, deterministic cuDNN) against no group: "
-          "the same files and launches on each rank; worst |a-b|/(1+|b|): "
+    print(f"A14 parts {', '.join(map(str, parts))} CLIs at --model-parallel "
+          f"{TP_N} (two gloo ranks on the card, f32, TF32 off, deterministic "
+          "cuDNN) against no group: the same files and launches on each "
+          "rank; worst |a-b|/(1+|b|) per step: "
           + "; ".join(f"{k} " + ", ".join(f"{v:.3g}" for v in vs)
                       for k, vs in worst.items())
-          + " (limits: the DCGAN's step 1 1e-4, all 5e-2; the classifier's "
-          f"every number 1e-4); the WGAN-GP CLI refuses; phase 26's "
-          f"launches: ConvT {launched[0]}, mixed_gather {launched[1]} "
-          f"[{smi}]")
+          + " (limits: a GAN's step 1 1e-4, all 5e-2; the classifier's "
+          f"every number 1e-4); phase 26's launches: ConvT {launched[0]}, "
+          f"mixed_gather {launched[1]} [{smi}]")
     return launched
+
+
+def history_steps_close(got: dict, want: dict, keys) -> list:
+    """Per step, worst |got - want| / (1 + |want|) over a GAN history's
+    per-step ``keys`` (a key with several entries a step, such as the
+    critic's losses, counts each in its step)."""
+    steps = len(want[keys[-1]])
+    return [f32_close([got[k][t] for k in keys for t in range(len(want[k]))
+                       if t * steps // len(want[k]) == s],
+                      [want[k][t] for k in keys for t in range(len(want[k]))
+                       if t * steps // len(want[k]) == s])
+            for s in range(steps)]
 
 
 def json_numbers(v) -> list:
@@ -7235,7 +7570,9 @@ FRESH_PHASES = {
     **{f"kstep_{kind}": lambda train, smi, run, kind=kind: phase_kstep_dp(
         train, smi, kind) for kind in ("dcgan", "wgan")},
     "zero": phase_zero,
-    "tp": phase_tp,
+    **{f"tp{part}{ref}": lambda train, smi, rank, part=part, ref=ref: (
+        phase_tp_ref if ref else phase_tp)(train, smi, rank, part)
+       for part in (4, 5) for ref in ("", "ref")},
 }
 CHILD_TMP = None  # a --phase process's temporary directory
 
@@ -7270,10 +7607,11 @@ def main_a14_3():
               f"{phase_a14_3(tmp, root, synth_dir, smi)}")
 
 
-def main_a14_4():
-    """``python3 chip_smoke.py --only a14_4``: the build, the sampler, the
-    RSNA tree and its stores, then :func:`phase_a14_4` alone (a quick check
-    of this slice's paths; it prints no result line)."""
+def main_a14(part: int):
+    """``python3 chip_smoke.py --only a14_4`` (or ``a14_5``): the build, the
+    sampler, the RSNA tree and its stores, then :func:`phase_a14_4` of
+    that part alone (a quick check of a slice's paths; it prints no
+    result line)."""
     smi = phase_card()
     phase_build()
     with tempfile.TemporaryDirectory(prefix="xgan_chip_smoke_") as tmp:
@@ -7284,7 +7622,7 @@ def main_a14_4():
         train, _ = phase_stores(root, synth_dir)
         save_store(train, tmp)
         print(f"launches (ConvT, mixed_gather): "
-              f"{phase_a14_4(tmp, root, synth_dir, smi)}")
+              f"{phase_a14_4(tmp, root, synth_dir, smi, parts=(part,))}")
 
 
 def main():
@@ -7336,19 +7674,23 @@ def main():
         phase_predict(tmp, root, paths, arts)
         phase_serve(tmp, root, arts, smi)
         gather_entry["launches"] += phase_data_loader(tmp, root, synth_dir)
-        # phase 26's CLIs run beside phase 24's, its held steps beside
-        # phase 25's CLIs: each before the timed phases there
-        a14_4_res = a14_4_processes(tmp, root, synth_dir)
+        # phase 26's part 4 CLIs run beside phase 24's, its held steps and
+        # part 5 CLIs beside phase 25's CLIs: each before the timed phases
+        # there
+        a14_4_res = a14_4_processes(tmp, root, synth_dir, parts=(4,))
         dp_convt, dp_gather = phase_dp(tmp, root, synth_dir, smi, a14_4_res)
         gather_entry["launches"] += dp_gather
-        held = start_fresh_ranks("tp", TP_N, tmp, smi)
+        held = start_tp(tmp, smi)
+        part5 = a14_4_processes(tmp, root, synth_dir, parts=(5,))
         try:
             a14_convt, a14_gather = phase_a14_3(tmp, root, synth_dir, smi,
-                                                held)
+                                                held, part5)
         except BaseException:
-            for proc in held[1]:  # they wait for phase 26's tp_go
-                proc.kill()
+            for _, procs, _ in held.values():  # they wait for their go
+                for proc in procs:
+                    proc.kill()
             raise
+        a14_4_res.update(part5)
         dp_convt += a14_convt
         gather_entry["launches"] += a14_gather
         a14_convt, a14_gather = phase_a14_4(tmp, root, synth_dir, smi,
@@ -7371,7 +7713,7 @@ def main():
 
 for _name in [n for n in globals() if n.startswith("phase_")] + [
         "cli_process", "dp_cli", "in_fresh_process", "in_fresh_ranks",
-        "finish_fresh_ranks"]:
+        "finish_fresh_ranks", "tp_holds", "tp_timings"]:
     globals()[_name] = timed(globals()[_name])
 
 if __name__ == "__main__":
@@ -7381,7 +7723,7 @@ if __name__ == "__main__":
         phase_child(*sys.argv[2:5])
     elif sys.argv[1:3] == ["--only", "a14_3"]:
         main_a14_3()
-    elif sys.argv[1:3] == ["--only", "a14_4"]:
-        main_a14_4()
+    elif sys.argv[1:3] in (["--only", "a14_4"], ["--only", "a14_5"]):
+        main_a14(int(sys.argv[2][-1]))
     else:
         main()

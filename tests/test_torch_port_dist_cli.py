@@ -22,12 +22,15 @@ environment with ``--cpu`` (gloo), against the same CLI in one process.
   ``--steps-per-call 2`` with ``--shard-opt-state``, and the classifier
   with ``--parallel-folds`` (a fold a rank), on 2 ranks against one
   process.
-- Tensor parallelism: the DCGAN CLI (with ``--ema-decay``) and the
-  classifier CLI at ``--model-parallel 2`` on 2 ranks (data 1 x model 2;
-  the width rule at 8 features, so that the fixture's nets have wide
-  layers) against one process: the same files, the DCGAN history within
-  rtol 2e-4, atol 2e-5 and its ``.pth`` files within 3 lr an update, the
-  classifier's JSON and checkpoints within 1e-4, only rank 0 writing.
+- Tensor parallelism: the DCGAN CLI (with ``--ema-decay``), the
+  classifier CLI, the WGAN-GP CLI (``--critic-iters 2``) and the CGAN
+  CLI at ``--model-parallel 2`` on 2 ranks (data 1 x model 2; the width
+  rule at 8 features, so that the fixture's nets have wide layers)
+  against one process: the same files, the DCGAN history within rtol
+  2e-4, atol 2e-5, the WGAN-GP's and CGAN's first step within 1e-4 * (1
+  + |ref|) and every step within their ``SECOND`` limit, the GANs'
+  ``.pth`` files within 3 lr an update, the classifier's JSON and
+  checkpoints within 1e-4, only rank 0 writing.
   A TP DCGAN run whose rank 1 gets SIGTERM after its first epoch and is
   resumed with ``--resume-from auto`` ends bitwise equal to the straight
   TP run (the snapshot holds the slices whole, the resume cuts them
@@ -399,7 +402,15 @@ TP_RUNS = {
         ds["data_dir"], out, 2, "--ema-decay", "0.9", *extra)), 4),
     "train_classifier": (lambda ds, out, *extra: _narrow(_clf_argv(
         ds, out, *extra)), 0),
+    "train_wggan": (lambda ds, out, *extra: _narrow(_family_argv(
+        "train_wggan", ds["data_dir"], out, "--critic-iters", "2", *extra)),
+        4),
+    "train_cgan": (lambda ds, out, *extra: _narrow(_family_argv(
+        "train_cgan", ds["data_dir"], out, *extra)), 2),
 }
+# the families whose history is held as LAUNCHED's: the first step within
+# 1e-4 * (1 + |ref|), every entry within SECOND's limit
+TP_FAMILIES = ("train_wggan", "train_cgan")
 
 
 @pytest.mark.parametrize("name", list(TP_RUNS))
@@ -415,7 +426,10 @@ def test_model_parallel_matches_one_process(fake_dataset, tmp_path, name):
         assert "Error" not in text, text[-2000:]
     assert "Saved" not in ranks[1], ranks[1][-2000:]
     for f in _files(tmp_path / "one"):
-        if f.endswith(".json"):
+        if f.endswith(".json") and name in TP_FAMILIES:
+            _family_history_close(tmp_path / "tp" / f, tmp_path / "one" / f,
+                                  SECOND.get(name, 5e-2))
+        elif f.endswith(".json"):
             want = _flat(json.loads((tmp_path / "one" / f).read_text()))
             got = _flat(json.loads((tmp_path / "tp" / f).read_text()))
             tol = dict(rtol=0, atol=1e-4) if not updates \
@@ -430,6 +444,24 @@ def test_model_parallel_matches_one_process(fake_dataset, tmp_path, name):
                     got[k].double(), v.double(), rtol=0,
                     atol=3 * 2e-4 * updates if updates else 1e-4,
                     msg=f"{f}:{k}")
+
+
+def _family_history_close(got_path, want_path, second: float) -> None:
+    """A WGAN-GP or CGAN history: each per-step series' first step within
+    1e-4 * (1 + |ref|), every entry within ``second`` * (1 + |ref|)."""
+    want = json.loads(want_path.read_text())
+    got = json.loads(got_path.read_text())
+    assert got.keys() == want.keys()
+    steps = len(want["G_losses_iter" if "G_losses_iter" in want
+                     else "G_losses"])
+    worst = 0.0
+    for k in want:
+        a, b = np.asarray(_flat(got[k])), np.asarray(_flat(want[k]))
+        rel = np.abs(a - b) / (1 + np.abs(b))
+        first = len(b) // steps  # none of an epoch mean
+        assert rel[:first].max(initial=0.0) <= 1e-4, (k, rel[:first])
+        worst = max(worst, float(rel.max()))
+    assert worst <= second, worst
 
 
 def test_model_parallel_sigterm_and_resume(fake_dataset, tmp_path):

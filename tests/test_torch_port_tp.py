@@ -11,11 +11,12 @@ state`` without ranks to shard over, and the fold groups of
   CLI's width (256) and tests/test_tp.py's (64).
 - ``model_parallel_from_args`` prints the JAX note where the JAX package
   does, and returns what it returns for the same device count.
-- Under a 2-rank launch environment ``--model-parallel 2`` exits 1 with
-  its launch message before it joins a group in the WGAN-GP and CGAN
-  trainers (the DCGAN and classifier trainers take it:
-  ``tests/test_torch_port_dist_tp.py``, ``tests/test_torch_port_dist_cli
-  .py``).
+- Under a 2-rank launch environment ``--model-parallel 2`` lays the
+  WGAN-GP and CGAN trainers' ranks out as the JAX ``(data, model)`` mesh
+  and hands their loops the data group (every trainer takes it: the
+  steps in ``tests/test_torch_port_dist_tp.py`` and
+  ``tests/test_torch_port_dist_tp_gans.py``, the CLIs in
+  ``tests/test_torch_port_dist_cli.py``).
 - ``fold_groups`` equals ``fold_mesh``'s device rows for worlds 1, 2 and 8.
 """
 import argparse
@@ -109,18 +110,36 @@ def test_model_parallel_from_args_matches_jax(n, world, note, capsys,
     assert ("Note: --model-parallel" in ours) == note
 
 
-@pytest.mark.parametrize("cli", [train_wggan, train_cgan],
+@pytest.mark.parametrize("cli,loop", [(train_wggan, "wgan_loop.train_wgan"),
+                                      (train_cgan, "cgan_loop.train_cgan")],
                          ids=["train_wggan", "train_cgan"])
-def test_model_parallel_dividing_the_ranks_is_refused(cli, monkeypatch,
-                                                      capsys):
+def test_model_parallel_dividing_the_ranks_joins_the_layout(cli, loop,
+                                                            monkeypatch,
+                                                            capsys):
+    """Under a 2-rank launch environment ``--model-parallel 2`` lays the
+    ranks out as the JAX mesh {'data': 1, 'model': 2} and hands the
+    trainer's loop rank 0's data group, carrying its model group (a
+    group-free stand-in for the joined world: ``split_model`` then makes
+    no process group)."""
+    from xgan_torch.parallel import mesh as mesh_mod
+    from xgan_torch.parallel.mesh import MeshContext
     for k, v in LAUNCH.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--cpu", "--model-parallel", "2"])
-    assert e.value.code == 1
-    last = capsys.readouterr().out.strip().splitlines()[-1]
-    assert last.startswith("Error: --model-parallel 2"), last
-    assert "not supported by xgan_torch yet under a torchrun launch" in last
+    monkeypatch.setattr(mesh_mod, "init_from_env", lambda cpu, backend=None:
+                        MeshContext(torch.device("cpu"), 0, 2))
+    seen = {}
+    module, name = loop.split(".")
+    monkeypatch.setattr(f"xgan_torch.train.{module}.{name}",
+                        lambda args, device, dtype, mesh: seen.update(
+                            mesh=mesh) or "trained")
+    assert cli.main(["--cpu", "--model-parallel", "2"]) == "trained"
+    out = capsys.readouterr().out
+    assert "Tensor parallelism: mesh {'data': 1, 'model': 2}; rank 0 is " \
+        "data rank 0, model rank 0" in out, out[-2000:]
+    assert "Error:" not in out
+    data = seen["mesh"]
+    assert (data.rank, data.world, data.is_main) == (0, 1, True)
+    assert (data.model.rank, data.model.world) == (0, 2)
 
 
 @pytest.mark.parametrize("world", [1, 2, 8])

@@ -655,11 +655,156 @@ def case_tp(inp, mesh):
     return out
 
 
+def _tp_nets(kind: str, gi: dict, model):
+    """The WGAN-GP (G, critic) or CGAN (G, D) of ``gi``'s size from its
+    whole weights, placed over the model group ``model`` (none: whole)."""
+    from xgan_torch.models import cgan, wgan
+    from xgan_torch.parallel import tp
+    latent, fm, size = gi["latent"], gi["fm"], gi["size"]
+    if kind == "wgan":
+        nets = wgan.Generator(latent, 3, fm, size), wgan.Critic(3, fm, size)
+    else:
+        nets = (cgan.Generator(latent, 2, 3, fm, size),
+                cgan.Discriminator(2, 3, fm, size))
+    for net, sd in zip(nets, (gi["g"], gi["d"])):
+        net.load_state_dict(sd)
+    if model is not None:
+        tp.shard_over_model(nets, model, gi["min"])
+    return nets
+
+
+def _tp_family(kind: str, gi: dict, data, run: str):
+    """One tensor-parallel WGAN-GP or CGAN run of :func:`case_tp_gans` on
+    the data group ``data`` (carrying its model group): ``tp`` (the K = 1
+    steps), ``k2`` (one K = 2 call, WGAN-GP) or ``accum`` (one
+    ``--grad-accum 2`` step). Returns the metrics, the whole and local
+    states and the sliced leaves' dimensions."""
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.models.vgg import VGG16Features
+    from xgan_torch.parallel import tp
+    from xgan_torch.train.cgan import cgan_step
+    from xgan_torch.train.common import adam
+    from xgan_torch.train.multistep import StepsPerCall
+    from xgan_torch.train.wgan import wgan_step
+    g, d = _tp_nets(kind, gi, None)
+    for net in (g, d):
+        sync_batch_norm(net, data)
+    tp.shard_over_model([g, d], data.model, gi["min"])
+    b2 = 0.9 if kind == "wgan" else 0.999
+    opts = [adam(m.parameters(), gi["lr"], 0.5, b2) for m in (g, d)]
+    vgg = None
+    if kind == "cgan":
+        vgg = VGG16Features()
+        vgg.load_state_dict(gi["vgg"])
+    steps = gi["steps"] if run != "accum" else gi["steps"][:1]
+    calls = iter(steps)
+    accum = 2 if run == "accum" else 1
+
+    def one(idx):
+        s = next(calls)
+        if kind == "wgan":
+            return wgan_step(g, d, *opts, gi["images"], idx,
+                             latent_dim=gi["latent"],
+                             critic_iters=gi["critic_iters"],
+                             lambda_gp=gi["lambda_gp"], grad_accum=accum,
+                             mesh=data, **s["draws"])
+        return cgan_step(g, d, vgg, *opts, gi["images"], gi["labels"], idx,
+                         s["epoch"], latent_dim=gi["latent"],
+                         grad_accum=accum, mesh=data, **s["draws"])
+
+    idx = torch.stack([s["idx"] for s in steps])
+    if run == "k2":
+        metrics = StepsPerCall(one, 2, torch.Generator())(idx)
+    else:
+        metrics = torch.stack([one(i) for i in idx])
+    return {"metrics": metrics,
+            "whole": {"g": tp.whole_state_dict(g),
+                      "d": tp.whole_state_dict(d)},
+            "local": {"g": g.state_dict(), "d": d.state_dict()},
+            "dims": {"g": g.tp_dims, "d": d.tp_dims}}
+
+
+def tp_critic_penalty(c, pen: dict, rows, mesh):
+    """The float64 WGAN-GP penalty of ``pen``'s rows ``rows`` through the
+    critic ``c`` (``gradient_penalty``, BN over ``mesh``'s ranks; None:
+    one process), its backward and the gradients summed over the data
+    group; returns the penalty share and ``{name: gradient}``."""
+    from xgan_torch.parallel.mesh import all_reduce_grads
+    from xgan_torch.parallel.tp import one_autograd_thread
+    from xgan_torch.train.wgan import gradient_penalty
+    pen_v = gradient_penalty(c, pen["real"][rows], pen["fake"][rows],
+                             pen["alpha"][rows], 10.0, mesh=mesh)
+    with one_autograd_thread(c):
+        pen_v.backward()
+    all_reduce_grads(list(c.parameters()), mesh)
+    return pen_v.detach(), {n: p.grad for n, p in c.named_parameters()}
+
+
+def case_tp_gans(inp, mesh):
+    """Tensor parallelism of the WGAN-GP and CGAN steps on the ``(data,
+    model)`` layout of ``inp["model_parallel"]``: per family the runs of
+    :func:`_tp_family` (``tp``, ``accum``; ``k2`` for the WGAN-GP), the
+    round trips of ``shard_over_model`` and ``whole_state_dict`` of each
+    net, the CGAN's FM loss through D's gathered taps (this data rank's
+    share summed over the data group), and the float64 penalty gradient
+    through a column-parallel critic with BN over the data group
+    (:func:`tp_critic_penalty`), also after model rank 0 alone has run a
+    differentiated penalty of its own."""
+    from xgan_torch.models.layers import sync_batch_norm
+    from xgan_torch.parallel import tp
+    from xgan_torch.train.cgan import feature_matching_loss
+    data, model = mesh.split_model(inp["model_parallel"])
+    out = {"data_rank": data.rank, "model_rank": model.rank}
+    for kind in ("wgan", "cgan"):
+        gi = {**inp[kind], "min": inp["min"]}
+        for run in ("tp", "accum", "k2")[:3 if kind == "wgan" else 2]:
+            out[f"{kind}_{run}"] = _tp_family(kind, gi, data, run)
+        out[f"{kind}_round_trip"] = {
+            name: {"whole": tp.whole_state_dict(net),
+                   "local": net.state_dict(), "dims": net.tp_dims}
+            for name, net in zip(("g", "d"), _tp_nets(kind, gi, model))}
+    # the FM loss over D's taps: real and fake rows, both placed alike
+    gi = {**inp["cgan"], "min": inp["min"]}
+    fm_in = inp["fm"]
+    _, d = _tp_nets("cgan", gi, None)
+    sync_batch_norm(d, data)
+    tp.shard_over_model([d], model, inp["min"])
+    rows = data.local_rows(fm_in["real"].shape[0])
+    feats = [d(fm_in[k][rows], fm_in["labels"][rows], train=True,
+               features=True)[1] for k in ("real", "fake")]
+    fm = feature_matching_loss(*feats, mesh=data).detach()
+    out["fm"] = {"loss": data.all_reduce_(fm),
+                 "shapes": [tuple(f.shape) for f in feats[0]]}
+    # the float64 penalty through the column-parallel critic; again after
+    # model rank 0 alone runs a differentiated penalty of its own
+    from xgan_torch.models.wgan import Critic
+    pen, wi = inp["penalty"], inp["wgan"]
+
+    def critic():
+        c = Critic(3, wi["fm"], wi["size"])
+        c.double()
+        c.dtype = torch.float64
+        c.load_state_dict(pen["c"])
+        return c
+
+    for run in ("penalty", "penalty_after_lone"):
+        if run == "penalty_after_lone" and model.rank == 0:
+            tp_critic_penalty(critic(), pen, slice(None), None)
+        c = critic()
+        sync_batch_norm(c, data)
+        tp.shard_over_model([c], model, inp["min"])
+        value, grads = tp_critic_penalty(
+            c, pen, data.local_rows(pen["real"].shape[0]), data)
+        out[run] = {"value": data.all_reduce_(value), "grads": grads,
+                    "dims": c.tp_dims}
+    return out
+
+
 CASES = {"gan": case_gan, "bn": case_bn, "classifier": case_classifier,
          "take": case_take, "wgan": case_wgan, "penalty": case_penalty,
          "cgan": case_cgan, "sampler": case_sampler, "zero1": case_zero1,
          "kstep": case_kstep, "folds": case_folds,
-         "tp": case_tp}
+         "tp": case_tp, "tp_gans": case_tp_gans}
 
 
 def main(in_path: str, out_dir: str) -> None:

@@ -22,7 +22,12 @@ across ranks as the DCGAN trainer does::
 
 (``--batch-size`` the global batch, ``--shard-store`` splitting the store,
 every rank reading the same ``--vgg-path``, rank 0 writing every file;
-``--steps-per-call`` exits 1 there).
+``--steps-per-call`` above 1 exits 1 on a gloo group on the cards).
+``--model-parallel N`` with N > 1 dividing the ranks is tensor
+parallelism on the JAX CLI's ``(data, model)`` mesh, as in the DCGAN
+trainer: G's and D's wide layers split their output channels over each
+group of N ranks (``xgan_torch.models.cgan``), and the VGG16 features stay
+whole on every rank.
 """
 from __future__ import annotations
 

@@ -126,8 +126,7 @@ def main(argv=None):
     if args.k_folds < 1:
         print("Error: k-folds must be at least 1.")
         sys.exit(1)
-    mesh = config.join_ranks(args, parallel_folds=args.parallel_folds,
-                             tensor_parallel=True)
+    mesh = config.join_ranks(args, parallel_folds=args.parallel_folds)
     device = mesh.device
     if args.use_curriculum and not args.use_synthetic:
         print("Warning: --use-curriculum requires --use-synthetic. "

@@ -41,8 +41,8 @@ other flag of the launch::
     torchrun --nproc-per-node 4 -m xgan_torch.cli.train_gan --cpu \
         --model-parallel 2 ...
 
-The WGAN-GP and CGAN trainers take the same launch, but exit 1 at
-``--model-parallel N`` with N > 1 dividing the ranks.
+The WGAN-GP and CGAN trainers take the same launch, ``--model-parallel``
+included.
 """
 from __future__ import annotations
 
@@ -91,15 +91,14 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
     config.add_shard_args(p)
 
 
-def start(args, tensor_parallel: bool = False):
-    """Join the ranks of a launch (``config.join_ranks``; ``tensor_
-    parallel``: the trainer takes ``--model-parallel``), resolve the
+def start(args):
+    """Join the ranks of a launch (``config.join_ranks``), resolve the
     device (exit 1 with an ``Error:`` line without CUDA and ``--cpu``) and
     the compute dtype, and print the arguments. Returns ``(mesh,
     dtype)``; ``mesh.device`` is the run's device. ``--steps-per-call``
     above 1 on a gloo group on the cards exits 1: a CUDA graph cannot
     capture gloo's collectives."""
-    mesh = config.join_ranks(args, tensor_parallel=tensor_parallel)
+    mesh = config.join_ranks(args)
     device = mesh.device
     if (args.steps_per_call > 1 and device.type == "cuda"
             and mesh.backend == "gloo"):
@@ -125,7 +124,7 @@ def start(args, tensor_parallel: bool = False):
 def main(argv=None):
     """Train; returns the history (None after a printed error)."""
     args = build_parser().parse_args(argv)
-    mesh, dtype = start(args, tensor_parallel=True)
+    mesh, dtype = start(args)
     from xgan_torch.parallel.mesh import shutdown
     from xgan_torch.train.gan_loop import train_dcgan
     try:

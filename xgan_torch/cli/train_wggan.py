@@ -19,7 +19,12 @@ across ranks as the DCGAN trainer does::
     torchrun --nproc-per-node 8 -m xgan_torch.cli.train_wggan --data-dir DIR
 
 (``--batch-size`` the global batch, ``--shard-store`` splitting the store,
-rank 0 writing every file; ``--steps-per-call`` exits 1 there).
+rank 0 writing every file; ``--steps-per-call`` above 1 exits 1 on a gloo
+group on the cards). ``--model-parallel N`` with N > 1 dividing the ranks
+is tensor parallelism on the JAX CLI's ``(data, model)`` mesh, as in the
+DCGAN trainer: G's wide ConvTs and the critic's wide convs split their
+output channels over each group of N ranks (``xgan_torch.models.wgan``),
+and the gradient penalty's double backward crosses the model group.
 """
 from __future__ import annotations
 

@@ -93,20 +93,18 @@ def ema_decay(value: str) -> float:
 UNDER_LAUNCH = " under a torchrun launch (RANK, WORLD_SIZE, LOCAL_RANK set)"
 
 
-def join_ranks(args, *, parallel_folds: bool = False,
-               tensor_parallel: bool = False):
+def join_ranks(args, *, parallel_folds: bool = False):
     """The run's :class:`~xgan_torch.parallel.MeshContext`
     (``init_from_env``; ``--dist-backend`` picks the backend of a launch).
     Before it joins, ``--model-parallel N`` (a trainer's) against the
     launch's world (1 without one): the JAX package's note when N does not
-    divide it (training replicated), its note under ``parallel_folds``
-    (the fold groups own the ranks), and, when N > 1 divides it, an
-    ``Error:`` line (exit 1) unless the trainer takes tensor parallelism
-    (``tensor_parallel``: the DCGAN and classifier trainers). Then the
-    ranks are laid out as the JAX package's ``(data, model)`` mesh
+    divide it (training replicated), and its note under ``parallel_folds``
+    (the fold groups own the ranks). When N > 1 divides it, the ranks are
+    laid out as the JAX package's ``(data, model)`` mesh
     (``MeshContext.split_model``) and the data group's context, carrying
-    its model group, is returned. Exits 1 with an ``Error:`` line when the
-    device or the process group is not there."""
+    its model group, is returned: every trainer takes tensor parallelism.
+    Exits 1 with an ``Error:`` line when the device or the process group
+    is not there."""
     from xgan_torch.parallel.mesh import init_from_env, launched
     from xgan_torch.parallel.tp import model_parallel_from_args
     world = int(os.environ["WORLD_SIZE"]) if launched() else 1
@@ -116,13 +114,6 @@ def join_ranks(args, *, parallel_folds: bool = False,
               "(the fold axis owns the mesh); training with replicated "
               "params.")
         n = 1
-    if n > 1 and not tensor_parallel:
-        print(f"Error: --model-parallel {n} (tensor parallelism over the "
-              f"{world} ranks) is not supported by xgan_torch "
-              f"yet{UNDER_LAUNCH} for this trainer (the DCGAN and "
-              f"classifier trainers take it); leave it at 1, or at a value "
-              f"that does not divide the ranks (replicated training)")
-        sys.exit(1)
     try:
         mesh = init_from_env(args.cpu, getattr(args, "dist_backend", "")
                              or None)
@@ -167,11 +158,10 @@ def add_shard_args(p: argparse.ArgumentParser):
                         "moments of its slice of every wide parameter "
                         "(a no-op on one rank); the same parameters")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="Tensor parallelism over N ranks (the DCGAN and "
-                        "classifier trainers under a launch): the wide "
-                        "layers' output channels split over each group "
-                        "of N ranks; a value that does not divide the "
-                        "ranks trains replicated after a note")
+                   help="Tensor parallelism over N ranks (under a "
+                        "launch): the wide layers' output channels split "
+                        "over each group of N ranks; a value that does not "
+                        "divide the ranks trains replicated after a note")
 
 
 def resolve_device(cpu: bool) -> torch.device:

@@ -33,6 +33,28 @@ kernel is on this path in the JAX package either). The label embeddings
 are read with ``F.embedding``, whose CUDA backward sums a row's
 gradients in a fixed order (``index_select``'s adds them atomically, so
 a step's result would vary from run to run on the card).
+
+Under tensor parallelism (:func:`xgan_torch.parallel.tp.shard_over_model`
+sets ``tp``, the model group, and slices the leaves the rule makes wide)
+each wide conv is column-parallel, its weight, bias and BN split over the
+model group on their output channels, its input gathered whole where the
+previous layer left a slice (:func:`~xgan_torch.parallel.tp.layer_input`).
+G's ``fc`` is the one layer whose bias the rule slices without its weight:
+the rule reads a dense kernel's I (the latent, under 256 at the reference
+widths) but the bias's C*S0*S0 entries, so every rank computes all of
+``fc``'s outputs and adds the bias gathered whole (a weight sliced at a
+latent of 256 or more is row-parallel). The CHW bias slice need not line
+up with BN ``main.0``'s channels, and the JAX package's HWC bias
+(xgan/models/cgan.py:57-58) slices other entries, so whole states are
+what compares. Where BN ``main.0`` is sliced, its input is this rank's
+channel slice of ``fc``'s output. D's feature-matching taps of a sliced
+layer (``conv_i`` and ``lrelu_i``) are gathered whole in the
+``features=True`` forward, so the loss over them is one process's on
+every rank of the model group; its projection and valid head read the
+whole last map, gathered once. The label embeddings stay whole (their
+rule dimension is the 2 classes). At the reference widths (nf 32, 224
+px, N = 2) the rule slices G's ``fc.bias`` and BN ``main.0`` and D's
+``main.11`` (128 -> 256, its bias) and BN ``main.12``.
 """
 from __future__ import annotations
 
@@ -44,6 +66,9 @@ from torch import nn
 
 from xgan_torch.models.dcgan import _check_size
 from xgan_torch.models.layers import batch_norm, gan_init_, leaky_relu
+from xgan_torch.parallel.tp import (gather_from_model, layer_input,
+                                    reduce_from_model, sharded,
+                                    split_to_model)
 
 SEQ_G_CONV = (3, 7, 11, 15, 19)
 SEQ_G_BN = (0, 4, 8, 12, 16)
@@ -136,15 +161,21 @@ class Generator(nn.Module):
     def _run(self, z, labels, *, train: bool, mask,
              update_stats: bool = True) -> torch.Tensor:
         dt, b = self.dtype, z.shape[0]
+        tp = getattr(self, "tp", None)
         x = z.float() + F.embedding(labels.long(), self.label_emb.weight)
-        x = F.linear(x.to(dt), self.fc.weight.to(dt)) + self.fc.bias.to(dt)
+        x = self._fc(x.to(dt), tp)
         x = x.view(b, -1, self.s0, self.s0) \
             .contiguous(memory_format=torch.channels_last)
+        if sharded(self.main[SEQ_G_BN[0]].weight):
+            x = split_to_model(x, tp, 1)  # BN and ReLU on this rank's slice
         x = torch.relu(batch_norm(self.main[SEQ_G_BN[0]], x, train=train,
                                   mask=mask, update_stats=update_stats))
         for i, seq in enumerate(SEQ_G_CONV):
-            x = _conv(self.main[seq],
-                      F.interpolate(x, scale_factor=2, mode="nearest"), 1, 1)
+            conv = self.main[seq]
+            # all channels (gathered where a slice), then the upsample
+            x = layer_input(x, conv.weight.shape[1], tp, sharded(conv.weight))
+            x = _conv(conv, F.interpolate(x, scale_factor=2, mode="nearest"),
+                      1, 1)
             if i < 4:
                 x = torch.relu(batch_norm(self.main[seq + 1], x, train=train,
                                           mask=mask,
@@ -152,6 +183,24 @@ class Generator(nn.Module):
         # channels_last NCHW -> NHWC, a view unless a 1x1 map at S0 = 1
         # lost the channels_last strides on the way
         return torch.tanh(x.float()).permute(0, 2, 3, 1).contiguous()
+
+    def _fc(self, x: torch.Tensor, tp) -> torch.Tensor:
+        """``fc`` of the (B, latent) input ``x`` (the same on every rank of
+        a model group) in ``x.dtype``: all of its outputs, the product
+        rounded, then the bias added. Under tensor parallelism a sliced
+        weight (the rule's I, a latent of at least ``MIN_FEATURES``) is
+        row-parallel, its partial products summed over the model group;
+        a sliced bias (its C*S0*S0 entries, whatever the weight) is
+        gathered whole, and its gradient keeps this rank's slice."""
+        w, bias = self.fc.weight, self.fc.bias
+        if sharded(w):
+            y = reduce_from_model(F.linear(split_to_model(x, tp, 1),
+                                           w.to(x.dtype)), tp)
+        else:
+            y = F.linear(x, w.to(x.dtype))
+        if sharded(bias):
+            bias = gather_from_model(bias, tp, 0)
+        return y + bias.to(x.dtype)
 
 
 class Discriminator(nn.Module):
@@ -185,21 +234,32 @@ class Discriminator(nn.Module):
         ``features=True`` (see the module docstring). ``mask``: (B,)
         validity weights for train-mode BN statistics."""
         b = x.shape[0]
+        tp = getattr(self, "tp", None)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         feats = []
         for seq in SEQ_D_CONV[:-1]:
-            c = _conv(self.main[seq], x, 2, 1)
-            if seq + 1 in SEQ_D_BN:
-                x = leaky_relu(batch_norm(self.main[seq + 1], c, train=train,
-                                          mask=mask))
-                feats += [c, x, x]  # BN's entry aliased to the LeakyReLU's
-            else:
-                x = leaky_relu(c)
-                feats += [x, x]  # conv0's entry aliased to the LeakyReLU's
+            conv = self.main[seq]
+            x = layer_input(x, conv.weight.shape[1], tp, sharded(conv.weight))
+            c = _conv(conv, x, 2, 1)
+            bn = seq + 1 in SEQ_D_BN
+            x = leaky_relu(batch_norm(self.main[seq + 1], c, train=train,
+                                      mask=mask) if bn else c)
+            if not features:
+                continue
+            if sharded(conv.weight):
+                # the taps hold all channels: the FM loss of one process
+                # on every rank of the model group
+                x = gather_from_model(x, tp, 1)
+                if bn:
+                    c = gather_from_model(c, tp, 1)
+            # BN's entry aliased to the LeakyReLU's; conv0's to it too
+            feats += [c, x, x] if bn else [x, x]
+        last = self.main[SEQ_D_CONV[-1]]
+        # the projection and the head read the whole last map
+        x = layer_input(x, last.weight.shape[1], tp, sharded(last.weight))
         # reshape of the channels_last map: the CHW flatten of the reference
         flat = x.reshape(b, -1).float()
         proj = (F.embedding(labels.long(), self.label_emb.weight)
                 * flat).sum(dim=1)
-        logits = _conv(self.main[SEQ_D_CONV[-1]], x, 1, 0).float() \
-            .reshape(b) + proj
+        logits = _conv(last, x, 1, 0).float().reshape(b) + proj
         return (logits, feats) if features else logits

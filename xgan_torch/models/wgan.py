@@ -13,6 +13,15 @@ and BN at ``main.{3,6,9}``, the reference layout, so a reference
 ``.pth`` loads with ``strict=True``. The convolutions are cuDNN's, as in
 the DCGAN discriminator; the gradient penalty differentiates through them
 twice (``xgan_torch.train.wgan``).
+
+Under tensor parallelism (:func:`xgan_torch.parallel.tp.shard_over_model`)
+both nets take the DCGAN layout (:mod:`xgan_torch.models.dcgan`): each
+wide layer column-parallel, its output channels and its BN split over the
+model group. At the reference widths (fg = fd = 64, N = 2) that is G's
+first ConvT, its first two k4s2 ConvTs (1024 -> 512 and 512 -> 256, the
+kernel run on each rank's half of Cout) and their BNs, and the critic's
+last two k4s2 convs (-> 256, -> 512) and their BNs; the critic's valid
+head (512 -> 1) stays whole and gathers its input.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from torch import nn
 
 from xgan_torch.models import dcgan
 from xgan_torch.models.layers import gan_init_
+from xgan_torch.ops.reduce import at_least_f32
 
 SEQ_C_CONV = (0, 2, 5, 8, 11)
 SEQ_C_BN = (3, 6, 9)
@@ -66,11 +76,12 @@ class Critic(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool,
                 mask=None) -> torch.Tensor:
         """x (B, S, S, C) NHWC, any float dtype (cast to ``self.dtype``) ->
-        f32 scores (B,). ``mask``: (B,) validity weights for train-mode BN
+        f32 scores (B,) (float64 for a float64 critic). ``mask``: (B,) validity weights for train-mode BN
         statistics."""
         x = dcgan.conv_ladder(self.main, SEQ_C_CONV, SEQ_C_BN, x, self.dtype,
-                              train=train, mask=mask)
-        return x.float().mean(dim=(1, 2, 3))
+                              train=train, mask=mask,
+                              tp=getattr(self, "tp", None))
+        return at_least_f32(x).mean(dim=(1, 2, 3))
 
 
 # the reference's name for the critic

@@ -10,7 +10,8 @@ normalized (with the masked statistics); every loss masks them too. A
 ``(k, B)`` mask is k folds' row weights over k*C fold-major channels
 (``ResNet50(folds=k)``): each fold's channels take its own rows.
 Statistics and the affine are computed in float32 even when activations
-are bf16; the result has the input's dtype.
+are bf16 (in float64 for float64 activations, a check's); the result has
+the input's dtype.
 
 Across data-parallel ranks (``mesh``, a joined process group) the
 statistics are those of the global batch, as GSPMD makes them in the JAX
@@ -22,7 +23,7 @@ zero ``(world, 3, C)`` buffer, so the gradient reaches every rank's rows,
 and every rank combines them alike: ``n = sum n_r``, ``mean = sum n_r
 mean_r / n``, ``M2 = sum M2_r + sum n_r (mean_r - mean)^2``. The moments
 are summed in float64 and the mean is applied as an f32 pair
-(:func:`_split`), so a channel whose mean is far above its spread keeps
+(:func:`_centre`), so a channel whose mean is far above its spread keeps
 the digits one process's ``F.batch_norm`` keeps (the one-pass
 ``s2/n - mean^2`` cancels there). A rank whose rows are all masked adds
 nothing. Under tensor parallelism ``x`` holds this rank's slice of the
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from xgan_torch.ops.reduce import at_least_f32
 from xgan_torch.parallel.mesh import all_reduce_sum
 
 
@@ -48,13 +50,14 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
     channels with its own row. ``mesh``: the
     :class:`~xgan_torch.parallel.MeshContext` whose ranks share the batch
     (the sums path, with or without a mask)."""
-    x32 = x.float()
+    x32 = at_least_f32(x)
+    ct = x32.dtype
     dim = dim % x.dim()
     axes = [a for a in range(x.dim()) if a != dim]
     shape = [1] * x.dim()
     shape[dim] = -1
     dp = mesh is not None and mesh.distributed
-    shift = None  # the f32 pair of a float64 mean (the mesh path)
+    mean64 = None  # the float64 mean of the mesh path
     if mask is None and not dp:
         mean = x32.mean(dim=axes)
         var = x32.square().mean(dim=axes) - mean.square()
@@ -75,8 +78,8 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
             # no mask: every weight is 1, so the products are skipped
             n, mean, var = _moments_across_ranks(
                 x32, None if mask is None else w, n, axes, shape, mesh)
-            shift = _split(mean)
-            mean, var, n = mean.float(), var.float(), n.float()
+            mean64 = mean
+            mean, var, n = mean.to(ct), var.to(ct), n.to(ct)
         else:
             s1 = (x32 * w).sum(dim=axes)
             s2 = (x32.square() * w).sum(dim=axes)
@@ -87,22 +90,28 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
     unbiased = var * (n / torch.clamp(n - 1, min=1.0))
     new_mean = (1.0 - momentum) * running_mean + momentum * mean
     new_var = (1.0 - momentum) * running_var + momentum * unbiased
-    inv = scale.float() / torch.sqrt(var + eps)
-    if shift is None:
+    inv = scale.to(ct) / torch.sqrt(var + eps)
+    if mean64 is None:
         centred = x32 - mean.reshape(shape)
     else:
-        centred = (x32 - shift[0].reshape(shape)) - shift[1].reshape(shape)
-    y = centred * inv.reshape(shape) + bias.float().reshape(shape)
+        centred = _centre(x32, mean64, shape)
+    y = centred * inv.reshape(shape) + bias.to(ct).reshape(shape)
     return y.to(x.dtype), new_mean, new_var
 
 
-def _split(m64: torch.Tensor):
-    """A float64 tensor as the f32 pair ``(hi, lo)``: ``hi`` is ``m64``
-    rounded to f32 and ``lo`` the f32 of the rest. ``(x - hi) - lo``
-    centres an f32 ``x`` on ``m64`` without that rounding, which at a
-    mean far above the spread would shift every normalized value."""
+def _centre(x: torch.Tensor, m64: torch.Tensor, shape) -> torch.Tensor:
+    """``x - m64`` (``m64`` a float64 per-channel mean, viewed as
+    ``shape``): for f32 ``x`` through the f32 pair ``(hi, lo)``, ``hi``
+    the mean rounded to f32 and ``lo`` the f32 of the rest, ``(x - hi) -
+    lo``, which centres ``x`` on the mean without that rounding (at a mean
+    far above the spread it would shift every normalized value); a
+    float64 ``x`` (a check's) takes the mean whole, so that no gradient
+    passes through an f32 value."""
+    if x.dtype == torch.float64:
+        return x - m64.reshape(shape)
     hi = m64.float()
-    return hi, (m64 - hi.double()).float()
+    lo = (m64 - hi.double()).float()
+    return (x - hi.reshape(shape)) - lo.reshape(shape)
 
 
 def _moments_across_ranks(x32, w, n_r, axes, shape, mesh):
@@ -113,9 +122,7 @@ def _moments_across_ranks(x32, w, n_r, axes, shape, mesh):
     s1 = (x32 if w is None else x32 * w).sum(dim=axes, dtype=torch.float64)
     n_r = n_r.double().expand_as(s1)
     mean_r = s1 / torch.clamp(n_r, min=1.0)
-    hi, lo = _split(mean_r)
-    d = (x32 - hi.reshape(shape)) - lo.reshape(shape)
-    d2 = d.square()
+    d2 = _centre(x32, mean_r, shape).square()
     m2_r = (d2 if w is None else d2 * w).sum(dim=axes, dtype=torch.float64)
     mine = torch.stack([n_r, mean_r, m2_r])
     zero = torch.zeros_like(mine)

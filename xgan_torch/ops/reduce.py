@@ -10,9 +10,17 @@ from __future__ import annotations
 import torch
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in its own dtype where that is wider (a
+    float64 check runs the f32 arithmetic of the train steps in
+    float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def weighted_mean(values: torch.Tensor, weights=None,
                   mesh=None) -> torch.Tensor:
-    """Mean of ``values`` in f32, or its ``weights``-weighted mean.
+    """Mean of ``values`` in f32 (at least), or its ``weights``-weighted
+    mean.
 
     ``max(sum(w), 1e-9)`` keeps an all-zero mask from dividing 0 by 0;
     NaN values in masked rows still propagate through ``sum(values * w)``,
@@ -22,7 +30,7 @@ def weighted_mean(values: torch.Tensor, weights=None,
     the global batch, and the result is this rank's share of the global
     mean, its (weighted) sum over the global weight: the shares sum to the
     global mean over the ranks, and so do their gradients."""
-    values = values.float()
+    values = at_least_f32(values)
     if mesh is not None and mesh.distributed:
         if weights is None:
             num = values.sum()

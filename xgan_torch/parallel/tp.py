@@ -66,6 +66,32 @@ split over the model group, as the flag's help says:
   (:func:`~xgan_torch.parallel.mesh.all_reduce_grads`), so that their
   copies stay bitwise equal.
 
+What computes column-parallel, model by model: the DCGAN and WGAN-GP
+generators' first ConvT (packed from its slice) and their wide k4s2
+ConvTs (the kernel on each rank's slice of Cout), the DCGAN
+discriminator's and the WGAN-GP critic's wide convs (the critic's under
+the gradient penalty's double backward), the CGAN generator's and
+discriminator's wide convs with their biases, and ResNet-50's wide convs
+(its ``fc`` row-parallel). The CGAN generator's ``fc`` is the one layer
+whose bias the rule slices without its weight (a dense kernel's rule
+dimension is its I, the latent; the bias's is its C*S0*S0 outputs): every
+rank computes all of its outputs and adds the bias gathered whole. The
+CGAN discriminator's feature-matching taps of a sliced layer are gathered
+whole, so that its loss is one process's. The frozen VGG16 of the CGAN's
+perceptual loss is never placed: it stays whole on every rank, as the JAX
+loop replicates it.
+
+The ranks of a model group must issue their collectives in the same
+order. A forward does so by construction; a backward runs its nodes in
+the order of their sequence numbers, which autograd counts per thread.
+A double backward (the WGAN-GP penalty's) would mix nodes that the
+forward made on the calling thread with nodes that the first backward
+made on the device's autograd thread, whose two counts differ by each
+rank's own history. So a placed critic's penalty and the backward
+through it run under :func:`one_autograd_thread`: every node is then
+made and run on the calling thread, numbered by one count, and the
+ranks agree on the order whatever autograd work each ran before.
+
 Checkpoints, snapshots and the EMA are written whole, in the reference
 layouts (:func:`whole_state_dict`, :func:`whole_opt_state_dict`, each a
 collective of the model group), and
@@ -79,6 +105,8 @@ slice of the rank's TP slice split over its data group
 replicated for every N that does not divide the ranks.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -317,6 +345,18 @@ def shard_over_model(models, model, min_features: int | None = None
 def _group_of(m: nn.Module):
     return getattr(m, "tp", None) if _active(getattr(m, "tp", None)) \
         else None
+
+
+def one_autograd_thread(m: nn.Module):
+    """A context in which autograd makes and runs every node on the
+    calling thread (``torch.autograd.set_multithreading_enabled(False)``)
+    when ``m`` is placed over a model group, and a no-op otherwise. A
+    double backward through ``m`` then orders its model-group collectives
+    by one thread's sequence numbers, the same on every rank of the
+    group (see the module docstring)."""
+    if _group_of(m) is None:
+        return contextlib.nullcontext()
+    return torch.autograd.set_multithreading_enabled(False)
 
 
 def whole_state_dict(m: nn.Module, sd: dict | None = None) -> dict:

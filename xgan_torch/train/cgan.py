@@ -57,6 +57,24 @@ all-reduced global D(x) and D(G(z)), not this rank's shares: every rank
 then takes the same decision and the parameters stay bitwise equal.
 With ``grad_accum`` a rank holds its share of each microbatch, as in
 :mod:`xgan_torch.train.gan`.
+
+Under ``--model-parallel`` ``mesh`` is the data group of the ``(data,
+model)`` layout: the ranks of one model group take the same rows and
+draws, compute G and D column-parallel (:mod:`xgan_torch.models.cgan`)
+and count their shared losses once; the frozen VGG16 is whole on every
+rank. D's ``features=True`` forward gathers the taps of its sliced layers
+whole, so the FM loss (each tap's mean, :func:`layerwise_mse`, or its
+valid-row sum with ``grad_accum``) is one process's on every rank of the
+group, the real-feature pass under ``no_grad`` issuing the same gathers
+in the same order; a tap's gradient keeps this rank's slice. (Summing
+each slice's squared error over the model group through
+``reduce_from_model`` would move less, but would change the loss's
+reduction order from one process's and need a whole-tap count in every
+mean.) The gate reads the whole logits, the same on every rank of the
+group, through the data group's all-reduced D(x) and D(G(z)).
+``all_reduce_grads`` broadcasts the replicated parameters' gradients
+over the model group after each update; G's ``fc.bias``, a pre-BN bias
+whose gradient is rounding noise, is a slice under TP.
 """
 from __future__ import annotations
 

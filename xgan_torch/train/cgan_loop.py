@@ -30,7 +30,14 @@ gate on the global D(x) and D(G(z))), ``--shard-store``, rank 0 alone
 writing, every rank loading the same ``--vgg-path`` or drawing the same
 random VGG16 from the seed; ``--shard-opt-state`` and
 ``--steps-per-call`` (the gate's all-reduced D(x) and D(G(z)) inside the
-captured steps) run there too.
+captured steps) run there too. ``--model-parallel N`` (``mesh`` is then
+the data group of the ``(data, model)`` layout, carrying the model group)
+places G and D over the model group after init, before the optimizers
+and the EMA, as the DCGAN loop does, and leaves the frozen VGG16 whole on
+every rank, as the JAX loop replicates it: every rank renders the sheets
+(the eval forward gathers over the model group) and assembles the
+checkpoints, the snapshot and the EMA whole, rank 0 writes them, and a
+resume cuts them again.
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.vgg import VGG16Features, load_vgg16_pth, \
     read_vgg16_pth
 from xgan_torch.parallel.mesh import MeshContext
-from xgan_torch.parallel.tp import opt_from_args
+from xgan_torch.parallel.tp import opt_from_args, shard_over_model
 from xgan_torch.train.cgan import cgan_step
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
@@ -119,6 +126,8 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype,
                       generator=seeds[1])
     sync_batch_norm(g, mesh)
     sync_batch_norm(d, mesh)
+    if mesh.model is not None:  # never the frozen VGG16: it stays whole
+        shard_over_model([g, d], mesh.model)
     vgg = VGG16Features(dtype=dtype, device=device, generator=seeds[2])
     if args.vgg_path:
         load_vgg16_pth(vgg, args.vgg_path)
@@ -160,10 +169,11 @@ def train_cgan(args, device: torch.device, dtype: torch.dtype,
         if k_steps > 1 else None
 
     def sample_grid(path):
-        if not mesh.is_main:
-            return
+        if not mesh.is_main and mesh.model is None:
+            return  # under tensor parallelism every rank renders
         imgs = minmax_to_u8(g(fixed_noise, fixed_labels))
-        save_image_grid(imgs.cpu().numpy(), path, nrow=8)
+        if mesh.is_main:
+            save_image_grid(imgs.cpu().numpy(), path, nrow=8)
 
     history = {k: [] for k in HISTORY_KEYS}
     history_path = os.path.join(metrics_dir, "cgan_training_history.json")

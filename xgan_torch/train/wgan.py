@@ -53,6 +53,19 @@ are global. The penalty's double backward crosses the ranks through BN's
 differentiable all-reduce, which every rank issues in the same order.
 With ``grad_accum`` a rank holds its share of each microbatch, as in
 :mod:`xgan_torch.train.gan`.
+
+Under ``--model-parallel`` ``mesh`` is the data group of the ``(data,
+model)`` layout: the ranks of one model group take the same rows and
+draws, compute G and the critic column-parallel
+(:mod:`xgan_torch.models.wgan`; G's sliced k4s2 layers run the kernel on
+their slice of Cout) and count their shared losses once. The penalty's
+double backward crosses the model group's all-reduces and gathers as
+well as BN's data-group all-reduce (:func:`gradient_penalty`), on the
+calling thread alone (``one_autograd_thread``), so that every rank of
+the group issues them in one order. After each of the ``critic_iters``
+critic updates and after the G update, ``all_reduce_grads`` sums the
+gradients over the data group and broadcasts the replicated
+parameters' over the model group.
 """
 from __future__ import annotations
 
@@ -60,8 +73,9 @@ import torch
 
 from xgan_torch.data.pipeline import gather_preprocess, take_rows
 from xgan_torch.kernels.convt import convt4x4s2_fused
-from xgan_torch.ops.reduce import weighted_mean
+from xgan_torch.ops.reduce import at_least_f32, weighted_mean
 from xgan_torch.parallel.mesh import all_reduce_grads
+from xgan_torch.parallel.tp import one_autograd_thread
 from xgan_torch.train.common import guarded_sum, microbatches, \
     zeroed_grads
 
@@ -71,7 +85,8 @@ def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
                      mask=None, mesh=None) -> torch.Tensor:
     """``lambda_gp * wmean((‖∇_x critic(x̂)‖₂ − 1)², mask)`` with
     ``x̂ = α·real + (1−α)·fake`` in f32 (the JAX promotion of an f32 α and
-    fake with a bf16 real; the critic casts x̂ to its compute dtype).
+    fake with a bf16 real; the critic casts x̂ to its compute dtype), or
+    float64 where the inputs are (a check's).
 
     ``critic(x, train=True, mask=mask)`` runs in train mode: its BN
     running statistics advance on x̂. ``alpha``: (B, 1, 1, 1) f32. The
@@ -80,21 +95,36 @@ def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
     zeroed before the sum that is differentiated: their normalized
     activations depend on the valid rows' statistics, so they would leak
     gradient into the valid rows. The norm is ``sqrt(sum(g²) + 1e-12)``
-    in f32.
+    in f32 (at least).
 
     ``mesh`` (a joined process group; the critic's BN tied to it): the
     rows are this rank's, and the result is this rank's share of the
     global penalty mean. The differentiated sum stays this rank's: the
     other ranks' scores reach its rows through BN's cross-rank statistics,
     whose all-reduce backward sums their gradients, and that backward is
-    differentiable in turn (``all_reduce_sum``)."""
+    differentiable in turn (``all_reduce_sum``).
+
+    Under tensor parallelism (a critic placed over ``mesh.model``) ``x̂``
+    is the same on every rank of the model group, and so are its scores
+    (the head gathers); the input gradient is whole on each of them
+    (each column-parallel conv's input is marked by ``copy_to_model``,
+    whose backward sums the ranks' partial input gradients), so the
+    penalty is one process's on every rank of the group and counts once.
+    Its backward differentiates those all-reduces and gathers again: each
+    operator's backward is made of the others. The input gradient is
+    taken, and the caller's backward through it must be run, under
+    :func:`~xgan_torch.parallel.tp.one_autograd_thread`, so that the
+    ranks of the group issue those collectives in one order whatever
+    autograd work each ran before."""
     b = real.shape[0]
-    inter = (alpha * real + (1.0 - alpha) * fake).float().requires_grad_()
+    inter = at_least_f32(alpha * real + (1.0 - alpha) * fake) \
+        .requires_grad_()
     scores = critic(inter, train=True, mask=mask)
     if mask is not None:
         scores = scores * mask.to(scores.dtype)
-    grads, = torch.autograd.grad(scores.sum(), inter, create_graph=True)
-    norms = torch.sqrt(grads.float().reshape(b, -1).square().sum(dim=1)
+    with one_autograd_thread(critic):
+        grads, = torch.autograd.grad(scores.sum(), inter, create_graph=True)
+    norms = torch.sqrt(at_least_f32(grads).reshape(b, -1).square().sum(dim=1)
                        + 1e-12)
     return lambda_gp * weighted_mean((norms - 1.0).square(), mask, mesh)
 
@@ -153,7 +183,8 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
         gp = gradient_penalty(c, real, fake, alpha, lambda_gp, mask, mesh)
         loss = (-weighted_mean(d_real, mask, mesh)
                 + weighted_mean(d_fake, mask, mesh) + gp)
-        loss.backward(inputs=c_params)
+        with one_autograd_thread(c):
+            loss.backward(inputs=c_params)
         all_reduce_grads(c_params, mesh)
         opt_c.step()
         losses.append(loss.detach())
@@ -210,7 +241,8 @@ def _critic_update_accum(g, c, opt_c, real, noise, alpha, lambda_gp, micro,
             if mesh is not None and mesh.distributed:
                 w_mb = mesh.all_reduce_(w_mb)
         s = guarded_sum(d_fake.float() - d_real.float(), mask_mb) + gp * w_mb
-        s.backward(inputs=c_params)
+        with one_autograd_thread(c):
+            s.backward(inputs=c_params)
         total = total + s.detach()
     torch._foreach_div_(grads, w_total)
     all_reduce_grads(c_params, mesh)

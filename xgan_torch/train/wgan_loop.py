@@ -23,7 +23,13 @@ card for every K) work as in the DCGAN loop
 (``mesh``): the global batch padded to a multiple of the ranks, each
 rank's rows of every step (:func:`~xgan_torch.train.wgan.wgan_step`),
 ``--shard-store``, ``--shard-opt-state`` and ``--steps-per-call``, rank 0
-alone writing.
+alone writing. ``--model-parallel N`` (``mesh`` is then the data group of
+the ``(data, model)`` layout, carrying the model group) places G and the
+critic over the model group after init, before the optimizers and the
+EMA, as the DCGAN loop does: every rank renders the sheets (the eval
+forward gathers over the model group) and assembles the checkpoints, the
+snapshot and the EMA whole, rank 0 writes them, and a resume cuts them
+again.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from xgan_torch.io_.figures import plot_wgan_losses, save_image_grid
 from xgan_torch.models.layers import sync_batch_norm
 from xgan_torch.models.wgan import Critic, Generator
 from xgan_torch.parallel.mesh import MeshContext
-from xgan_torch.parallel.tp import opt_from_args
+from xgan_torch.parallel.tp import opt_from_args, shard_over_model
 from xgan_torch.train.common import adam
 from xgan_torch.train.ema import ema_update, init_ema
 from xgan_torch.train.gan_loop import load_train_store
@@ -88,6 +94,8 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype,
                dtype=dtype, device=device, generator=seeds[1])
     sync_batch_norm(g, mesh)
     sync_batch_norm(c, mesh)
+    if mesh.model is not None:
+        shard_over_model([g, c], mesh.model)
     # Adam betas (beta1, 0.9), as the reference's WGAN-GP trainer; on the
     # card capturable for every K, so that K = 1 trains as K > 1 does
     capturable = device.type == "cuda"
@@ -118,11 +126,12 @@ def train_wgan(args, device: torch.device, dtype: torch.dtype,
         if k_steps > 1 else None
 
     def sample_grid(path):
-        if not mesh.is_main:
-            return
+        if not mesh.is_main and mesh.model is None:
+            return  # under tensor parallelism every rank renders
         g.repack()  # the eval forward reads tensors derived at repack
         imgs = minmax_to_u8(g(fixed_noise))
-        save_image_grid(imgs.cpu().numpy(), path, nrow=8)
+        if mesh.is_main:
+            save_image_grid(imgs.cpu().numpy(), path, nrow=8)
 
     history = {"D_losses": [], "G_losses": [], "D_losses_epoch": [],
                "G_losses_epoch": []}
