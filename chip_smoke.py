@@ -3124,11 +3124,13 @@ def phase_loop_steps_per_call(train_store, smi: str, run: int) -> list:
 
 def read_trace(trace_dir: str):
     """The one ``*.pt.trace.json`` that ``maybe_trace`` wrote into
-    ``trace_dir``: (its file name, its events, the launches whose kernel
-    the trace lacks: in the window's ``trace_lead``, after it). Fails on
-    a launch after the lead without its kernel."""
-    traces = os.listdir(trace_dir)
-    check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"), traces)
+    ``trace_dir`` (beside the ``spans.json`` of a window with spans): (its
+    file name, its events, the launches whose kernel the trace lacks: in
+    the window's ``trace_lead``, after it). Fails on a launch after the
+    lead without its kernel."""
+    written = sorted(set(os.listdir(trace_dir)) - {"spans.json"})
+    traces = [n for n in written if n.endswith(".pt.trace.json")]
+    check(len(traces) == 1 and written == traces, written)
     with open(os.path.join(trace_dir, traces[0])) as f:
         events = json.load(f)["traceEvents"]
     lead = [e for e in events if e.get("cat") == "user_annotation"

@@ -1,8 +1,10 @@
 """``--trace-dir`` in xgan_torch's three GAN trainers, on the CPU: the
 ``torch.profiler`` window of ``maybe_trace`` writes exactly one
 Chrome/TensorBoard trace, of epoch ``trace_epoch(start, epochs)`` (the
-JAX package's choice), into the directory; without the flag no trace is
-written anywhere. ``trace_epoch`` equals the JAX package's."""
+JAX package's choice), and the table of its spans, ``spans.json`` (the
+DCGAN's and WGAN-GP's), into the directory; without the flag no trace is
+written anywhere.
+``trace_epoch`` equals the JAX package's."""
 import json
 
 import pytest
@@ -47,10 +49,16 @@ def test_trace_dir_writes_one_trace(fake_dataset, tmp_path, name):
         return out
 
     out = run("traced", "--trace-dir", str(tmp_path / "traced" / "trace"))
-    traces = sorted((out / "trace").iterdir())
-    assert len(traces) == 1 and traces[0].name.endswith(".pt.trace.json")
+    written = sorted(p.name for p in (out / "trace").iterdir())
+    traces = sorted((out / "trace").glob("*.pt.trace.json"))
+    spans = [] if name == "cgan" else ["spans.json"]  # no CGAN span
+    assert len(traces) == 1 and written == sorted([traces[0].name,
+                                                   *spans])
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("ph") == "X" for e in events)
+    if spans:
+        table = json.loads((out / "trace" / "spans.json").read_text())
+        assert table["steps"] == 1
     plain = run("plain")
     assert not list(tmp_path.glob("plain/**/*.pt.trace.json"))
     assert sorted(p.relative_to(plain).as_posix() for p in plain.iterdir()) \

@@ -105,7 +105,8 @@ def build_parser():
                         "batch size.")
     p.add_argument("--trace-dir", type=str, default="",
                    help="Write a torch.profiler trace of one train epoch "
-                        "(of every run) here")
+                        "(of every run) here, and spans.json where the "
+                        "epoch recorded spans (dp_sync under a launch)")
     p.add_argument("--resume-from", type=str, default="",
                    help="'auto': k-fold CV loads the folds a stopped run "
                         "completed (their history and best checkpoint) "

@@ -84,7 +84,9 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
                         "launch overhead, with sample-sheet emission "
                         "quantized to chunk boundaries)")
     p.add_argument("--trace-dir", type=str, default="",
-                   help="Write a torch.profiler trace of one epoch here")
+                   help="Write a torch.profiler trace of one epoch here, "
+                        "and spans.json: the train step's spans per name "
+                        "(none for CGAN)")
     p.add_argument("--resume-from", type=str, default="",
                    help="Resume from a snapshot_last.pth ('auto' = pick "
                         "up the run's own last snapshot)")

@@ -36,6 +36,7 @@ import torch
 
 from xgan_torch.ops.reduce import at_least_f32
 from xgan_torch.parallel.mesh import all_reduce_sum
+from xgan_torch.utils.timer import span
 
 
 def batch_norm_train(x, scale, bias, running_mean, running_var, *,
@@ -119,21 +120,24 @@ def _moments_across_ranks(x32, w, n_r, axes, shape, mesh):
     docstring), ``w`` the row weights or None (all 1): returns the global
     ``(n, mean, var)`` in float64, the same on every rank and
     differentiable through one all-reduce."""
-    s1 = (x32 if w is None else x32 * w).sum(dim=axes, dtype=torch.float64)
-    n_r = n_r.double().expand_as(s1)
-    mean_r = s1 / torch.clamp(n_r, min=1.0)
-    d2 = _centre(x32, mean_r, shape).square()
-    m2_r = (d2 if w is None else d2 * w).sum(dim=axes, dtype=torch.float64)
-    mine = torch.stack([n_r, mean_r, m2_r])
-    zero = torch.zeros_like(mine)
-    n_i, mean_i, m2_i = all_reduce_sum(torch.stack(
-        [mine if r == mesh.rank else zero for r in range(mesh.world)]),
-        mesh).unbind(1)
-    n = n_i.sum(0)
-    denom = torch.clamp(n, min=1.0)
-    mean = (n_i * mean_i).sum(0) / denom
-    m2 = m2_i.sum(0) + (n_i * (mean_i - mean).square()).sum(0)
-    return n, mean, m2 / denom
+    with span("bn_moments"):
+        s1 = (x32 if w is None else x32 * w).sum(dim=axes,
+                                                 dtype=torch.float64)
+        n_r = n_r.double().expand_as(s1)
+        mean_r = s1 / torch.clamp(n_r, min=1.0)
+        d2 = _centre(x32, mean_r, shape).square()
+        m2_r = (d2 if w is None else d2 * w).sum(dim=axes,
+                                                 dtype=torch.float64)
+        mine = torch.stack([n_r, mean_r, m2_r])
+        zero = torch.zeros_like(mine)
+        n_i, mean_i, m2_i = all_reduce_sum(torch.stack(
+            [mine if r == mesh.rank else zero for r in range(mesh.world)]),
+            mesh).unbind(1)
+        n = n_i.sum(0)
+        denom = torch.clamp(n, min=1.0)
+        mean = (n_i * mean_i).sum(0) / denom
+        m2 = m2_i.sum(0) + (n_i * (mean_i - mean).square()).sum(0)
+        return n, mean, m2 / denom
 
 
 def batch_norm_infer(x, scale, bias, running_mean, running_var, *,

@@ -46,6 +46,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from xgan_torch.utils.timer import span
+
 LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 
 
@@ -328,12 +330,14 @@ def all_reduce_grads(params, mesh: MeshContext | None) -> None:
     params = [p for p in params if p.grad is not None]
     if not params:
         return
-    _flat_(params, lambda flat: dist.all_reduce(flat, group=mesh.group))
-    model = mesh.model
-    if model is not None and model.world > 1:
-        replicated = [p for p in params if getattr(p, "tp_dim", None) is None]
-        if replicated:
-            _flat_(replicated, lambda flat: model.broadcast_(flat, 0))
+    with span("dp_sync"):
+        _flat_(params, lambda flat: dist.all_reduce(flat, group=mesh.group))
+        model = mesh.model
+        if model is not None and model.world > 1:
+            replicated = [p for p in params
+                          if getattr(p, "tp_dim", None) is None]
+            if replicated:
+                _flat_(replicated, lambda flat: model.broadcast_(flat, 0))
 
 
 def _flat_(params, collective) -> None:

@@ -57,6 +57,13 @@ and flips, compute G and D column-parallel
 their slice of Cout) and count their shared loss once; the replicated
 parameters' gradients are broadcast over the model group after the data
 group's sum (``all_reduce_grads``).
+
+Each phase of the step is a span (:func:`xgan_torch.utils.timer.span`,
+a no-op unless a profiler window is open): ``step`` holds ``data``,
+``g_forward``, ``d_forward``, ``d_backward``, ``adam_d``,
+``g_loss_forward``, ``g_backward`` (split where the backward reaches
+``fake`` into ``d_input_grad`` and ``g_param_grad``), ``adam_g`` and
+``metrics``; ``all_reduce_grads`` adds ``dp_sync``.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from xgan_torch.ops.reduce import weighted_mean
 from xgan_torch.parallel.mesh import all_reduce_grads
 from xgan_torch.train.common import bce_sum, bce_with_logits, \
     guarded_sum, microbatches, zeroed_grads
+from xgan_torch.utils.timer import span
 
 REAL_LABEL = 0.9  # one-sided label smoothing (reference train_gan.py:92)
 FAKE_LABEL = 0.0
@@ -90,44 +98,58 @@ def dcgan_step(g, d, opt_g, opt_d, store_u8, idx, *, latent_dim: int,
     version). ``grad_accum``: microbatches per update (it must divide
     B). ``take``: the store's gather (``DeviceStore.take``); ``mesh``:
     the step of one data-parallel rank (see the module docstring)."""
-    dp = mesh is not None and mesh.distributed
-    b = idx.shape[0]
-    rows = mesh.local_rows(b, grad_accum) if dp else slice(None)
-    real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
-                             dtype=dtype, take=take, rows=rows)
-    if noise is None:
-        noise = torch.randn((b, latent_dim), generator=generator,
-                            device=store_u8.device)
-    noise = noise[rows]
-    if mask is not None:
-        mask = mask[rows]
-    if grad_accum > 1:
-        metrics = _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt,
-                              b, grad_accum, mesh)
-        return mesh.all_reduce_(metrics) if dp else metrics
-    fake = g.forward_train(noise, mask, convt=convt)
+    with span("step"):
+        dp = mesh is not None and mesh.distributed
+        b = idx.shape[0]
+        rows = mesh.local_rows(b, grad_accum) if dp else slice(None)
+        with span("data"):
+            real = gather_preprocess(store_u8, idx, flip=flip,
+                                     generator=generator, dtype=dtype,
+                                     take=take, rows=rows)
+            if noise is None:
+                noise = torch.randn((b, latent_dim), generator=generator,
+                                    device=store_u8.device)
+            noise = noise[rows]
+            if mask is not None:
+                mask = mask[rows]
+        if grad_accum > 1:
+            metrics = _step_accum(g, d, opt_g, opt_d, real, noise, mask,
+                                  convt, b, grad_accum, mesh)
+            if dp:
+                with span("metrics"):
+                    metrics = mesh.all_reduce_(metrics)
+            return metrics
+        with span("g_forward"):
+            fake = g.forward_train(noise, mask, convt=convt)
 
-    opt_d.zero_grad(set_to_none=True)
-    logits_real = d(real, train=True, mask=mask)
-    logits_fake = d(fake.detach(), train=True, mask=mask)
-    loss_d = (bce_with_logits(logits_real, REAL_LABEL, mask, mesh)
-              + bce_with_logits(logits_fake, FAKE_LABEL, mask, mesh))
-    loss_d.backward()
-    all_reduce_grads(d.parameters(), mesh)
-    opt_d.step()
+        opt_d.zero_grad(set_to_none=True)
+        with span("d_forward"):
+            logits_real = d(real, train=True, mask=mask)
+            logits_fake = d(fake.detach(), train=True, mask=mask)
+            loss_d = (bce_with_logits(logits_real, REAL_LABEL, mask, mesh)
+                      + bce_with_logits(logits_fake, FAKE_LABEL, mask, mesh))
+        with span("d_backward"):
+            loss_d.backward()
+        all_reduce_grads(d.parameters(), mesh)
+        with span("adam_d"):
+            opt_d.step()
 
-    opt_g.zero_grad(set_to_none=True)
-    logits_g = d(fake, train=True, mask=mask)
-    loss_g = bce_with_logits(logits_g, REAL_LABEL, mask, mesh)
-    loss_g.backward(inputs=list(g.parameters()))
-    all_reduce_grads(g.parameters(), mesh)
-    opt_g.step()
+        opt_g.zero_grad(set_to_none=True)
+        with span("g_loss_forward"):
+            logits_g = d(fake, train=True, mask=mask)
+            loss_g = bce_with_logits(logits_g, REAL_LABEL, mask, mesh)
+        with span("g_backward") as sp:
+            sp.split_at_grad(fake, "d_input_grad", "g_param_grad")
+            loss_g.backward(inputs=list(g.parameters()))
+        all_reduce_grads(g.parameters(), mesh)
+        with span("adam_g"):
+            opt_g.step()
 
-    with torch.no_grad():
-        probs = [weighted_mean(torch.sigmoid(lg), mask, mesh)
-                 for lg in (logits_real, logits_fake, logits_g)]
-        metrics = torch.stack([loss_g, loss_d, *probs]).detach()
-        return mesh.all_reduce_(metrics) if dp else metrics
+        with span("metrics"), torch.no_grad():
+            probs = [weighted_mean(torch.sigmoid(lg), mask, mesh)
+                     for lg in (logits_real, logits_fake, logits_g)]
+            metrics = torch.stack([loss_g, loss_d, *probs]).detach()
+            return mesh.all_reduce_(metrics) if dp else metrics
 
 
 def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt, b: int,
@@ -141,14 +163,16 @@ def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt, b: int,
     ds = dxs = dgz1s = zero
     d_grads = zeroed_grads(d_params)
     for rows, mask_mb in micro:
-        with torch.no_grad():
+        with span("g_forward"), torch.no_grad():
             fake = g.forward_train(rows(noise), mask_mb, convt=convt)
-        logits_real = d(rows(real), train=True, mask=mask_mb)
-        logits_fake = d(fake, train=True, mask=mask_mb)
-        s = (bce_sum(logits_real, REAL_LABEL, mask_mb)
-             + bce_sum(logits_fake, FAKE_LABEL, mask_mb))
-        s.backward()
-        with torch.no_grad():
+        with span("d_forward"):
+            logits_real = d(rows(real), train=True, mask=mask_mb)
+            logits_fake = d(fake, train=True, mask=mask_mb)
+            s = (bce_sum(logits_real, REAL_LABEL, mask_mb)
+                 + bce_sum(logits_fake, FAKE_LABEL, mask_mb))
+        with span("d_backward"):
+            s.backward()
+        with span("metrics"), torch.no_grad():
             ds = ds + s
             dxs = dxs + guarded_sum(torch.sigmoid(logits_real.float()),
                                      mask_mb)
@@ -156,21 +180,28 @@ def _step_accum(g, d, opt_g, opt_d, real, noise, mask, convt, b: int,
                                          mask_mb)
     torch._foreach_div_(d_grads, w_total)
     all_reduce_grads(d_params, mesh)
-    opt_d.step()
+    with span("adam_d"):
+        opt_d.step()
 
     gs = dgz2s = zero
     g_grads = zeroed_grads(g_params)
     for rows, mask_mb in micro:
-        fake = g.forward_train(rows(noise), mask_mb, convt=convt,
-                               update_stats=False)
-        logits = d(fake, train=True, mask=mask_mb)
-        s = bce_sum(logits, REAL_LABEL, mask_mb)
-        s.backward(inputs=g_params)
-        with torch.no_grad():
+        with span("g_forward"):
+            fake = g.forward_train(rows(noise), mask_mb, convt=convt,
+                                   update_stats=False)
+        with span("g_loss_forward"):
+            logits = d(fake, train=True, mask=mask_mb)
+            s = bce_sum(logits, REAL_LABEL, mask_mb)
+        with span("g_backward") as sp:
+            sp.split_at_grad(fake, "d_input_grad", "g_param_grad")
+            s.backward(inputs=g_params)
+        with span("metrics"), torch.no_grad():
             gs = gs + s
             dgz2s = dgz2s + guarded_sum(torch.sigmoid(logits.float()),
                                          mask_mb)
     torch._foreach_div_(g_grads, w_total)
     all_reduce_grads(g_params, mesh)
-    opt_g.step()
-    return torch.stack([gs, ds, dxs, dgz1s, dgz2s]).detach() / w_total
+    with span("adam_g"):
+        opt_g.step()
+    with span("metrics"):
+        return torch.stack([gs, ds, dxs, dgz1s, dgz2s]).detach() / w_total

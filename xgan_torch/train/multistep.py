@@ -44,14 +44,37 @@ nothing, so it takes them back out of ``kernels.LAUNCHES``), and adds them
 to ``kernels.LAUNCHES`` at every replay. It keeps its own ``replays`` and
 ``launches_per_replay``, which a check can hold against a profiler trace
 of one replay.
+
+Spans (:func:`xgan_torch.utils.timer.span`) inside a captured step run
+only while it is captured. The plain graph is captured with spans held
+off, so it holds no event node, and it is what every call replays while
+no profiler window is open, the second call among them. Right after the
+plain graph the second call captures a traced twin: the same K steps,
+the last of them with its spans on and their events as event-record
+nodes (on the H100 each such node holds a replay ~4.4 µs, and with ~100
+of them a replay's launch waits for the replay before it, so one step of
+K carries them). Every call while a window is open replays the twin; a
+window never replays both (one that did lost its device records on the
+card). The twin is captured and uploaded to the device at the second
+call, outside any window, because neither is free of device work: a
+capture begins by filling each registered generator's seed and offset
+on the device, which would open a profiled stretch, and a graph not yet
+uploaded is uploaded by its first launch, which would hold the stretch's
+first replay. The twin shares the plain graph's memory pool, input
+buffers and registered generator, so it computes what the plain graph
+computes. Its events hold its last replay: a window reads the phases of
+one step, the last of its last replay, and every replay's ``replay``
+span.
 """
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 
 import torch
 
 from xgan_torch import kernels
+from xgan_torch.utils.timer import SPANS, span, spans_on
 
 
 class StepsPerCall:
@@ -66,6 +89,7 @@ class StepsPerCall:
         self.replays = 0
         self.launches_per_replay: Counter = Counter()
         self.graph = None
+        self._twin = None
         self._inputs = None
         self._out = None
 
@@ -91,25 +115,53 @@ class StepsPerCall:
             torch.cuda.current_stream().wait_stream(side)
             return out
         if self.graph is None:
-            self._capture(idx_chunk, inputs)
-        for buf, x in zip(self._inputs, (idx_chunk, *inputs)):
-            buf.copy_(x)
-        self.graph.replay()
-        self.replays += 1
-        kernels.LAUNCHES.update(self.launches_per_replay)
-        return self._out.clone()
+            self._inputs = [x.clone() for x in (idx_chunk, *inputs)]
+            self.graph, self._out, self.launches_per_replay = self._capture()
+            template = []
+            twin, out, _ = self._capture(template, self.graph.pool())
+            _upload(twin)
+            self._twin = (twin, out, template)
+        graph, out, template = self._twin if spans_on() \
+            else (self.graph, self._out, None)
+        with span("replay") as sp:
+            for buf, x in zip(self._inputs, (idx_chunk, *inputs)):
+                buf.copy_(x)
+            graph.replay()
+            if template is not None:
+                sp.replays(template)
+            self.replays += 1
+            kernels.LAUNCHES.update(self.launches_per_replay)
+            return out.clone()
 
-    def _capture(self, idx_chunk: torch.Tensor, inputs) -> None:
-        self._inputs = [x.clone() for x in (idx_chunk, *inputs)]
+    def _capture(self, template: list | None = None, pool=None):
+        """Capture K steps on the input buffers; returns the graph, its
+        static metrics and the kernel wrappers' counts in it. The last
+        step's spans go to ``template`` (the traced twin); no other span
+        records."""
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = Counter(kernels.LAUNCHES)
         # thread_local: the snapshot writer thread may use CUDA meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._out = self._eager(*self._inputs)
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            outs = []
+            for t, idx in enumerate(self._inputs[0]):
+                with SPANS.capture(template if t == self.k - 1 else None):
+                    outs.append(self.step(idx, *self._inputs[1:]))
+            out = torch.stack(outs)
         captured = Counter(kernels.LAUNCHES)
         captured.subtract(before)
-        self.launches_per_replay = +captured
         kernels.LAUNCHES.clear()
         kernels.LAUNCHES.update(before)
-        self.graph = graph
+        return graph, out, +captured
+
+
+def _upload(graph: torch.cuda.CUDAGraph) -> None:
+    """Upload ``graph`` to the device on the current stream
+    (``cuGraphUpload``), so that its first launch does not."""
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphUpload.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
+    rc = libcuda.cuGraphUpload(graph.raw_cuda_graph_exec(),
+                               torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"cuGraphUpload failed: CUresult {rc}")

@@ -66,6 +66,14 @@ the group issues them in one order. After each of the ``critic_iters``
 critic updates and after the G update, ``all_reduce_grads`` sums the
 gradients over the data group and broadcasts the replicated
 parameters' over the model group.
+
+Each phase of the step is a span (:func:`xgan_torch.utils.timer.span`,
+a no-op unless a profiler window is open): ``step`` holds ``data``, per
+critic update ``g_forward``, ``critic_forward``, ``gradient_penalty``,
+``critic_backward`` (the double backward) and ``adam_c``, then
+``g_forward``, ``g_loss_forward``, ``g_backward`` (split into
+``d_input_grad`` and ``g_param_grad``) and ``adam_g``;
+``all_reduce_grads`` adds ``dp_sync``.
 """
 from __future__ import annotations
 
@@ -78,6 +86,7 @@ from xgan_torch.parallel.mesh import all_reduce_grads
 from xgan_torch.parallel.tp import one_autograd_thread
 from xgan_torch.train.common import guarded_sum, microbatches, \
     zeroed_grads
+from xgan_torch.utils.timer import span
 
 
 def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
@@ -155,51 +164,65 @@ def wgan_step(g, c, opt_g, opt_c, store_u8, idx, *, latent_dim: int,
     dp = mesh is not None and mesh.distributed
     b = idx.shape[0]
     rows = mesh.local_rows(b, grad_accum) if dp else slice(None)
-    real = gather_preprocess(store_u8, idx, flip=flip, generator=generator,
-                             dtype=dtype, take=take, rows=rows)
-    draws = [((noises[i] if noises is not None else torch.randn(
-                   (b, latent_dim), generator=generator, device=dev))[rows],
-              (alphas[i] if alphas is not None else torch.rand(
-                   (b, 1, 1, 1), generator=generator, device=dev))[rows])
-             for i in range(critic_iters)]
-    if g_noise is None:
-        g_noise = torch.randn((b, latent_dim), generator=generator,
-                              device=dev)
-    g_noise = g_noise[rows]
-    if mask is not None:
-        mask = mask[rows]
-    if grad_accum > 1:
-        losses = _step_accum(g, c, opt_g, opt_c, real, draws, g_noise, mask,
-                             lambda_gp, b, grad_accum, convt, mesh)
-        return mesh.all_reduce_(losses) if dp else losses
-    c_params = list(c.parameters())
-    losses = []
-    for noise, alpha in draws:
-        with torch.no_grad():
-            fake = g.forward_train(noise, mask, convt=convt)
-        opt_c.zero_grad(set_to_none=True)
-        d_real = c(real, train=True, mask=mask)
-        d_fake = c(fake, train=True, mask=mask)
-        gp = gradient_penalty(c, real, fake, alpha, lambda_gp, mask, mesh)
-        loss = (-weighted_mean(d_real, mask, mesh)
-                + weighted_mean(d_fake, mask, mesh) + gp)
-        with one_autograd_thread(c):
-            loss.backward(inputs=c_params)
-        all_reduce_grads(c_params, mesh)
-        opt_c.step()
-        losses.append(loss.detach())
+    with span("step"):
+        with span("data"):
+            real = gather_preprocess(store_u8, idx, flip=flip,
+                                     generator=generator, dtype=dtype,
+                                     take=take, rows=rows)
+            draws = [((noises[i] if noises is not None else torch.randn(
+                           (b, latent_dim), generator=generator,
+                           device=dev))[rows],
+                      (alphas[i] if alphas is not None else torch.rand(
+                           (b, 1, 1, 1), generator=generator,
+                           device=dev))[rows])
+                     for i in range(critic_iters)]
+            if g_noise is None:
+                g_noise = torch.randn((b, latent_dim), generator=generator,
+                                      device=dev)
+            g_noise = g_noise[rows]
+            if mask is not None:
+                mask = mask[rows]
+        if grad_accum > 1:
+            losses = _step_accum(g, c, opt_g, opt_c, real, draws, g_noise,
+                                 mask, lambda_gp, b, grad_accum, convt, mesh)
+            return mesh.all_reduce_(losses) if dp else losses
+        c_params = list(c.parameters())
+        losses = []
+        for noise, alpha in draws:
+            with span("g_forward"), torch.no_grad():
+                fake = g.forward_train(noise, mask, convt=convt)
+            opt_c.zero_grad(set_to_none=True)
+            with span("critic_forward"):
+                d_real = c(real, train=True, mask=mask)
+                d_fake = c(fake, train=True, mask=mask)
+            with span("gradient_penalty"):
+                gp = gradient_penalty(c, real, fake, alpha, lambda_gp, mask,
+                                      mesh)
+            loss = (-weighted_mean(d_real, mask, mesh)
+                    + weighted_mean(d_fake, mask, mesh) + gp)
+            with span("critic_backward"), one_autograd_thread(c):
+                loss.backward(inputs=c_params)
+            all_reduce_grads(c_params, mesh)
+            with span("adam_c"):
+                opt_c.step()
+            losses.append(loss.detach())
 
-    opt_g.zero_grad(set_to_none=True)
-    g_params = list(g.parameters())
-    scores = c(g.forward_train(g_noise, mask, convt=convt), train=True,
-               mask=mask)
-    loss_g = -weighted_mean(scores, mask, mesh)
-    loss_g.backward(inputs=g_params)
-    all_reduce_grads(g_params, mesh)
-    opt_g.step()
-    losses.append(loss_g.detach())
-    losses = torch.stack(losses)
-    return mesh.all_reduce_(losses) if dp else losses
+        opt_g.zero_grad(set_to_none=True)
+        g_params = list(g.parameters())
+        with span("g_forward"):
+            fake = g.forward_train(g_noise, mask, convt=convt)
+        with span("g_loss_forward"):
+            loss_g = -weighted_mean(c(fake, train=True, mask=mask), mask,
+                                    mesh)
+        with span("g_backward") as sp:
+            sp.split_at_grad(fake, "d_input_grad", "g_param_grad")
+            loss_g.backward(inputs=g_params)
+        all_reduce_grads(g_params, mesh)
+        with span("adam_g"):
+            opt_g.step()
+        losses.append(loss_g.detach())
+        losses = torch.stack(losses)
+        return mesh.all_reduce_(losses) if dp else losses
 
 
 def _step_accum(g, c, opt_g, opt_c, real, draws, g_noise, mask, lambda_gp,
@@ -225,12 +248,14 @@ def _critic_update_accum(g, c, opt_c, real, noise, alpha, lambda_gp, micro,
     total = real.new_zeros((), dtype=torch.float32)
     for rows, mask_mb in micro:
         real_mb = rows(real)
-        with torch.no_grad():
+        with span("g_forward"), torch.no_grad():
             fake = g.forward_train(rows(noise), mask_mb, convt=convt)
-        d_real = c(real_mb, train=True, mask=mask_mb)
-        d_fake = c(fake, train=True, mask=mask_mb)
-        gp = gradient_penalty(c, real_mb, fake, rows(alpha), lambda_gp,
-                              mask_mb, mesh)
+        with span("critic_forward"):
+            d_real = c(real_mb, train=True, mask=mask_mb)
+            d_fake = c(fake, train=True, mask=mask_mb)
+        with span("gradient_penalty"):
+            gp = gradient_penalty(c, real_mb, fake, rows(alpha), lambda_gp,
+                                  mask_mb, mesh)
         # gp: (this rank's share of) the microbatch's mean penalty; times
         # the microbatch's valid rows over every rank, (this rank's part
         # of) their sum. Without a mask every microbatch is whole.
@@ -241,12 +266,13 @@ def _critic_update_accum(g, c, opt_c, real, noise, alpha, lambda_gp, micro,
             if mesh is not None and mesh.distributed:
                 w_mb = mesh.all_reduce_(w_mb)
         s = guarded_sum(d_fake.float() - d_real.float(), mask_mb) + gp * w_mb
-        with one_autograd_thread(c):
+        with span("critic_backward"), one_autograd_thread(c):
             s.backward(inputs=c_params)
         total = total + s.detach()
     torch._foreach_div_(grads, w_total)
     all_reduce_grads(c_params, mesh)
-    opt_c.step()
+    with span("adam_c"):
+        opt_c.step()
     return total / w_total
 
 
@@ -257,12 +283,16 @@ def _g_update_accum(g, c, opt_g, g_noise, micro, w_total: float,
     grads = zeroed_grads(g_params)
     total = g_noise.new_zeros((), dtype=torch.float32)
     for rows, mask_mb in micro:
-        scores = c(g.forward_train(rows(g_noise), mask_mb, convt=convt),
-                   train=True, mask=mask_mb)
-        s = -guarded_sum(scores, mask_mb)
-        s.backward(inputs=g_params)
+        with span("g_forward"):
+            fake = g.forward_train(rows(g_noise), mask_mb, convt=convt)
+        with span("g_loss_forward"):
+            s = -guarded_sum(c(fake, train=True, mask=mask_mb), mask_mb)
+        with span("g_backward") as sp:
+            sp.split_at_grad(fake, "d_input_grad", "g_param_grad")
+            s.backward(inputs=g_params)
         total = total + s.detach()
     torch._foreach_div_(grads, w_total)
     all_reduce_grads(g_params, mesh)
-    opt_g.step()
+    with span("adam_g"):
+        opt_g.step()
     return total / w_total
