@@ -6,8 +6,9 @@ mask, each critic update's noise and α, and G's noise, as
 ``split(key_i)`` make them.
 
 - The penalty, with and without a mask, and its gradient in the critic's
-  parameters (the double backward through cuDNN's convolutions,
-  ``F.batch_norm`` or the masked ``batch_norm_train``, and LeakyReLU):
+  parameters (the double backward through the convs' transposed-conv
+  input gradients, ``F.batch_norm`` or the masked ``batch_norm_train``,
+  and LeakyReLU):
   within 1e-4, the gradients within 1e-4 * (1 + max|ref|).
 - 20 steps with ``critic_iters`` 2 in the envelope of
   tests/test_torch_trajectory.py (f32, 32 px, widths 8, B = 4): losses
@@ -20,8 +21,9 @@ mask, each critic update's noise and α, and G's noise, as
   within 1e-4.
 - The step's order: one gather, G's train forward under ``no_grad`` before
   each critic update, the critic on real, fake and interpolated batches in
-  that order, then G with gradients; and no ConvT of G on the penalty's
-  graph.
+  that order (x̂'s forward the one with ``double_backward``), then G
+  with gradients; the penalty's graph differentiates no conv backward,
+  and has no ConvT of G.
 """
 from functools import partial
 
@@ -205,14 +207,14 @@ def test_gradient_penalty_interpolates_in_f32():
     λ·(sqrt(S·S·3) − 1)²."""
     seen = []
 
-    def critic(x, train, mask=None):
-        seen.append((x.dtype, x.requires_grad, train))
+    def critic(x, train, mask=None, double_backward=False):
+        seen.append((x.dtype, x.requires_grad, train, double_backward))
         return x.float().sum(dim=(1, 2, 3))
 
     real = torch.randn(B, 8, 8, 3).bfloat16()
     gp = gradient_penalty(critic, real, torch.rand(B, 8, 8, 3),
                           torch.rand(B, 1, 1, 1), LAMBDA)
-    assert seen == [(torch.float32, True, True)]
+    assert seen == [(torch.float32, True, True, True)]
     want = LAMBDA * (np.sqrt(8 * 8 * 3) - 1) ** 2
     assert abs(gp.item() - want) <= 1e-6 * want
 
@@ -292,8 +294,11 @@ def test_step_order_and_no_convt_on_the_penalty_graph(monkeypatch):
     """One gather per step; before each critic update G's train forward
     under ``no_grad`` (its BN statistics advance), then the critic on the
     real, the fake and the interpolated batch (x̂ the one input that
-    needs a gradient); then G with gradients and the critic once more. No
-    ``ConvT4x4s2Train`` node on any penalty's graph; the G loss has one."""
+    needs a gradient, and the one forward asked for a twice
+    differentiable input gradient); then G with gradients and the critic
+    once more. On each penalty's graph the convs' input gradients are
+    transposed convs and no conv backward is differentiated; no
+    ``ConvT4x4s2Train`` node on it; the G loss has one."""
     n_critic = 3
     _, port = _setup(seed=2, n_critic=n_critic)
     g, c = port[:2]
@@ -314,9 +319,10 @@ def test_step_order_and_no_convt_on_the_penalty_graph(monkeypatch):
         calls.append(("G", torch.is_grad_enabled()))
         return g_train(*a, **k)
 
-    def spy_c(x, *, train, mask=None):
-        calls.append(("C", train, x.requires_grad))
-        return c_forward(x, train=train, mask=mask)
+    def spy_c(x, *, train, mask=None, double_backward=False):
+        calls.append(("C", train, x.requires_grad, double_backward))
+        return c_forward(x, train=train, mask=mask,
+                         double_backward=double_backward)
     monkeypatch.setattr(g, "forward_train", spy_g)
     monkeypatch.setattr(c, "forward", spy_c)
     g_stats = g.main[SEQ_BN[0]].running_mean.clone()
@@ -325,14 +331,18 @@ def test_step_order_and_no_convt_on_the_penalty_graph(monkeypatch):
                      critic_iters=n_critic, lambda_gp=LAMBDA,
                      generator=torch.Generator().manual_seed(4))
     assert loss.shape == (n_critic + 1,) and torch.isfinite(loss).all()
-    update = [("G", False), ("C", True, False), ("C", True, False),
-              ("C", True, True)]
+    update = [("G", False), ("C", True, False, False),
+              ("C", True, False, False), ("C", True, True, True)]
     assert calls == (["gather"] + update * n_critic
-                     + [("G", True), ("C", True, True)])
+                     + [("G", True), ("C", True, True, False)])
     assert not torch.equal(g.main[SEQ_BN[0]].running_mean, g_stats)
     assert len(gp_nodes) == n_critic
     for names in gp_nodes:
-        assert "ConvolutionBackwardBackward0" in names  # the double backward
+        # each conv's input gradient is a transposed conv on the graph, so
+        # the double backward is that op's first backward, and no conv's
+        # own backward is differentiated (the dilated-filter weight term)
+        assert "ConvolutionBackward0" in names
+        assert "ConvolutionBackwardBackward0" not in names
         assert not any("ConvT4x4s2Train" in n for n in names)
     z = torch.randn(B, LATENT)
     assert "ConvT4x4s2TrainBackward" in _nodes(

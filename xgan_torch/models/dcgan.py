@@ -54,6 +54,7 @@ from torch import nn
 from xgan_torch.kernels.convt import (convt4x4s2_fused, convt4x4s2_train,
                                       pack_convt_weight)
 from xgan_torch.models.layers import batch_norm, gan_init_, leaky_relu
+from xgan_torch.ops.conv import conv2d_double_backward
 from xgan_torch.ops.norm import batch_norm_infer, fold_bn
 from xgan_torch.parallel.tp import copy_to_model, layer_input, sharded
 
@@ -266,7 +267,7 @@ class Discriminator(nn.Module):
 
 def conv_ladder(main: nn.Sequential, seq_conv, seq_bn, x: torch.Tensor,
                 dtype: torch.dtype, *, train: bool, mask=None,
-                tp=None) -> torch.Tensor:
+                tp=None, double_backward: bool = False) -> torch.Tensor:
     """The convolutions of a reference-layout discriminator ``main`` (conv
     at ``seq_conv``, BN right after the convs that have one at ``seq_bn``):
     NHWC ``x`` -> the last conv's NCHW output in ``dtype``. Each conv but
@@ -274,14 +275,22 @@ def conv_ladder(main: nn.Sequential, seq_conv, seq_bn, x: torch.Tensor,
     the last is valid with stride 1. The convolutions are cuDNN's, on a
     channels_last NCHW view in ``dtype`` (the JAX package leaves them to
     XLA too). ``tp``: the model group of a tensor-parallel ``main``
-    (column-parallel wide convs; see the module docstring)."""
+    (column-parallel wide convs; see the module docstring); its
+    collectives stay outside the convs. ``double_backward``: the forward
+    whose input gradient is differentiated again (the WGAN-GP penalty's
+    on x̂), where each conv is
+    :func:`~xgan_torch.ops.conv.conv2d_double_backward` (its input
+    gradient a transposed convolution on the graph); every other forward,
+    the DCGAN discriminator's included, is plain ``F.conv2d``,
+    differentiated once."""
+    conv = conv2d_double_backward if double_backward else F.conv2d
     x = x.to(dtype).permute(0, 3, 1, 2)
     for seq in seq_conv:
         w = main[seq].weight
         x = layer_input(x, w.shape[1], tp, sharded(w))
         if seq == seq_conv[-1]:
-            return F.conv2d(x, w.to(x.dtype))
-        x = F.conv2d(x, w.to(x.dtype), None, 2, 1)
+            return conv(x, w.to(x.dtype))
+        x = conv(x, w.to(x.dtype), stride=2, padding=1)
         if seq + 1 in seq_bn:
             x = batch_norm(main[seq + 1], x, train=train, mask=mask)
         x = leaky_relu(x)

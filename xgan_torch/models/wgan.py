@@ -11,8 +11,13 @@ Conv(k=S/32, valid) to one channel -> the mean over its spatial map (8x8
 at 224 px) -> f32 scores (B,). No sigmoid. Conv at ``main.{0,2,5,8,11}``
 and BN at ``main.{3,6,9}``, the reference layout, so a reference
 ``.pth`` loads with ``strict=True``. The convolutions are cuDNN's, as in
-the DCGAN discriminator; the gradient penalty differentiates through them
-twice (``xgan_torch.train.wgan``).
+the DCGAN discriminator. The gradient penalty's forward on x̂
+(``double_backward=True``, ``xgan_torch.train.wgan``) is the one whose
+input gradient is differentiated again: there each conv's input gradient
+is a transposed convolution on the graph
+(:mod:`xgan_torch.ops.conv`), so the second differentiation runs cuDNN's
+weight-gradient and forward kernels and never a conv's own double
+backward; every other forward takes plain ``F.conv2d``.
 
 Under tensor parallelism (:func:`xgan_torch.parallel.tp.shard_over_model`)
 both nets take the DCGAN layout (:mod:`xgan_torch.models.dcgan`): each
@@ -73,14 +78,19 @@ class Critic(nn.Module):
         self.main = nn.Sequential(*layers)
         gan_init_(self.main, generator)
 
-    def forward(self, x: torch.Tensor, *, train: bool,
-                mask=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool, mask=None,
+                double_backward: bool = False) -> torch.Tensor:
         """x (B, S, S, C) NHWC, any float dtype (cast to ``self.dtype``) ->
-        f32 scores (B,) (float64 for a float64 critic). ``mask``: (B,) validity weights for train-mode BN
-        statistics."""
+        f32 scores (B,) (float64 for a float64 critic). ``mask``: (B,)
+        validity weights for train-mode BN statistics.
+        ``double_backward``: the forward whose input gradient is
+        differentiated again (the penalty's, on x̂): each conv's input
+        gradient is then a transposed convolution on the graph
+        (:func:`~xgan_torch.ops.conv.conv2d_double_backward`)."""
         x = dcgan.conv_ladder(self.main, SEQ_C_CONV, SEQ_C_BN, x, self.dtype,
                               train=train, mask=mask,
-                              tp=getattr(self, "tp", None))
+                              tp=getattr(self, "tp", None),
+                              double_backward=double_backward)
         return at_least_f32(x).mean(dim=(1, 2, 3))
 
 

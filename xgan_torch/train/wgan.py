@@ -37,8 +37,13 @@ tail batch) is skipped: its statistics stay frozen and it adds a zero
 gradient, as the JAX package's select does.
 
 The penalty is a double backward: ``torch.autograd.grad(..., create_graph=
-True)`` through the critic (cuDNN convolutions, BN, LeakyReLU), then the
-loss's backward through that graph. The fake batch is made under
+True)`` through the critic's forward on x̂ (its convs' input gradients
+written as transposed convolutions, :mod:`xgan_torch.ops.conv`; BN,
+LeakyReLU), then the loss's backward through that graph, which
+differentiates those transposed convolutions (cuDNN weight gradients and
+forward convolutions) and BN's and LeakyReLU's backwards. The critic's
+passes on the real and the fake batch and on G(z) are plain ``F.conv2d``
+and differentiated once. The fake batch is made under
 ``no_grad``, so no ConvT of G is on that graph: the ConvT kernel's
 training form is only ever differentiated once.
 
@@ -97,10 +102,15 @@ def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
     fake with a bf16 real; the critic casts x̂ to its compute dtype), or
     float64 where the inputs are (a check's).
 
-    ``critic(x, train=True, mask=mask)`` runs in train mode: its BN
-    running statistics advance on x̂. ``alpha``: (B, 1, 1, 1) f32. The
-    gradient keeps its graph (``create_graph=True``), so the result is
-    differentiable in the critic's parameters. Masked rows' scores are
+    ``critic(x, train=True, mask=mask, double_backward=True)`` runs in
+    train mode: its BN running statistics advance on x̂; the critic's
+    convs take :func:`~xgan_torch.ops.conv.conv2d_double_backward`, so
+    each input gradient is a transposed convolution. ``alpha``: (B, 1, 1,
+    1) f32. The gradient keeps its graph (``create_graph=True``), so the
+    result is differentiable in the critic's parameters, and the caller's
+    backward differentiates those transposed convolutions (a cuDNN weight
+    gradient and a forward convolution each), never a conv's own double
+    backward. Masked rows' scores are
     zeroed before the sum that is differentiated: their normalized
     activations depend on the valid rows' statistics, so they would leak
     gradient into the valid rows. The norm is ``sqrt(sum(g²) + 1e-12)``
@@ -128,7 +138,7 @@ def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
     b = real.shape[0]
     inter = at_least_f32(alpha * real + (1.0 - alpha) * fake) \
         .requires_grad_()
-    scores = critic(inter, train=True, mask=mask)
+    scores = critic(inter, train=True, mask=mask, double_backward=True)
     if mask is not None:
         scores = scores * mask.to(scores.dtype)
     with one_autograd_thread(critic):
